@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the port's BM25 search path on one CUDA card and check it.
+"""Drive the port's BM25 search and SQL analytics paths on one CUDA card
+and check them.
 
     python3 chip_smoke.py
 
@@ -13,22 +14,40 @@ Phases (any failure exits non-zero and prints no result line):
   4. packed regime end to end: the `bm25_8m` shape (8,000,000 docs,
      200,000 terms, 120M sampled postings, 96 queries, k=10), same check,
      plus two consecutive calls that must agree bit for bit;
-  5. each kernel against its plain PyTorch version on the card, on the
-     inputs the main path gave it in phases 3-4 (recorded as it ran), and
-     topk_rows also on a plane full of ties: bm25_accumulate and
+  5. each search kernel against its plain PyTorch version on the card, on
+     the inputs the main path gave it in phases 3-4 (recorded as it ran),
+     and topk_rows also on a plane full of ties: bm25_accumulate and
      build_dense within rtol 1e-5, atol 1e-6; topk_rows bit for bit;
-  6. one JSON line per kernel set, then the device line.
+  6. `q1` (bench.py's generator and three queries, seed 0) at 100,000,000
+     rows through Database.execute: serene_device='cpu' (the host oracle),
+     then 'gpu' cold and warm; the three must agree tuple for tuple and
+     agg_scan must launch for every query;
+  7. `hits` (bench.py's generator and six queries, seed 3, 10,000,000
+     rows): the same checks, over direct-coded, dictionary and
+     host-factorized group keys;
+  8. float aggregates (10,000,000 rows, DOUBLE columns with NULLs and
+     NaNs, 200 and ~1,000,000 groups, and no GROUP BY): 'gpu' within rel
+     1e-4 / abs 1e-4 of 'cpu', NaN meeting NaN, two runs bit-identical,
+     and agg_fold launched;
+  9. agg_scan and agg_fold against their plain versions on inputs recorded
+     from phases 6-8 (integer outputs equal, floats within rtol 1e-5), with
+     their times, bounds and torch yardsticks, and the two f32 GEMMs of
+     dense_topk timed against their FLOP bound;
+ 10. one JSON line per kernel, the card line, then the device line.
 
 Launch counts are zeroed just before each main-path phase and read just
-after it; the comparisons of phase 5 run outside those windows. The script
-imports the port (`serenedb_tpu_torch`) and neither JAX nor the JAX
-package; the two corpora are rebuilt here from seeds, as bench.py builds
-them.
+after it; the comparisons of phases 5 and 9 run outside those windows.
+The result cache is off in phases 6-8, so every statement executes. The
+script imports the port (`serenedb_tpu_torch`) and neither JAX nor the JAX
+package; corpora and tables are rebuilt here from seeds, as bench.py
+builds them.
 """
 
 from __future__ import annotations
 
 import json
+import math
+import struct
 import subprocess
 import sys
 import time
@@ -36,15 +55,58 @@ import time
 import numpy as np
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory rate (data sheet)
+F32_FLOPS = 67e12             # H100 SXM f32 rate outside the tensor cores
 ATOL, RTOL = 1e-6, 1e-5       # kernel vs plain version, f32 scores
 PARITY_RTOL, PARITY_ATOL = 2e-3, 1e-3   # device vs cpu_topk_wand (bench.py)
+SQL_REL, SQL_ABS = 1e-4, 1e-4  # device vs host floats (test_device_agg.py)
 
 REPLACES = {
     "bm25_accumulate": "serenedb_tpu/ops/bm25.py:627",
     "build_dense": "serenedb_tpu/ops/bm25.py:828",
     "topk_rows": "serenedb_tpu/ops/bm25.py:724",
+    "agg_scan": "serenedb_tpu/exec/device_agg.py:251",
+    "agg_fold": "serenedb_tpu/ops/agg.py:117",
 }
-SOURCE = "serenedb_tpu_torch/ops/csrc/bm25.cu"
+SOURCES = {"bm25_accumulate": "serenedb_tpu_torch/ops/csrc/bm25.cu",
+           "build_dense": "serenedb_tpu_torch/ops/csrc/bm25.cu",
+           "topk_rows": "serenedb_tpu_torch/ops/csrc/bm25.cu",
+           "agg_scan": "serenedb_tpu_torch/ops/csrc/agg.cu",
+           "agg_fold": "serenedb_tpu_torch/ops/csrc/agg.cu"}
+
+Q1_QUERIES = [
+    "SELECT count(*) FROM hits WHERE adv <> 0",
+    "SELECT count(*), sum(x) FROM hits WHERE adv <> 0 AND x < 90000",
+    "SELECT region, count(*), sum(x) FROM hits GROUP BY region",
+]
+HITS_QUERIES = [
+    # Q8: low-card direct-coded key
+    "SELECT AdvEngineID, count(*) AS c FROM hits WHERE AdvEngineID <> 0 "
+    "GROUP BY AdvEngineID ORDER BY c DESC, AdvEngineID",
+    # Q10-shape (no distinct): region rollup
+    "SELECT RegionID, sum(AdvEngineID), count(*) AS c, "
+    "avg(ResolutionWidth) FROM hits GROUP BY RegionID "
+    "ORDER BY c DESC, RegionID LIMIT 10",
+    # Q13: dictionary string key
+    "SELECT SearchPhrase, count(*) AS c FROM hits "
+    "WHERE SearchPhrase <> '' GROUP BY SearchPhrase "
+    "ORDER BY c DESC, SearchPhrase LIMIT 10",
+    # Q15: composite key beyond the direct code space → factorize
+    "SELECT SearchEngineID, SearchPhrase, count(*) AS c FROM hits "
+    "WHERE SearchPhrase <> '' GROUP BY SearchEngineID, SearchPhrase "
+    "ORDER BY c DESC, SearchEngineID, SearchPhrase LIMIT 10",
+    # Q16: full-range int64 key → factorize
+    "SELECT UserID, count(*) AS c FROM hits GROUP BY UserID "
+    "ORDER BY c DESC, UserID LIMIT 10",
+    # Q17: wide composite key → factorize
+    "SELECT UserID, SearchPhrase, count(*) AS c FROM hits "
+    "GROUP BY UserID, SearchPhrase ORDER BY c DESC, UserID, "
+    "SearchPhrase LIMIT 10",
+]
+FLOAT_QUERIES = [
+    "SELECT k, sum(f), avg(f), min(g), max(g) FROM fl GROUP BY k",
+    "SELECT k2, sum(f), avg(f), min(g), max(g) FROM fl GROUP BY k2",
+    "SELECT sum(f), avg(f), min(g), max(g), count(g) FROM fl",
+]
 
 
 def fail(msg: str) -> None:
@@ -224,7 +286,8 @@ def phase_dense(device, n_docs=100_000, reps=20) -> dict:
 
     LAUNCHES.reset()
     with Recorder(kern, "build_dense") as rec_bd, \
-            Recorder(kern, "topk_rows") as rec_tk:
+            Recorder(kern, "topk_rows") as rec_tk, \
+            Recorder(bm25_ops, "dense_topk") as rec_gemm:
         t0 = time.perf_counter()
         out = searcher.topk_batch(nodes, 10)          # cold: builds S
         sync(device)
@@ -244,7 +307,8 @@ def phase_dense(device, n_docs=100_000, reps=20) -> dict:
             "parity_checked": checked, "launches": launches,
             "ndocs_pad": store.ndocs_pad, "v_pad": int(
                 (len(fi.doc_freq) + 127) // 128 * 128),
-            "build_dense_args": rec_bd.args, "topk_args": rec_tk.args}
+            "build_dense_args": rec_bd.args, "topk_args": rec_tk.args,
+            "gemm_args": rec_gemm.args}
 
 
 def phase_packed(device, n_docs=8_000_000, vocab=200_000,
@@ -423,6 +487,314 @@ def check_topk_ties(device, rows: int, n: int) -> None:
             fail(f"topk_rows differs on the tie plane at k={k}")
 
 
+
+# ------------------------------------------------------------ analytics
+
+def q1_columns(n: int) -> dict:
+    """bench.py bench_q1's table (seed 0)."""
+    from serenedb_tpu_torch.columnar.column import Column
+    rng = np.random.default_rng(0)
+    return {
+        "adv": Column.from_numpy(
+            rng.choice(np.array([0, 0, 0, 0, 1, 2, 3], dtype=np.int32), n)),
+        "region": Column.from_numpy(rng.integers(0, 200, n).astype(np.int32)),
+        "x": Column.from_numpy(
+            rng.integers(0, 100000, n).astype(np.int32)),
+    }
+
+
+def hits_columns(n: int) -> dict:
+    """bench.py bench_hits's table (seed 3): full-range int64 UserID with
+    zipf user activity, skewed RegionID, mostly-zero AdvEngineID, mostly
+    empty SearchPhrase, SearchEngineID, ResolutionWidth."""
+    from serenedb_tpu_torch.columnar.column import Column
+    rng = np.random.default_rng(3)
+    n_users = 500_000
+    user_hashes = rng.integers(0, 1 << 62, n_users, dtype=np.int64)
+    uid = user_hashes[rng.zipf(1.4, n).astype(np.int64) % n_users]
+    region = (rng.zipf(1.5, n) % 9000).astype(np.int32)
+    adv = np.where(rng.random(n) < 0.96, 0,
+                   rng.integers(1, 64, n)).astype(np.int32)
+    n_phrases = 100_000
+    phrase_pool = np.asarray([""] + [f"phrase {i}" for i in range(n_phrases)],
+                             dtype=object)
+    pid = np.where(rng.random(n) < 0.7, 0,
+                   1 + rng.zipf(1.3, n) % n_phrases).astype(np.int64)
+    seid = (rng.zipf(1.6, n) % 100).astype(np.int32)
+    width = rng.integers(0, 4000, n).astype(np.int32)
+    return {
+        "UserID": Column.from_numpy(uid),
+        "RegionID": Column.from_numpy(region),
+        "AdvEngineID": Column.from_numpy(adv),
+        "SearchPhrase": Column.from_numpy(phrase_pool[pid]),
+        "SearchEngineID": Column.from_numpy(seid),
+        "ResolutionWidth": Column.from_numpy(width),
+    }
+
+
+def float_columns(n: int) -> dict:
+    """An int key of 200 groups, an int key over 0..999,999 (direct-coded,
+    ~1M groups), `f` uniform in [0, 1000) and `g` normal with ~0.1% NaN,
+    both DOUBLE with ~5% NULLs (seed 8)."""
+    from serenedb_tpu_torch.columnar import dtypes as dt
+    from serenedb_tpu_torch.columnar.column import Column
+    rng = np.random.default_rng(8)
+    g = rng.normal(size=n)
+    g[rng.random(n) < 0.001] = np.nan
+    return {
+        "k": Column.from_numpy(rng.integers(0, 200, n).astype(np.int32)),
+        "k2": Column.from_numpy(rng.integers(0, 1_000_000, n)
+                                .astype(np.int32)),
+        "f": Column(dt.DOUBLE, rng.random(n) * 1000, rng.random(n) > 0.05),
+        "g": Column(dt.DOUBLE, g, rng.random(n) > 0.05),
+    }
+
+
+class FirstCalls:
+    """Wraps a kernel wrapper and keeps the first call made under each
+    value of `current` (set by the caller), for replay in phase 9."""
+
+    def __init__(self, module, name: str):
+        self.module, self.name = module, name
+        self.orig = getattr(module, name)
+        self.current = None
+        self.calls: dict = {}
+
+    def __enter__(self):
+        def wrapper(*args, **kw):
+            if self.current is not None and self.current not in self.calls:
+                self.calls[self.current] = (args, kw)
+            return self.orig(*args, **kw)
+        setattr(self.module, self.name, wrapper)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.orig)
+
+
+def _same_float(a, b) -> bool:
+    if a is None or b is None:
+        return a is b
+    if math.isnan(a) or math.isnan(b):
+        return math.isnan(a) and math.isnan(b)
+    return abs(a - b) <= SQL_ABS + SQL_REL * abs(a)
+
+
+def _bits(rows) -> list:
+    """Rows with every float as its bit pattern (NaN, -0.0 kept apart)."""
+    return [tuple(struct.pack("<d", v) if isinstance(v, float) else v
+                  for v in r) for r in rows]
+
+
+def phase_sql(device, label: str, table: str, columns: dict,
+              queries: list[str], exact: bool, runs: int = 2) -> dict:
+    """One table through Database.execute: the host oracle
+    (serene_device='cpu'), then `runs` device runs ('gpu'; the first is
+    cold). exact: cpu == every device run tuple for tuple (bench.py's
+    rule); else floats within SQL_REL/SQL_ABS of cpu and the device runs
+    bit-identical to each other. agg_scan must launch for every query."""
+    import torch
+
+    from serenedb_tpu_torch.columnar.column import Batch
+    from serenedb_tpu_torch.device import LAUNCHES
+    from serenedb_tpu_torch.engine import Database
+    from serenedb_tpu_torch.exec.tables import MemTable
+    from serenedb_tpu_torch.ops import agg_kernels as K
+
+    db = Database(device=device)
+    c = db.connect()
+    c.execute("SET serene_result_cache = off")
+    t = MemTable(table, Batch.from_pydict(columns))
+    db.schemas["main"].tables[table] = t
+    c.execute("SET serene_device = 'cpu'")
+    t0 = time.perf_counter()
+    cpu = [c.execute(q).rows() for q in queries]
+    cpu_s = time.perf_counter() - t0
+
+    c.execute("SET serene_device = 'gpu'")
+    torch.cuda.reset_peak_memory_stats(device)
+    LAUNCHES.reset()
+    dev_runs, run_s, per_query_ms = [], [], []
+    with FirstCalls(K, "agg_scan") as rec_scan, \
+            FirstCalls(K, "agg_fold") as rec_fold:
+        for r in range(runs):
+            out, ms = [], []
+            t0 = time.perf_counter()
+            for qi, q in enumerate(queries):
+                rec_scan.current = rec_fold.current = (label, qi) \
+                    if r == 0 else None
+                before = LAUNCHES.get("agg_scan")
+                tq = time.perf_counter()
+                out.append(c.execute(q).rows())
+                sync(device)
+                ms.append((time.perf_counter() - tq) * 1e3)
+                if LAUNCHES.get("agg_scan") <= before:
+                    fail(f"{label}: agg_scan did not launch for {q!r}")
+            run_s.append(time.perf_counter() - t0)
+            dev_runs.append(out)
+            per_query_ms.append(ms)
+    launches = LAUNCHES.snapshot()
+    peak = torch.cuda.max_memory_allocated(device)
+
+    for qi, q in enumerate(queries):
+        for r, out in enumerate(dev_runs):
+            got, ref = out[qi], cpu[qi]
+            if exact:
+                if got != ref:
+                    fail(f"{label}: device run {r} differs from the host "
+                         f"path on {q!r}")
+                continue
+            if len(got) != len(ref):
+                fail(f"{label}: {len(got)} rows, host {len(ref)}: {q!r}")
+            for rg, rr in zip(got, ref):
+                for a, b in zip(rr, rg):
+                    ok = _same_float(a, b) if isinstance(a, float) or \
+                        isinstance(b, float) else a == b
+                    if not ok:
+                        fail(f"{label}: {rg} vs host {rr} on {q!r}")
+        if not exact and any(_bits(out[qi]) != _bits(dev_runs[0][qi])
+                             for out in dev_runs[1:]):
+            fail(f"{label}: two device runs differ on {q!r}")
+
+    comp = raw = masks = 0
+    for entry in getattr(t, "_device_cache", {}).values():
+        dc = entry[1]
+        comp += dc.data.numel() * dc.data.element_size()
+        raw += dc.data.numel() * 4
+        masks += dc.mask.numel()
+    return {"cpu_s": cpu_s, "cold_s": run_s[0], "warm_s": run_s[-1],
+            "warm_ms": per_query_ms[-1], "cold_ms": per_query_ms[0],
+            "launches": launches, "peak_bytes": peak,
+            "tile_bytes": comp, "tile_bytes_raw_int32": raw,
+            "mask_bytes": masks, "rows": len(next(iter(columns.values()))),
+            "scan_calls": rec_scan.calls, "fold_calls": rec_fold.calls}
+
+
+def _chunk_codes_values(args):
+    """The group index and an int64 value per row of a recorded agg_scan
+    launch, for the index_add_ yardstick: the factorized codes, the
+    direct key plans' codes, or group 0; the first input column's
+    decoded values (ones when there is none)."""
+    import torch
+
+    from serenedb_tpu_torch.ops import agg_kernels as K
+    (spec, cols, rowmask, codes, t0, t1), _kw = args
+    n = (t1 - t0) * 128
+    dev = rowmask.device
+    env = [(K.decode_plain(k, off, d[t0:t1].reshape(-1)),
+            m[t0:t1].reshape(-1))
+           for (d, m), k, off in zip(cols, spec.col_kinds, spec.col_offsets)]
+    if spec.factorized:
+        idx = codes[t0:t1].reshape(-1).to(torch.int64)
+    else:
+        idx = torch.zeros(n, dtype=torch.int64, device=dev)
+        for kind, slot, lo, size in spec.keys:
+            data, ok = env[slot]
+            cc = data.to(torch.int64) - (lo if kind == K.KEY_INT else 0)
+            cc = torch.where(ok, cc, torch.full_like(cc, size - 1))
+            idx = idx * size + cc.clamp(0, size - 1)
+    vals = env[0][0].to(torch.int64) if env and \
+        env[0][0].dtype != torch.float32 else \
+        torch.ones(n, dtype=torch.int64, device=dev)
+    return idx.contiguous(), vals.contiguous(), spec.G
+
+
+def _raw_tensors(raw) -> list:
+    rowcount, outs = raw
+    return [rowcount] + [t for o in outs for t in o]
+
+
+def check_agg_scan(device, args, reps=10) -> dict:
+    """agg_scan against its plain version on one recorded launch:
+    integer outputs equal, f32 partial planes within rtol 1e-5; two
+    launches bit-identical."""
+    import torch
+
+    from serenedb_tpu_torch.ops import agg_kernels as K
+    a, kw = args
+    got = _raw_tensors(K.agg_scan(*a, **kw))
+    again = _raw_tensors(K.agg_scan(*a, **kw))
+    ref = _raw_tensors(K.agg_scan_plain(*a, **kw))
+    sync(device)
+    err = 0.0
+    for g, g2, r in zip(got, again, ref):
+        if g.dtype == torch.float32:
+            torch.testing.assert_close(g, r, rtol=RTOL, atol=ATOL,
+                                       equal_nan=True)
+            fin = torch.isfinite(r)
+            if fin.any():
+                err = max(err, float((g[fin] - r[fin]).abs().max()))
+            if not torch.equal(g.view(torch.int32), g2.view(torch.int32)):
+                fail("agg_scan: two launches differ")
+        elif not (torch.equal(g, r) and torch.equal(g, g2)):
+            fail(f"agg_scan differs from its plain version "
+                 f"({g.dtype}, {tuple(g.shape)})")
+    ms = timed_ms(lambda: K.agg_scan(*a, **kw), reps, device)
+    plain_ms = timed_ms(lambda: K.agg_scan_plain(*a, **kw), 2, device)
+    spec, cols, rowmask, codes, t0, t1 = a
+    rows = (t1 - t0) * 128
+    moved = sum(rows * (d.element_size() + m.element_size())
+                for d, m in cols) + rows * rowmask.element_size() + \
+        (rows * 4 if spec.factorized else 0) + nbytes(*got)
+    idx, vals, G = _chunk_codes_values(args)
+
+    def library():
+        torch.zeros(G, dtype=torch.int64, device=device).index_add_(
+            0, idx, vals)
+    library_ms = timed_ms(library, reps, device)
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms(moved), "bound_by": "bytes",
+            "library_ms": library_ms,
+            "shape": f"rows={rows} cols={len(cols)} G={spec.G} "
+                     f"aggs={[x.kind for x in spec.aggs]} "
+                     f"factorized={spec.factorized}"}
+
+
+def check_agg_fold(device, args, reps=10) -> dict:
+    """agg_fold against its plain version (both add p in order: equal)."""
+    import torch
+
+    from serenedb_tpu_torch.ops import agg_kernels as K
+    a, kw = args
+    plane, G = a[0], a[1]
+    got = K.agg_fold(*a, **kw)
+    ref = K.agg_fold_plain(*a, **kw)
+    sync(device)
+    torch.testing.assert_close(got, ref, rtol=RTOL, atol=ATOL,
+                               equal_nan=True)
+    fin = torch.isfinite(ref)
+    err = float((got[fin] - ref[fin]).abs().max()) if fin.any() else 0.0
+    ms = timed_ms(lambda: K.agg_fold(*a, **kw), reps, device)
+    plain_ms = timed_ms(lambda: K.agg_fold_plain(*a, **kw), 1, device)
+    library_ms = timed_ms(lambda: plane.view(-1, G).sum(0), reps, device)
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms(nbytes(plane, got)), "bound_by": "bytes",
+            "library_ms": library_ms,
+            "shape": f"P={plane.numel() // G} G={G}"}
+
+
+def time_dense_gemms(device, args, reps=5) -> dict:
+    """The two f32 products of dense_topk (TF32 off) on the dense phase's
+    S and W, against 2 x 2*B*V*nd FLOP at the f32 rate."""
+    import torch
+    a, kw = args
+    S, W = a[0], a[1]
+    Wi, Si = (W > 0).to(torch.float32), (S > 0).to(torch.float32)
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        score_ms = timed_ms(lambda: torch.matmul(W.t(), S.t()), reps, device)
+        hits_ms = timed_ms(lambda: torch.matmul(Wi.t(), Si.t()), reps,
+                           device)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    flop = 2 * 2 * W.shape[1] * W.shape[0] * S.shape[0]
+    return {"score_ms": score_ms, "hits_ms": hits_ms,
+            "bound_ms": flop / F32_FLOPS * 1e3, "gflop": flop / 1e9,
+            "shape": f"({W.shape[1]} x {W.shape[0]}) . ({S.shape[1]} x "
+                     f"{S.shape[0]})"}
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -506,16 +878,80 @@ def main() -> int:
           f" bound {dense_topk['bound_ms']:.3f} ms, torch.topk "
           f"{dense_topk['library_ms']:.3f} ms; tie planes bit-exact",
           flush=True)
-    print(f"    total {time.perf_counter() - t_start:.1f} s")
+    print(f"    total {time.perf_counter() - t_start:.1f} s", flush=True)
 
-    # 6. result lines
-    launches = {**dense["launches"]}
-    for kname, n in packed["launches"].items():
-        launches[kname] = launches.get(kname, 0) + n
+    # 6-8. the analytics path through Database.execute
+    sql = {}
+    for label, table, columns, queries, exact in (
+            ("q1", "hits", lambda: q1_columns(100_000_000), Q1_QUERIES,
+             True),
+            ("hits", "hits", lambda: hits_columns(10_000_000), HITS_QUERIES,
+             True),
+            ("float", "fl", lambda: float_columns(10_000_000),
+             FLOAT_QUERIES, False)):
+        t0 = time.perf_counter()
+        cols = columns()
+        gen_s = time.perf_counter() - t0
+        r = phase_sql(device, label, table, cols, queries, exact)
+        del cols
+        r["gen_s"] = gen_s
+        sql[label] = r
+        phase = {"q1": 6, "hits": 7, "float": 8}[label]
+        rule = "cpu == cold == warm" if exact else \
+            f"within rel {SQL_REL} / abs {SQL_ABS} of cpu, runs bit-identical"
+        print(f"[{phase}] {label}: {r['rows']} rows (generated in "
+              f"{gen_s:.1f} s); cpu {r['cpu_s']:.3f} s, cold "
+              f"{r['cold_s']:.3f} s, warm {r['warm_s']:.3f} s; warm ms per "
+              f"query {[round(x, 3) for x in r['warm_ms']]}; cold ms "
+              f"{[round(x, 3) for x in r['cold_ms']]}; tiles "
+              f"{r['tile_bytes']} B (raw int32 {r['tile_bytes_raw_int32']} "
+              f"B, masks {r['mask_bytes']} B); peak device memory "
+              f"{r['peak_bytes']} B; {rule}; agg_scan launched for every "
+              f"query; launches {r['launches']}", flush=True)
+    if not sql["float"]["launches"].get("agg_fold"):
+        fail("float phase: agg_fold never launched")
+
+    # 9. the analytics kernels against their plain versions
+    scan_args = {**sql["q1"].pop("scan_calls"), **sql["hits"].pop(
+        "scan_calls"), **sql["float"].pop("scan_calls")}
+    fold_args = sql["float"].pop("fold_calls")
+    picks = {"q1 GROUP BY region": ("q1", 2), "hits Q16": ("hits", 4),
+             "float GROUP BY k": ("float", 0),
+             "float GROUP BY k2": ("float", 1), "float scalar": ("float", 2)}
+    agg_checks = {}
+    for what, key in picks.items():
+        if key not in scan_args:
+            fail(f"agg_scan's inputs for {what} were not recorded")
+        agg_checks[what] = check_agg_scan(device, scan_args[key])
+    if ("float", 0) not in fold_args:
+        fail("agg_fold's inputs were not recorded")
+    fold = check_agg_fold(device, fold_args[("float", 0)])
+    for what, r in [*agg_checks.items(), ("agg_fold", fold)]:
+        print(f"[9] {what} ({r['shape']}): kernel {r['ms']:.4f} ms, plain "
+              f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms, "
+              f"library {r['library_ms']:.4f} ms, max |err| "
+              f"{r['max_abs_err']:.3g}", flush=True)
+    if dense.get("gemm_args") is None:
+        fail("dense_topk's inputs were not recorded")
+    gemm = time_dense_gemms(device, dense.pop("gemm_args"))
+    print(f"[9] dense_topk GEMMs {gemm['shape']}, TF32 off: scores "
+          f"{gemm['score_ms']:.3f} ms, hits {gemm['hits_ms']:.3f} ms, bound "
+          f"{gemm['bound_ms']:.3f} ms for both ({gemm['gflop']:.1f} GFLOP at "
+          f"{F32_FLOPS / 1e12:.0f} TFLOP/s)", flush=True)
+    print(f"    total {time.perf_counter() - t_start:.1f} s", flush=True)
+
+    # 10. result lines
+    launches = {}
+    for window in (dense["launches"], packed["launches"],
+                   *(r["launches"] for r in sql.values())):
+        for kname, n in window.items():
+            launches[kname] = launches.get(kname, 0) + n
+    results["agg_scan"] = agg_checks["q1 GROUP BY region"]
+    results["agg_fold"] = fold
     kernels = []
     for kname, r in results.items():
         kernels.append({
-            "name": kname, "route": "cuda", "source": SOURCE,
+            "name": kname, "route": "cuda", "source": SOURCES[kname],
             "replaces": REPLACES[kname], "launches": launches.get(kname, 0),
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],

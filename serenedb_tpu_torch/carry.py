@@ -1,10 +1,11 @@
 """State carried across from the JAX package.
 
-The reference's index and posting store are plain arrays; these functions
-take them as numpy arrays (a reference `FieldIndex`'s fields, or a
-reference `BlockStore`'s fields after `np.asarray` of its device arrays)
-and build the port's objects, so both packages can score identical state.
-Nothing here imports the reference: the caller hands over the arrays.
+The reference's index, posting store and tables are plain arrays; these
+functions take them as numpy arrays (a reference `FieldIndex`'s fields, a
+reference `BlockStore`'s fields after `np.asarray` of its device arrays,
+or the fields of a reference table's `Column`s) and build the port's
+objects, so both packages score and aggregate identical state. Nothing
+here imports the reference: the caller hands over the arrays.
 """
 
 from __future__ import annotations
@@ -12,7 +13,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .columnar import dtypes as dt
+from .columnar.column import Batch, Column
 from .device import DeviceLike, resolve_device
+from .exec.tables import MemTable
 from .ops.bm25 import BlockStore
 from .search.segment import FieldIndex
 
@@ -57,3 +61,33 @@ def block_store_from_reference(arrays: dict,
     for name in BLOCK_STORE_INTS:
         kw[name] = int(arrays[name])
     return BlockStore(**kw)
+
+
+#: SQL type of a non-dictionary column, by the numpy dtype of its data
+_TYPE_OF_DTYPE = {np.dtype(np.bool_): dt.BOOL, np.dtype(np.int8): dt.TINYINT,
+                  np.dtype(np.int16): dt.SMALLINT, np.dtype(np.int32): dt.INT,
+                  np.dtype(np.int64): dt.BIGINT,
+                  np.dtype(np.float32): dt.FLOAT,
+                  np.dtype(np.float64): dt.DOUBLE}
+
+
+def memtable_from_reference(name: str, columns: dict) -> MemTable:
+    """The port's MemTable from a reference table's columns, given as
+    {column name: (data, validity or None, dictionary or None)} — the
+    reference `Column`'s fields. A column with a dictionary is VARCHAR
+    (data holds its codes); the others take their type from the data's
+    dtype (bool, int8/16/32/64, float32/64)."""
+    cols = []
+    for cname, (data, validity, dictionary) in columns.items():
+        data = np.array(data, copy=True)
+        if dictionary is not None:
+            typ = dt.VARCHAR
+            dictionary = np.array(dictionary, dtype=object, copy=True)
+        else:
+            typ = _TYPE_OF_DTYPE.get(data.dtype)
+            if typ is None:
+                raise TypeError(f"{cname}: no SQL type for {data.dtype}")
+        cols.append(Column(typ, data, None if validity is None else
+                           np.array(validity, dtype=bool, copy=True),
+                           dictionary))
+    return MemTable(name, Batch(list(columns), cols))

@@ -7,8 +7,10 @@ a slower run.
 
 `LAUNCHES` counts kernel launches per wrapper (and plain-version calls
 under `<name>.plain`), so a run can show that its main path went through
-the hand kernels. It stands in for the reference's compile/upload ledger
-(serenedb_tpu/obs/device.py `compiled`, `note_upload`).
+the hand kernels. `UPLOADS` counts host→device uploads (`transfers`) and
+their `bytes`; `columnar.device.commit_host_array` is the one place that
+bumps it. Together they stand in for the reference's dispatch/upload
+ledger (serenedb_tpu/obs/device.py).
 """
 
 from __future__ import annotations
@@ -63,3 +65,4 @@ class LaunchLedger:
 
 
 LAUNCHES = LaunchLedger()
+UPLOADS = LaunchLedger()

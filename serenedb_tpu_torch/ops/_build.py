@@ -21,7 +21,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
-SOURCES = {"bm25": CSRC / "bm25.cu"}
+SOURCES = {"bm25": CSRC / "bm25.cu", "agg": CSRC / "agg.cu"}
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
@@ -46,6 +46,10 @@ SIGNATURES = {
         "build_dense_tail": [_P, _P, _P, _L, _P, _P, _L, _I, _F, _F, _F, _P],
         "topk_rows": [_P, _L, _L, _P, _I, _P, _I, _I, _P, _P, _P, _P, _P, _P,
                       _P],
+    },
+    "agg": {
+        "agg_scan": [_P, _L, _P],
+        "agg_fold": [_P, _L, _L, _P, _P],
     },
 }
 

@@ -160,3 +160,218 @@ def test_topk_rows_kernel_matches_plain_bit_for_bit(cuda, k, hits_dtype):
     ref_v, ref_i = kern.topk_rows_plain(scores, k, hits, require)
     assert torch.equal(idx, ref_i)
     assert torch.equal(vals.view(torch.int32), ref_v.view(torch.int32))
+
+
+# -- analytics: agg_scan and agg_fold ---------------------------------------
+
+from serenedb_tpu_torch.columnar import dtypes as dt  # noqa: E402
+from serenedb_tpu_torch.columnar.column import Column  # noqa: E402
+from serenedb_tpu_torch.columnar.device import to_device_column  # noqa: E402
+from serenedb_tpu_torch.ops import agg as agg_ops  # noqa: E402
+from serenedb_tpu_torch.ops import agg_kernels as ak  # noqa: E402
+
+
+def _scan_cols(cuda, n=50_000, seed=3):
+    """Slots: 0 FOR8 int, 1 FOR16 int, 2 raw int32 (wide range), 3 int8,
+    4 f32 with NaN/-0.0/inf, 5 dictionary codes; ~8% NULLs each."""
+    rng = np.random.default_rng(seed)
+    f = rng.normal(size=n).astype(np.float64) * 50
+    f[rng.random(n) < 0.01] = np.nan
+    f[:4] = [-0.0, 0.0, np.inf, -np.inf]
+    raw = [
+        Column(dt.INT, rng.integers(-100, 100, n).astype(np.int32)),
+        Column(dt.INT, rng.integers(-30000, 30000, n).astype(np.int32)),
+        Column(dt.INT, rng.integers(-2**31, 2**31, n).astype(np.int32)),
+        Column(dt.TINYINT, rng.integers(-128, 128, n).astype(np.int8)),
+        Column(dt.DOUBLE, f),
+        Column(dt.INT, rng.integers(0, 7, n).astype(np.int32)),
+    ]
+    for c in raw:
+        c.validity = rng.random(n) > 0.08
+    dcs = [to_device_column(c, device=cuda) for c in raw]
+    kinds = [ak.col_kind(dc) for dc in dcs]
+    assert [k for k, _ in kinds] == [ak.COL_U8, ak.COL_U16, ak.COL_I32,
+                                     ak.COL_I8, ak.COL_F32, ak.COL_U8]
+    rows = dcs[0].data.shape[0]
+    rowmask = torch.zeros(rows * 128, dtype=torch.bool)
+    rowmask[:n] = True
+    return (dcs, [k for k, _ in kinds], [o for _, o in kinds],
+            rowmask.view(rows, 128).to(cuda))
+
+
+C = ak.CMP_CODES
+_COL = lambda s: (ak.OP_COL, s, 0)  # noqa: E731
+_I = lambda v: (ak.OP_I32, 0, v)  # noqa: E731
+# (slot0 > -50 AND slot1 < 20000) OR NOT (slot3 IS NULL)
+_PRED = (_COL(0), _I(-50), (ak.OP_CMP_I, 0, C[">"]), _COL(1), _I(20000),
+         (ak.OP_CMP_I, 0, C["<"]), (ak.OP_AND, 0, 0), _COL(3),
+         (ak.OP_IS_NULL, 0, 0), (ak.OP_NOT, 0, 0), (ak.OP_OR, 0, 0))
+_ARGS = {
+    ak.AGG_COUNT: (_COL(4),),
+    ak.AGG_SUM_I: (_COL(2), _COL(0), (ak.OP_MUL_I, 0, 0)),   # wraps
+    ak.AGG_SUM_F: (_COL(4), _COL(1), (ak.OP_I2F, 0, 0),
+                   (ak.OP_ADD_F, 0, 0)),
+    ak.AGG_MIN_I: (_COL(3), _COL(3), (ak.OP_MUL_I, 0, 0),
+                   (ak.OP_WRAP8, 0, 0)),
+    ak.AGG_MAX_I: (_COL(4), (ak.OP_F2I, 0, 0)),
+    ak.AGG_MIN_F: (_COL(4),),
+    ak.AGG_MAX_F: (_COL(4), (ak.OP_F32, 0, ak.f32_bits(0.5)),
+                   (ak.OP_MUL_F, 0, 0)),
+}
+
+
+def _all_aggs():
+    aggs = [ak.ScanAgg(kind, ops) for kind, ops in _ARGS.items()]
+    aggs.append(ak.ScanAgg(ak.AGG_PRESENCE, None, 5, ak.KEY_INT, 0, 8))
+    return aggs
+
+
+def _assert_raw_equal(got, ref):
+    (rc, outs), (rc_ref, outs_ref) = got, ref
+    assert torch.equal(rc, rc_ref)
+    for o, r in zip(outs, outs_ref):
+        for a, b in zip(o, r):
+            if a.dtype == torch.float32:
+                torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5,
+                                           equal_nan=True)
+            else:
+                assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("mode", ["scalar", "direct", "factorized"])
+def test_agg_scan_matches_plain(cuda, mode):
+    dcs, kinds, offs, rowmask = _scan_cols(cuda)
+    cols = [(dc.data, dc.mask) for dc in dcs]
+    codes, keys, G = None, [], 1
+    if mode == "direct":
+        keys = [(ak.KEY_INT, 5, 0, 8), (ak.KEY_INT, 0, -100, 201)]
+        G = 8 * 201
+    elif mode == "factorized":
+        G = 100_003
+        rng = np.random.default_rng(9)
+        codes = torch.from_numpy(rng.integers(
+            0, G, rowmask.numel()).astype(np.int32)).view_as(
+            rowmask).to(cuda)
+    spec = ak.ScanSpec(kinds, offs, [_PRED], keys, codes is not None, G,
+                       _all_aggs())
+    LAUNCHES.reset()
+    got = ak.agg_scan(spec, cols, rowmask, codes, 0, rowmask.shape[0])
+    assert LAUNCHES.get("agg_scan") == 1
+    ref = ak.agg_scan_plain(spec, cols, rowmask, codes, 0, rowmask.shape[0])
+    torch.cuda.synchronize()
+    _assert_raw_equal(got, ref)
+    # a sub-range of tiles
+    got = ak.agg_scan(spec, cols, rowmask, codes, 7, 300)
+    ref = ak.agg_scan_plain(spec, cols, rowmask, codes, 7, 300)
+    _assert_raw_equal(got, ref)
+
+
+def test_agg_fold_and_float_sums_are_deterministic(cuda):
+    dcs, kinds, offs, rowmask = _scan_cols(cuda, n=400_000)
+    cols = [(dc.data, dc.mask) for dc in dcs]
+    for keys, G in (([], 1), ([(ak.KEY_INT, 0, -100, 201)], 201)):
+        spec = ak.ScanSpec(kinds, offs, [], keys, False, G,
+                           [ak.ScanAgg(ak.AGG_SUM_F, (_COL(4),))])
+        runs = []
+        for _ in range(2):
+            _, outs = ak.agg_scan(spec, cols, rowmask, None, 0,
+                                  rowmask.shape[0])
+            runs.append((outs[0][0], ak.agg_fold(outs[0][0], G)))
+        plane, total = runs[0]
+        assert torch.equal(plane.view(torch.int32),
+                           runs[1][0].view(torch.int32))
+        assert torch.equal(total.view(torch.int32),
+                           runs[1][1].view(torch.int32))
+        torch.testing.assert_close(total, ak.agg_fold_plain(plane, G),
+                                   rtol=0, atol=0, equal_nan=True)
+
+
+def test_f2i_and_float_images_on_the_card(cuda):
+    v = torch.tensor([np.nan, np.inf, -np.inf, 3e9, -3e9, 2.5, -2.5,
+                      0.49999997, -0.0, 1e-45], dtype=torch.float32)
+    rows = torch.zeros(128, dtype=torch.float32)
+    rows[:len(v)] = v
+    data = rows.view(1, 128)
+    mask = torch.ones(1, 128, dtype=torch.bool)
+    spec = ak.ScanSpec([ak.COL_F32], [0], [], [], True, 128,
+                       [ak.ScanAgg(ak.AGG_MAX_I, (_COL(0),
+                                                   (ak.OP_F2I, 0, 0))),
+                        ak.ScanAgg(ak.AGG_MIN_F, (_COL(0),)),
+                        ak.ScanAgg(ak.AGG_MAX_F, (_COL(0),))])
+    codes = torch.arange(128, dtype=torch.int32).view(1, 128)
+    got = ak.agg_scan(spec, [(data.to(cuda), mask.to(cuda))],
+                      mask.to(cuda), codes.to(cuda), 0, 1)
+    ref = ak.agg_scan_plain(spec, [(data, mask)], mask, codes, 0, 1)
+    _assert_raw_equal(tuple(x.cpu() if torch.is_tensor(x) else
+                            [tuple(t.cpu() for t in o) for o in x]
+                            for x in got), ref)
+
+
+def test_ops_agg_entries_on_the_card(cuda):
+    rng = np.random.default_rng(4)
+    codes = rng.integers(0, 50, (40, 128)).astype(np.int32)
+    mask = rng.random((40, 128)) > 0.2
+    ivals = rng.integers(-2**31, 2**31, (40, 128)).astype(np.int32)
+    fvals = rng.normal(size=(40, 128)).astype(np.float32)
+    t = lambda a, d: torch.from_numpy(a).to(d)  # noqa: E731
+    for d in (cuda,):
+        c, m = t(codes, d), t(mask, d)
+        iv, fv = t(ivals, d), t(fvals, d)
+        pairs = [
+            (agg_ops.masked_sum_int_partials(iv, m),
+             agg_ops.masked_sum_int_partials(iv.cpu(), m.cpu())),
+            (agg_ops.group_count_scatter(c, m, 50),
+             agg_ops.group_count_scatter(c.cpu(), m.cpu(), 50)),
+            (agg_ops.group_sum_int_limbs(c, m, iv, 50),
+             agg_ops.group_sum_int_limbs(c.cpu(), m.cpu(), iv.cpu(), 50)),
+            (agg_ops.group_min_max(c, m, iv, 50, "min"),
+             agg_ops.group_min_max(c.cpu(), m.cpu(), iv.cpu(), 50, "min")),
+            (agg_ops.group_min_max(c, m, fv, 50, "max"),
+             agg_ops.group_min_max(c.cpu(), m.cpu(), fv.cpu(), 50, "max")),
+        ]
+        for got, ref in pairs:
+            assert torch.equal(got.cpu(), ref)
+        torch.testing.assert_close(
+            agg_ops.group_sum_float(c, m, fv, 50).cpu(),
+            agg_ops.group_sum_float(c.cpu(), m.cpu(), fv.cpu(), 50),
+            rtol=1e-5, atol=1e-5)
+
+
+def test_sql_on_the_card_matches_the_host_path(cuda):
+    from serenedb_tpu_torch.columnar.column import Batch
+    from serenedb_tpu_torch.engine import Database
+    from serenedb_tpu_torch.exec.tables import MemTable
+    rng = np.random.default_rng(0)
+    n = 300_000
+    db = Database()
+    c = db.connect()
+    c.execute("SET serene_result_cache = off")
+    db.schemas["main"].tables["t"] = MemTable("t", Batch.from_pydict({
+        "k": Column.from_numpy(rng.integers(0, 300, n).astype(np.int32)),
+        "s": Column.from_numpy(np.asarray(["a", "b", "c"], dtype=object)[
+            rng.integers(0, 3, n)]),
+        "u": Column.from_numpy(rng.integers(0, 1 << 62, n)),
+        "x": Column.from_numpy(rng.integers(-10**6, 10**6, n)
+                               .astype(np.int32)),
+        "f": Column.from_numpy(rng.random(n) * 100),
+    }))
+    qs = ["SELECT count(*), sum(x), min(x), max(x) FROM t WHERE k < 100",
+          "SELECT k, count(*), sum(x), avg(f), min(f) FROM t GROUP BY k "
+          "ORDER BY k",
+          "SELECT s, count(DISTINCT k), max(f) FROM t WHERE s <> 'b' "
+          "GROUP BY s ORDER BY s",
+          "SELECT u, count(*) FROM t GROUP BY u ORDER BY 2 DESC, u LIMIT 5"]
+    for q in qs:
+        c.execute("SET serene_device = 'cpu'")
+        host = c.execute(q).rows()
+        c.execute("SET serene_device = 'gpu'")
+        LAUNCHES.reset()
+        dev = c.execute(q).rows()
+        assert LAUNCHES.get("agg_scan") >= 1, q
+        assert len(host) == len(dev)
+        for rh, rd in zip(host, dev):
+            for a, b in zip(rh, rd):
+                if isinstance(a, float):
+                    assert b == pytest.approx(a, rel=1e-4, abs=1e-4), q
+                else:
+                    assert a == b, q
