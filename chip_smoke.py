@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the port's BM25 search and SQL analytics paths on one CUDA card
-and check them.
+"""Drive the port's BM25 search, SQL analytics, top-N and fused-join paths
+on one CUDA card and check them.
 
     python3 chip_smoke.py
 
@@ -21,26 +21,42 @@ Phases (any failure exits non-zero and prints no result line):
   6. `q1` (bench.py's generator and three queries, seed 0) at 100,000,000
      rows through Database.execute: serene_device='cpu' (the host oracle),
      then 'gpu' cold and warm; the three must agree tuple for tuple and
-     agg_scan must launch for every query;
+     agg_scan must launch for every query; then three ORDER BY ... LIMIT
+     queries on the same table (T1 unfiltered, T2 filtered with a
+     projection and OFFSET, T3 at k = 8192) through topn_scan;
   7. `hits` (bench.py's generator and six queries, seed 3, 10,000,000
      rows): the same checks, over direct-coded, dictionary and
-     host-factorized group keys;
+     host-factorized group keys, and T4 (ClickBench Q25's shape: a
+     dictionary-string predicate, ORDER BY ... DESC LIMIT 10);
   8. float aggregates (10,000,000 rows, DOUBLE columns with NULLs and
      NaNs, 200 and ~1,000,000 groups, and no GROUP BY): 'gpu' within rel
      1e-4 / abs 1e-4 of 'cpu', NaN meeting NaN, two runs bit-identical,
      and agg_fold launched;
-  9. agg_scan and agg_fold against their plain versions on inputs recorded
-     from phases 6-8 (integer outputs equal, floats within rtol 1e-5), with
-     their times, bounds and torch yardsticks, and the two f32 GEMMs of
+  9. joins at TPC-H SF1 cardinalities (seed 0: 150,000 customers,
+     1,500,000 orders, ~6,000,000 lineitems, dbgen's distributions): J1
+     a two-sided filtered join aggregate with exact sums and a DISTINCT
+     grid, J2 the chained top-N over 10,001 group slots, J3 orders LEFT
+     JOIN lineitem, J4 customer LEFT JOIN orders (TPC-H Q13's join: a
+     third of the customers null-extend), J5 orders RIGHT JOIN customer
+     (those customers reduce into the all-NULL group through
+     join_unmatched); rows equal to the host path's
+     cold and warm, agg_scan + join_probe (+ chain_topn for J2,
+     join_unmatched for J5) launched,
+     no fused decline, and J2's warm repeat uploads 0 bytes;
+ 10. agg_scan, agg_fold, topn_scan, chain_topn and join_probe against
+     their plain versions on inputs recorded from phases 6-9 (integer
+     outputs and selected indices equal, f32 within rtol 1e-5), with their
+     times, bounds and torch yardsticks, and the two f32 GEMMs of
      dense_topk timed against their FLOP bound;
- 10. one JSON line per kernel, the card line, then the device line.
+ 11. one JSON line per kernel, the card line, then the device line.
 
 Launch counts are zeroed just before each main-path phase and read just
-after it; the comparisons of phases 5 and 9 run outside those windows.
-The result cache is off in phases 6-8, so every statement executes. The
-script imports the port (`serenedb_tpu_torch`) and neither JAX nor the JAX
-package; corpora and tables are rebuilt here from seeds, as bench.py
-builds them.
+after it; the comparisons of phases 5 and 10 run outside those windows.
+The result cache is off in phases 6-9, so every statement executes, and
+the device column cache's cap is raised to 32 GiB, as a deployment on an
+80 GB card would set it. The script imports the port
+(`serenedb_tpu_torch`) and neither JAX nor the JAX package; corpora and
+tables are rebuilt here from seeds, as bench.py builds them.
 """
 
 from __future__ import annotations
@@ -66,17 +82,75 @@ REPLACES = {
     "topk_rows": "serenedb_tpu/ops/bm25.py:724",
     "agg_scan": "serenedb_tpu/exec/device_agg.py:251",
     "agg_fold": "serenedb_tpu/ops/agg.py:117",
+    "topn_scan": "serenedb_tpu/exec/device_topn.py:111",
+    "chain_topn": "serenedb_tpu/exec/device_pipeline.py:2810",
+    "join_probe": "serenedb_tpu/exec/device_pipeline.py:1243",
 }
 SOURCES = {"bm25_accumulate": "serenedb_tpu_torch/ops/csrc/bm25.cu",
            "build_dense": "serenedb_tpu_torch/ops/csrc/bm25.cu",
            "topk_rows": "serenedb_tpu_torch/ops/csrc/bm25.cu",
            "agg_scan": "serenedb_tpu_torch/ops/csrc/agg.cu",
-           "agg_fold": "serenedb_tpu_torch/ops/csrc/agg.cu"}
+           "agg_fold": "serenedb_tpu_torch/ops/csrc/agg.cu",
+           "topn_scan": "serenedb_tpu_torch/ops/csrc/topn.cu",
+           "chain_topn": "serenedb_tpu_torch/ops/csrc/topn.cu",
+           "join_probe": "serenedb_tpu_torch/ops/csrc/join.cu"}
+#: the device column cache's cap in the SQL phases (MiB)
+DEVICE_CACHE_MB = 32768
+
+AGG, TOPN = ("agg_scan",), ("topn_scan",)
+JOIN, CHAIN = ("agg_scan", "join_probe"), \
+    ("agg_scan", "join_probe", "chain_topn")
+OUTER_RIGHT = ("agg_scan", "join_probe", "join_unmatched")
 
 Q1_QUERIES = [
     "SELECT count(*) FROM hits WHERE adv <> 0",
     "SELECT count(*), sum(x) FROM hits WHERE adv <> 0 AND x < 90000",
     "SELECT region, count(*), sum(x) FROM hits GROUP BY region",
+]
+Q1_TOPN = [
+    # T1: unfiltered (device_topn)
+    "SELECT * FROM hits ORDER BY x DESC LIMIT 10",
+    # T2: filtered, a projection, OFFSET (the fused top-N)
+    "SELECT region, x FROM hits WHERE adv = 1 AND region < 50 "
+    "ORDER BY x LIMIT 100 OFFSET 10",
+    # T3: k = MAX_TOPN_K
+    "SELECT * FROM hits WHERE region = 7 ORDER BY x DESC LIMIT 8192",
+]
+HITS_TOPN = [
+    # T4: ClickBench Q25's shape (ResolutionWidth for EventTime)
+    "SELECT SearchPhrase, ResolutionWidth FROM hits "
+    "WHERE SearchPhrase <> '' ORDER BY ResolutionWidth DESC LIMIT 10",
+]
+# the dates are untyped literals, which the binder coerces to DATE: the
+# reference's device tier declines a typed DATE '...' literal
+# (compile_expr: "string literal outside comparison"), and so does the port
+TPCH_QUERIES = [
+    # J1: predicates on both sides, exact sums past int32, a DISTINCT
+    # grid of 12 x 16,384 cells
+    "SELECT l_returnflag, l_linestatus, count(*), sum(l_quantity), "
+    "sum(l_extendedprice), count(DISTINCT l_suppkey), min(o_orderdate), "
+    "max(o_totalprice) FROM lineitem JOIN orders ON l_orderkey = o_orderkey "
+    "WHERE o_orderdate < '1995-03-15' AND l_shipdate > '1995-03-15' "
+    "GROUP BY l_returnflag, l_linestatus ORDER BY l_returnflag, l_linestatus",
+    # J2: the chained top-N over 10,001 group slots, full of ties
+    "SELECT l_suppkey, count(*) AS n, sum(l_quantity) FROM lineitem "
+    "JOIN orders ON l_orderkey = o_orderkey WHERE o_orderdate >= "
+    "'1996-01-01' GROUP BY l_suppkey ORDER BY n DESC LIMIT 10",
+    # J3: LEFT join, 6.0M + 1.5M worst-case pairs
+    "SELECT o_orderpriority, count(*), count(l_quantity), sum(l_quantity), "
+    "max(l_extendedprice) FROM orders LEFT JOIN lineitem "
+    "ON o_orderkey = l_orderkey GROUP BY o_orderpriority "
+    "ORDER BY o_orderpriority",
+    # J4: TPC-H Q13's join: customers without orders null-extend
+    "SELECT c_mktsegment, count(*), count(o_orderkey), sum(o_totalprice), "
+    "max(o_orderdate) FROM customer LEFT JOIN orders ON c_custkey = "
+    "o_custkey GROUP BY c_mktsegment ORDER BY c_mktsegment",
+    # J5: RIGHT join: the customers without orders (a third) reduce into
+    # the all-NULL group, build-side aggregates included (join_unmatched)
+    "SELECT o_orderpriority, count(*), count(o_orderkey), sum(o_totalprice), "
+    "max(o_orderdate), count(c_custkey), max(c_custkey) FROM orders RIGHT "
+    "JOIN customer ON o_custkey = c_custkey GROUP BY o_orderpriority "
+    "ORDER BY o_orderpriority",
 ]
 HITS_QUERIES = [
     # Q8: low-card direct-coded key
@@ -209,7 +283,14 @@ def timed_ms(fn, reps: int, device) -> float:
 
 
 def nbytes(*ts) -> int:
-    return sum(t.numel() * t.element_size() for t in ts if t is not None)
+    """Bytes of the distinct tensors among ts: a tensor passed twice (a
+    column's mask that is also the row mask) is read once."""
+    seen = {}
+    for t in ts:
+        if t is not None:
+            key = (t.data_ptr(), t.numel() * t.element_size())
+            seen[key] = key[1]
+    return sum(seen.values())
 
 
 def bound_ms(n_bytes: int) -> float:
@@ -487,7 +568,6 @@ def check_topk_ties(device, rows: int, n: int) -> None:
             fail(f"topk_rows differs on the tie plane at k={k}")
 
 
-
 # ------------------------------------------------------------ analytics
 
 def q1_columns(n: int) -> dict:
@@ -552,7 +632,7 @@ def float_columns(n: int) -> dict:
 
 class FirstCalls:
     """Wraps a kernel wrapper and keeps the first call made under each
-    value of `current` (set by the caller), for replay in phase 9."""
+    value of `current` (set by the caller), for replay in phase 10."""
 
     def __init__(self, module, name: str):
         self.module, self.name = module, name
@@ -586,57 +666,87 @@ def _bits(rows) -> list:
                   for v in r) for r in rows]
 
 
-def phase_sql(device, label: str, table: str, columns: dict,
-              queries: list[str], exact: bool, runs: int = 2) -> dict:
-    """One table through Database.execute: the host oracle
+#: the kernel wrappers whose first main-path call per query is recorded
+RECORDED = (("agg", "agg_scan"), ("agg", "agg_fold"), ("topn", "topn_scan"),
+            ("topn", "chain_topn"), ("join", "join_probe"))
+
+
+def phase_sql(device, label: str, tables: dict, queries: list,
+              exact: bool, runs: int = 2) -> dict:
+    """Tables through Database.execute: the host oracle
     (serene_device='cpu'), then `runs` device runs ('gpu'; the first is
-    cold). exact: cpu == every device run tuple for tuple (bench.py's
-    rule); else floats within SQL_REL/SQL_ABS of cpu and the device runs
-    bit-identical to each other. agg_scan must launch for every query."""
+    cold). queries: (sql, kernels that must launch for it). exact: cpu ==
+    every device run tuple for tuple (bench.py's rule); else floats within
+    SQL_REL/SQL_ABS of cpu and the device runs bit-identical to each
+    other. No fused-tier decline may be counted during the device runs."""
     import torch
 
     from serenedb_tpu_torch.columnar.column import Batch
-    from serenedb_tpu_torch.device import LAUNCHES
+    from serenedb_tpu_torch.device import LAUNCHES, UPLOADS
     from serenedb_tpu_torch.engine import Database
     from serenedb_tpu_torch.exec.tables import MemTable
-    from serenedb_tpu_torch.ops import agg_kernels as K
+    from serenedb_tpu_torch.obs import device as obs_device
+    from serenedb_tpu_torch.ops import agg_kernels, join_kernels, \
+        topn_kernels
+    modules = {"agg": agg_kernels, "topn": topn_kernels,
+               "join": join_kernels}
 
     db = Database(device=device)
     c = db.connect()
     c.execute("SET serene_result_cache = off")
-    t = MemTable(table, Batch.from_pydict(columns))
-    db.schemas["main"].tables[table] = t
+    provs = []
+    for name, columns in tables.items():
+        t = MemTable(name, Batch.from_pydict(columns))
+        db.schemas["main"].tables[name] = t
+        provs.append(t)
     c.execute("SET serene_device = 'cpu'")
     t0 = time.perf_counter()
-    cpu = [c.execute(q).rows() for q in queries]
+    cpu, cpu_ms = [], []
+    for q, _k in queries:
+        tq = time.perf_counter()
+        cpu.append(c.execute(q).rows())
+        cpu_ms.append((time.perf_counter() - tq) * 1e3)
     cpu_s = time.perf_counter() - t0
 
     c.execute("SET serene_device = 'gpu'")
     torch.cuda.reset_peak_memory_stats(device)
+    declines0 = obs_device.fused_declines()
     LAUNCHES.reset()
-    dev_runs, run_s, per_query_ms = [], [], []
-    with FirstCalls(K, "agg_scan") as rec_scan, \
-            FirstCalls(K, "agg_fold") as rec_fold:
+    dev_runs, run_s, per_query_ms, up_bytes = [], [], [], []
+    recs = [FirstCalls(modules[m], n) for m, n in RECORDED]
+    for rec in recs:
+        rec.__enter__()
+    try:
         for r in range(runs):
-            out, ms = [], []
+            out, ms, ups = [], [], []
             t0 = time.perf_counter()
-            for qi, q in enumerate(queries):
-                rec_scan.current = rec_fold.current = (label, qi) \
-                    if r == 0 else None
-                before = LAUNCHES.get("agg_scan")
+            for qi, (q, kernels) in enumerate(queries):
+                for rec in recs:
+                    rec.current = (label, qi) if r == 0 else None
+                before = {k: LAUNCHES.get(k) for k in kernels}
+                up0 = UPLOADS.get("bytes")
                 tq = time.perf_counter()
                 out.append(c.execute(q).rows())
                 sync(device)
                 ms.append((time.perf_counter() - tq) * 1e3)
-                if LAUNCHES.get("agg_scan") <= before:
-                    fail(f"{label}: agg_scan did not launch for {q!r}")
+                ups.append(UPLOADS.get("bytes") - up0)
+                for k in kernels:
+                    if LAUNCHES.get(k) <= before[k]:
+                        fail(f"{label}: {k} did not launch for {q!r}")
             run_s.append(time.perf_counter() - t0)
             dev_runs.append(out)
             per_query_ms.append(ms)
+            up_bytes.append(ups)
+    finally:
+        for rec in recs:
+            rec.__exit__()
     launches = LAUNCHES.snapshot()
     peak = torch.cuda.max_memory_allocated(device)
+    if obs_device.fused_declines() != declines0:
+        fail(f"{label}: fused declines {declines0} -> "
+             f"{obs_device.fused_declines()}")
 
-    for qi, q in enumerate(queries):
+    for qi, (q, _k) in enumerate(queries):
         for r, out in enumerate(dev_runs):
             got, ref = out[qi], cpu[qi]
             if exact:
@@ -657,17 +767,25 @@ def phase_sql(device, label: str, table: str, columns: dict,
             fail(f"{label}: two device runs differ on {q!r}")
 
     comp = raw = masks = 0
-    for entry in getattr(t, "_device_cache", {}).values():
-        dc = entry[1]
-        comp += dc.data.numel() * dc.data.element_size()
-        raw += dc.data.numel() * 4
-        masks += dc.mask.numel()
-    return {"cpu_s": cpu_s, "cold_s": run_s[0], "warm_s": run_s[-1],
-            "warm_ms": per_query_ms[-1], "cold_ms": per_query_ms[0],
+    for t in provs:
+        for entry in getattr(t, "_device_cache", {}).values():
+            dc = entry[1]
+            comp += dc.data.numel() * dc.data.element_size()
+            raw += dc.data.numel() * 4
+            masks += dc.mask.numel()
+    from serenedb_tpu_torch.exec.device_pipeline import DEVICE_CACHE
+    calls = {rec.name: rec.calls for rec in recs}
+    return {"cpu_s": cpu_s, "cpu_ms": cpu_ms, "cold_s": run_s[0],
+            "warm_s": run_s[-1], "warm_ms": per_query_ms[-1],
+            "cold_ms": per_query_ms[0], "warm_upload_bytes": up_bytes[-1],
+            "cold_upload_bytes": up_bytes[0],
             "launches": launches, "peak_bytes": peak,
             "tile_bytes": comp, "tile_bytes_raw_int32": raw,
-            "mask_bytes": masks, "rows": len(next(iter(columns.values()))),
-            "scan_calls": rec_scan.calls, "fold_calls": rec_fold.calls}
+            "mask_bytes": masks,
+            "fused_cache_bytes": DEVICE_CACHE.stats()["bytes"],
+            "rows": {n: len(next(iter(cols.values())))
+                     for n, cols in tables.items()},
+            "calls": calls}
 
 
 def _chunk_codes_values(args):
@@ -733,9 +851,9 @@ def check_agg_scan(device, args, reps=10) -> dict:
     plain_ms = timed_ms(lambda: K.agg_scan_plain(*a, **kw), 2, device)
     spec, cols, rowmask, codes, t0, t1 = a
     rows = (t1 - t0) * 128
-    moved = sum(rows * (d.element_size() + m.element_size())
-                for d, m in cols) + rows * rowmask.element_size() + \
-        (rows * 4 if spec.factorized else 0) + nbytes(*got)
+    moved = nbytes(*[t[t0:t1] for pair in cols for t in pair],
+                   rowmask[t0:t1],
+                   codes[t0:t1] if spec.factorized else None, *got)
     idx, vals, G = _chunk_codes_values(args)
 
     def library():
@@ -771,6 +889,142 @@ def check_agg_fold(device, args, reps=10) -> dict:
             "bound_ms": bound_ms(nbytes(plane, got)), "bound_by": "bytes",
             "library_ms": library_ms,
             "shape": f"P={plane.numel() // G} G={G}"}
+
+
+def _topn_keys(spec, cols, rowmask):
+    """The transformed sort value of each row (sentinel where the mask
+    or a predicate drops it), as topn_scan orders them: the input of the
+    torch.topk yardstick."""
+    import torch
+
+    from serenedb_tpu_torch.ops import agg_kernels as K
+    n = rowmask.numel()
+    env = [(K.decode_plain(k, off, d.reshape(-1)), m.reshape(-1))
+           for (d, m), k, off in zip(cols, spec.col_kinds,
+                                     spec.col_offsets)]
+    m = rowmask.reshape(-1).clone()
+    for ops in spec.preds:
+        v, ok = K.eval_plain(ops, env, n)
+        m &= (v != 0) & ok
+    v = env[spec.key_slot][0]
+    if spec.is_float:
+        kv = v if spec.desc else -v
+        return torch.where(m, kv, torch.full_like(kv, -math.inf))
+    kv = v if spec.desc else ~v
+    return torch.where(m, kv, torch.full_like(kv, -2**31))
+
+
+def check_topn(device, args, reps=10) -> dict:
+    """topn_scan against its plain version: indices and survivor count
+    equal; torch.topk on the same transformed keys timed beside it."""
+    import torch
+
+    from serenedb_tpu_torch.ops import topn_kernels as TK
+    a, kw = args
+    spec, cols, rowmask, k = a
+    idx, nsurv = TK.topn_scan(*a, **kw)
+    ref_idx, ref_n = TK.topn_scan_plain(*a, **kw)
+    sync(device)
+    if not (torch.equal(idx, ref_idx) and torch.equal(nsurv, ref_n)):
+        fail(f"topn_scan differs from its plain version (k={k})")
+    ms = timed_ms(lambda: TK.topn_scan(*a, **kw), reps, device)
+    plain_ms = timed_ms(lambda: TK.topn_scan_plain(*a, **kw), 2, device)
+    keys = _topn_keys(spec, cols, rowmask)
+    library_ms = timed_ms(lambda: torch.topk(keys, k), reps, device)
+    moved = nbytes(*[t for pair in cols for t in pair], rowmask, idx, nsurv)
+    return {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms(moved), "bound_by": "bytes",
+            "library_ms": library_ms,
+            "shape": f"rows={rowmask.numel()} cols={len(cols)} k={k} "
+                     f"preds={len(spec.preds)} survivors={int(ref_n[0])}"}
+
+
+def check_chain(device, args, reps=10) -> dict:
+    """chain_topn against its plain version: slots, present count and
+    every gathered output equal; torch.topk on the slots' transformed
+    values timed beside it."""
+    import torch
+
+    from serenedb_tpu_torch.ops import topn_kernels as TK
+    a, kw = args
+    rowcount, src, stride, size, desc, k, outs = a
+    got = TK.chain_topn(*a, **kw)
+    ref = TK.chain_topn_plain(*a, **kw)
+    sync(device)
+    if not (torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1]) and
+            all(torch.equal(x, y) for x, y in zip(got[2], ref[2]))):
+        fail("chain_topn differs from its plain version")
+    ms = timed_ms(lambda: TK.chain_topn(*a, **kw), reps, device)
+    plain_ms = timed_ms(lambda: TK.chain_topn_plain(*a, **kw), 2, device)
+    G = rowcount.numel()
+    v = src.to(torch.int32) if src is not None else \
+        ((torch.arange(G, device=device) // stride) % size).to(torch.int32)
+    sv = torch.where(rowcount > 0, v if desc else ~v,
+                     torch.full_like(v, -2**31))
+    library_ms = timed_ms(lambda: torch.topk(sv, k), reps, device)
+    # reads rowcount and src whole (src may be rowcount itself) and the k
+    # picked rows of every other output; writes the slots, the count and
+    # the picked rows
+    whole = {t.data_ptr() for t in (rowcount, src) if t is not None}
+    moved = nbytes(rowcount, src, got[0], got[1], *got[2]) + \
+        sum(nbytes(p) for o, p in zip(outs, got[2])
+            if o.data_ptr() not in whole)
+    return {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms(moved), "bound_by": "bytes",
+            "library_ms": library_ms,
+            "shape": f"G={G} k_pad={k} outputs={len(outs)} "
+                     f"present={int(ref[1][0])}"}
+
+
+def check_join_probe(device, args, reps=10) -> dict:
+    """join_probe against its plain version: every output equal;
+    index_add_ of int64 values into the same group codes timed beside
+    it."""
+    import torch
+
+    from serenedb_tpu_torch.ops import agg_kernels as K
+    from serenedb_tpu_torch.ops import join_kernels as J
+    a, kw = args
+    spec, cols, rowmask, codes, cnt_code = a[:5]
+    right = a[5] if len(a) > 5 else kw.get("right")
+    got = J.join_probe(*a, **kw)
+    ref = J.join_probe_plain(*a, **kw)
+    sync(device)
+    for g_, r_ in zip(_raw_tensors(got), _raw_tensors(ref)):
+        if not torch.equal(g_, r_):
+            fail(f"join_probe differs from its plain version "
+                 f"({g_.dtype}, {tuple(g_.shape)})")
+    ms = timed_ms(lambda: J.join_probe(*a, **kw), reps, device)
+    plain_ms = timed_ms(lambda: J.join_probe_plain(*a, **kw), 2, device)
+    n = rowmask.numel()
+    env = [(K.decode_plain(k, off, d.reshape(-1)), m.reshape(-1))
+           for (d, m), k, off in zip(cols, spec.col_kinds,
+                                     spec.col_offsets)]
+    gc = torch.zeros(n, dtype=torch.int64, device=device)
+    for kind, slot, lo, size in spec.keys:
+        data, ok = env[slot]
+        cc = data.to(torch.int64) - (lo if kind == K.KEY_INT else 0)
+        cc = torch.where(ok, cc, torch.full_like(cc, size - 1))
+        gc = gc * size + cc.clamp(0, size - 1)
+    vals = env[0][0].to(torch.int64) if env else \
+        torch.ones(n, dtype=torch.int64, device=device)
+
+    def library():
+        torch.zeros(spec.G, dtype=torch.int64, device=device).index_add_(
+            0, gc, vals)
+    library_ms = timed_ms(library, reps, device)
+    ins = [t for pair in cols for t in pair] + [rowmask, codes, cnt_code] + \
+        [t for x in spec.aggs for t in x.src if t is not None]
+    if right is not None:
+        _u, bcols, brow, bcodes = right
+        ins += [t for pair in bcols for t in pair] + [brow, bcodes]
+    moved = nbytes(*ins, *_raw_tensors(got))
+    return {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms(moved), "bound_by": "bytes",
+            "library_ms": library_ms,
+            "shape": f"probe rows={n} G={spec.G} g={spec.g} "
+                     f"entries={[x.kind for x in spec.aggs]} "
+                     f"right={right is not None}"}
 
 
 def time_dense_gemms(device, args, reps=5) -> dict:
@@ -811,6 +1065,7 @@ def main() -> int:
               file=sys.stderr)
         return 2
     try:
+        from serenedb_tpu_torch.bench.tpch import tpch_tables
         from serenedb_tpu_torch.device import resolve_device
         from serenedb_tpu_torch.ops import _build
     except ImportError as e:
@@ -820,10 +1075,10 @@ def main() -> int:
     device = resolve_device(None)
 
     # 1. the card
-    name = torch.cuda.get_device_name(0)
+    card_name = torch.cuda.get_device_name(0)
     count = torch.cuda.device_count()
     card = card_line()
-    print(f"[1] device: {name} x{count}; nvidia-smi: {card}", flush=True)
+    print(f"[1] device: {card_name} x{count}; nvidia-smi: {card}", flush=True)
 
     # 2. build
     t0 = time.perf_counter()
@@ -880,74 +1135,113 @@ def main() -> int:
           flush=True)
     print(f"    total {time.perf_counter() - t_start:.1f} s", flush=True)
 
-    # 6-8. the analytics path through Database.execute
+    # 6-9. the SQL paths through Database.execute
+    from serenedb_tpu_torch.utils.config import REGISTRY as settings
+    settings.set_global("serene_device_cache_mb", DEVICE_CACHE_MB)
     sql = {}
-    for label, table, columns, queries, exact in (
-            ("q1", "hits", lambda: q1_columns(100_000_000), Q1_QUERIES,
+    for label, tables, queries, exact in (
+            ("q1", lambda: {"hits": q1_columns(100_000_000)},
+             [(q, AGG) for q in Q1_QUERIES] + [(q, TOPN) for q in Q1_TOPN],
              True),
-            ("hits", "hits", lambda: hits_columns(10_000_000), HITS_QUERIES,
-             True),
-            ("float", "fl", lambda: float_columns(10_000_000),
-             FLOAT_QUERIES, False)):
+            ("hits", lambda: {"hits": hits_columns(10_000_000)},
+             [(q, AGG) for q in HITS_QUERIES] +
+             [(q, TOPN) for q in HITS_TOPN], True),
+            ("float", lambda: {"fl": float_columns(10_000_000)},
+             [(q, AGG) for q in FLOAT_QUERIES], False),
+            ("tpch", tpch_tables,
+             [(q, {1: CHAIN, 4: OUTER_RIGHT}.get(qi, JOIN))
+              for qi, q in enumerate(TPCH_QUERIES)], True)):
         t0 = time.perf_counter()
-        cols = columns()
+        cols = tables()
         gen_s = time.perf_counter() - t0
-        r = phase_sql(device, label, table, cols, queries, exact)
+        r = phase_sql(device, label, cols, queries, exact)
         del cols
         r["gen_s"] = gen_s
         sql[label] = r
-        phase = {"q1": 6, "hits": 7, "float": 8}[label]
+        phase = {"q1": 6, "hits": 7, "float": 8, "tpch": 9}[label]
         rule = "cpu == cold == warm" if exact else \
             f"within rel {SQL_REL} / abs {SQL_ABS} of cpu, runs bit-identical"
-        print(f"[{phase}] {label}: {r['rows']} rows (generated in "
+        print(f"[{phase}] {label}: rows {r['rows']} (generated in "
               f"{gen_s:.1f} s); cpu {r['cpu_s']:.3f} s, cold "
-              f"{r['cold_s']:.3f} s, warm {r['warm_s']:.3f} s; warm ms per "
-              f"query {[round(x, 3) for x in r['warm_ms']]}; cold ms "
-              f"{[round(x, 3) for x in r['cold_ms']]}; tiles "
-              f"{r['tile_bytes']} B (raw int32 {r['tile_bytes_raw_int32']} "
-              f"B, masks {r['mask_bytes']} B); peak device memory "
-              f"{r['peak_bytes']} B; {rule}; agg_scan launched for every "
-              f"query; launches {r['launches']}", flush=True)
+              f"{r['cold_s']:.3f} s, warm {r['warm_s']:.3f} s; cpu ms per "
+              f"query {[round(x, 3) for x in r['cpu_ms']]}; warm ms "
+              f"{[round(x, 3) for x in r['warm_ms']]}; cold ms "
+              f"{[round(x, 3) for x in r['cold_ms']]}; uploaded bytes cold "
+              f"{r['cold_upload_bytes']} warm {r['warm_upload_bytes']}; "
+              f"tiles {r['tile_bytes']} B (raw int32 "
+              f"{r['tile_bytes_raw_int32']} B, masks {r['mask_bytes']} B), "
+              f"fused-tier cache {r['fused_cache_bytes']} B; peak device "
+              f"memory {r['peak_bytes']} B; {rule}; every query's kernels "
+              f"launched, no fused decline; launches {r['launches']}",
+              flush=True)
     if not sql["float"]["launches"].get("agg_fold"):
         fail("float phase: agg_fold never launched")
+    if sql["tpch"]["warm_upload_bytes"][1] != 0:
+        fail(f"J2's warm repeat uploaded "
+             f"{sql['tpch']['warm_upload_bytes'][1]} bytes")
 
-    # 9. the analytics kernels against their plain versions
-    scan_args = {**sql["q1"].pop("scan_calls"), **sql["hits"].pop(
-        "scan_calls"), **sql["float"].pop("scan_calls")}
-    fold_args = sql["float"].pop("fold_calls")
+    # 10. the analytics, top-N and join kernels against their plain versions
+    calls = {}
+    for r in sql.values():
+        for wrapper, by_query in r.pop("calls").items():
+            calls.setdefault(wrapper, {}).update(by_query)
+
+    def recorded(wrapper, key, what):
+        if key not in calls.get(wrapper, {}):
+            fail(f"{wrapper}'s inputs for {what} were not recorded")
+        return calls[wrapper][key]
+
     picks = {"q1 GROUP BY region": ("q1", 2), "hits Q16": ("hits", 4),
              "float GROUP BY k": ("float", 0),
-             "float GROUP BY k2": ("float", 1), "float scalar": ("float", 2)}
-    agg_checks = {}
+             "float GROUP BY k2": ("float", 1), "float scalar": ("float", 2),
+             "J1 build": ("tpch", 0)}
+    checks = {}
     for what, key in picks.items():
-        if key not in scan_args:
-            fail(f"agg_scan's inputs for {what} were not recorded")
-        agg_checks[what] = check_agg_scan(device, scan_args[key])
-    if ("float", 0) not in fold_args:
-        fail("agg_fold's inputs were not recorded")
-    fold = check_agg_fold(device, fold_args[("float", 0)])
-    for what, r in [*agg_checks.items(), ("agg_fold", fold)]:
-        print(f"[9] {what} ({r['shape']}): kernel {r['ms']:.4f} ms, plain "
+        checks[what] = check_agg_scan(device,
+                                      recorded("agg_scan", key, what))
+    checks["agg_fold"] = check_agg_fold(
+        device, recorded("agg_fold", ("float", 0), "float GROUP BY k"))
+    checks["T1 topn_scan"] = check_topn(
+        device, recorded("topn_scan", ("q1", 3), "T1"))
+    checks["T2 topn_scan"] = check_topn(
+        device, recorded("topn_scan", ("q1", 4), "T2"))
+    checks["J2 chain_topn"] = check_chain(
+        device, recorded("chain_topn", ("tpch", 1), "J2"))
+    checks["J1 join_probe"] = check_join_probe(
+        device, recorded("join_probe", ("tpch", 0), "J1"))
+    checks["J4 join_probe"] = check_join_probe(
+        device, recorded("join_probe", ("tpch", 3), "J4"))
+    j5 = recorded("join_probe", ("tpch", 4), "J5")
+    if (j5[0][5] if len(j5[0]) > 5 else j5[1].get("right")) is None:
+        fail("J5 (RIGHT JOIN) did not reach join_unmatched")
+    checks["J5 join_probe + join_unmatched"] = check_join_probe(device, j5)
+    for what, r in checks.items():
+        lib = "null" if r["library_ms"] is None else \
+            f"{r['library_ms']:.4f} ms"
+        print(f"[10] {what} ({r['shape']}): kernel {r['ms']:.4f} ms, plain "
               f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms, "
-              f"library {r['library_ms']:.4f} ms, max |err| "
-              f"{r['max_abs_err']:.3g}", flush=True)
+              f"library {lib}, max |err| {r['max_abs_err']:.3g}",
+              flush=True)
     if dense.get("gemm_args") is None:
         fail("dense_topk's inputs were not recorded")
     gemm = time_dense_gemms(device, dense.pop("gemm_args"))
-    print(f"[9] dense_topk GEMMs {gemm['shape']}, TF32 off: scores "
+    print(f"[10] dense_topk GEMMs {gemm['shape']}, TF32 off: scores "
           f"{gemm['score_ms']:.3f} ms, hits {gemm['hits_ms']:.3f} ms, bound "
           f"{gemm['bound_ms']:.3f} ms for both ({gemm['gflop']:.1f} GFLOP at "
           f"{F32_FLOPS / 1e12:.0f} TFLOP/s)", flush=True)
     print(f"    total {time.perf_counter() - t_start:.1f} s", flush=True)
 
-    # 10. result lines
+    # 11. result lines
     launches = {}
     for window in (dense["launches"], packed["launches"],
                    *(r["launches"] for r in sql.values())):
         for kname, n in window.items():
             launches[kname] = launches.get(kname, 0) + n
-    results["agg_scan"] = agg_checks["q1 GROUP BY region"]
-    results["agg_fold"] = fold
+    results["agg_scan"] = checks["q1 GROUP BY region"]
+    results["agg_fold"] = checks["agg_fold"]
+    results["topn_scan"] = checks["T1 topn_scan"]
+    results["chain_topn"] = checks["J2 chain_topn"]
+    results["join_probe"] = checks["J1 join_probe"]
     kernels = []
     for kname, r in results.items():
         kernels.append({
@@ -959,7 +1253,7 @@ def main() -> int:
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": name, "count": count}}))
+        "platform": "gpu", "kind": card_name, "count": count}}))
     return 0
 
 

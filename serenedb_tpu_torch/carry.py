@@ -73,16 +73,20 @@ _TYPE_OF_DTYPE = {np.dtype(np.bool_): dt.BOOL, np.dtype(np.int8): dt.TINYINT,
 
 def memtable_from_reference(name: str, columns: dict) -> MemTable:
     """The port's MemTable from a reference table's columns, given as
-    {column name: (data, validity or None, dictionary or None)} — the
-    reference `Column`'s fields. A column with a dictionary is VARCHAR
-    (data holds its codes); the others take their type from the data's
-    dtype (bool, int8/16/32/64, float32/64)."""
+    {column name: (data, validity or None, dictionary or None[, type
+    name])} — the reference `Column`'s fields. A column with a dictionary
+    is VARCHAR (data holds its codes); the others take the named type
+    (a `TypeId` name such as "DATE") or, without one, their type from the
+    data's dtype (bool, int8/16/32/64, float32/64)."""
     cols = []
-    for cname, (data, validity, dictionary) in columns.items():
+    for cname, fields in columns.items():
+        data, validity, dictionary = fields[:3]
         data = np.array(data, copy=True)
         if dictionary is not None:
             typ = dt.VARCHAR
             dictionary = np.array(dictionary, dtype=object, copy=True)
+        elif len(fields) > 3:
+            typ = dt.SqlType(dt.TypeId[fields[3]])
         else:
             typ = _TYPE_OF_DTYPE.get(data.dtype)
             if typ is None:

@@ -57,11 +57,12 @@ class DeviceExpr:
     drops the publication must include."""
 
     def __init__(self, ops: tuple, inputs: list[int], type_: str,
-                 consts: tuple = ()):
+                 consts: tuple = (), depth: int = 1):
         self.ops = ops
         self.inputs = inputs
         self.type = type_
         self.consts = consts
+        self.depth = depth      # stack entries the program needs
 
     def remap(self, slot_of: dict[int, int]) -> tuple:
         """The program with its input slots renumbered to a scan's slots
@@ -232,5 +233,5 @@ def compile_expr(expr: BoundExpr, col_types: list[dt.SqlType],
     ops, top, depth = rec(expr)
     if depth > K.MAX_STACK:
         raise NotCompilable(f"expression needs a stack of {depth} "
-                            f"(device limit {K.MAX_STACK})")
-    return DeviceExpr(tuple(ops), inputs, top, tuple(consts))
+                            f"(device limit {K.MAX_STACK})", "device_stack")
+    return DeviceExpr(tuple(ops), inputs, top, tuple(consts), depth)

@@ -348,11 +348,7 @@ def _scan_spec(compiled_preds, key_plans, factorized: bool, G: int,
         aggs.append(K.ScanAgg(kind, ops))
     keys = [(K.KEY_DICT if kind == "dict" else K.KEY_INT, slot_of[idx], lo,
              size) for kind, idx, lo, size in key_plans]
-    # a predicate's value is a boolean, as `program` takes it (v != 0)
-    tobool = {"f": ((K.OP_TOBOOL_F, 0, 0),), "b": ()}
-    preds = [ce.remap(slot_of) +
-             tobool.get(ce.type, ((K.OP_TOBOOL_I, 0, 0),))
-             for ce in compiled_preds]
+    preds = [pred_program(ce, slot_of) for ce in compiled_preds]
     if len(keys) > K.MAX_KEYS or len(preds) > K.MAX_PREDS or \
             len(aggs) > K.MAX_AGGS or \
             sum(map(len, preds)) + sum(len(a.ops or ()) for a in aggs) > \
@@ -361,6 +357,14 @@ def _scan_spec(compiled_preds, key_plans, factorized: bool, G: int,
     return K.ScanSpec([k for k, _ in decode_specs],
                       [o for _, o in decode_specs], preds, keys, factorized,
                       G, aggs)
+
+
+def pred_program(ce, slot_of: dict) -> tuple:
+    """A predicate's program over the scan slots, its value made a
+    boolean, as the reference's programs take it (v != 0)."""
+    tobool = {"f": ((K.OP_TOBOOL_F, 0, 0),), "b": ()}
+    return ce.remap(slot_of) + tobool.get(ce.type,
+                                          ((K.OP_TOBOOL_I, 0, 0),))
 
 
 def _chunk_outputs(spec: K.ScanSpec, agg_plans, distinct_plans, raw,

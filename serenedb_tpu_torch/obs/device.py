@@ -3,8 +3,14 @@ part of serenedb_tpu/obs/device.py the analytics path uses).
 
 - `compiled(family, key, builder)`: the reference's jit ledger. The port
   has nothing to jit: a "program" is the lowered scan description that
-  `exec/device_agg.py` hands to the `agg_scan` kernel, built once per key
-  and kept in a bounded LRU (`serene_program_cache_entries`).
+  the device tier hands to its kernels, built once per key and kept in a
+  bounded LRU (`serene_program_cache_entries`), with per-family hit and
+  miss counts (`programs()`, gated on `serene_device_telemetry`, as the
+  reference's ledger is).
+- `note_fused_decline(reason)` / `fused_declines()`: the fused tier's
+  per-reason decline counts (queries that fell back to the host path).
+- `stats_section()`: the program ledger, the device column cache and the
+  decline counts in one payload.
 - `fetch_all(outs)`: device→host readback of a program's outputs as numpy
   arrays.
 - `note_upload(nbytes)`: one host→device upload, counted in
@@ -20,6 +26,7 @@ from typing import Callable
 import numpy as np
 
 from ..device import UPLOADS
+from ..utils import metrics
 from ..utils.config import REGISTRY as _settings
 
 
@@ -27,26 +34,58 @@ def _cap() -> int:
     return max(1, int(_settings.get_global("serene_program_cache_entries")))
 
 
+def enabled() -> bool:
+    """The telemetry switch the reference's ledger keys off."""
+    return bool(_settings.get_global("serene_device_telemetry"))
+
+
 class ProgramCache:
-    """Bounded LRU of built programs keyed by (family, key)."""
+    """Bounded LRU of built programs keyed by (family, key), with
+    per-family hit/miss/eviction counts."""
 
     def __init__(self) -> None:
         self._lock = threading.Lock()
         self._progs: OrderedDict = OrderedDict()
+        self._fams: dict[str, dict] = {}
+
+    def _count(self, family: str, what: str) -> None:
+        fam = self._fams.setdefault(
+            family, {"hits": 0, "misses": 0, "evictions": 0})
+        fam[what] += 1
 
     def get(self, family: str, key: tuple, builder: Callable):
         k = (family, key)
+        on = enabled()
         with self._lock:
             prog = self._progs.get(k)
             if prog is not None:
                 self._progs.move_to_end(k)
+                if on:
+                    self._count(family, "hits")
+                    metrics.DEVICE_PROGRAM_HITS.add()
                 return prog
         prog = builder()
         with self._lock:
             self._progs[k] = prog
+            if on:
+                self._count(family, "misses")
+                metrics.DEVICE_PROGRAM_MISSES.add()
             while len(self._progs) > _cap():
-                self._progs.popitem(last=False)
+                (efam, _ekey), _ = self._progs.popitem(last=False)
+                if on:
+                    self._count(efam, "evictions")
+                    metrics.DEVICE_PROGRAM_EVICTIONS.add()
         return prog
+
+    def snapshot(self) -> list[dict]:
+        """One row per program family, sorted (the reference's
+        sdb_programs() relation, less its compile timings)."""
+        with self._lock:
+            per_fam: dict[str, int] = {}
+            for fam, _k in self._progs:
+                per_fam[fam] = per_fam.get(fam, 0) + 1
+            return [{"family": fam, "entries": per_fam.get(fam, 0), **f}
+                    for fam, f in sorted(self._fams.items())]
 
 
 PROGRAMS = ProgramCache()
@@ -55,6 +94,43 @@ PROGRAMS = ProgramCache()
 def compiled(family: str, key: tuple, builder: Callable):
     """The program for `key`, built by `builder()` on a miss."""
     return PROGRAMS.get(family, key, builder)
+
+
+# -- fused-tier decline accounting -------------------------------------------
+
+#: reason slug → count of fused-tier declines (queries that fell back to
+#: the host path, and why)
+_FUSED_DECLINES: dict[str, int] = {}
+_fused_declines_lock = threading.Lock()
+
+
+def note_fused_decline(reason: str, profile=None, node_key=None) -> None:
+    """One fused-tier fallback: count it per reason slug, bump the
+    per-reason `DeviceFusedDeclines_<reason>` gauge, and stamp the reason
+    onto the plan operator for EXPLAIN ANALYZE."""
+    reason = str(reason)[:64]
+    with _fused_declines_lock:
+        _FUSED_DECLINES[reason] = _FUSED_DECLINES.get(reason, 0) + 1
+    metrics.REGISTRY.gauge(
+        f"DeviceFusedDeclines_{reason}",
+        "fused device pipeline declines for this reason (query fell "
+        "back to the host path)").add()
+    if profile is not None and node_key is not None:
+        profile.stats(node_key).device_declined = reason
+
+
+def fused_declines() -> dict[str, int]:
+    with _fused_declines_lock:
+        return dict(sorted(_FUSED_DECLINES.items()))
+
+
+def stats_section() -> dict:
+    """The program ledger, the device column cache's summary and the
+    fused decline counts."""
+    from ..exec.device_pipeline import DEVICE_CACHE
+    return {"programs": PROGRAMS.snapshot(),
+            "column_cache": DEVICE_CACHE.stats(),
+            "fused_declines": fused_declines()}
 
 
 def fetch_all(outs) -> list:

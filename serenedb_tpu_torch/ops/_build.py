@@ -21,7 +21,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
-SOURCES = {"bm25": CSRC / "bm25.cu", "agg": CSRC / "agg.cu"}
+SOURCES = {"bm25": CSRC / "bm25.cu", "agg": CSRC / "agg.cu",
+           "topn": CSRC / "topn.cu", "join": CSRC / "join.cu"}
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
@@ -51,6 +52,15 @@ SIGNATURES = {
         "agg_scan": [_P, _L, _P],
         "agg_fold": [_P, _L, _L, _P, _P],
     },
+    "topn": {
+        "topn_scan": [_P, _L, _L, _P, _P, _P, _P, _P, _P],
+        "chain_topn": [_P, _P, _L, _L, _L, _I, _L, _P, _P, _P, _P, _P, _P,
+                       _I, _P, _P, _P, _P],
+    },
+    "join": {
+        "join_probe": [_P, _L, _P],
+        "join_unmatched": [_P, _L, _P],
+    },
 }
 
 _lock = threading.Lock()
@@ -72,7 +82,10 @@ def nvcc_path() -> str:
 
 def _target(name: str) -> Path:
     src = SOURCES[name]
-    h = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    # the shared headers are part of every source
+    h = hashlib.sha256(src.read_bytes() + b"".join(
+        p.read_bytes() for p in sorted(CSRC.glob("*.cuh"))) +
+        " ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
 
 

@@ -43,7 +43,7 @@ from . import _build
 (OP_COL, OP_I32, OP_F32, OP_NULL, OP_I2F, OP_F2I, OP_TOBOOL_I, OP_TOBOOL_F,
  OP_NOT, OP_AND, OP_OR, OP_IS_NULL, OP_IS_NOT_NULL, OP_CMP_I, OP_CMP_F,
  OP_ADD_I, OP_SUB_I, OP_MUL_I, OP_ADD_F, OP_SUB_F, OP_MUL_F, OP_WRAP8,
- OP_SETV, OP_SHRA, OP_SHRL, OP_ANDI) = range(26)
+ OP_SETV, OP_SHRA, OP_SHRL, OP_ANDI, OP_GATE) = range(27)
 #: comparison codes (the `arg` of OP_CMP_*)
 CMP_CODES = {"=": 0, "<>": 1, "!=": 1, "<": 2, "<=": 3, ">": 4, ">=": 5}
 # column decode kinds
@@ -222,10 +222,13 @@ def eval_plain(ops, env: list, n: int):
             stack.append((torch.zeros(n, dtype=torch.int32, device=dev),
                           torch.zeros(n, dtype=torch.bool, device=dev)))
         elif op in (OP_AND, OP_OR, OP_CMP_I, OP_CMP_F, OP_ADD_I, OP_SUB_I,
-                    OP_MUL_I, OP_ADD_F, OP_SUB_F, OP_MUL_F):
+                    OP_MUL_I, OP_ADD_F, OP_SUB_F, OP_MUL_F, OP_GATE):
             (b, okb), (a, oka) = stack.pop(), stack.pop()
             ok = oka & okb
-            if op in (OP_AND, OP_OR):
+            if op == OP_GATE:
+                # a, valid only where the boolean b is TRUE
+                stack.append((a, ok & (b != 0)))
+            elif op in (OP_AND, OP_OR):
                 any_null = ~oka | ~okb
                 if op == OP_AND:
                     f = (oka & ~a) | (okb & ~b)
@@ -434,43 +437,59 @@ def agg_scan_plain(spec: ScanSpec, cols, rowmask, codes, tile_start: int,
     return rowcount, outs
 
 
-def _descriptor(spec: ScanSpec, cols, rowmask, codes, rowcount, outs,
-                tile_start: int, tile_end: int, P: int, rpw: int
-                ) -> np.ndarray:
+def new_descriptor(cols, col_kinds, col_offsets, keys=(), preds=()):
+    """A scan descriptor (csrc/expr.cuh) with its column, key and
+    predicate sections filled, and `place(prog) -> (start, count)`, which
+    appends a program to the op section. Call `finish_descriptor` last."""
     d = np.zeros(DESC_WORDS, dtype=np.int64)
-    d[_H_NCOLS], d[_H_NKEYS] = len(cols), len(spec.keys)
-    d[_H_FACT] = int(spec.factorized)
-    d[_H_NPREDS], d[_H_NAGGS], d[_H_G] = len(spec.preds), len(spec.aggs), \
-        spec.G
-    d[_H_ROWMASK] = rowmask.data_ptr()
-    d[_H_CODES] = codes.data_ptr() if spec.factorized else 0
-    d[_H_ROWCOUNT] = rowcount.data_ptr()
-    d[_H_ROW_START], d[_H_ROW_END] = tile_start * 128, tile_end * 128
-    d[_H_RPW], d[_H_P] = rpw, P
+    ops: list = []
+    d[_H_NCOLS], d[_H_NKEYS], d[_H_NPREDS] = len(cols), len(keys), \
+        len(preds)
     for i, ((data, mask), kind, off) in enumerate(
-            zip(cols, spec.col_kinds, spec.col_offsets)):
+            zip(cols, col_kinds, col_offsets)):
         d[_COLS + _COL_W * i: _COLS + _COL_W * (i + 1)] = \
             (data.data_ptr(), mask.data_ptr(), kind, off)
-    for i, key in enumerate(spec.keys):
+    for i, key in enumerate(keys):
         d[_KEYS + _KEY_W * i: _KEYS + _KEY_W * (i + 1)] = key
-    ops: list = []
 
     def place(prog) -> tuple[int, int]:
         start = len(ops)
         ops.extend(prog)
         return start, len(prog)
 
-    for i, prog in enumerate(spec.preds):
+    for i, prog in enumerate(preds):
         d[_PREDS + _PRED_W * i: _PREDS + _PRED_W * (i + 1)] = place(prog)
+    return d, place, ops
+
+
+def finish_descriptor(d: np.ndarray, ops: list) -> np.ndarray:
+    """Write the op section: one word per op, imm << 32 | arg << 8 | op."""
+    if len(ops) > MAX_OPS:
+        raise ValueError("programs exceed the kernel's descriptor")
+    for i, (op, arg, imm) in enumerate(ops):
+        imm32 = imm - 2**32 if imm >= 2**31 else imm
+        d[_OPS + i] = (imm32 << 32) | (arg << 8) | op
+    return d
+
+
+def _descriptor(spec: ScanSpec, cols, rowmask, codes, rowcount, outs,
+                tile_start: int, tile_end: int, P: int, rpw: int
+                ) -> np.ndarray:
+    d, place, ops = new_descriptor(cols, spec.col_kinds, spec.col_offsets,
+                                   spec.keys, spec.preds)
+    d[_H_FACT] = int(spec.factorized)
+    d[_H_NAGGS], d[_H_G] = len(spec.aggs), spec.G
+    d[_H_ROWMASK] = rowmask.data_ptr()
+    d[_H_CODES] = codes.data_ptr() if spec.factorized else 0
+    d[_H_ROWCOUNT] = rowcount.data_ptr()
+    d[_H_ROW_START], d[_H_ROW_END] = tile_start * 128, tile_end * 128
+    d[_H_RPW], d[_H_P] = rpw, P
     for i, (a, out) in enumerate(zip(spec.aggs, outs)):
         start, count = place(a.ops or ())
         ptrs = [t.data_ptr() for t in out] + [0] * (3 - len(out))
         d[_AGGS + _AGG_W * i: _AGGS + _AGG_W * (i + 1)] = \
             (a.kind, start, count, *ptrs, a.pslot, a.pkind, a.plo, a.pvsize)
-    for i, (op, arg, imm) in enumerate(ops):
-        imm32 = imm - 2**32 if imm >= 2**31 else imm
-        d[_OPS + i] = (imm32 << 32) | (arg << 8) | op
-    return d
+    return finish_descriptor(d, ops)
 
 
 def agg_scan(spec: ScanSpec, cols, rowmask: torch.Tensor,

@@ -49,217 +49,25 @@
 //    plane[1,g]) + ... in f32, one thread per group, p in order.
 //    Bound: bytes — the plane is read once.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "expr.cuh"
 
 namespace {
 
-// descriptor layout (int64 words), see ops/agg_kernels.py
-constexpr int DESC_WORDS = 480;
-// (word 0 holds the column count, which the kernel does not need)
-constexpr int H_NKEYS = 1, H_FACT = 2, H_NPREDS = 3,
-              H_NAGGS = 4, H_G = 5, H_ROWMASK = 6, H_CODES = 7,
-              H_ROWCOUNT = 8, H_ROW_START = 9, H_ROW_END = 10, H_RPW = 11,
-              H_P = 12;
-constexpr int D_COLS = 16, D_KEYS = 80, D_PREDS = 112, D_AGGS = 128,
-              D_OPS = 288;
-constexpr int COL_W = 4, KEY_W = 4, PRED_W = 2, AGG_W = 10;
-constexpr int MAX_AGGS = 16, MAX_STACK = 8;
+using namespace expr;
 
-enum {
-  OP_COL, OP_I32, OP_F32, OP_NULL, OP_I2F, OP_F2I, OP_TOBOOL_I, OP_TOBOOL_F,
-  OP_NOT, OP_AND, OP_OR, OP_IS_NULL, OP_IS_NOT_NULL, OP_CMP_I, OP_CMP_F,
-  OP_ADD_I, OP_SUB_I, OP_MUL_I, OP_ADD_F, OP_SUB_F, OP_MUL_F, OP_WRAP8,
-  OP_SETV, OP_SHRA, OP_SHRL, OP_ANDI
-};
-enum { COL_I32, COL_I8, COL_F32, COL_U8, COL_U16 };
+// agg_scan's header words (ops/agg_kernels.py); word 0 holds the column
+// count, which the kernel does not need
+constexpr int H_FACT = 2, H_G = 5, H_CODES = 7, H_ROWCOUNT = 8,
+              H_ROW_START = 9, H_ROW_END = 10, H_RPW = 11, H_P = 12;
+
 enum {
   AGG_COUNT, AGG_SUM_I, AGG_SUM_F, AGG_MIN_I, AGG_MAX_I, AGG_MIN_F,
   AGG_MAX_F, AGG_PRESENCE
 };
-enum { KEY_DICT, KEY_INT };
 enum { RED_SUM, RED_MIN, RED_MAX };
 
 constexpr int WARPS = 8;
 constexpr int THREADS = WARPS * 32;
-constexpr unsigned FULL = 0xffffffffu;
-constexpr uint32_t IMG_POS_INF = 0xFF800000u;  // image of +inf
-constexpr uint32_t IMG_NEG_INF = 0x007FFFFFu;  // image of -inf
-
-template <typename T>
-__device__ __forceinline__ T* ptr(long long w) {
-  return reinterpret_cast<T*>(static_cast<uintptr_t>(w));
-}
-
-// Order-preserving u32 image of an f32 (bits given), NaN canonicalised.
-__device__ __forceinline__ uint32_t image(uint32_t bits) {
-  if ((bits & 0x7F800000u) == 0x7F800000u && (bits & 0x007FFFFFu))
-    bits = 0x7FC00000u;
-  return (bits & 0x80000000u) ? ~bits : (bits | 0x80000000u);
-}
-
-__device__ __forceinline__ bool is_nan_bits(uint32_t bits) {
-  return (bits & 0x7F800000u) == 0x7F800000u && (bits & 0x007FFFFFu);
-}
-
-// Decoded value (32-bit pattern) and validity of one input slot at `row`.
-__device__ __forceinline__ uint32_t load_col(const long long* d, int slot,
-                                             long long row, bool& ok) {
-  const long long* c = d + D_COLS + COL_W * slot;
-  ok = ptr<const uint8_t>(c[1])[row] != 0;
-  const uint32_t off = static_cast<uint32_t>(c[3]);
-  switch (static_cast<int>(c[2])) {
-    case COL_I8:
-      return static_cast<uint32_t>(
-          static_cast<int32_t>(ptr<const int8_t>(c[0])[row]));
-    case COL_U8:
-      return static_cast<uint32_t>(ptr<const uint8_t>(c[0])[row]) + off;
-    case COL_U16:
-      return static_cast<uint32_t>(ptr<const uint16_t>(c[0])[row]) + off;
-    default:  // COL_I32, COL_F32: the bits as they are
-      return ptr<const uint32_t>(c[0])[row];
-  }
-}
-
-template <typename T>
-__device__ __forceinline__ uint32_t compare(T a, T b, int code) {
-  switch (code) {
-    case 0: return a == b;
-    case 1: return a != b;
-    case 2: return a < b;
-    case 3: return a <= b;
-    case 4: return a > b;
-    default: return a >= b;
-  }
-}
-
-// Run the postfix program ops[start, start+count) for one row.
-__device__ void eval_expr(const long long* d, int start, int count,
-                          long long row, uint32_t& out_v, bool& out_ok) {
-  uint32_t sv[MAX_STACK];
-  bool so[MAX_STACK];
-  int sp = 0;
-  for (int i = 0; i < count; ++i) {
-    const long long w = d[D_OPS + start + i];
-    const int op = static_cast<int>(w & 0xFF);
-    const int arg = static_cast<int>((w >> 8) & 0xFFFFFF);
-    const uint32_t imm =
-        static_cast<uint32_t>(static_cast<unsigned long long>(w) >> 32);
-    switch (op) {
-      case OP_COL: {
-        bool ok;
-        sv[sp] = load_col(d, arg, row, ok);
-        so[sp] = ok;
-        ++sp;
-        break;
-      }
-      case OP_I32:
-      case OP_F32:
-        sv[sp] = imm;
-        so[sp] = true;
-        ++sp;
-        break;
-      case OP_NULL:
-        sv[sp] = 0;
-        so[sp] = false;
-        ++sp;
-        break;
-      case OP_I2F:
-        sv[sp - 1] = __float_as_uint(
-            __int2float_rn(static_cast<int>(sv[sp - 1])));
-        break;
-      case OP_F2I: {
-        // PG rounding, half away from zero; the convert saturates and
-        // takes NaN to 0 (as XLA's does)
-        const float f = __uint_as_float(sv[sp - 1]);
-        const float r = copysignf(floorf(__fadd_rn(fabsf(f), 0.5f)), f);
-        sv[sp - 1] = static_cast<uint32_t>(__float2int_rz(r));
-        break;
-      }
-      case OP_TOBOOL_I:
-        sv[sp - 1] = sv[sp - 1] != 0u;
-        break;
-      case OP_TOBOOL_F:
-        sv[sp - 1] = __uint_as_float(sv[sp - 1]) != 0.0f;
-        break;
-      case OP_NOT:
-        sv[sp - 1] ^= 1u;
-        break;
-      case OP_IS_NULL:
-        sv[sp - 1] = !so[sp - 1];
-        so[sp - 1] = true;
-        break;
-      case OP_IS_NOT_NULL:
-        sv[sp - 1] = so[sp - 1];
-        so[sp - 1] = true;
-        break;
-      case OP_WRAP8:
-        sv[sp - 1] = static_cast<uint32_t>(static_cast<int32_t>(
-            static_cast<int8_t>(static_cast<uint8_t>(sv[sp - 1] & 0xFFu))));
-        break;
-      case OP_SETV:
-        sv[sp - 1] = imm;
-        break;
-      case OP_SHRA:
-        sv[sp - 1] = static_cast<uint32_t>(
-            static_cast<int32_t>(sv[sp - 1]) >> imm);
-        break;
-      case OP_SHRL:
-        sv[sp - 1] >>= imm;
-        break;
-      case OP_ANDI:
-        sv[sp - 1] &= imm;
-        break;
-      default: {  // binary ops
-        --sp;
-        const uint32_t a = sv[sp - 1], b = sv[sp];
-        const bool oa = so[sp - 1], ob = so[sp];
-        bool ok = oa && ob;
-        uint32_t v;
-        switch (op) {
-          case OP_AND: {
-            const bool f = (oa && !a) || (ob && !b);
-            v = !f;
-            ok = f || ok;
-            break;
-          }
-          case OP_OR: {
-            const bool t = (oa && a) || (ob && b);
-            v = t;
-            ok = t || ok;
-            break;
-          }
-          case OP_CMP_I:
-            v = compare(static_cast<int32_t>(a), static_cast<int32_t>(b),
-                        arg);
-            break;
-          case OP_CMP_F:
-            v = compare(__uint_as_float(a), __uint_as_float(b), arg);
-            break;
-          case OP_ADD_I: v = a + b; break;  // wraps, as XLA's int32 does
-          case OP_SUB_I: v = a - b; break;
-          case OP_MUL_I: v = a * b; break;
-          case OP_ADD_F:
-            v = __float_as_uint(__fadd_rn(__uint_as_float(a),
-                                          __uint_as_float(b)));
-            break;
-          case OP_SUB_F:
-            v = __float_as_uint(__fsub_rn(__uint_as_float(a),
-                                          __uint_as_float(b)));
-            break;
-          default:  // OP_MUL_F
-            v = __float_as_uint(__fmul_rn(__uint_as_float(a),
-                                          __uint_as_float(b)));
-            break;
-        }
-        sv[sp - 1] = v;
-        so[sp - 1] = ok;
-      }
-    }
-  }
-  out_v = sv[0];
-  out_ok = so[0];
-}
 
 __device__ __forceinline__ long long combine(long long x, long long y,
                                              int red) {
@@ -290,12 +98,9 @@ __global__ void __launch_bounds__(THREADS)
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const long long p = static_cast<long long>(blockIdx.x) * WARPS + warp;
   const int G = static_cast<int>(d[H_G]);
-  const int n_preds = static_cast<int>(d[H_NPREDS]);
-  const int n_keys = static_cast<int>(d[H_NKEYS]);
   const int n_aggs = static_cast<int>(d[H_NAGGS]);
   const bool fact = d[H_FACT] != 0;
   const bool scalar = G == 1;
-  const uint8_t* rowmask = ptr<const uint8_t>(d[H_ROWMASK]);
   const int32_t* codes = ptr<const int32_t>(d[H_CODES]);
   unsigned long long* rowcount = ptr<unsigned long long>(d[H_ROWCOUNT]);
   const long long rpw = d[H_RPW];
@@ -325,31 +130,9 @@ __global__ void __launch_bounds__(THREADS)
   for (long long base = r0; base < r1; base += 32) {
     const long long row = base + lane;
     const bool in = row < r1;
-    bool m = in && rowmask[row] != 0;
-    for (int k = 0; k < n_preds && m; ++k) {
-      uint32_t v;
-      bool ok;
-      eval_expr(d, static_cast<int>(d[D_PREDS + PRED_W * k]),
-                static_cast<int>(d[D_PREDS + PRED_W * k + 1]), row, v, ok);
-      m = ok && v != 0u;
-    }
+    bool m = row_mask(d, row, in);
     int code = 0;
-    if (in && fact) {
-      code = codes[row];
-    } else if (in) {
-      for (int k = 0; k < n_keys; ++k) {
-        const long long* kp = d + D_KEYS + KEY_W * k;
-        const int size = static_cast<int>(kp[3]);
-        bool ok;
-        const uint32_t v = load_col(d, static_cast<int>(kp[1]), row, ok);
-        int c = kp[0] == KEY_DICT
-                    ? static_cast<int>(v)
-                    : static_cast<int>(v - static_cast<uint32_t>(kp[2]));
-        if (!ok) c = size - 1;
-        c = min(max(c, 0), size - 1);
-        code = code * size + c;
-      }
-    }
+    if (in) code = fact ? codes[row] : direct_code(d, row);
     if (code < 0 || code >= G) m = false;  // out of range: dropped
 
     unsigned peers = 0;

@@ -375,3 +375,152 @@ def test_sql_on_the_card_matches_the_host_path(cuda):
                     assert b == pytest.approx(a, rel=1e-4, abs=1e-4), q
                 else:
                     assert a == b, q
+
+
+# -- top-N and fused join kernels -------------------------------------------
+
+from serenedb_tpu_torch.ops import join_kernels as jk  # noqa: E402
+from serenedb_tpu_torch.ops import topn_kernels as tk  # noqa: E402
+
+
+def _key_tiles(cuda, vals: np.ndarray):
+    dc = to_device_column(Column.from_numpy(vals), device=cuda)
+    kind, off = ak.col_kind(dc)
+    return dc, kind, off
+
+
+@pytest.mark.parametrize("desc", [True, False])
+@pytest.mark.parametrize("keys,k", [
+    ("ties", 10), ("ties", 5000), ("ties", 8192), ("wide", 300),
+    ("float", 1000), ("for8", 7)])
+def test_topn_scan_matches_plain(cuda, keys, k, desc):
+    """Indices equal (tie order included) on tie-heavy int keys, keys of
+    the full int32 range less the sentinel, f32 keys with +-0.0, and FOR8
+    tiles; with and without a predicate."""
+    rng = np.random.default_rng(4)
+    n = 200_000
+    vals = {"ties": rng.integers(0, 50, n).astype(np.int32),
+            "wide": rng.integers(-2**31 + 1, 2**31 - 1, n).astype(np.int32),
+            "float": rng.choice(np.float32([0.0, -0.0, 1.5, -2.25]), n),
+            "for8": rng.integers(1000, 1200, n).astype(np.int32)}[keys]
+    dc, kind, off = _key_tiles(cuda, vals)
+    f, fk, fo = _key_tiles(cuda, rng.integers(0, 3, n).astype(np.int32))
+    cols = [(dc.data, dc.mask), (f.data, f.mask)]
+    pred = (_COL(1), _I(1), (ak.OP_CMP_I, 0, C["<>"]))
+    for preds in ([], [pred]):
+        spec = tk.TopnSpec([kind, fk], [off, fo], 0, desc,
+                           keys == "float", preds)
+        LAUNCHES.reset()
+        idx, nsurv = tk.topn_scan(spec, cols, dc.mask, k)
+        assert LAUNCHES.get("topn_scan") == 1
+        ref_idx, ref_n = tk.topn_scan_plain(spec, cols, dc.mask, k)
+        torch.cuda.synchronize()
+        assert torch.equal(idx, ref_idx)
+        assert torch.equal(nsurv, ref_n)
+
+
+@pytest.mark.parametrize("mode", ["agg", "gkey"])
+@pytest.mark.parametrize("desc", [True, False])
+def test_chain_topn_matches_plain(cuda, mode, desc):
+    rng = np.random.default_rng(6)
+    G = 10_001
+    rowcount = torch.from_numpy(np.where(
+        rng.random(G) < 0.2, 0, rng.integers(1, 5, G))).to(cuda)
+    src = rowcount if mode == "agg" else None
+    stride, size = (1, 1) if mode == "agg" else (101, 99)
+    outs = [rowcount,
+            torch.from_numpy(rng.integers(-9, 9, G).astype(np.int32)).to(
+                cuda),
+            torch.from_numpy(rng.integers(0, 2, G * 16).astype(np.int32)).to(
+                cuda)]
+    for k in (8, 64, 8192):
+        LAUNCHES.reset()
+        got = tk.chain_topn(rowcount, src, stride, size, desc, k, outs)
+        assert LAUNCHES.get("chain_topn") == 1
+        ref = tk.chain_topn_plain(rowcount, src, stride, size, desc, k,
+                                  outs)
+        torch.cuda.synchronize()
+        assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+        for a, b in zip(got[2], ref[2]):
+            assert torch.equal(a, b)
+
+
+def _probe_case(cuda, outer_left: bool, right: bool):
+    """A probe table (slots: FOR8 group key, int value, dictionary-coded
+    distinct column), a build table (one int value), and the join codes,
+    with NULLs, unmatched codes and sentinels."""
+    rng = np.random.default_rng(8)
+    npr, nb, g = 60_000, 9_000, 5_000
+    pcols_raw = [Column(dt.INT, rng.integers(0, 30, npr).astype(np.int32)),
+                 Column(dt.INT, rng.integers(-1000, 1000, npr)
+                        .astype(np.int32)),
+                 Column(dt.INT, rng.integers(0, 12, npr).astype(np.int32))]
+    for c in pcols_raw:
+        c.validity = rng.random(npr) > 0.05
+    bcol = Column(dt.INT, rng.integers(-10**6, 10**6, nb).astype(np.int32))
+    bcol.validity = rng.random(nb) > 0.1
+    pdc = [to_device_column(c, device=cuda) for c in pcols_raw]
+    bdc = to_device_column(bcol, device=cuda)
+
+    def tiles(codes, sentinel, n_pad):
+        out = np.full(n_pad, sentinel, dtype=np.int32)
+        out[:len(codes)] = codes
+        return torch.from_numpy(out.reshape(-1, 128)).to(cuda)
+
+    pcodes = np.where(rng.random(npr) < 0.05, g + 1,
+                      rng.integers(0, g, npr))
+    bcodes = np.where(rng.random(nb) < 0.05, g, rng.integers(0, g, nb))
+    pc = tiles(pcodes, g + 1, pdc[0].data.numel())
+    bc = tiles(bcodes, g, bdc.data.numel())
+
+    def rowmask(n, like):
+        m = torch.zeros(like.numel(), dtype=torch.bool)
+        m[:n] = True
+        return m.view_as(like).to(cuda)
+
+    prow, brow = rowmask(npr, pdc[0].data), rowmask(nb, bdc.data)
+    bkind, boff = ak.col_kind(bdc)
+    bcols = [(bdc.data, bdc.mask)]
+    bpred = (_COL(0), _I(-900_000), (ak.OP_CMP_I, 0, C[">"]))
+    gate = (_COL(0), _I(0), (ak.OP_CMP_I, 0, C[">"]), (ak.OP_GATE, 0, 0))
+    bspec = ak.ScanSpec([bkind], [boff], [bpred], [], True, g + 2, [
+        ak.ScanAgg(ak.AGG_COUNT, (_COL(0),)),
+        ak.ScanAgg(ak.AGG_SUM_I, (_COL(0),)),
+        ak.ScanAgg(ak.AGG_MIN_I, (_COL(0),) + gate)])
+    b_rc, b_outs = ak.agg_scan(bspec, bcols, brow, bc, 0, brow.shape[0])
+    b_rc[g:] = 0
+    kinds = [ak.col_kind(d) for d in pdc]
+    ppred = (_COL(1), _I(-900), (ak.OP_CMP_I, 0, C[">"]))
+    aggs = [
+        jk.ProbeAgg(jk.JP_COUNT, (_COL(1),)),
+        jk.ProbeAgg(jk.JP_SUM, (_COL(1),)),
+        jk.ProbeAgg(jk.JP_MIN, (_COL(1), _COL(2), _I(5),
+                                (ak.OP_CMP_I, 0, C["<"]), (ak.OP_GATE, 0, 0))),
+        jk.ProbeAgg(jk.JP_MAX, (_COL(1),)),
+        jk.ProbeAgg(jk.JP_PRESENCE, (_COL(2),), pkind=ak.KEY_INT, plo=0,
+                    pvsize=16),
+        jk.ProbeAgg(jk.JB_COUNT, src=(None, b_outs[0][0]),
+                    ub_ops=(_COL(0),)),
+        jk.ProbeAgg(jk.JB_SUM, src=b_outs[1], ub_ops=(_COL(0),)),
+        jk.ProbeAgg(jk.JB_MIN, src=b_outs[2], ub_ops=(_COL(0),) + gate),
+    ]
+    G = 31
+    spec = jk.ProbeSpec([k for k, _ in kinds], [o for _, o in kinds], G, g,
+                        outer_left, [ppred], [(ak.KEY_INT, 0, 0, G)], aggs)
+    cols = [(d.data, d.mask) for d in pdc]
+    rt = (jk.UnmatchedSpec([bkind], [boff], G - 1, [bpred]), bcols, brow,
+          bc) if right else None
+    return spec, cols, prow, pc, b_rc, rt
+
+
+@pytest.mark.parametrize("kind", ["inner", "left", "right", "full"])
+def test_join_probe_matches_plain(cuda, kind):
+    spec, cols, prow, pc, cnt, rt = _probe_case(
+        cuda, kind in ("left", "full"), kind in ("right", "full"))
+    LAUNCHES.reset()
+    got = jk.join_probe(spec, cols, prow, pc, cnt, rt)
+    assert LAUNCHES.get("join_probe") == 1
+    assert LAUNCHES.get("join_unmatched") == int(rt is not None)
+    ref = jk.join_probe_plain(spec, cols, prow, pc, cnt, rt)
+    torch.cuda.synchronize()
+    _assert_raw_equal(got, ref)
