@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the port's BM25 search, SQL analytics, top-N and fused-join paths
-on one CUDA card and check them.
+"""Drive the port's BM25 search, SQL analytics, top-N, fused-join and
+vector paths on one CUDA card and check them.
 
     python3 chip_smoke.py
 
@@ -48,10 +48,43 @@ Phases (any failure exits non-zero and prints no result line):
      outputs and selected indices equal, f32 within rtol 1e-5), with their
      times, bounds and torch yardsticks, and the two f32 GEMMs of
      dense_topk timed against their FLOP bound;
- 11. one JSON line per kernel, the card line, then the device line.
+ 11. `sift`: IVF through SQL at sift-128-euclidean's shape (1,000,000 x
+     128 integers in [0, 255] around a 16-dimensional subspace, from a
+     seed, JSON text in a
+     VARCHAR column): CREATE INDEX ... USING ivf WITH (lists = 1024) (8
+     k-means iterations on the card), 64 `ORDER BY v <-> '[..]' LIMIT
+     10` statements at nprobe 16 (the first cold), IvfIndex.search over
+     1,024 queries at batch 1, 64 and 1,024; nprobe = 1024 equal bit for
+     bit to the brute kernel and to host_dist's (distance, row)
+     selection over all rows on 64 queries, recall@10 at nprobe 16 at
+     least 0.3, two calls bit-identical, a warm statement uploading only
+     its query block;
+ 12. `colbert`: MaxSim at ColBERTv2's widths (128-d unit tokens,
+     passages of 32-180 tokens, queries of 32) over 50,000 passages
+     (~5.3M tokens; cut from 100,000 to hold the script's time; built as
+     a MaxSimIndex from the matrices: their JSON would be 0.7 billion
+     numbers), batches of 16 queries; 4 queries
+     against the f64 host oracle (rtol/atol 1e-5, rows equal but for
+     near-ties); then 2,000 of the passages as JSON through CREATE INDEX
+     ... USING maxsim and one vec_maxsim statement, against the same
+     statement under serene_maxsim = off; and indexes of 300-token
+     passages with every 7th a 1,030-token page, at 128 and 768 dims,
+     against the f64 oracle (docs longer than one token tile);
+ 13. `bm25_sql`: the `bm25` shape's corpus (100,000 docs) through SQL:
+     CREATE INDEX ... USING inverted, the 256-query mix as @@ + bm25()
+     statements, an INSERT of 10,000 docs (a second segment), the mix
+     again; rows held to the port's host WAND (bench.py's rule);
+ 14. ivf_probe (nprobe 16 and the brute layout), maxsim (one 16-query
+     batch), kmeans_assign and kmeans_update (one k-means iteration)
+     against their plain versions on inputs recorded from phases 11-12,
+     bit for bit, with their times, bounds and yardsticks; and ivf_probe
+     on float data at 100,000 x 768 for l2, ip and cos, bit-equal to its
+     plain version and to host_dist;
+ 15. one JSON line per kernel, the card line, then the device line.
 
 Launch counts are zeroed just before each main-path phase and read just
-after it; the comparisons of phases 5 and 10 run outside those windows.
+after it; the comparisons of phases 5, 10 and 14 run outside those
+windows.
 The result cache is off in phases 6-9, so every statement executes, and
 the device column cache's cap is raised to 32 GiB, as a deployment on an
 80 GB card would set it. The script imports the port
@@ -85,6 +118,10 @@ REPLACES = {
     "topn_scan": "serenedb_tpu/exec/device_topn.py:111",
     "chain_topn": "serenedb_tpu/exec/device_pipeline.py:2810",
     "join_probe": "serenedb_tpu/exec/device_pipeline.py:1243",
+    "ivf_probe": "serenedb_tpu/ops/vector.py:204",
+    "maxsim": "serenedb_tpu/ops/vector.py:272",
+    "kmeans_assign": "serenedb_tpu/ops/vector.py:187",
+    "kmeans_update": "serenedb_tpu/ops/vector.py:157",
 }
 SOURCES = {"bm25_accumulate": "serenedb_tpu_torch/ops/csrc/bm25.cu",
            "build_dense": "serenedb_tpu_torch/ops/csrc/bm25.cu",
@@ -93,9 +130,16 @@ SOURCES = {"bm25_accumulate": "serenedb_tpu_torch/ops/csrc/bm25.cu",
            "agg_fold": "serenedb_tpu_torch/ops/csrc/agg.cu",
            "topn_scan": "serenedb_tpu_torch/ops/csrc/topn.cu",
            "chain_topn": "serenedb_tpu_torch/ops/csrc/topn.cu",
-           "join_probe": "serenedb_tpu_torch/ops/csrc/join.cu"}
+           "join_probe": "serenedb_tpu_torch/ops/csrc/join.cu",
+           "ivf_probe": "serenedb_tpu_torch/ops/csrc/vector.cu",
+           "maxsim": "serenedb_tpu_torch/ops/csrc/vector.cu",
+           "kmeans_assign": "serenedb_tpu_torch/ops/csrc/vector.cu",
+           "kmeans_update": "serenedb_tpu_torch/ops/csrc/vector.cu"}
 #: the device column cache's cap in the SQL phases (MiB)
 DEVICE_CACHE_MB = 32768
+#: the vector pool's pages in phases 11-12 (16 KiB each: 6.1 GiB, room for
+#: the 1M x 128 SIFT corpus and the ColBERT region together)
+VECTOR_PAGES = 400_000
 
 AGG, TOPN = ("agg_scan",), ("topn_scan",)
 JOIN, CHAIN = ("agg_scan", "join_probe"), \
@@ -1049,6 +1093,676 @@ def time_dense_gemms(device, args, reps=5) -> dict:
                      f"{S.shape[0]})"}
 
 
+# ------------------------------------------------------------ vector phases
+
+#: recall@10 at nprobe 16 on the sift corpus must reach this (the
+#: reference bench's floor is 0.3)
+SIFT_RECALL_FLOOR = 0.85
+
+
+def sift_corpus(n: int = 1_000_000, dim: int = 128, n_queries: int = 1024,
+                seed: int = 11):
+    """An integer corpus at sift-128-euclidean's shape: values in [0, 255]
+    drawn around a random 16-dimensional subspace (128 + z·A, z normal,
+    A scaled so a coordinate spreads about 40) plus noise of 4, rounded and
+    clipped; queries drawn the same way. Descriptors of real images fill
+    such a low-dimensional spread rather than well-separated clumps, so
+    nearest neighbours straddle the IVF lists and recall at nprobe 16 is
+    below 1 (about 0.6-0.85 predicted from smaller runs of the same
+    generator). Every squared l2 distance is an exact integer below
+    2^24."""
+    rng = np.random.default_rng(seed)
+    rank = 16
+    basis = rng.standard_normal((rank, dim)) * 40.0 / np.sqrt(rank)
+
+    def draw(m):
+        out = np.empty((m, dim), np.uint8)
+        for a in range(0, m, 1 << 17):
+            b = min(m, a + (1 << 17))
+            v = 128.0 + rng.standard_normal((b - a, rank)) @ basis + \
+                rng.normal(0.0, 4.0, (b - a, dim))
+            out[a:b] = np.clip(np.rint(v), 0, 255).astype(np.uint8)
+        return out
+    return draw(n), draw(n_queries)
+
+
+def json_rows(mat: np.ndarray) -> list:
+    """'[  7, 12,255]'-style JSON text per row of a uint8 matrix, built
+    with numpy (fixed-width fields; JSON allows the blanks)."""
+    n, d = mat.shape
+    buf = np.full((n, d, 4), ord(" "), np.uint8)
+    v = mat.astype(np.int16)
+    h, t, o = v // 100, (v // 10) % 10, v % 10
+    buf[:, :, 0] = np.where(h > 0, 48 + h, 32)
+    buf[:, :, 1] = np.where((h > 0) | (t > 0), 48 + t, 32)
+    buf[:, :, 2] = 48 + o
+    buf[:, :, 3] = ord(",")
+    buf[:, -1, 3] = ord("]")
+    flat = np.concatenate([np.full((n, 1), ord("["), np.uint8),
+                           buf.reshape(n, -1)], axis=1)
+    width = flat.shape[1]
+    raw = flat.tobytes().decode("ascii")
+    return [raw[i * width:(i + 1) * width] for i in range(n)]
+
+
+def exact_l2_select(x: np.ndarray, q: np.ndarray, k: int):
+    """The (distance asc, row asc) top-k by exact integer arithmetic. Every
+    squared distance of these integer vectors is an integer below 2^24, so
+    each f32 partial sum of `host_dist` is exact and this equals
+    host_dist's selection bit for bit (host_dist itself is run on a few
+    queries to show it)."""
+    xf = x.astype(np.float64)
+    x2 = (xf * xf).sum(1)
+    out_d, out_r = [], []
+    for a in range(0, len(q), 16):
+        qb = q[a:a + 16].astype(np.float64)
+        d = x2[None, :] - 2.0 * (qb @ xf.T) + (qb * qb).sum(1)[:, None]
+        for row in d:
+            kth = np.partition(row, k - 1)[k - 1]
+            cand = np.flatnonzero(row <= kth)
+            order = cand[np.lexsort((cand, row[cand]))][:k]
+            out_d.append(row[order].astype(np.float32))
+            out_r.append(order)
+    return np.stack(out_d), np.stack(out_r)
+
+
+def _vec_literal(v) -> str:
+    return "[" + ",".join(str(int(a)) for a in v) + "]"
+
+
+def phase_sift(device, n=1_000_000, lists=1024, nprobe=16) -> dict:
+    """IVF through SQL at sift-128-euclidean's shape, then IvfIndex.search
+    over 1,024 queries at batch 1, 64 and 1,024."""
+    import torch
+
+    from serenedb_tpu_torch.columnar.column import Batch
+    from serenedb_tpu_torch.device import LAUNCHES, UPLOADS
+    from serenedb_tpu_torch.engine import Database
+    from serenedb_tpu_torch.exec.tables import MemTable
+    from serenedb_tpu_torch.ops import vector as vops
+    from serenedb_tpu_torch.ops import vector_kernels as vk
+    from serenedb_tpu_torch.search import ivf
+    from serenedb_tpu_torch.search.vector_store import VPOOL
+
+    t0 = time.perf_counter()
+    x, qs = sift_corpus(n)
+    texts = json_rows(x)
+    table = MemTable("sift", Batch.from_pydict(
+        {"id": np.arange(n, dtype=np.int64), "v": texts}))
+    del texts
+    gen_s = time.perf_counter() - t0
+    db = Database(device=device)
+    c = db.connect()
+    c.execute("SET serene_result_cache = off")
+    db.schemas["main"].tables["sift"] = table
+    split = {}
+
+    def timed(module, name):
+        orig = getattr(module, name)
+
+        def wrapper(*a, **kw):
+            t = time.perf_counter()
+            out = orig(*a, **kw)
+            sync(device)
+            split[name] = split.get(name, 0.0) + time.perf_counter() - t
+            return out
+        setattr(module, name, wrapper)
+        return orig
+
+    saved = [(m, nm, timed(m, nm)) for m, nm in
+             ((ivf, "_parse_column"), (vops, "kmeans_fit"),
+              (vops, "assign_clusters"), (VPOOL, "_write"))]
+    launches_window = {}
+    recs = {"assign": Recorder(vk, "kmeans_assign"),
+            "update": Recorder(vk, "kmeans_update"),
+            "probe": Recorder(vk, "ivf_probe",
+                              lambda a, kw: kw["nprobe"] == nprobe and
+                              a[6].shape[0] == 64)}
+    try:
+        for r in recs.values():
+            r.__enter__()
+        LAUNCHES.reset()
+        t0 = time.perf_counter()
+        c.execute(f"CREATE INDEX sv ON sift USING ivf (v) WITH "
+                  f"(lists = {lists})")
+        sync(device)
+        build_s = time.perf_counter() - t0
+        c.execute(f"SET serene_nprobe = {nprobe}")
+        stmt = ("SELECT id, v <-> '{q}' AS d FROM sift ORDER BY "
+                "v <-> '{q}' LIMIT 10")
+        ms, rows, ups = [], [], []
+        for qi in range(64):          # 0-31 first pass (cold), 32-63 warm
+            lit = _vec_literal(qs[qi])
+            u0 = UPLOADS.get("bytes")
+            t = time.perf_counter()
+            rows.append(c.execute(stmt.format(q=lit)).rows())
+            sync(device)
+            ms.append((time.perf_counter() - t) * 1e3)
+            ups.append(UPLOADS.get("bytes") - u0)
+        idx = table.indexes["sv"]
+        qf = qs.astype(np.float32)
+        qps = {}
+        for bs in (1, 64, 1024):
+            t = time.perf_counter()
+            outs = [idx.search(qf[a:a + bs], 10, nprobe)
+                    for a in range(0, len(qf), bs)]
+            sync(device)
+            qps[bs] = len(qf) / (time.perf_counter() - t)
+        launches_window = LAUNCHES.snapshot()
+    finally:
+        for r in recs.values():
+            r.__exit__()
+        for m, nm, orig in saved:
+            setattr(m, nm, orig)
+    for name in ("ivf_probe", "kmeans_assign", "kmeans_update"):
+        if not launches_window.get(name):
+            fail(f"sift: {name} never launched ({launches_window})")
+    ivf_d = np.concatenate([o[0] for o in outs])
+    ivf_r = np.concatenate([o[1] for o in outs])
+    # the SQL rows are IvfIndex.search's rows at batch 1
+    for qi in range(64):
+        got = [r[0] for r in rows[qi]]
+        want = idx.search(qf[qi:qi + 1], 10, nprobe)[1][0].tolist()
+        if got != want:
+            fail(f"sift: statement {qi} rows {got} != search {want}")
+    warm_up = ups[1:]
+    q_block = _pow2(1) * 128 * 4
+    if any(u != q_block for u in warm_up):
+        fail(f"sift: a warm statement uploaded {max(warm_up)} bytes, more "
+             f"than its {q_block}-byte query block")
+    # full probe = brute kernel = host selection, on 64 queries
+    q64 = qf[:64]
+    full_d, full_r = idx.search(q64, 10, lists)
+    with Recorder(vk, "ivf_probe",
+                  lambda a, kw: kw["l_real"] == 1 and
+                  a[6].shape[0] == 16) as rec_brute:
+        br = [idx.brute_search(q64[a:a + 16], 10) for a in range(0, 64, 16)]
+    b_d = np.concatenate([b[0] for b in br])
+    b_r = np.concatenate([b[1] for b in br])
+    t0 = time.perf_counter()
+    h_d, h_r = exact_l2_select(x, qs[:64], 10)
+    hd4 = vops.host_dist(x.astype(np.float32), qf[:4, None, :], "l2")
+    for qi in range(4):
+        if not np.array_equal(hd4[qi][h_r[qi]].view(np.int32),
+                              h_d[qi].view(np.int32)):
+            fail("sift: host_dist differs from the exact integer distances")
+    oracle_s = time.perf_counter() - t0
+    for name, (d, r) in (("brute_search", (b_d, b_r)),
+                         ("host_dist", (h_d, h_r))):
+        if not np.array_equal(full_d.view(np.int32), d.view(np.int32)) or \
+                not np.array_equal(full_r, r):
+            fail(f"sift: nprobe = {lists} differs from {name}")
+    again_d, again_r = idx.search(q64, 10, nprobe)
+    first_d, first_r = ivf_d[:64], ivf_r[:64]
+    if not (np.array_equal(again_d.view(np.int32), first_d.view(np.int32))
+            and np.array_equal(again_r, first_r)):
+        fail("sift: two calls differ")
+    # recall@10 at nprobe 16 against the exact top-10 (the brute kernel)
+    truth = np.concatenate([idx.brute_search(qf[a:a + 64], 10)[1]
+                            for a in range(0, len(qf), 64)])
+    recall = float(np.mean([len(set(a) & set(b)) / 10.0
+                            for a, b in zip(ivf_r.tolist(),
+                                            truth.tolist())]))
+    if recall < SIFT_RECALL_FLOOR:
+        fail(f"sift: recall@10 {recall:.4f} under the floor "
+             f"{SIFT_RECALL_FLOOR}")
+    seg = idx.segs[0]
+    return {"gen_s": gen_s, "build_s": build_s, "split": split,
+            "cold_ms": ms[0], "first_pass_ms": ms[:32],
+            "warm_ms": float(np.mean(ms[32:])), "warm_ms_all": ms[32:],
+            "cold_upload": ups[0], "warm_upload": warm_up[0],
+            "qps": qps, "recall": recall, "oracle_s": oracle_s,
+            "launches": launches_window, "max_list": int(
+                np.bincount(seg.codes, minlength=lists).max()),
+            "calls": {"kmeans_assign": recs["assign"].args,
+                      "kmeans_update": recs["update"].args,
+                      "ivf_probe": recs["probe"].args,
+                      "ivf_brute": rec_brute.args}}
+
+
+def unit_rows(rng, n: int, dim: int) -> np.ndarray:
+    out = rng.standard_normal((n, dim), dtype=np.float32)
+    out /= np.linalg.norm(out, axis=1, keepdims=True)
+    return out
+
+
+def json_tokens(mat: np.ndarray) -> str:
+    """'[[ 0.123456,-0.654321,...],...]' for a matrix of |values| < 1,
+    fixed-width fields built with numpy."""
+    n, d = mat.shape
+    v = np.rint(np.clip(mat, -0.999999, 0.999999) * 1e6).astype(np.int64)
+    buf = np.empty((n, d, 10), np.uint8)
+    buf[:, :, 0] = np.where(v < 0, ord("-"), ord(" "))
+    buf[:, :, 1] = ord("0")
+    buf[:, :, 2] = ord(".")
+    a = np.abs(v)
+    for i in range(6):
+        buf[:, :, 8 - i] = 48 + (a // 10 ** i) % 10
+    buf[:, :, 9] = ord(",")
+    buf[:, -1, 9] = ord("]")
+    rows = np.concatenate([np.full((n, 1), ord("["), np.uint8),
+                           buf.reshape(n, -1)], axis=1)
+    rows = np.concatenate([rows, np.full((n, 1), ord(","), np.uint8)],
+                          axis=1)
+    body = rows.tobytes().decode("ascii")[:-1]
+    return "[" + body + "]"
+
+
+def maxsim_oracle_check(idx, queries, res, label: str) -> int:
+    """Each query's MaxSim top-10 against the f64 host oracle: scores
+    within rtol/atol 1e-5, rows equal but for near-ties (counted)."""
+    near_ties = 0
+    for b in range(len(queries)):
+        hs = idx.host_scores(queries[b])
+        order = np.lexsort((idx.doc_rows, -hs))[:10]
+        got = -res[0][b].astype(np.float64)
+        if not np.allclose(got, hs[order], rtol=1e-5, atol=1e-5):
+            fail(f"{label}: query {b} scores off the f64 oracle")
+        for j in np.flatnonzero(res[1][b] != idx.doc_rows[order]):
+            if np.sum(np.isclose(hs, hs[order[j]], rtol=1e-5,
+                                 atol=1e-5)) < 2:
+                fail(f"{label}: query {b} rank {j} differs off a tie")
+            near_ties += 1
+    return near_ties
+
+
+def phase_colbert(device, n_docs=50_000, dim=128, q_tokens=32, batch=16,
+                  n_batches=4, sql_docs=2000,
+                  long_shapes=((128, 1000), (768, 200))) -> dict:
+    """MaxSim at ColBERTv2's widths: passages of 32-180 unit 128-d tokens
+    as a MaxSimIndex (50,000 of them: the corpus is cut from 100,000 to
+    hold the script's time), batches of 16 queries of 32 tokens; then a
+    2,000-passage table through CREATE INDEX ... USING maxsim."""
+    from serenedb_tpu_torch.columnar.column import Batch
+    from serenedb_tpu_torch.device import LAUNCHES
+    from serenedb_tpu_torch.engine import Database
+    from serenedb_tpu_torch.exec.tables import MemTable
+    from serenedb_tpu_torch.ops import vector_kernels as vk
+    from serenedb_tpu_torch.search.ivf import MaxSimIndex, VecSegment
+
+    rng = np.random.default_rng(12)
+    t0 = time.perf_counter()
+    lens = rng.integers(32, 181, n_docs)
+    tok = unit_rows(rng, int(lens.sum()), dim)
+    codes = np.repeat(np.arange(n_docs, dtype=np.int32), lens)
+    seg = VecSegment(tok, codes.astype(np.int64), codes, n_docs)
+    del tok                   # the segment holds its own (same-order) copy
+    idx = MaxSimIndex(column="c", dim=dim, segs=[seg],
+                      doc_rows=np.arange(n_docs, dtype=np.int32),
+                      num_rows=n_docs, data_version=0, device=device)
+    idx.layout()
+    gen_s = time.perf_counter() - t0
+    queries = np.stack([unit_rows(rng, q_tokens, dim)
+                        for _ in range(batch * (n_batches + 1))])
+    LAUNCHES.reset()
+    with Recorder(vk, "maxsim", lambda a, kw: a[5].shape[0] == batch) \
+            as rec:
+        t0 = time.perf_counter()
+        first = idx.search_batch(queries[:batch], 10)    # cold: pages
+        sync(device)
+        cold_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        for b in range(1, n_batches + 1):
+            idx.search_batch(queries[b * batch:(b + 1) * batch], 10)
+        sync(device)
+        warm_s = time.perf_counter() - t0
+    launches = LAUNCHES.snapshot()
+    if not launches.get("maxsim"):
+        fail(f"colbert: maxsim never launched ({launches})")
+    again = idx.search_batch(queries[:batch], 10)
+    if not (np.array_equal(first[0].view(np.int32),
+                           again[0].view(np.int32)) and
+            np.array_equal(first[1], again[1])):
+        fail("colbert: two calls differ")
+    t0 = time.perf_counter()
+    near_ties = maxsim_oracle_check(idx, queries[:4], first, "colbert")
+    oracle_s = time.perf_counter() - t0
+    # docs past one token tile of the kernel: 300-token passages (the
+    # doc_maxlen ColBERTv2 indexes MS MARCO with) and every 7th a
+    # 1,030-token page (ColPali), at 128 and at 768 dims
+    long_docs = {}
+    for ldim, nld in long_shapes:
+        llens = np.full(nld, 300)
+        llens[::7] = 1030
+        ltok = unit_rows(rng, int(llens.sum()), ldim)
+        lcodes = np.repeat(np.arange(nld, dtype=np.int32), llens)
+        lidx = MaxSimIndex(
+            column="c", dim=ldim,
+            segs=[VecSegment(ltok, lcodes.astype(np.int64), lcodes, nld)],
+            doc_rows=np.arange(nld, dtype=np.int32), num_rows=nld,
+            data_version=0, device=device)
+        lq = np.stack([unit_rows(rng, q_tokens, ldim) for _ in range(2)])
+        before = LAUNCHES.get("maxsim")
+        lres = lidx.search_batch(lq, 10)
+        if LAUNCHES.get("maxsim") != before + 1:
+            fail(f"colbert: the {ldim}-d long-doc search did not launch "
+                 "maxsim once")
+        long_docs[ldim] = {"docs": nld, "max_tokens": int(llens.max()),
+                           "near_ties": maxsim_oracle_check(
+                               lidx, lq, lres, f"colbert {ldim}-d long")}
+    # the SQL leg: 2,000 of the passages as JSON text
+    t0 = time.perf_counter()
+    offs = np.concatenate([[0], np.cumsum(lens)])
+    texts = [json_tokens(seg.vals[offs[i]:offs[i + 1]])
+             for i in range(sql_docs)]
+    db = Database(device=device)
+    c = db.connect()
+    c.execute("SET serene_result_cache = off")
+    db.schemas["main"].tables["passages"] = MemTable(
+        "passages", Batch.from_pydict(
+            {"id": np.arange(sql_docs, dtype=np.int64), "c": texts}))
+    c.execute("CREATE INDEX pc ON passages USING maxsim (c)")
+    sql_build_s = time.perf_counter() - t0
+    lit = json_tokens(queries[-1])
+    stmt = (f"SELECT id, vec_maxsim(c, '{lit}') AS s FROM passages ORDER BY "
+            f"vec_maxsim(c, '{lit}') DESC LIMIT 10")
+    before = LAUNCHES.get("maxsim")
+    t0 = time.perf_counter()
+    dev_rows = c.execute(stmt).rows()
+    sql_ms = (time.perf_counter() - t0) * 1e3
+    if LAUNCHES.get("maxsim") <= before:
+        fail("colbert: the SQL statement did not launch maxsim")
+    launches["maxsim"] = launches.get("maxsim", 0) + \
+        LAUNCHES.get("maxsim") - before
+    c.execute("SET serene_maxsim = off")          # the f64 host oracle
+    host_rows = c.execute(stmt).rows()
+    if len(dev_rows) != len(host_rows) or not np.allclose(
+            [r[1] for r in dev_rows], [r[1] for r in host_rows],
+            rtol=1e-5, atol=1e-5):
+        fail(f"colbert: SQL rows {dev_rows[:3]} vs host {host_rows[:3]}")
+    return {"gen_s": gen_s, "tokens": int(lens.sum()), "docs": n_docs,
+            "region_bytes": int(lens.sum()) * dim * 4, "cold_s": cold_s,
+            "qps": n_batches * batch / warm_s, "near_ties": near_ties,
+            "oracle_s": oracle_s, "sql_build_s": sql_build_s,
+            "sql_ms": sql_ms, "launches": launches, "args": rec.args,
+            "long_docs": long_docs,
+            "sql_ids_equal": [r[0] for r in dev_rows] ==
+            [r[0] for r in host_rows]}
+
+
+def phase_bm25_sql(device, n_docs=100_000, append=10_000) -> dict:
+    """The `bm25` shape's corpus through SQL: CREATE INDEX ... USING
+    inverted, the 256-query mix as @@ + bm25() statements, then an INSERT
+    of 10,000 docs (a second segment) and the mix again."""
+    from serenedb_tpu_torch.columnar.column import Batch
+    from serenedb_tpu_torch.device import LAUNCHES
+    from serenedb_tpu_torch.engine import Database
+    from serenedb_tpu_torch.exec.tables import MemTable
+    from serenedb_tpu_torch.search.index import find_index
+    from serenedb_tpu_torch.search.query import parse_query
+
+    docs, qs = dense_corpus(n_docs + append)
+    db = Database(device=device)
+    c = db.connect()
+    c.execute("SET serene_result_cache = off")
+    table = MemTable("docs", Batch.from_pydict(
+        {"id": np.arange(n_docs, dtype=np.int64), "body": docs[:n_docs]}))
+    db.schemas["main"].tables["docs"] = table
+    stmt = ("SELECT id, bm25(body) AS s FROM docs WHERE body @@ '{q}' "
+            "ORDER BY s DESC LIMIT 10")
+    # the same with a tie-break: a stream scan that scores every match
+    # (topk_rows at k = the match count)
+    stream = ("SELECT id, bm25(body) AS s FROM docs WHERE body @@ '{q}' "
+              "ORDER BY s DESC, id LIMIT 10")
+    out = {}
+    LAUNCHES.reset()
+    t0 = time.perf_counter()
+    c.execute("CREATE INDEX db ON docs USING inverted (body) WITH "
+              "(tokenizer = 'simple')")
+    out["build_s"] = time.perf_counter() - t0
+    runs, checked = [], 0
+    for label in ("one segment", "two segments"):
+        if label == "two segments":
+            t0 = time.perf_counter()
+            c.execute("INSERT INTO docs VALUES " + ", ".join(
+                f"({n_docs + i}, '{d}')"
+                for i, d in enumerate(docs[n_docs:])))
+            out["insert_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        rows = [c.execute(stmt.format(q=q)).rows() for q in qs]
+        sync(device)
+        runs.append(time.perf_counter() - t0)
+        plan = str(c.execute("EXPLAIN " + stmt.format(q=qs[0])).rows())
+        if "mode=TopK k=10" not in plan:
+            fail(f"bm25_sql: the statement is not a top-k scan: {plan}")
+        for qi in range(128, 256, 16):
+            if c.execute(stream.format(q=qs[qi])).rows() != rows[qi]:
+                fail(f"bm25_sql {label} query {qi}: the stream scan's rows "
+                     "differ from the top-k scan's")
+        ms = find_index(table, "body").searcher("body")
+        if len(ms.segments) != len(runs):
+            fail(f"bm25_sql: {len(ms.segments)} segments in the {label} run")
+        for qi in range(0, len(qs), 4):
+            ref_s, ref_d = ms.cpu_topk(parse_query(qs[qi], ms.analyzer), 10)
+            got = rows[qi]
+            if len(got) != len(ref_s):
+                fail(f"bm25_sql {label} query {qi}: {len(got)} rows, host "
+                     f"{len(ref_s)}")
+            gs = np.asarray([r[1] for r in got], np.float64)
+            if not np.allclose(gs, ref_s, rtol=PARITY_RTOL,
+                               atol=PARITY_ATOL):
+                fail(f"bm25_sql {label} query {qi}: scores {gs} vs host "
+                     f"{ref_s}")
+            for j, (g, d) in enumerate(zip(got, ref_d.tolist())):
+                if g[0] != d and abs(gs[j] - float(ref_s[j])) >= 1e-3:
+                    fail(f"bm25_sql {label} query {qi} rank {j}: doc "
+                         f"{g[0]} != {d}")
+            checked += 1
+    launches = LAUNCHES.snapshot()
+    for name in ("build_dense", "topk_rows"):
+        if not launches.get(name):
+            fail(f"bm25_sql: {name} never launched ({launches})")
+    out.update({"launches": launches, "checked": checked,
+                "ms_per_statement": [s / len(qs) * 1e3 for s in runs],
+                "n_queries": len(qs)})
+    return out
+
+
+def _pow2(n: int) -> int:
+    p = 1
+    while p < n:
+        p <<= 1
+    return p
+
+
+def _probe_bound(args) -> tuple:
+    """(bytes, flops) an ivf_probe call must move and do: the distinct
+    region rows its queries' probed lists hold (each read once), the
+    centroids, queries, descriptor entries of those rows and the outputs;
+    3 f32 operations a dimension (sub, mul, add) for every live lane and
+    every (query, list) centroid distance."""
+    import torch
+
+    from serenedb_tpu_torch.ops import vector_kernels as vk
+    a, kw = args
+    region, slotmap, offsets, counts, rowids, cents, queries = a[:7]
+    dp = queries.shape[1]
+    probe = vk.probe_lists_plain(cents, queries, kw["metric"],
+                                 kw["l_real"], kw["nprobe"])
+    cnt = counts.to(torch.int64)[probe]
+    live = int(cnt.sum())
+    lists = torch.unique(probe)
+    rows = int(counts.to(torch.int64)[lists].sum())
+    per_op = 3 if kw["metric"] != "cos" else 6
+    flops = per_op * dp * (live + queries.shape[0] * cents.shape[0])
+    moved = rows * (dp * 4 + 8) + nbytes(cents, queries, offsets, counts) \
+        + queries.shape[0] * kw["kkp"] * 8
+    return moved, flops
+
+
+def check_ivf_probe(device, args, reps=5) -> dict:
+    """ivf_probe against its plain version on one recorded launch, bit for
+    bit; two launches bit-identical."""
+    from serenedb_tpu_torch.ops import vector_kernels as vk
+    a, kw = args
+    d, r = vk.ivf_probe(*a, **kw)
+    d2, r2 = vk.ivf_probe(*a, **kw)
+    pd, pr = vk.ivf_probe_plain(*a, **kw)
+    sync(device)
+    for name, (x, y) in (("the plain version", (pd, pr)),
+                         ("a second launch", (d2, r2))):
+        if not (np.array_equal(d.cpu().numpy().view(np.int32),
+                               x.cpu().numpy().view(np.int32)) and
+                np.array_equal(r.cpu().numpy(), y.cpu().numpy())):
+            fail(f"ivf_probe differs from {name} ({kw})")
+    ms = timed_ms(lambda: vk.ivf_probe(*a, **kw), reps, device)
+    t = time.perf_counter()
+    vk.ivf_probe_plain(*a, **kw)
+    sync(device)
+    plain_ms = (time.perf_counter() - t) * 1e3
+    moved, flops = _probe_bound(args)
+    b_bytes, b_ops = bound_ms(moved), flops / F32_FLOPS * 1e3
+    return {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": max(b_bytes, b_ops),
+            "bound_by": "bytes" if b_bytes >= b_ops else "operations",
+            "library_ms": None,
+            "shape": f"{kw['metric']} q={a[6].shape[0]} dp={a[6].shape[1]} "
+                     f"lists={kw['l_real']} nprobe={kw['nprobe']} "
+                     f"kkp={kw['kkp']} lanes={a[7].numel()}"}
+
+
+def check_float_probe(device, n=100_000, dim=768, lists=64, nprobe=8,
+                      nq=16) -> dict:
+    """ivf_probe on float (non-grid) data at 100,000 x 768 for l2, ip and
+    cos: bit-equal to its plain version, and each returned distance equal
+    to numpy host_dist on its row (the padded dims 768..1023 add exactly
+    0)."""
+    import torch
+
+    from serenedb_tpu_torch.ops import vector as vops
+    from serenedb_tpu_torch.ops import vector_kernels as vk
+    rng = np.random.default_rng(13)
+    x = rng.standard_normal((n, dim), dtype=np.float32)
+    q = rng.standard_normal((nq, dim), dtype=np.float32)
+    dp = _pow2(dim)
+    codes = rng.integers(0, lists, n)
+    order = np.lexsort((np.arange(n), codes))
+    counts = np.bincount(codes, minlength=lists).astype(np.int32)
+    offsets = np.concatenate([[0], np.cumsum(counts)[:-1]]).astype(np.int32)
+    region = np.zeros((n, dp), np.float32)
+    region[:, :dim] = x[order]
+    cents = np.zeros((lists, dp), np.float32)
+    cents[:, :dim] = np.stack([x[codes == c].mean(0) for c in range(lists)])
+    qp = np.zeros((nq, dp), np.float32)
+    qp[:, :dim] = q
+    m = int(counts.max())
+    tm, jm = vops.chunk_maps(nprobe, m, min(1024, _pow2(m)))
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    args = [t(region), t(np.arange(n, dtype=np.int32)), t(offsets),
+            t(counts), t(order.astype(np.int32)), t(cents), t(qp), t(tm),
+            t(jm)]
+    done = []
+    for metric in ("l2", "ip", "cos"):
+        kw = dict(metric=metric, l_real=lists, nprobe=nprobe, kkp=16)
+        d, r = vk.ivf_probe(*args, **kw)
+        pd, pr = vk.ivf_probe_plain(*args, **kw)
+        sync(device)
+        d, r = d.cpu().numpy(), r.cpu().numpy()
+        if not (np.array_equal(d.view(np.int32),
+                               pd.cpu().numpy().view(np.int32)) and
+                np.array_equal(r, pr.cpu().numpy())):
+            fail(f"float ivf_probe ({metric}) differs from its plain version")
+        for qi in range(nq):
+            h = vops.host_dist(x[r[qi]], q[qi][None, :], metric)
+            if not np.array_equal(h.view(np.int32), d[qi].view(np.int32)):
+                fail(f"float ivf_probe ({metric}) differs from host_dist")
+        done.append(metric)
+    return {"metrics": done, "shape": f"{n} x {dim} (dp {dp}), {lists} "
+                                      f"lists, nprobe {nprobe}, {nq} queries"}
+
+
+def check_maxsim(device, args, reps=3) -> dict:
+    """maxsim against its plain version on one recorded 16-query batch,
+    bit for bit; two launches bit-identical."""
+    import torch
+
+    from serenedb_tpu_torch.ops import vector_kernels as vk
+    a, kw = args
+    k, r = vk.maxsim(*a, **kw)
+    k2, r2 = vk.maxsim(*a, **kw)
+    pk, pr = vk.maxsim_plain(*a, **kw)
+    sync(device)
+    for name, (x, y) in (("the plain version", (pk, pr)),
+                         ("a second launch", (k2, r2))):
+        if not (torch.equal(k.view(torch.int32), x.view(torch.int32)) and
+                torch.equal(r, y)):
+            fail(f"maxsim differs from {name}")
+    ms = timed_ms(lambda: vk.maxsim(*a, **kw), reps, device)
+    t = time.perf_counter()
+    vk.maxsim_plain(*a, **kw)
+    sync(device)
+    plain_ms = (time.perf_counter() - t) * 1e3
+    region, slotmap, offsets, counts, rowids, queries, dmap = a
+    bp, sp, dp = queries.shape
+    ntok = int(counts.to(torch.int64).sum())
+    flops = 2 * bp * sp * ntok * dp
+    moved = ntok * (dp * 4 + 4) + nbytes(queries, offsets, counts, rowids,
+                                         dmap) + bp * kw["kkp"] * 8
+    b_bytes, b_ops = bound_ms(moved), flops / F32_FLOPS * 1e3
+    return {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": max(b_bytes, b_ops),
+            "bound_by": "bytes" if b_bytes >= b_ops else "operations",
+            "library_ms": None,
+            "shape": f"B={bp} S={sp} dp={dp} docs={dmap.numel()} "
+                     f"tokens={ntok} kkp={kw['kkp']}"}
+
+
+def check_kmeans(device, assign_args, update_args, reps=5) -> dict:
+    """kmeans_assign and kmeans_update against their plain versions on one
+    k-means iteration's recorded inputs, bit for bit; index_add_ timed as
+    kmeans_update's yardstick (the per-cluster sums in one call)."""
+    import torch
+
+    from serenedb_tpu_torch.ops import vector_kernels as vk
+    (x, c, xc), _kw = assign_args
+    a = vk.kmeans_assign(x, c, xc)
+    pa = vk.kmeans_assign_plain(x, c, xc)
+    sync(device)
+    if not torch.equal(a, pa):
+        fail("kmeans_assign differs from its plain version")
+    ua, ukw = update_args
+    ux, uassign, uc = ua[:3]
+    new = vk.kmeans_update(*ua, **ukw)
+    new2 = vk.kmeans_update(*ua, **ukw)
+    pnew = vk.kmeans_update_plain(*ua, **ukw)
+    sync(device)
+    if not (torch.equal(new.view(torch.int32), pnew.view(torch.int32)) and
+            torch.equal(new.view(torch.int32), new2.view(torch.int32))):
+        fail("kmeans_update differs from its plain version or itself")
+    out = {}
+    ms = timed_ms(lambda: vk.kmeans_assign(x, c, xc), reps, device)
+    t = time.perf_counter()
+    vk.kmeans_assign_plain(x, c, xc)
+    sync(device)
+    out["kmeans_assign"] = {
+        "max_abs_err": 0.0, "ms": ms,
+        "plain_ms": (time.perf_counter() - t) * 1e3,
+        "bound_ms": bound_ms(nbytes(x, c, xc, a)), "bound_by": "bytes",
+        "library_ms": None,
+        "shape": f"N={x.shape[0]} K={c.shape[0]} D={x.shape[1]}"}
+    ms = timed_ms(lambda: vk.kmeans_update(*ua, **ukw), reps, device)
+    t = time.perf_counter()
+    vk.kmeans_update_plain(*ua, **ukw)
+    sync(device)
+    plain_ms = (time.perf_counter() - t) * 1e3
+    idx64 = uassign.to(torch.int64)
+
+    def library():
+        sums = torch.zeros_like(uc).index_add_(0, idx64, ux)
+        torch.zeros(uc.shape[0], device=ux.device).index_add_(
+            0, idx64, torch.ones(ux.shape[0], device=ux.device))
+        return sums
+    library_ms = timed_ms(library, reps, device)
+    out["kmeans_update"] = {
+        "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": bound_ms(nbytes(ux, uassign, uc, new)),
+        "bound_by": "bytes", "library_ms": library_ms,
+        "shape": f"N={ux.shape[0]} K={uc.shape[0]} D={ux.shape[1]}"}
+    return out
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1231,10 +1945,85 @@ def main() -> int:
           f"{F32_FLOPS / 1e12:.0f} TFLOP/s)", flush=True)
     print(f"    total {time.perf_counter() - t_start:.1f} s", flush=True)
 
-    # 11. result lines
+    # 11-13. search and vector search through SQL
+    settings.set_global("serene_vector_pages", VECTOR_PAGES)
+    sift = phase_sift(device)
+    sp = sift["split"]
+    print(f"[11] sift: 1,000,000 x 128 generated and loaded as JSON text in "
+          f"{sift['gen_s']:.1f} s; CREATE INDEX ... USING ivf (lists 1024) "
+          f"{sift['build_s']:.2f} s (JSON parse "
+          f"{sp.get('_parse_column', 0):.2f} s, k-means "
+          f"{sp.get('kmeans_fit', 0):.2f} s, assign "
+          f"{sp.get('assign_clusters', 0):.2f} s), page upload "
+          f"{sp.get('_write', 0):.2f} s (in the first statement); largest "
+          f"list {sift['max_list']} rows; statements at nprobe 16: cold "
+          f"{sift['cold_ms']:.2f} ms ({sift['cold_upload']} B uploaded), "
+          f"warm {sift['warm_ms']:.3f} ms mean ({sift['warm_upload']} B, "
+          f"the query block); first pass ms "
+          f"{[round(v, 2) for v in sift['first_pass_ms'][:8]]}...; "
+          f"IvfIndex.search QPS batch 1 {sift['qps'][1]:.1f}, 64 "
+          f"{sift['qps'][64]:.1f}, 1024 {sift['qps'][1024]:.1f}; "
+          f"recall@10 {sift['recall']:.4f}; nprobe 1024 == brute kernel "
+          f"== host_dist selection on 64 queries (oracle "
+          f"{sift['oracle_s']:.1f} s); two calls bit-identical; launches "
+          f"{sift['launches']}", flush=True)
+    colbert = phase_colbert(device)
+    print(f"[12] colbert: {colbert['docs']} passages (cut from 100,000 to "
+          f"hold the script's time), {colbert['tokens']} tokens "
+          f"({colbert['region_bytes']} B of f32) built as a MaxSimIndex "
+          f"from the matrices in {colbert['gen_s']:.1f} s (cut: not through "
+          f"JSON); cold first batch "
+          f"{colbert['cold_s']:.2f} s, warm {colbert['qps']:.1f} QPS at "
+          f"batch 16; 4 queries within rtol/atol 1e-5 of host_scores (f64, "
+          f"{colbert['oracle_s']:.1f} s), {colbert['near_ties']} rank(s) "
+          f"differing on near-ties; SQL leg: 2,000 passages as JSON, CREATE "
+          f"INDEX ... USING maxsim + load {colbert['sql_build_s']:.1f} s, "
+          f"statement {colbert['sql_ms']:.1f} ms, scores within 1e-5 of "
+          f"serene_maxsim = off, ids equal {colbert['sql_ids_equal']}; "
+          f"long docs (300 tokens, every 7th 1,030) within 1e-5 of "
+          f"host_scores: {colbert['long_docs']}; "
+          f"launches {colbert['launches']}", flush=True)
+    bsql = phase_bm25_sql(device)
+    print(f"[13] bm25_sql: 100,000 docs, CREATE INDEX ... USING inverted "
+          f"{bsql['build_s']:.1f} s; {bsql['n_queries']} statements, ms per "
+          f"statement one segment {bsql['ms_per_statement'][0]:.3f}, after "
+          f"the INSERT of 10,000 docs ({bsql['insert_s']:.1f} s) two "
+          f"segments {bsql['ms_per_statement'][1]:.3f}; {bsql['checked']} "
+          f"statements held to the host WAND; launches "
+          f"{bsql['launches']}", flush=True)
+    print(f"    total {time.perf_counter() - t_start:.1f} s", flush=True)
+
+    # 14. the vector kernels against their plain versions
+    vcalls = sift.pop("calls")
+    for name in ("ivf_probe", "ivf_brute", "kmeans_assign", "kmeans_update"):
+        if vcalls[name] is None:
+            fail(f"{name}'s main-path inputs were not recorded")
+    if colbert["args"] is None:
+        fail("maxsim's main-path inputs were not recorded")
+    vchecks = {"ivf_probe nprobe 16": check_ivf_probe(device,
+                                                      vcalls["ivf_probe"]),
+               "ivf_probe brute": check_ivf_probe(device,
+                                                  vcalls["ivf_brute"]),
+               "maxsim": check_maxsim(device, colbert.pop("args"))}
+    vchecks.update(check_kmeans(device, vcalls["kmeans_assign"],
+                                vcalls["kmeans_update"]))
+    for what, r in vchecks.items():
+        lib = "null" if r["library_ms"] is None else \
+            f"{r['library_ms']:.4f} ms"
+        print(f"[14] {what} ({r['shape']}): kernel {r['ms']:.4f} ms, plain "
+              f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']}), library {lib}, bit-equal", flush=True)
+    fp = check_float_probe(device)
+    print(f"[14] ivf_probe on float data ({fp['shape']}): {fp['metrics']} "
+          f"bit-equal to the plain version and to host_dist", flush=True)
+    print(f"    total {time.perf_counter() - t_start:.1f} s", flush=True)
+
+    # 15. result lines
     launches = {}
     for window in (dense["launches"], packed["launches"],
-                   *(r["launches"] for r in sql.values())):
+                   *(r["launches"] for r in sql.values()),
+                   sift["launches"], colbert["launches"],
+                   bsql["launches"]):
         for kname, n in window.items():
             launches[kname] = launches.get(kname, 0) + n
     results["agg_scan"] = checks["q1 GROUP BY region"]
@@ -1242,6 +2031,9 @@ def main() -> int:
     results["topn_scan"] = checks["T1 topn_scan"]
     results["chain_topn"] = checks["J2 chain_topn"]
     results["join_probe"] = checks["J1 join_probe"]
+    results["ivf_probe"] = vchecks["ivf_probe nprobe 16"]
+    for name in ("maxsim", "kmeans_assign", "kmeans_update"):
+        results[name] = vchecks[name]
     kernels = []
     for kname, r in results.items():
         kernels.append({

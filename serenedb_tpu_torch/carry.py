@@ -3,9 +3,10 @@
 The reference's index, posting store and tables are plain arrays; these
 functions take them as numpy arrays (a reference `FieldIndex`'s fields, a
 reference `BlockStore`'s fields after `np.asarray` of its device arrays,
-or the fields of a reference table's `Column`s) and build the port's
-objects, so both packages score and aggregate identical state. Nothing
-here imports the reference: the caller hands over the arrays.
+the fields of a reference table's `Column`s, or a reference vector
+index's centroids, segment arrays and options) and build the port's
+objects, so both packages score, aggregate and probe identical state.
+Nothing here imports the reference: the caller hands over the arrays.
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ from .columnar.column import Batch, Column
 from .device import DeviceLike, resolve_device
 from .exec.tables import MemTable
 from .ops.bm25 import BlockStore
+from .search.ivf import IvfIndex, MaxSimIndex, VecSegment
 from .search.segment import FieldIndex
 
 FIELD_INDEX_ARRAYS = ("terms", "doc_freq", "offsets", "post_docs",
@@ -95,3 +97,52 @@ def memtable_from_reference(name: str, columns: dict) -> MemTable:
                            np.array(validity, dtype=bool, copy=True),
                            dictionary))
     return MemTable(name, Batch(list(columns), cols))
+
+
+def _vec_segments(segs, lists: int) -> list:
+    """VecSegments from (vals, rows, codes) numpy triples; the reference's
+    segments are already sorted (cluster asc, row asc), so the port's
+    constructor keeps their order."""
+    return [VecSegment(np.array(v, np.float32, copy=True),
+                       np.array(r, np.int64, copy=True),
+                       np.array(c, np.int32, copy=True), lists)
+            for v, r, c in segs]
+
+
+def ivf_index_from_reference(fields: dict,
+                             device: DeviceLike = None) -> IvfIndex:
+    """The port's IvfIndex from a reference IvfIndex's state: `centroids`,
+    `segs` as (vals, rows, codes) numpy triples in segment order, and the
+    scalars and options (`column`, `dim`, `lists`, `metric`, `num_rows`,
+    `data_version`, `mutation_epoch`, `options`, `quantized`, and for SQ8
+    `host_vectors`, `sq8_lo`, `sq8_scale`), on `device`."""
+    def arr(name):
+        v = fields.get(name)
+        return None if v is None else np.array(v, np.float32, copy=True)
+    lists = int(fields["lists"])
+    return IvfIndex(
+        column=fields["column"], dim=int(fields["dim"]), lists=lists,
+        metric=str(fields["metric"]), centroids=arr("centroids"),
+        segs=_vec_segments(fields["segs"], lists),
+        num_rows=int(fields["num_rows"]),
+        data_version=int(fields["data_version"]),
+        mutation_epoch=int(fields.get("mutation_epoch", 0)),
+        options=dict(fields.get("options") or {}),
+        quantized=bool(fields.get("quantized", False)),
+        host_vectors=arr("host_vectors"), sq8_lo=arr("sq8_lo"),
+        sq8_scale=arr("sq8_scale"), device=device)
+
+
+def maxsim_index_from_reference(fields: dict,
+                                device: DeviceLike = None) -> MaxSimIndex:
+    """The port's MaxSimIndex from a reference MaxSimIndex's state:
+    `segs` as (vals, rows, codes) triples, `doc_rows`, and `column`,
+    `dim`, `num_rows`, `data_version`, `mutation_epoch`, `options`."""
+    doc_rows = np.array(fields["doc_rows"], np.int32, copy=True)
+    return MaxSimIndex(
+        column=fields["column"], dim=int(fields["dim"]),
+        segs=_vec_segments(fields["segs"], len(doc_rows)),
+        doc_rows=doc_rows, num_rows=int(fields["num_rows"]),
+        data_version=int(fields["data_version"]),
+        mutation_epoch=int(fields.get("mutation_epoch", 0)),
+        options=dict(fields.get("options") or {}), device=device)

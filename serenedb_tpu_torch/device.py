@@ -40,6 +40,16 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
     return dev
 
 
+def current_device() -> torch.device:
+    """The device of the database whose statement is executing (its
+    `Database(device=)`); `cuda:0` outside any statement. Index builds
+    and refreshes place their device state here, since they run inside
+    CREATE INDEX or a query's read-repair."""
+    from .engine import CURRENT_CONNECTION
+    conn = CURRENT_CONNECTION.get()
+    return conn.db.device if conn is not None else resolve_device(None)
+
+
 class LaunchLedger:
     """Integer launch counters keyed by kernel name (thread-safe)."""
 

@@ -15,6 +15,9 @@ part of serenedb_tpu/obs/device.py the analytics path uses).
   arrays.
 - `note_upload(nbytes)`: one host→device upload, counted in
   `device.UPLOADS`.
+- `note_provider` / `provider_name`: publication token → table name, for
+  the vector pool's rows. `device_rows` and `device_cache_rows` (the
+  sdb_device and sdb_device_cache relations) raise: not ported yet.
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ from typing import Callable
 
 import numpy as np
 
+from .. import errors
 from ..device import UPLOADS
 from ..utils import metrics
 from ..utils.config import REGISTRY as _settings
@@ -84,7 +88,12 @@ class ProgramCache:
             per_fam: dict[str, int] = {}
             for fam, _k in self._progs:
                 per_fam[fam] = per_fam.get(fam, 0) + 1
-            return [{"family": fam, "entries": per_fam.get(fam, 0), **f}
+            # nothing is traced or compiled at query time: a miss is
+            # the build, and there is no compile time to report
+            return [{"family": fam, "entries": per_fam.get(fam, 0), **f,
+                     "compiles": f["misses"], "storms": 0,
+                     "compile_ms_total": None, "compile_ms_mean": None,
+                     "last_compile_ms": None}
                     for fam, f in sorted(self._fams.items())]
 
 
@@ -125,12 +134,47 @@ def fused_declines() -> dict[str, int]:
 
 
 def stats_section() -> dict:
-    """The program ledger, the device column cache's summary and the
-    fused decline counts."""
+    """The program ledger, the device column cache's and the vector
+    pool's summaries and the fused decline counts."""
     from ..exec.device_pipeline import DEVICE_CACHE
+    from ..search.vector_store import VPOOL
     return {"programs": PROGRAMS.snapshot(),
             "column_cache": DEVICE_CACHE.stats(),
+            "vector_pool": VPOOL.stats(),
             "fused_declines": fused_declines()}
+
+
+def device_rows() -> list[dict]:
+    """sdb_device's rows: the per-device transfer ledger is not ported
+    (`device.UPLOADS` counts uploads for the whole process)."""
+    raise errors.unsupported("sdb_device is not ported yet")
+
+
+def device_cache_rows() -> list[dict]:
+    """sdb_device_cache's rows: the per-entry view of the device column
+    cache is not ported (its summary is in `stats_section`)."""
+    raise errors.unsupported("sdb_device_cache is not ported yet")
+
+
+# -- provider-token naming (copied from serenedb_tpu/obs/device.py) -----------
+
+_TOKEN_NAMES: dict[int, str] = {}
+_TOKEN_NAMES_MAX = 1024
+_token_names_lock = threading.Lock()
+
+
+def note_provider(token: int, name: str) -> None:
+    """Remember a publication token's table name (pool entries carry
+    only the token). Bounded FIFO."""
+    if _TOKEN_NAMES.get(token) != name:
+        with _token_names_lock:
+            while len(_TOKEN_NAMES) >= _TOKEN_NAMES_MAX:
+                _TOKEN_NAMES.pop(next(iter(_TOKEN_NAMES)))
+            _TOKEN_NAMES[token] = str(name)
+
+
+def provider_name(token: int) -> str:
+    return _TOKEN_NAMES.get(token, "")
 
 
 def fetch_all(outs) -> list:

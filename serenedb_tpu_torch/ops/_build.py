@@ -22,7 +22,8 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 SOURCES = {"bm25": CSRC / "bm25.cu", "agg": CSRC / "agg.cu",
-           "topn": CSRC / "topn.cu", "join": CSRC / "join.cu"}
+           "topn": CSRC / "topn.cu", "join": CSRC / "join.cu",
+           "vector": CSRC / "vector.cu"}
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
@@ -45,8 +46,8 @@ SIGNATURES = {
         "build_dense_rows": [_I, _P, _P, _P, _P, _P, _P, _L, _P, _P, _L, _I,
                              _F, _F, _F, _P],
         "build_dense_tail": [_P, _P, _P, _L, _P, _P, _L, _I, _F, _F, _F, _P],
-        "topk_rows": [_P, _L, _L, _P, _I, _P, _I, _I, _P, _P, _P, _P, _P, _P,
-                      _P],
+        "topk_rows": [_P, _L, _L, _P, _I, _P, _I, _P, _P, _P, _L, _P, _L, _P,
+                      _P, _P, _P],
     },
     "agg": {
         "agg_scan": [_P, _L, _P],
@@ -60,6 +61,13 @@ SIGNATURES = {
     "join": {
         "join_probe": [_P, _L, _P],
         "join_unmatched": [_P, _L, _P],
+    },
+    "vector": {
+        "ivf_probe": [_P] * 9 + [_I] * 5 + [_L] + [_I] * 2 +
+                     [_P, _P, _L, _P, _L, _P, _P, _P],
+        "maxsim": [_P] * 7 + [_L] + [_I] * 5 + [_P, _L, _P, _L, _P, _P, _P],
+        "kmeans_assign": [_P] * 3 + [_L, _I, _I] + [_P] * 4,
+        "kmeans_update": [_P] * 3 + [_L, _I, _I, _L] + [_P] * 4,
     },
 }
 

@@ -24,15 +24,15 @@ from typing import Optional
 import torch
 
 from ..device import LAUNCHES
-from . import _build
+from . import _build, select
 
 SCORERS = {"bm25": 0, "tfidf": 1, "lm_dirichlet": 2, "jelinek_mercer": 3,
            "dfi": 4}
 MATCH_EPS = 1e-6
-#: largest k (rounded up to a power of two) the sort stage holds
-TOPK_MAX_K = 4096
 #: most rows one topk_rows launch takes (CUDA grid y limit)
 TOPK_MAX_ROWS = 65535
+#: smallest tile of topk_rows' sort levels (csrc/bm25.cu TOPK_SORT_FLOOR)
+TOPK_SORT_FLOOR = 32
 
 
 def _is_cuda(*ts) -> bool:
@@ -393,9 +393,6 @@ def topk_rows(scores: torch.Tensor, k: int,
         _require(require, torch.int32, "require")
         if require.shape != (rows,):
             raise ValueError("require must hold one count per row")
-    kpad = 1 << max(k - 1, 0).bit_length()
-    if kpad > TOPK_MAX_K:
-        raise ValueError(f"k={k} above the {TOPK_MAX_K} topk_rows supports")
     lib = _build.load("bm25")
     dev = scores.device
     vals = torch.empty((rows, k), dtype=torch.float32, device=dev)
@@ -407,13 +404,16 @@ def topk_rows(scores: torch.Tensor, k: int,
         state = torch.zeros((nr, 8), dtype=torch.int64, device=dev)
         state[:, 1] = k
         hist = torch.zeros((nr, 256), dtype=torch.int32, device=dev)
-        cand = torch.zeros((nr, kpad), dtype=torch.int64, device=dev)
+        cap_a, cap_b = select.scratch(nr, k, 1, k, TOPK_SORT_FLOOR)
+        cand = torch.empty(cap_a, dtype=torch.int64, device=dev)
+        buf_b = torch.empty(cap_b, dtype=torch.int64, device=dev)
         counts = torch.zeros(nr, dtype=torch.int32, device=dev)
         _build.check(lib.topk_rows(
             _ptr(scores[r0:r1]), nr, n,
             _ptr(hits[r0:r1]) if hits is not None else None, hits_kind,
-            _ptr(require[r0:r1]) if require is not None else None, k, kpad,
-            _ptr(state), _ptr(hist), _ptr(cand), _ptr(counts),
-            _ptr(vals[r0:r1]), _ptr(idx[r0:r1]), stream), "topk_rows")
+            _ptr(require[r0:r1]) if require is not None else None, k,
+            _ptr(state), _ptr(hist), _ptr(cand), cap_a, _ptr(buf_b), cap_b,
+            _ptr(counts), _ptr(vals[r0:r1]), _ptr(idx[r0:r1]), stream),
+            "topk_rows")
         LAUNCHES.bump("topk_rows")
     return vals, idx

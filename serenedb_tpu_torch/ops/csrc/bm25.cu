@@ -38,12 +38,13 @@
 //    tie order — and there are no ties. A per-row radix select over 8-bit
 //    digits (up to 8 passes, each a shared-memory histogram with integer
 //    atomics; a pass that pins the k-th key exits the rest early) finds the
-//    k-th key, a collect pass gathers the k keys at or above it, and a
-//    bitonic sort in shared memory orders them.
+//    k-th key, a collect pass gathers the k keys at or above it, and
+//    the levels of select.cuh sort them (complemented, so ascending is
+//    the order wanted), for any k: a search scan that ranks every match
+//    asks for k up to the plane's width.
 //    Bound: bytes — each pass reads the plane (and the hit plane) once.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "select.cuh"
 
 #define ROW 128  // postings in one block row
 
@@ -214,6 +215,7 @@ __global__ void dense_tail_kernel(const int* __restrict__ docs,
 
 #define TOPK_THREADS 256
 #define TOPK_CHUNK 8192   // plane elements per block in the scan passes
+#define TOPK_SORT_FLOOR 32  // smallest tile of the sort levels
 #define ST_PREFIX 0       // per-row state, 8 int64 slots
 #define ST_REMAINING 1
 #define ST_NBITS 2
@@ -309,7 +311,8 @@ __global__ void topk_select_kernel(long long rows, long long* __restrict__ state
 }
 
 // Gather the keys whose known high bits are >= the selected prefix: exactly
-// k keys per row, in no particular order.
+// k keys per row, in no particular order, complemented (so the ascending
+// levels of select.cuh sort them descending).
 __global__ void topk_collect_kernel(const float* __restrict__ scores,
                                     const void* __restrict__ hits,
                                     int hits_kind,
@@ -317,8 +320,7 @@ __global__ void topk_collect_kernel(const float* __restrict__ scores,
                                     long long ncols,
                                     const long long* __restrict__ state,
                                     unsigned long long* __restrict__ cand,
-                                    unsigned* __restrict__ counts, int k,
-                                    int kpad) {
+                                    unsigned* __restrict__ counts, int k) {
   long long row = blockIdx.y;
   const long long* st = state + row * ST_SLOTS;
   int sh = 64 - (int)st[ST_NBITS];
@@ -331,42 +333,20 @@ __global__ void topk_collect_kernel(const float* __restrict__ scores,
     unsigned long long key = load_key(scores, hits, hits_kind, need, off, j);
     if ((key >> sh) >= thr) {
       unsigned pos = atomicAdd(&counts[row], 1u);
-      if (pos < (unsigned)k) cand[row * kpad + pos] = key;
+      if (pos < (unsigned)k) cand[row * k + pos] = ~key;
     }
   }
 }
 
-// One block per row: bitonic sort of the kpad (power of two) candidate
-// keys, descending, in shared memory; write the first k as (value, index).
-__global__ void topk_sort_kernel(const unsigned long long* __restrict__ cand,
-                                 int k, int kpad, float* __restrict__ vals,
-                                 int* __restrict__ idx) {
-  extern __shared__ unsigned long long sk[];
-  long long row = blockIdx.x;
-  for (int i = threadIdx.x; i < kpad; i += blockDim.x)
-    sk[i] = i < k ? cand[row * kpad + i] : 0ull;
-  __syncthreads();
-  for (int size = 2; size <= kpad; size <<= 1) {
-    for (int stride = size >> 1; stride > 0; stride >>= 1) {
-      for (int i = threadIdx.x; i < kpad; i += blockDim.x) {
-        int j = i ^ stride;
-        if (j > i) {
-          unsigned long long a = sk[i], c = sk[j];
-          bool desc = (i & size) == 0;
-          if (desc ? (a < c) : (a > c)) {
-            sk[i] = c;
-            sk[j] = a;
-          }
-        }
-      }
-      __syncthreads();
-    }
-  }
-  for (int i = threadIdx.x; i < k; i += blockDim.x) {
-    unsigned long long key = sk[i];
-    vals[row * k + i] = key_value(key);
-    idx[row * k + i] = (int)(~(unsigned)(key & 0xFFFFFFFFull));
-  }
+// Write the sorted (complemented) keys as (value, index).
+__global__ void topk_write_kernel(const unsigned long long* __restrict__ cand,
+                                  long long n, float* __restrict__ vals,
+                                  int* __restrict__ idx) {
+  long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= n) return;
+  unsigned long long key = ~cand[t];
+  vals[t] = key_value(key);
+  idx[t] = (int)(~(unsigned)(key & 0xFFFFFFFFull));
 }
 
 static inline unsigned grid_for(long long threads, int block) {
@@ -459,13 +439,15 @@ int build_dense_tail(const void* docs, const void* tfs, const void* tids,
 // Top-k of every row of a (rows, ncols) f32 plane by (score desc, index
 // asc). Scratch from the wrapper: state (rows, 8) int64 with
 // state[:, 1] = k and the rest 0; hist (rows, 256) u32 zeroed; cand
-// (rows, kpad) u64 zeroed; counts (rows,) u32 zeroed. kpad is a power of
-// two >= k, at most 4096.
+// (cap_a >= rows * k keys) and buf_b (cap_b keys), the levels' buffers
+// (ops/select.py); counts (rows,) u32 zeroed.
 int topk_rows(const void* scores, long long rows, long long ncols,
               const void* hits, int hits_kind, const void* require, int k,
-              int kpad, void* state, void* hist, void* cand, void* counts,
-              void* vals, void* idx, void* stream) {
+              void* state, void* hist, void* cand, long long cap_a,
+              void* buf_b, long long cap_b, void* counts, void* vals,
+              void* idx, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
+  if (k < 1 || rows * k > cap_a) return (int)cudaErrorInvalidValue;
   dim3 grid((unsigned)((ncols + TOPK_CHUNK - 1) / TOPK_CHUNK), (unsigned)rows);
   for (int shift = 56; shift >= 0; shift -= 8) {
     topk_hist_kernel<<<grid, TOPK_THREADS, 0, s>>>(
@@ -477,11 +459,13 @@ int topk_rows(const void* scores, long long rows, long long ncols,
   topk_collect_kernel<<<grid, TOPK_THREADS, 0, s>>>(
       (const float*)scores, hits, hits_kind, (const int*)require, ncols,
       (const long long*)state, (unsigned long long*)cand, (unsigned*)counts,
-      k, kpad);
-  int threads = kpad < 1024 ? kpad : 1024;
-  topk_sort_kernel<<<(unsigned)rows, threads,
-                     (size_t)kpad * sizeof(unsigned long long), s>>>(
-      (const unsigned long long*)cand, k, kpad, (float*)vals, (int*)idx);
+      k);
+  const unsigned long long* sorted = sel::levels(
+      (unsigned long long*)cand, cap_a, (unsigned long long*)buf_b, cap_b,
+      rows, k, 1, k, TOPK_SORT_FLOOR, s);
+  if (!sorted) return (int)cudaErrorInvalidValue;
+  topk_write_kernel<<<grid_for(rows * k, 256), 256, 0, s>>>(
+      sorted, rows * k, (float*)vals, (int*)idx);
   return (int)cudaGetLastError();
 }
 

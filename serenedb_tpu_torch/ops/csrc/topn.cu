@@ -14,8 +14,8 @@
 // a one-thread kernel picks the digit that holds the k-th largest key, so
 // no pass waits on the host. After eight passes the prefix is that key
 // itself; one pass collects the k keys at or above it (keys are unique,
-// so exactly k), and one block sorts them with a bitonic sort in shared
-// memory (k <= 8192: 64 KB).
+// so exactly k), and one block sorts them with select.cuh's bitonic sort
+// in shared memory (k <= 8192: 64 KB).
 //
 // 1. topn_scan
 //    Replaces serenedb_tpu/exec/device_topn.py `_topn_indices` (the
@@ -41,6 +41,7 @@
 // re-read the keys (the time is roughly ten passes over 8 bytes a row).
 
 #include "expr.cuh"
+#include "select.cuh"
 
 namespace {
 
@@ -237,34 +238,20 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
-// Sort the k collected keys descending (bitonic, in shared memory) and
-// write each one's index (~ the low word).
+// Sort the k collected keys descending (select.cuh's bitonic sort of their
+// complements, in shared memory) and write each one's index (the low word
+// of the complement).
 __global__ void __launch_bounds__(SORT_THREADS)
-    select_sort_kernel(const u64* __restrict__ sel, long long k, int npow2,
+    select_sort_kernel(const u64* __restrict__ cand, long long k, int npow2,
                        long long* __restrict__ out_idx) {
   extern __shared__ u64 s_keys[];
   for (int i = threadIdx.x; i < npow2; i += SORT_THREADS)
-    s_keys[i] = i < k ? sel[i] : 0ull;  // 0 is below every real key
+    s_keys[i] = i < k ? ~cand[i] : sel::NO_KEY;
   __syncthreads();
-  for (int size = 2; size <= npow2; size <<= 1) {
-    for (int stride = size >> 1; stride > 0; stride >>= 1) {
-      for (int i = threadIdx.x; i < npow2; i += SORT_THREADS) {
-        const int j = i ^ stride;
-        if (j > i) {
-          const u64 a = s_keys[i], b = s_keys[j];
-          const bool down = (i & size) == 0;  // this run sorts descending
-          if ((a < b) == down) {
-            s_keys[i] = b;
-            s_keys[j] = a;
-          }
-        }
-      }
-      __syncthreads();
-    }
-  }
+  sel::block_sort(s_keys, npow2);
   for (int i = threadIdx.x; i < k; i += SORT_THREADS)
     out_idx[i] = static_cast<long long>(
-        ~static_cast<uint32_t>(s_keys[i] & 0xFFFFFFFFull));
+        static_cast<uint32_t>(s_keys[i] & 0xFFFFFFFFull));
 }
 
 __global__ void gather_rows_kernel(const uint32_t* __restrict__ src,

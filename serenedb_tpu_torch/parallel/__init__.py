@@ -1,5 +1,5 @@
 """The shared host worker pool (copied from serenedb_tpu/parallel/pool.py).
-The device mesh (serenedb_tpu/parallel/mesh.py) is not ported yet."""
+The device mesh (serenedb_tpu/parallel/mesh.py) is a stub."""
 
 from .pool import WorkerPool, get_pool, parallel_map, session_workers
 

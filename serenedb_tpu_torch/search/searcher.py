@@ -1,10 +1,13 @@
 """Index-backed query evaluation: filters on CPU set algebra, scoring on
 the card.
 
-Port of serenedb_tpu/search/searcher.py, `SegmentSearcher` only. Term
-dictionary lookups and boolean doc-set algebra stay on the host; BM25
-scoring + top-k run as the hand kernels of ops/bm25_kernels.py on the
-searcher's device (`cuda:0` unless the caller passes `device="cpu"`).
+Port of serenedb_tpu/search/searcher.py. Term dictionary lookups and
+boolean doc-set algebra stay on the host (memoized in the fragment cache,
+cache/fragments.py); BM25 scoring + top-k run as the hand kernels of
+ops/bm25_kernels.py on the searcher's device (`cuda:0` unless the caller
+passes `device="cpu"`). `MultiSearcher` (segments under global
+collection statistics, merged by one host heap), `SearchIndex` and the
+segment-shard driver are copies.
 
 Scoring semantics: a document's score is the sum of BM25 contributions of
 every positive leaf term of the query (phrase members and prefix expansions
@@ -13,12 +16,14 @@ included); NOT-subtrees and phrase adjacency affect *matching* only.
 Not ported yet: the mesh branch of `topk_batch` (`mesh_n > 1` raises),
 the batched ragged path and the posting pool (`ragged=True` takes the
 score-plane path, as the reference does off the host backend, with
-identical results by the reference's own contract), the filter fragment
-cache, and `MultiSearcher`.
+identical results by the reference's own contract), and the in-program
+cross-shard merge (`serene_shard_combine = device` with shards > 1
+raises).
 """
 
 from __future__ import annotations
 
+from dataclasses import dataclass
 from typing import Optional
 
 import numpy as np
@@ -97,14 +102,19 @@ class SegmentSearcher:
 
     # -- filter evaluation (CPU doc-set algebra) --------------------------
 
-    # -- filter evaluation (CPU doc-set algebra) --------------------------
-
     def eval_filter(self, node: QNode) -> np.ndarray:
-        """Sorted doc ids matching the query node. (The reference memoizes
-        these in its process-wide fragment cache; that cache is not ported
-        yet, so this computes straight through.)"""
-        return self._eval_filter_uncached(node)
-
+        """Sorted doc ids matching the query node. Memoized in the
+        process-wide fragment cache (cache/fragments.py): segments are
+        immutable, so a filter doc set is valid for this object's whole
+        lifetime — the ES shard-request-cache analog. Recursive
+        sub-nodes memoize individually, so `a AND b` reuses a cached
+        `a`. Unknown node shapes and `serene_result_cache = off`
+        sessions compute straight through."""
+        from ..cache.fragments import FRAGMENTS, qnode_sig
+        sig = qnode_sig(node)
+        return FRAGMENTS.cached(
+            self, None if sig is None else ("filter", sig),
+            lambda: self._eval_filter_uncached(node))
 
     def _eval_filter_uncached(self, node: QNode) -> np.ndarray:
         if isinstance(node, QTerm):
@@ -645,3 +655,336 @@ class SegmentSearcher:
         return (scores[order].astype(np.float32),
                 docs[order].astype(np.int32))
 
+
+def _run_segment_shards(run_segment, segments: list, cap: int) -> list:
+    """Drive the per-segment collectors, one result per segment in
+    SEGMENT ORDER. With `serene_shards` > 1 the segment set partitions
+    round-robin into per-shard groups (exec/shard.py's partitioning
+    function) and each shard's group runs as ONE pool task — the
+    sharded-tier unit of work — otherwise each segment is its own task.
+    Either way the caller's single-heap merge consumes the identical
+    per-segment outputs, so results are bit-identical at any shard or
+    worker count."""
+    from ..exec import shard as shard_mod
+    from ..parallel.pool import get_pool
+    if cap <= 1 or len(segments) <= 1:
+        return [run_segment(sb) for sb in segments]
+    n_shards = shard_mod.shard_count(None)
+    if n_shards > 1:
+        groups = shard_mod.group_round_robin(
+            list(enumerate(segments)), n_shards)
+
+        def run_group(entries):
+            return [(i, run_segment(sb)) for i, sb in entries]
+
+        parts = shard_mod.run_shard_tasks(None, run_group, groups)
+        outs: list = [None] * len(segments)
+        for chunk in parts:
+            for i, out in chunk:
+                outs[i] = out
+        return outs
+    return get_pool().ensure_started().map_ordered(
+        run_segment, list(segments), cap)
+
+
+def merge_segment_topk(seg_outs: list, bases: list[int], n_queries: int,
+                       k: int) -> list[tuple[np.ndarray, np.ndarray]]:
+    """Single-heap merge of per-segment top-k collector outputs.
+
+    seg_outs[si][qi] = (scores, local doc ids) for segment si. Ordering
+    is (score desc, global doc id asc) — the doc-id tie-break makes the
+    merged ranking a pure function of the data, independent of segment
+    count, arrival order, or worker scheduling."""
+    import heapq
+    results = []
+    for qi in range(n_queries):
+        entries: list[tuple[float, int]] = []
+        for out, base in zip(seg_outs, bases):
+            sc, dd = out[qi]
+            entries.extend(zip(sc.tolist(),
+                               (dd.astype(np.int64) + base).tolist()))
+        cand = heapq.nlargest(k, entries, key=lambda t: (t[0], -t[1]))
+        results.append((
+            np.asarray([c[0] for c in cand], dtype=np.float32),
+            np.asarray([c[1] for c in cand], dtype=np.int64)))
+    return results
+
+
+def _combine_topk(seg_outs: list, bases: list[int], n_queries: int,
+                  k: int) -> list[tuple[np.ndarray, np.ndarray]]:
+    """Cross-segment top-k combine dispatcher: the host single-heap
+    merge (the parity oracle), or — when the sharded tier is active
+    with `serene_shard_combine` resolving to device — an IN-PROGRAM
+    merge: each shard's candidate set reduces with an exact per-shard
+    top-k inside one shard_map program and the shards meet in a single
+    `all_gather` hop (exec/shard.py's round-robin segment grouping).
+    Selection is a pure (score desc, doc asc) order on the candidate
+    union, so both combines pick the identical entries in the identical
+    order — bit-identity by construction, asserted by the
+    tests/test_multichip.py parity matrix."""
+    from ..exec import shard as shard_mod
+    if len(seg_outs) > 1 and k > 0 and n_queries > 0:
+        n_shards = shard_mod.shard_count(None)
+        if n_shards > 1 and shard_mod.combine_mode(None) == "device":
+            # the in-program merge (K10) is not ported: refuse rather than
+            # serve the device combine from the host heap
+            from .. import errors
+            raise errors.unsupported(
+                "serene_shard_combine = device: the in-program top-k "
+                "merge is not ported yet")
+    return merge_segment_topk(seg_outs, bases, n_queries, k)
+
+
+class MultiSearcher:
+    """Searches across immutable segments of one column (reference:
+    DirectoryReader over segment readers, SURVEY.md §2.7). Doc ids are
+    global row indices (segment base + local id); scoring uses GLOBAL
+    collection statistics so multi-segment scores equal a single-segment
+    build of the same data."""
+
+    def __init__(self, analyzer: Analyzer):
+        self.analyzer = analyzer
+        self.segments: list[tuple[SegmentSearcher, int]] = []  # (seg, base)
+
+    def add_segment(self, searcher: SegmentSearcher, base_row: int):
+        self.segments.append((searcher, base_row))
+
+    @property
+    def num_docs(self) -> int:
+        return sum(s.num_docs for s, _ in self.segments)
+
+    @property
+    def global_avgdl(self) -> float:
+        total_tokens = sum(s.index.total_tokens for s, _ in self.segments)
+        n = self.num_docs
+        return (total_tokens / n) if n else 0.0
+
+    def _global_df(self, term: str) -> int:
+        df = 0
+        for s, _ in self.segments:
+            tid = s.index.term_id(term)
+            if tid >= 0:
+                df += int(s.index.doc_freq[tid])
+        return df
+
+    def _global_ctf(self, term: str) -> int:
+        ctf = 0
+        for s, _ in self.segments:
+            tid = s.index.term_id(term)
+            if tid >= 0:
+                ctf += int(s.index.ctf[tid])
+        return ctf
+
+    def eval_filter(self, node: QNode) -> np.ndarray:
+        parts = []
+        for s, base in self.segments:
+            local = s.eval_filter(node)
+            if len(local):
+                parts.append(local.astype(np.int64) + base)
+        return np.concatenate(parts).astype(np.int64) if parts \
+            else np.empty(0, dtype=np.int64)
+
+    def topk(self, node: QNode, k: int, scorer: str = "bm25",
+             mesh_n: int = 0) -> tuple[np.ndarray, np.ndarray]:
+        return self.topk_batch([node], k, scorer, mesh_n=mesh_n)[0]
+
+    def topk_batch(self, nodes: list[QNode], k: int, scorer: str = "bm25",
+                   mesh_n: int = 0, ragged: bool = False,
+                   ) -> list[tuple[np.ndarray, np.ndarray]]:
+        """Fragments memoize PER QUERY (cache/fragments.cached_batch): a
+        coalesced batch probes each member's own (sig, k, scorer) key, the
+        misses score together in one segment dispatch, and each result
+        stores back under its own key — so a fragment computed inside any
+        batch serves the same query arriving alone later and vice versa
+        (sound because per-query results are batch-composition-independent,
+        the serving parity contract). `ragged` never keys a fragment: the
+        ragged host path is bit-identical to the device dispatch by
+        construction, same reason serene_search_batch stays out of the
+        result cache's settings digest."""
+        from ..cache.fragments import FRAGMENTS, qnode_sig
+        sigs = [qnode_sig(n) for n in nodes]
+        if len(self.segments) == 1:
+            seg, base = self.segments[0]
+            # single segment: local stats ARE the global stats — the
+            # fragment is a pure function of the segment alone
+            shapes = [None if s is None else ("topk1", s, k, scorer, mesh_n)
+                      for s in sigs]
+            out = FRAGMENTS.cached_batch(
+                seg, shapes,
+                lambda idxs: seg.topk_batch([nodes[i] for i in idxs], k,
+                                            scorer, mesh_n=mesh_n,
+                                            ragged=ragged))
+            return [(s, d.astype(np.int64) + base) for s, d in out]
+        idf_factory = self._segment_idf_factory(nodes, scorer)
+        avgdl = self.global_avgdl
+        # a segment's scored output depends on GLOBAL collection stats
+        # (idf/avgdl span every segment), which are a pure function of
+        # the segment SET — key the whole membership, so an append
+        # recomputes scores exactly as correctness requires while
+        # filter fragments (above) survive it
+        segset = tuple(FRAGMENTS.segment_uid(s) for s, _ in self.segments)
+
+        def run_segment(seg_base):
+            seg, _base = seg_base
+            shapes = [None if s is None else ("topk", s, k, scorer, mesh_n,
+                                              segset) for s in sigs]
+            return FRAGMENTS.cached_batch(
+                seg, shapes,
+                lambda idxs: seg.topk_batch([nodes[i] for i in idxs], k,
+                                            scorer,
+                                            idf_of=idf_factory(seg),
+                                            avgdl_override=avgdl,
+                                            mesh_n=mesh_n, ragged=ragged))
+
+        # segments are independent top-k collectors: search them on the
+        # shared worker pool (reference: parallel scored collectors over
+        # the search thread pool). With a device mesh active the mesh IS
+        # the parallelism — keep the segment loop serial then.
+        from ..parallel.pool import get_pool, session_workers
+        cap = 1 if mesh_n > 1 else session_workers(None)
+        seg_outs = _run_segment_shards(run_segment, self.segments, cap)
+        return _combine_topk(seg_outs,
+                             [b for _, b in self.segments],
+                             len(nodes), k)
+
+    def probe_topk(self, node: QNode, k: int, scorer: str = "bm25",
+                   mesh_n: int = 0,
+                   ) -> Optional[tuple[np.ndarray, np.ndarray]]:
+        """Pure fragment-cache probe: the merged top-k iff EVERY segment's
+        fragment for this query is already cached, else None — no scoring,
+        no stores. The batcher consults this BEFORE enqueueing so cache
+        hits never wait out a coalescing window or occupy a batch slot.
+        Hit gauges bump only on full success; partial probes stay silent
+        (the batch dispatch re-probes those segments and counts them
+        once)."""
+        from ..cache.fragments import FRAGMENTS, enabled, qnode_sig
+        if not enabled() or not self.segments:
+            return None
+        sig = qnode_sig(node)
+        if sig is None:
+            return None
+        if len(self.segments) == 1:
+            seg, base = self.segments[0]
+            hit = FRAGMENTS.probe(seg, ("topk1", sig, k, scorer, mesh_n))
+            if hit is None:
+                return None
+            FRAGMENTS.count_hits(1)
+            s, d = hit
+            return s, d.astype(np.int64) + base
+        segset = tuple(FRAGMENTS.segment_uid(s) for s, _ in self.segments)
+        outs = []
+        for seg, _base in self.segments:
+            hit = FRAGMENTS.probe(seg, ("topk", sig, k, scorer, mesh_n,
+                                        segset))
+            if hit is None:
+                return None
+            outs.append([hit])
+        FRAGMENTS.count_hits(len(self.segments))
+        return merge_segment_topk(outs, [b for _, b in self.segments],
+                                  1, k)[0]
+
+    def _segment_idf_factory(self, nodes: list[QNode], scorer: str):
+        """seg → idf_of closure over GLOBAL collection stats. One pass:
+        global df per query term STRING (terms have different ids per
+        segment), shared by every segment's closure."""
+        n_total = max(self.num_docs, 1)
+        term_strings: set[str] = set()
+        for node in nodes:
+            for seg, _ in self.segments:
+                ts = seg.index.terms_str
+                term_strings.update(str(ts[t])
+                                    for t in seg.scoring_terms(node))
+        global_df = {s: self._global_df(s) for s in term_strings}
+        lm = scorer in bm25_ops.LM_SCORERS
+        global_ctf = ({s: self._global_ctf(s) for s in term_strings}
+                      if lm else {})
+        total_tokens = (float(sum(s.index.total_tokens
+                                  for s, _ in self.segments)) if lm else 0.0)
+
+        def factory(seg):
+            terms_str = seg.index.terms_str
+
+            def idf_of(tids, _ts=terms_str):
+                if lm:
+                    ctfs = np.asarray(
+                        [global_ctf[str(_ts[t])] for t in tids],
+                        dtype=np.int64)
+                    return bm25_ops.term_weight_for(
+                        scorer, n_total, None, ctfs, total_tokens)
+                dfs = np.asarray([global_df[str(_ts[t])] for t in tids],
+                                 dtype=np.int64)
+                return bm25_ops.idf_for(scorer, n_total, dfs)
+
+            return idf_of
+        return factory
+
+    def cpu_topk(self, node: QNode, k: int, scorer: str = "bm25",
+                 ) -> tuple[np.ndarray, np.ndarray]:
+        """Host-only top-k: block-max WAND per segment on the worker
+        pool, merged by one heap — the multi-segment analog of
+        SegmentSearcher.cpu_topk_wand (reference: ScanMode::TopK parallel
+        scored collectors). Exact-match-mask shapes score their match set
+        directly; pure negations return zero-scored matches."""
+        idf_factory = self._segment_idf_factory([node], scorer)
+        avgdl = self.global_avgdl
+        from ..cache.fragments import FRAGMENTS, qnode_sig
+        sig = qnode_sig(node)
+        segset = tuple(FRAGMENTS.segment_uid(s) for s, _ in self.segments)
+
+        def run_segment(seg_base):
+            seg, _base = seg_base
+
+            def compute():
+                idf_of = idf_factory(seg)
+                tids, req, needs_mask, empty = seg._query_shape(node)
+                if empty:
+                    return (np.empty(0, dtype=np.float32),
+                            np.empty(0, dtype=np.int32))
+                if not tids:
+                    match = seg.eval_filter(node)[:k]
+                    return (np.zeros(len(match), dtype=np.float32),
+                            match.astype(np.int32))
+                if needs_mask:
+                    match = seg.eval_filter(node)
+                    sc, dd = seg._cpu_score(match, tids, k, scorer,
+                                            idf_of, avgdl)
+                    keep = sc > 0.0
+                    return (sc[keep][:k], dd[keep][:k])
+                return seg.cpu_topk_wand(tids, k, scorer, idf_of=idf_of,
+                                         avgdl_override=avgdl,
+                                         require_all=req)
+
+            shape = None if sig is None else ("wand", sig, k, scorer,
+                                              segset)
+            return FRAGMENTS.cached(seg, shape, compute)
+
+        from ..parallel.pool import session_workers
+        cap = session_workers(None)
+        outs = _run_segment_shards(run_segment, self.segments, cap)
+        return _combine_topk([[o] for o in outs],
+                             [b for _, b in self.segments], 1, k)[0]
+
+
+@dataclass
+class SearchIndex:
+    """A built index over one or more text columns of a table provider.
+    Each column holds a MultiSearcher over immutable segments; appends add
+    segments (incremental refresh), row mutations force full rebuilds."""
+
+    columns: list[str]
+    using: str
+    options: dict
+    analyzer_name: str
+    searchers: dict[str, MultiSearcher]   # column → multi-segment searcher
+    data_version: int
+    mutation_epoch: int = 0
+    indexed_rows: int = 0
+
+    def searcher(self, column: str) -> Optional[MultiSearcher]:
+        return self.searchers.get(column)
+
+    def analyzer_name_for(self, column: str) -> str:
+        """The column's own tokenizer (multi-column indexes may configure
+        one per column — reference: USING inverted(text imdb_en, label))."""
+        col_toks = (self.options or {}).get("column_tokenizers", {}) or {}
+        return col_toks.get(column, self.analyzer_name)

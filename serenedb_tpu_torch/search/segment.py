@@ -215,6 +215,135 @@ def _add_block_max(fi: FieldIndex) -> None:
     fi.block_offsets = block_offsets
 
 
+def merge_field_indexes(parts: list[FieldIndex],
+                        doc_offsets: list[int]) -> FieldIndex:
+    """Merge per-chunk FieldIndexes built over a partition of one document
+    batch into the index the serial builder would have produced, bit for
+    bit. `doc_offsets[i]` is chunk i's first doc id in the merged space;
+    chunks arrive in ascending doc order, so concatenating each term's
+    per-chunk postings in part order (doc ids shifted by the chunk offset)
+    preserves the ascending-doc-id postings invariant without any sort.
+    WAND block metadata is recomputed — 128-doc posting blocks span chunk
+    boundaries, so per-chunk block maxima cannot be reused."""
+    if len(parts) == 1 and not doc_offsets[0]:
+        return parts[0]
+    term_arrays = [p.terms_str for p in parts if p.num_terms]
+    if not term_arrays:
+        norms = np.concatenate([p.norms for p in parts]).astype(np.int32)
+        return FieldIndex(
+            terms=np.asarray([], dtype=object),
+            doc_freq=np.zeros(0, dtype=np.int32),
+            offsets=np.zeros(1, dtype=np.int64),
+            post_docs=np.zeros(0, dtype=np.int32),
+            post_tfs=np.zeros(0, dtype=np.int32),
+            pos_offsets=np.zeros(1, dtype=np.int64),
+            positions=np.zeros(0, dtype=np.int32),
+            norms=norms,
+            block_max_tf=np.zeros(0, dtype=np.int32),
+            block_offsets=np.zeros(1, dtype=np.int64),
+            total_tokens=0)
+    merged_terms = np.unique(np.concatenate(term_arrays))
+    T = len(merged_terms)
+    maps = [np.searchsorted(merged_terms, p.terms_str) if p.num_terms
+            else np.zeros(0, dtype=np.int64) for p in parts]
+    # per-term doc freq, then postings laid out by a running per-term
+    # write cursor — parts visit the cursor in chunk order, so each
+    # term's merged postings are its chunks' postings concatenated
+    df = np.zeros(T, dtype=np.int64)
+    for p, m in zip(parts, maps):
+        if p.num_terms:
+            df[m] += p.doc_freq          # terms are unique per part
+    offsets = np.zeros(T + 1, dtype=np.int64)
+    np.cumsum(df, out=offsets[1:])
+    n_post = int(offsets[-1])
+    post_docs = np.empty(n_post, dtype=np.int32)
+    post_tfs = np.empty(n_post, dtype=np.int32)
+    pos_lens = np.empty(n_post, dtype=np.int64)
+    cursor = offsets[:-1].copy()
+    dsts = []
+    for p, m, doc_off in zip(parts, maps, doc_offsets):
+        if not p.num_terms:
+            dsts.append(None)
+            continue
+        dfp = p.doc_freq.astype(np.int64)
+        within = np.arange(len(p.post_docs), dtype=np.int64) - \
+            np.repeat(p.offsets[:-1], dfp)
+        dst = np.repeat(cursor[m], dfp) + within
+        post_docs[dst] = p.post_docs + np.int32(doc_off)
+        post_tfs[dst] = p.post_tfs
+        pos_lens[dst] = np.diff(p.pos_offsets)
+        cursor[m] += dfp
+        dsts.append(dst)
+    pos_offsets = np.zeros(n_post + 1, dtype=np.int64)
+    np.cumsum(pos_lens, out=pos_offsets[1:])
+    positions = np.empty(int(pos_offsets[-1]), dtype=np.int32)
+    for p, dst in zip(parts, dsts):
+        if dst is None or not len(p.positions):
+            continue
+        plens = np.diff(p.pos_offsets)
+        pwithin = np.arange(len(p.positions), dtype=np.int64) - \
+            np.repeat(p.pos_offsets[:-1], plens)
+        positions[np.repeat(pos_offsets[dst], plens) + pwithin] = \
+            p.positions
+    fi = FieldIndex(
+        terms=np.asarray([str(t) for t in merged_terms], dtype=object),
+        doc_freq=df.astype(np.int32),
+        offsets=offsets,
+        post_docs=post_docs,
+        post_tfs=post_tfs,
+        pos_offsets=pos_offsets,
+        positions=positions,
+        norms=np.concatenate([p.norms for p in parts]).astype(np.int32),
+        block_max_tf=np.zeros(0, dtype=np.int32),
+        block_offsets=np.zeros(T + 1, dtype=np.int64),
+        total_tokens=sum(p.total_tokens for p in parts),
+    )
+    _add_block_max(fi)
+    return fi
+
+
+def _ingest_setting(settings, name: str):
+    """Resolve a write-path setting: explicit session settings, the
+    executing connection's session, or the global default."""
+    if settings is None:
+        from ..engine import CURRENT_CONNECTION
+        conn = CURRENT_CONNECTION.get()
+        if conn is not None:
+            settings = conn.settings
+    from ..utils.config import REGISTRY
+    try:
+        if settings is not None:
+            return settings.get(name)
+        return REGISTRY.get_global(name)
+    except KeyError:
+        return None
+
+
+def build_field_index_auto(texts, analyzer: Analyzer,
+                           settings=None) -> FieldIndex:
+    """build_field_index, chunk-split across the shared worker pool when
+    `serene_parallel_ingest` is on and the corpus spans at least two
+    chunks. The fixed-size chunk split is independent of worker count and
+    the merge is deterministic, so the result is BIT-IDENTICAL to the
+    serial build at any parallelism (off/small corpora run the serial
+    path — the parity oracle)."""
+    texts = list(texts)
+    n = len(texts)
+    chunk = _ingest_setting(settings, "serene_ingest_chunk_docs") or 4096
+    chunk = max(64, int(chunk))
+    if not _ingest_setting(settings, "serene_parallel_ingest") or \
+            n < 2 * chunk:
+        return build_field_index(texts, analyzer)
+    from ..parallel.pool import parallel_map, session_workers
+    if session_workers(settings) <= 1:
+        return build_field_index(texts, analyzer)
+    bounds = list(range(0, n, chunk))
+    parts = parallel_map(
+        settings, lambda b: build_field_index(texts[b:b + chunk], analyzer),
+        bounds)
+    return merge_field_indexes(parts, bounds)
+
+
 def build_segment(columns: dict[str, Iterable[Optional[str]]],
                   analyzers: dict[str, str],
                   num_docs: int, base_row: int = 0) -> Segment:
@@ -223,3 +352,21 @@ def build_segment(columns: dict[str, Iterable[Optional[str]]],
         an = get_analyzer(analyzers.get(name, "text"))
         fields[name] = build_field_index(texts, an)
     return Segment(fields, num_docs, base_row)
+
+
+def merge_segments(segments: list[Segment], live_masks: list[np.ndarray],
+                   columns_of, analyzers: dict[str, str]) -> Segment:
+    """Compaction: rebuild one segment from the live docs of many.
+    `columns_of(seg) -> dict[field, list[str]]` re-reads stored text (the
+    reference's merge_writer reads the columnstore the same way)."""
+    all_cols: dict[str, list] = {}
+    total = 0
+    for seg, live in zip(segments, live_masks):
+        cols = columns_of(seg)
+        keep = np.flatnonzero(live[:seg.num_docs])
+        for name, texts in cols.items():
+            all_cols.setdefault(name, []).extend(
+                [texts[i] for i in keep])
+        total += len(keep)
+    return build_segment(all_cols, analyzers, total,
+                         segments[0].base_row if segments else 0)

@@ -141,7 +141,7 @@ def _tie_plane(rows, n, seed):
     return plane
 
 
-@pytest.mark.parametrize("k", [1, 10, 100, 1000])
+@pytest.mark.parametrize("k", [1, 10, 100, 1000, 20_000])
 @pytest.mark.parametrize("hits_dtype", [None, torch.int32, torch.float32])
 def test_topk_rows_kernel_matches_plain_bit_for_bit(cuda, k, hits_dtype):
     rows, n = 8, 50_000
@@ -524,3 +524,202 @@ def test_join_probe_matches_plain(cuda, kind):
     ref = jk.join_probe_plain(spec, cols, prow, pc, cnt, rt)
     torch.cuda.synchronize()
     _assert_raw_equal(got, ref)
+
+
+# -- vector kernels (csrc/vector.cu) ------------------------------------------
+
+def _cluster_layout(n, dp, lists, nprobe, seed, special=False):
+    """A cluster-major probe layout over n random f32 rows of width dp:
+    region rows through an identity slot map, per-list offsets/counts,
+    unique row ids, the probe grid's chunk maps for nprobe. `special`
+    plants NaN and +-inf rows, a row equal to the first query (an l2
+    distance of 0) and a row of -0.0."""
+    from serenedb_tpu_torch.ops import vector as vops
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((n, dp)).astype(np.float32)
+    q = rng.standard_normal((8, dp)).astype(np.float32)
+    if special:
+        x[5] = np.nan
+        x[9, 2] = np.inf
+        x[11, 0] = -np.inf
+        x[13] = q[0]
+        x[14] = -0.0
+    codes = rng.integers(0, lists, n)
+    codes[:lists] = np.arange(lists)
+    order = np.lexsort((np.arange(n), codes))
+    counts = np.bincount(codes, minlength=lists).astype(np.int32)
+    offsets = np.zeros(lists, np.int32)
+    offsets[1:] = np.cumsum(counts)[:-1]
+    cents = np.stack([x[codes == c].mean(0) for c in range(lists)])
+    cents[3] = cents[2]                            # tied centroids
+    m = int(counts.max())
+    tm, jm = vops.chunk_maps(nprobe, m, min(1024, 1 << (m - 1).bit_length()))
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a))  # noqa: E731
+    return (t(x[order]), t(np.arange(n, dtype=np.int32)), t(offsets),
+            t(counts), t(order.astype(np.int32)), t(cents.astype(np.float32)),
+            t(q), t(tm), t(jm))
+
+
+@pytest.mark.parametrize("metric", ["l2", "ip", "cos"])
+@pytest.mark.parametrize("special", [False, True])
+def test_ivf_probe_matches_plain_bit_for_bit(cuda, metric, special):
+    from serenedb_tpu_torch.ops import vector_kernels as vk
+    for nprobe, kkp in ((1, 8), (4, 16), (4, 4096)):
+        host = _cluster_layout(3000, 32, 16, nprobe, seed=41,
+                               special=special)
+        dev = [a.to(cuda) for a in host]
+        kw = dict(metric=metric, l_real=16, nprobe=nprobe, kkp=kkp)
+        LAUNCHES.reset()
+        d, r = vk.ivf_probe(*dev, **kw)
+        assert LAUNCHES.get("ivf_probe") == 1
+        pd, pr = vk.ivf_probe_plain(*host, **kw)
+        torch.cuda.synchronize()
+        np.testing.assert_array_equal(d.cpu().numpy().view(np.int32),
+                                      pd.numpy().view(np.int32))
+        np.testing.assert_array_equal(r.cpu().numpy(), pr.numpy())
+        if kkp == 4096:                             # past the live lanes
+            assert (r.cpu().numpy() == vk.PAD_ROW).any()
+        d2, r2 = vk.ivf_probe(*dev, **kw)           # repeat: same bits
+        assert torch.equal(d2.view(torch.int32), d.view(torch.int32))
+        assert torch.equal(r2, r)
+
+
+@pytest.mark.parametrize("kkp", [8192, 16_384, 20_000])
+def test_ivf_probe_keeps_past_one_selection_tile(cuda, kkp):
+    """kkp past 4,096 takes select.cuh's device-memory merge levels."""
+    from serenedb_tpu_torch.ops import vector_kernels as vk
+    host = _cluster_layout(40_000, 16, 16, 16, seed=45, special=True)
+    kw = dict(metric="l2", l_real=16, nprobe=16, kkp=kkp)
+    LAUNCHES.reset()
+    d, r = vk.ivf_probe(*[a.to(cuda) for a in host], **kw)
+    assert LAUNCHES.get("ivf_probe") == 1
+    pd, pr = vk.ivf_probe_plain(*host, **kw)
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(d.cpu().numpy().view(np.int32),
+                                  pd.numpy().view(np.int32))
+    np.testing.assert_array_equal(r.cpu().numpy(), pr.numpy())
+
+
+def test_ivf_probe_brute_layout_matches_plain(cuda):
+    from serenedb_tpu_torch.ops import vector as vops
+    from serenedb_tpu_torch.ops import vector_kernels as vk
+    rng = np.random.default_rng(42)
+    n, dp = 5000, 64
+    x = torch.from_numpy(rng.standard_normal((n, dp)).astype(np.float32))
+    q = torch.from_numpy(rng.standard_normal((4, dp)).astype(np.float32))
+    tm, jm = vops.chunk_maps(1, n, 1024)
+    host = (x, torch.arange(n, dtype=torch.int32),
+            torch.zeros(1, dtype=torch.int32),
+            torch.tensor([n], dtype=torch.int32),
+            torch.arange(n, dtype=torch.int32),
+            torch.zeros((1, dp)), q, torch.from_numpy(tm),
+            torch.from_numpy(jm))
+    kw = dict(metric="l2", l_real=1, nprobe=1, kkp=16)
+    d, r = vk.ivf_probe(*[a.to(cuda) for a in host], **kw)
+    pd, pr = vk.ivf_probe_plain(*host, **kw)
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(d.cpu().numpy().view(np.int32),
+                                  pd.numpy().view(np.int32))
+    np.testing.assert_array_equal(r.cpu().numpy(), pr.numpy())
+    hd = vops.host_dist(x.numpy(), q.numpy()[:, None, :], "l2")
+    order = np.lexsort((np.broadcast_to(np.arange(n), hd.shape), hd))[:, :16]
+    np.testing.assert_array_equal(r.cpu().numpy(), order)
+
+
+def test_maxsim_matches_plain_with_empty_docs_and_zero_tokens(cuda):
+    from serenedb_tpu_torch.ops import vector_kernels as vk
+    rng = np.random.default_rng(43)
+    ndocs, dp = 300, 64
+    cnt = rng.integers(1, 12, ndocs).astype(np.int32)
+    cnt[[4, 77]] = 0                                 # empty docs
+    lp = 512
+    counts = np.zeros(lp, np.int32)
+    counts[:ndocs] = cnt
+    offsets = np.zeros(lp, np.int32)
+    offsets[1:ndocs + 1] = np.cumsum(cnt)
+    ntok = int(cnt.sum())
+    x = rng.standard_normal((ntok, dp)).astype(np.float32)
+    rows = np.full(lp, vk.PAD_ROW, np.int32)
+    rows[:ndocs] = rng.permutation(10_000)[:ndocs]
+    q = rng.standard_normal((4, 8, dp)).astype(np.float32)
+    q[1, 5:] = 0.0                                   # zero query tokens
+    q[3] = 0.0
+    dmap = np.full(3 * 128, ndocs, np.int32)
+    dmap[:ndocs] = np.arange(ndocs)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a))  # noqa: E731
+    host = (t(x), t(np.arange(max(ntok, 8), dtype=np.int32)), t(offsets),
+            t(counts), t(rows), t(q), t(dmap.reshape(3, 128)))
+    for kkp in (8, 512):
+        kw = dict(tile=32, tcap=int(cnt.max()), kkp=kkp)
+        LAUNCHES.reset()
+        k, r = vk.maxsim(*[a.to(cuda) for a in host], **kw)
+        assert LAUNCHES.get("maxsim") == 1
+        pk, pr = vk.maxsim_plain(*host, **kw)
+        torch.cuda.synchronize()
+        np.testing.assert_array_equal(k.cpu().numpy().view(np.int32),
+                                      pk.numpy().view(np.int32))
+        np.testing.assert_array_equal(r.cpu().numpy(), pr.numpy())
+
+
+@pytest.mark.parametrize("dp", [128, 768])
+def test_maxsim_long_docs_match_plain(cuda, dp):
+    """Docs of 300 tokens (ColBERTv2) and 1,030 (a ColPali page) stream
+    through the kernel's token tiles; kkp 16,384 keeps past one tile."""
+    from serenedb_tpu_torch.ops import vector_kernels as vk
+    rng = np.random.default_rng(46)
+    ndocs = 9000 if dp == 128 else 600
+    cnt = rng.integers(1, 40, ndocs).astype(np.int32)
+    cnt[:6] = (300, 1030, 299, 301, 0, 64)
+    lp = 1 << ndocs.bit_length()
+    counts = np.zeros(lp, np.int32)
+    counts[:ndocs] = cnt
+    offsets = np.zeros(lp, np.int32)
+    offsets[1:ndocs + 1] = np.cumsum(cnt)
+    ntok = int(cnt.sum())
+    x = rng.standard_normal((ntok, dp)).astype(np.float32)
+    rows = np.full(lp, vk.PAD_ROW, np.int32)
+    rows[:ndocs] = rng.permutation(100_000)[:ndocs]
+    q = rng.standard_normal((3, 32, dp)).astype(np.float32)
+    dc = 128
+    dmap = np.full(-(-ndocs // dc) * dc, ndocs, np.int32)
+    dmap[:ndocs] = np.arange(ndocs)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a))  # noqa: E731
+    host = (t(x), t(np.arange(ntok, dtype=np.int32)), t(offsets),
+            t(counts), t(rows), t(q), t(dmap.reshape(-1, dc)))
+    dev = [a.to(cuda) for a in host]
+    for kkp in (8, 16_384):
+        kw = dict(tile=32, tcap=int(cnt.max()), kkp=kkp)
+        LAUNCHES.reset()
+        k, r = vk.maxsim(*dev, **kw)
+        assert LAUNCHES.get("maxsim") == 1
+        # the plain version on the card's tensors: separate elementwise
+        # products and sums round as on the host, in a fraction of the time
+        pk, pr = vk.maxsim_plain(*dev, **kw)
+        torch.cuda.synchronize()
+        np.testing.assert_array_equal(k.cpu().numpy().view(np.int32),
+                                      pk.cpu().numpy().view(np.int32))
+        np.testing.assert_array_equal(r.cpu().numpy(), pr.cpu().numpy())
+
+
+def test_kmeans_kernels_match_plain(cuda):
+    from serenedb_tpu_torch.ops import vector as vops
+    from serenedb_tpu_torch.ops import vector_kernels as vk
+    rng = np.random.default_rng(44)
+    x = torch.from_numpy(rng.standard_normal((20_000, 32)).astype(np.float32))
+    c = x[:64].clone()
+    c[7] = c[6]                                      # tied centroids
+    c[40] = 1e6                                      # an empty cluster
+    xc = vops._gemm(x, c)
+    LAUNCHES.reset()
+    a = vk.kmeans_assign(x.to(cuda), c.to(cuda), xc.to(cuda))
+    pa = vk.kmeans_assign_plain(x, c, xc)
+    torch.cuda.synchronize()
+    assert torch.equal(a.cpu(), pa)
+    assert not (pa == 7).any() and not (pa == 40).any()
+    new = vk.kmeans_update(x.to(cuda), a, c.to(cuda))
+    pnew = vk.kmeans_update_plain(x, pa, c)
+    torch.cuda.synchronize()
+    assert LAUNCHES.get("kmeans_assign") == 1
+    assert LAUNCHES.get("kmeans_update") == 1
+    assert torch.equal(new.cpu().view(torch.int32), pnew.view(torch.int32))
+    assert torch.equal(pnew[40], c[40]) and torch.equal(pnew[7], c[7])
