@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the port's BM25 search, SQL analytics, top-N, fused-join and
-vector paths on one CUDA card and check them.
+"""Drive the port's BM25 search, SQL analytics, top-N, fused-join, vector
+and serving paths on one CUDA card and check them.
 
     python3 chip_smoke.py
 
@@ -13,7 +13,10 @@ Phases (any failure exits non-zero and prints no result line):
      held to the port's cpu_topk_wand on a spanning sample;
   4. packed regime end to end: the `bm25_8m` shape (8,000,000 docs,
      200,000 terms, 120M sampled postings, 96 queries, k=10), same check,
-     plus two consecutive calls that must agree bit for bit;
+     plus two consecutive calls that must agree bit for bit; then the
+     same mix through topk_batch(ragged=True) with the posting pool on
+     (65,536 pages inside the device cache's cap), bit-equal to the plane
+     results;
   5. each search kernel against its plain PyTorch version on the card, on
      the inputs the main path gave it in phases 3-4 (recorded as it ran),
      and topk_rows also on a plane full of ties: bm25_accumulate and
@@ -80,10 +83,30 @@ Phases (any failure exits non-zero and prints no result line):
      bit for bit, with their times, bounds and yardsticks; and ivf_probe
      on float data at 100,000 x 768 for l2, ip and cos, bit-equal to its
      plain version and to host_dist;
- 15. one JSON line per kernel, the card line, then the device line.
+ 15. `paged_search` (bench.py bench_paged_search): 1,000,000 docs, 30,000
+     terms, 12M sampled postings (seed 7), 64 two-term disjunctions, k =
+     10, at batches of 1, 8 and 64 with the posting pool on (pool_score),
+     off (the host ragged path, contrib_flat) and ragged=False (the
+     plane): every query bit-equal across the three, QPS per mode and
+     batch; a warm repeat of the 64-batch uploads 0 bytes and launches
+     pool_score once; a starved budget of 64 pages stays bit-equal;
+ 16. serving: 200,000 docs from bench_bm25_1m's generator (cut from 1M
+     for the script's time; still the packed regime; the index's
+     tokenizer 'simple', as phase 13's) as an ES document table (`_id`,
+     `_source`, `body`) with an inverted index, behind one
+     FrontDoor serving HTTP and the PG wire; one _msearch of 64 two-term
+     match items cold, twice warm and once with the pool off, each item
+     equal to its _search run serially with serene_search_batch = off, a
+     mean coalesced batch above 1, pool_score and contrib_flat launched;
+     one @@ statement over the PG wire equal to execute;
+ 17. pool_score (full and partial mode) and contrib_flat against their
+     plain versions, bit for bit, on the 64-batch inputs recorded in
+     phase 15 (checked as soon as phase 15 ends, while the pool's region
+     holds what that batch read), with their times and bounds;
+ 18. one JSON line per kernel, the card line, then the device line.
 
 Launch counts are zeroed just before each main-path phase and read just
-after it; the comparisons of phases 5, 10 and 14 run outside those
+after it; the comparisons of phases 5, 10, 14 and 17 run outside those
 windows.
 The result cache is off in phases 6-9, so every statement executes, and
 the device column cache's cap is raised to 32 GiB, as a deployment on an
@@ -122,6 +145,8 @@ REPLACES = {
     "maxsim": "serenedb_tpu/ops/vector.py:272",
     "kmeans_assign": "serenedb_tpu/ops/vector.py:187",
     "kmeans_update": "serenedb_tpu/ops/vector.py:157",
+    "contrib_flat": "serenedb_tpu/ops/bm25.py:991",
+    "pool_score": "serenedb_tpu/search/posting_pool.py:155",
 }
 SOURCES = {"bm25_accumulate": "serenedb_tpu_torch/ops/csrc/bm25.cu",
            "build_dense": "serenedb_tpu_torch/ops/csrc/bm25.cu",
@@ -134,7 +159,9 @@ SOURCES = {"bm25_accumulate": "serenedb_tpu_torch/ops/csrc/bm25.cu",
            "ivf_probe": "serenedb_tpu_torch/ops/csrc/vector.cu",
            "maxsim": "serenedb_tpu_torch/ops/csrc/vector.cu",
            "kmeans_assign": "serenedb_tpu_torch/ops/csrc/vector.cu",
-           "kmeans_update": "serenedb_tpu_torch/ops/csrc/vector.cu"}
+           "kmeans_update": "serenedb_tpu_torch/ops/csrc/vector.cu",
+           "contrib_flat": "serenedb_tpu_torch/ops/csrc/bm25.cu",
+           "pool_score": "serenedb_tpu_torch/ops/csrc/pool.cu"}
 #: the device column cache's cap in the SQL phases (MiB)
 DEVICE_CACHE_MB = 32768
 #: the vector pool's pages in phases 11-12 (16 KiB each: 6.1 GiB, room for
@@ -488,7 +515,9 @@ def phase_packed(device, n_docs=8_000_000, vocab=200_000,
             fail(f"packed phase: query {qi} differs between two calls")
     checked = parity(searcher, nodes, out, step=6)
     peak = torch.cuda.max_memory_allocated(device)
+    ragged = ragged_leg(device, searcher, nodes, out)
     return {"qps": reps * len(nodes) / warm_s, "cold_s": cold_s,
+            "ragged": ragged,
             "index_build_s": index_s, "store_build_s": store_s,
             "n_queries": len(nodes), "parity_checked": checked,
             "launches": launches, "tile_bytes": store.hbm_bytes,
@@ -1213,8 +1242,10 @@ def phase_sift(device, n=1_000_000, lists=1024, nprobe=16) -> dict:
              ((ivf, "_parse_column"), (vops, "kmeans_fit"),
               (vops, "assign_clusters"), (VPOOL, "_write"))]
     launches_window = {}
+    from serenedb_tpu_torch.search import vector_store
     recs = {"assign": Recorder(vk, "kmeans_assign"),
             "update": Recorder(vk, "kmeans_update"),
+            "write": Recorder(vector_store, "_write_program"),
             "probe": Recorder(vk, "ivf_probe",
                               lambda a, kw: kw["nprobe"] == nprobe and
                               a[6].shape[0] == 64)}
@@ -1317,7 +1348,8 @@ def phase_sift(device, n=1_000_000, lists=1024, nprobe=16) -> dict:
             "calls": {"kmeans_assign": recs["assign"].args,
                       "kmeans_update": recs["update"].args,
                       "ivf_probe": recs["probe"].args,
-                      "ivf_brute": rec_brute.args}}
+                      "ivf_brute": rec_brute.args,
+                      "page_write": recs["write"].args}}
 
 
 def unit_rows(rng, n: int, dim: int) -> np.ndarray:
@@ -1709,6 +1741,24 @@ def check_maxsim(device, args, reps=3) -> dict:
                      f"tokens={ntok} kkp={kw['kkp']}"}
 
 
+def time_page_write(device, args, reps=5) -> dict:
+    """The vector pool's page write (the reference's `_write_program`, one
+    `index_copy_` here) replayed on the `sift` upload's own arguments: it
+    writes the same pages with the same rows again."""
+    from serenedb_tpu_torch.search import vector_store
+    if args is None:
+        fail("the vector pool's page write was not recorded")
+    a, kw = args
+    region, slots, stage = a
+    ms = timed_ms(lambda: vector_store._write_program(*a, **kw), reps,
+                  device)
+    # the staged rows read once, the same bytes written, the slots read
+    moved = 2 * nbytes(stage) + nbytes(slots)
+    return {"ms": ms, "bound_ms": bound_ms(moved),
+            "shape": f"{stage.shape[0]} pages x {stage.shape[1]} f32 into "
+                     f"{region.shape[0]}"}
+
+
 def check_kmeans(device, assign_args, update_args, reps=5) -> dict:
     """kmeans_assign and kmeans_update against their plain versions on one
     k-means iteration's recorded inputs, bit for bit; index_add_ timed as
@@ -1763,6 +1813,368 @@ def check_kmeans(device, assign_args, update_args, reps=5) -> dict:
     return out
 
 
+# ------------------------------------------------------------ serving
+
+#: the posting pool's page budget in the ragged leg, `paged_search` and
+#: the serving phase (8 KiB a page: 512 MiB, inside the device cache's cap)
+POSTING_PAGES = 65_536
+
+
+def _same_bits(a, b) -> bool:
+    return a[0].tobytes() == b[0].tobytes() and \
+        a[1].tobytes() == b[1].tobytes()
+
+
+def ragged_leg(device, searcher, nodes, plane_out, reps=3) -> dict:
+    """Phase 4's mix again through `topk_batch(ragged=True)` with the
+    posting pool on, on the same searcher: every query bit-equal to the
+    plane results of phase 4."""
+    from serenedb_tpu_torch.device import LAUNCHES
+    from serenedb_tpu_torch.search.posting_pool import POOL
+    from serenedb_tpu_torch.utils import metrics
+    from serenedb_tpu_torch.utils.config import REGISTRY as settings
+
+    settings.set_global("serene_posting_pool", True)
+    settings.set_global("serene_posting_pages", POSTING_PAGES)
+    POOL.clear()
+    d0 = metrics.POSTING_POOL_DEVICE_QUERIES.value
+    LAUNCHES.reset()
+    t0 = time.perf_counter()
+    out = searcher.topk_batch(nodes, 10, ragged=True)
+    sync(device)
+    cold_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        again = searcher.topk_batch(nodes, 10, ragged=True)
+    sync(device)
+    warm_s = time.perf_counter() - t0
+    launches = LAUNCHES.snapshot()
+    if not launches.get("pool_score"):
+        fail(f"ragged leg: pool_score never launched ({launches})")
+    for qi in range(len(nodes)):
+        if not (_same_bits(out[qi], plane_out[qi]) and
+                _same_bits(again[qi], plane_out[qi])):
+            fail(f"ragged leg: query {qi} differs from the plane result")
+    st = POOL.stats()
+    POOL.clear()
+    return {"qps": reps * len(nodes) / warm_s, "cold_s": cold_s,
+            "launches": launches, "pages_used": st["pages_used"],
+            "pool_queries": metrics.POSTING_POOL_DEVICE_QUERIES.value - d0}
+
+
+def phase_paged(device, n_docs=1_000_000, vocab=30_000,
+                postings=12_000_000, reps=3) -> dict:
+    """The reference's `paged_search` cell (bench.py bench_paged_search):
+    1,000,000 docs, 30,000 terms, 12M sampled postings (seed 7), 64
+    two-term disjunctions, k = 10, batches of 1, 8 and 64, through
+    `topk_batch` with the pool on, off (host ragged, contrib_flat) and
+    `ragged=False` (the plane), every query bit-equal across modes; a
+    warm repeat uploads 0 bytes and launches pool_score once; a starved
+    budget of 64 pages stays bit-equal."""
+    from serenedb_tpu_torch.device import LAUNCHES, UPLOADS
+    from serenedb_tpu_torch.ops import bm25_kernels as kern
+    from serenedb_tpu_torch.ops import pool_kernels
+    from serenedb_tpu_torch.search.analysis import get_analyzer
+    from serenedb_tpu_torch.search.posting_pool import POOL
+    from serenedb_tpu_torch.search.query import parse_query
+    from serenedb_tpu_torch.search.searcher import SegmentSearcher
+    from serenedb_tpu_torch.utils import metrics
+    from serenedb_tpu_torch.utils.config import REGISTRY as settings
+
+    t0 = time.perf_counter()
+    fi = synth_posting_index(n_docs, vocab, postings, seed=7, device=device)
+    an = get_analyzer("simple")
+    seg = SegmentSearcher(fi, an, n_docs, device=device)
+    seg._device_store()
+    sync(device)
+    build_s = time.perf_counter() - t0
+    terms = [f"w{100 + 13 * i:07d}" for i in range(128)]
+    nodes = [parse_query(f"{terms[2 * i]} | {terms[2 * i + 1]}", an)
+             for i in range(64)]
+    modes = {"pool": (True, True), "host": (False, True),
+             "plane": (True, False)}
+
+    def run(batch, mode):
+        pool, ragged = modes[mode]
+        settings.set_global("serene_posting_pool", pool)
+        res = []
+        for i in range(0, len(nodes), batch):
+            res.extend(seg.topk_batch(nodes[i:i + batch], 10,
+                                      ragged=ragged))
+        return res
+
+    def same(res, base, what):
+        for qi, (a, b) in enumerate(zip(res, base)):
+            if not _same_bits(a, b):
+                fail(f"paged_search: {what} query {qi} differs from the "
+                     "plane result")
+
+    settings.set_global("serene_posting_pages", POSTING_PAGES)
+    POOL.clear()
+    d0 = metrics.POSTING_POOL_DEVICE_QUERIES.value
+    LAUNCHES.reset()
+    base = None
+    # the first full-mode pool_score and the first contrib_flat are the
+    # batch-64 ones: batch 64 runs first
+    with Recorder(pool_kernels, "pool_score",
+                  lambda a, kw: a[15] > 0) as rec_p, \
+            Recorder(kern, "contrib_flat") as rec_c:
+        t0 = time.perf_counter()
+        for batch in (64, 8, 1):      # cold, then every bucket warm once
+            for mode in ("plane", "pool", "host"):
+                res = run(batch, mode)
+                base = base or res
+                same(res, base, f"{mode} at batch {batch} (first pass)")
+        first_s = time.perf_counter() - t0
+        qps = {m: {} for m in modes}
+        for batch in (1, 8, 64):
+            for mode in ("pool", "host", "plane", "host", "pool"):
+                t0 = time.perf_counter()
+                for _ in range(reps):
+                    res = run(batch, mode)
+                dt = time.perf_counter() - t0
+                qps[mode].setdefault(batch, []).append(
+                    reps * len(nodes) / dt)
+                same(res, base, f"{mode} at batch {batch}")
+        settings.set_global("serene_posting_pool", True)
+        seg.topk_batch(nodes, 10, ragged=True)
+        b0, l0 = UPLOADS.get("bytes"), LAUNCHES.get("pool_score")
+        again = seg.topk_batch(nodes, 10, ragged=True)
+        warm_bytes = UPLOADS.get("bytes") - b0
+        warm_launches = LAUNCHES.get("pool_score") - l0
+        same(again, base, "warm repeat")
+        if warm_bytes or warm_launches != 1:
+            fail(f"paged_search: a warm repeat uploaded {warm_bytes} B in "
+                 f"{warm_launches} pool_score launches (want 0 B, 1)")
+        stats = POOL.stats()
+        settings.set_global("serene_posting_pages", 64)
+        POOL.clear()
+        e0 = metrics.POSTING_POOL_EVICTIONS.value
+        p0 = metrics.POSTING_POOL_PARTIAL.value
+        for batch in (64, 8):
+            same(run(batch, "pool"), base, f"64 pages, batch {batch}")
+        starved = {"evictions": metrics.POSTING_POOL_EVICTIONS.value - e0,
+                   "partial": metrics.POSTING_POOL_PARTIAL.value - p0}
+        if not (starved["evictions"] or starved["partial"]):
+            fail(f"paged_search: 64 pages neither evicted nor split a "
+                 f"query ({starved})")
+    settings.set_global("serene_posting_pages", POSTING_PAGES)
+    POOL.clear()
+    launches = LAUNCHES.snapshot()
+    for name in ("pool_score", "contrib_flat", "bm25_accumulate",
+                 "topk_rows"):
+        if not launches.get(name):
+            fail(f"paged_search: {name} never launched ({launches})")
+    pool_q = metrics.POSTING_POOL_DEVICE_QUERIES.value - d0
+    if pool_q <= 0:
+        fail("paged_search: the pool served no query")
+    if rec_p.args is None or rec_c.args is None:
+        fail("paged_search: pool_score's or contrib_flat's inputs were not "
+             "recorded")
+    return {"build_s": build_s, "first_s": first_s,
+            "qps": {m: {b: sorted(v)[len(v) // 2] for b, v in d.items()}
+                    for m, d in qps.items()},
+            "launches": launches, "pool_queries": pool_q, "starved": starved,
+            "pool": stats, "postings": int(len(fi.post_docs)),
+            "pool_args": rec_p.args, "flat_args": rec_c.args}
+
+
+def serving_corpus(n_docs: int, seed: int = 5) -> list:
+    """bench.py bench_bm25_1m's generator: a 30,000-word vocabulary,
+    zipf(1.25), docs of 8-40 words."""
+    rng = np.random.default_rng(seed)
+    vocab = np.asarray([f"w{i}" for i in range(30_000)], dtype=object)
+    lens = rng.integers(8, 40, n_docs)
+    zipf = rng.zipf(1.25, size=int(lens.sum())) % len(vocab)
+    bounds = np.concatenate([[0], np.cumsum(lens)])
+    words = vocab[zipf]
+    return [" ".join(words[bounds[i]:bounds[i + 1]])
+            for i in range(n_docs)]
+
+
+def phase_serving(device, n_docs=200_000, n_items=64) -> dict:
+    """The serving path on the card: an ES document table of n_docs text
+    docs (bench_bm25_1m's generator) with an inverted index, behind one
+    FrontDoor serving HTTP and the PG wire. One `_msearch` of n_items
+    two-term `match` items cold, twice warm, and once with the posting
+    pool off; each item's hits equal the same `_search` run serially
+    with serene_search_batch = off; then one `@@` statement over the PG
+    wire equal to `execute`."""
+    from serenedb_tpu_torch.columnar.column import Batch
+    from serenedb_tpu_torch.device import LAUNCHES
+    from serenedb_tpu_torch.engine import Database
+    from serenedb_tpu_torch.exec.tables import MemTable
+    from serenedb_tpu_torch.server.frontdoor import FrontDoor
+    from serenedb_tpu_torch.server.pgwire import PgServer
+    from serenedb_tpu_torch.utils import metrics
+    from serenedb_tpu_torch.utils.config import REGISTRY as settings
+    from serenedb_tpu_torch.server.client import http as _http
+    from serenedb_tpu_torch.server.client import pg_rows
+
+    t0 = time.perf_counter()
+    docs = serving_corpus(n_docs)
+    db = Database(device=device)
+    db.schemas["main"].tables["books"] = MemTable("books", Batch.from_pydict(
+        {"_id": [str(i) for i in range(n_docs)],
+         "_source": [json.dumps({"body": d}) for d in docs],
+         "body": docs}))
+    del docs
+    gen_s = time.perf_counter() - t0
+    c = db.connect()
+    t0 = time.perf_counter()
+    c.execute('CREATE INDEX ON books USING inverted ("body") WITH '
+              "(tokenizer = 'simple')")
+    build_s = time.perf_counter() - t0
+    qterms = [f"w{1 + 9 * i}" for i in range(2 * n_items)]
+    items = [{"query": {"match": {"body": f"{qterms[2 * i]} "
+                                          f"{qterms[2 * i + 1]}"}},
+              "size": 10} for i in range(n_items)]
+    body = "".join(json.dumps({"index": "books"}) + "\n" + json.dumps(it)
+                   + "\n" for it in items)
+    settings.set_global("serene_result_cache", False)
+    settings.set_global("serene_posting_pool", True)
+    pg = PgServer(db, "127.0.0.1", 0)
+    front = FrontDoor(db, http_port=0, pg=pg)
+    front.start()
+    out = {"gen_s": gen_s, "build_s": build_s, "ms": {}, "docs": n_docs}
+    try:
+        q0 = metrics.SEARCH_BATCH_QUERIES.value
+        b0 = metrics.SEARCH_BATCH_DISPATCHES.value
+        LAUNCHES.reset()
+        got = {}
+        for run in ("cold", "warm", "warm2", "pool off"):
+            settings.set_global("serene_posting_pool", run != "pool off")
+            t0 = time.perf_counter()
+            got[run] = _http(front.port, "POST", "/_msearch", body, True)
+            out["ms"][run] = (time.perf_counter() - t0) * 1e3
+        settings.set_global("serene_posting_pool", True)
+        launches = LAUNCHES.snapshot()
+        queries = metrics.SEARCH_BATCH_QUERIES.value - q0
+        dispatches = metrics.SEARCH_BATCH_DISPATCHES.value - b0
+        # where a warm _msearch goes: the same body in process (no HTTP),
+        # and the items' top-k statements alone, one after another
+        from serenedb_tpu_torch.server.es_api import EsApi
+        api = EsApi(db)
+        api.msearch(body)
+        t0 = time.perf_counter()
+        api.msearch(body)
+        out["ms"]["in process"] = (time.perf_counter() - t0) * 1e3
+        topk = [f"SELECT \"_id\", bm25(body) AS s FROM books WHERE body @@ "
+                f"'{qterms[2 * i]} | {qterms[2 * i + 1]}' ORDER BY s DESC "
+                f"LIMIT 10" for i in range(n_items)]
+        for q in topk:
+            c.execute(q)
+        t0 = time.perf_counter()
+        for q in topk:
+            c.execute(q)
+        out["ms"]["top-k statements"] = (time.perf_counter() - t0) * 1e3
+        settings.set_global("serene_search_batch", False)
+        try:
+            t0 = time.perf_counter()
+            serial = [_http(front.port, "POST", "/books/_search", it)
+                      for it in items]
+            out["ms"]["serial _search"] = (time.perf_counter() - t0) * 1e3
+        finally:
+            settings.set_global("serene_search_batch", True)
+        for run, resp in got.items():
+            for i, r in enumerate(resp["responses"]):
+                if r.get("status") != 200 or \
+                        r["hits"] != serial[i]["hits"]:
+                    fail(f"serving: _msearch ({run}) item {i} differs from "
+                         "its serial _search")
+        if not any(r["hits"]["hits"] for r in got["cold"]["responses"]):
+            fail("serving: no item found a hit")
+        sql = (f"SELECT \"_id\", bm25(body) AS s FROM books WHERE body @@ "
+               f"'{qterms[2]} | {qterms[3]}' ORDER BY s DESC LIMIT 10")
+        wire = pg_rows(pg.port, sql)
+        direct = c.execute(sql).rows()
+        if [r[0] for r in wire] != [r[0] for r in direct] or any(
+                np.float32(float(w[1])) != np.float32(d[1])
+                for w, d in zip(wire, direct)) or not wire:
+            fail(f"serving: the PG wire's rows {wire[:3]} differ from "
+                 f"execute's {direct[:3]}")
+    finally:
+        front.stop()
+        settings.set_global("serene_result_cache", True)
+    for name in ("pool_score", "contrib_flat"):
+        if not launches.get(name):
+            fail(f"serving: {name} never launched ({launches})")
+    mean_batch = queries / max(dispatches, 1)
+    if mean_batch <= 1:
+        fail(f"serving: no coalescing ({queries} queries in {dispatches} "
+             "dispatches)")
+    out.update({"launches": launches, "mean_batch": mean_batch,
+                "dispatches": dispatches, "queries": queries,
+                "pg_rows": len(wire)})
+    return out
+
+
+def check_contrib_flat(device, args, reps=20) -> dict:
+    """contrib_flat against its plain version (contrib_plain) bit for
+    bit, on a main-path launch's inputs."""
+    import torch
+
+    from serenedb_tpu_torch.ops import bm25_kernels as kern
+    a, kw = args
+    tfs, dls, w, k1, b, avgdl = a[:6]
+    scorer = a[6] if len(a) > 6 else kw.get("scorer", "bm25")
+
+    def plain():
+        return kern.contrib_plain(scorer, tfs.to(torch.float32),
+                                  dls.to(torch.float32), w, k1, b,
+                                  kern._avg(avgdl))
+    got = kern.contrib_flat(*a, **kw)
+    ref = plain()
+    sync(device)
+    if not torch.equal(got.view(torch.int32), ref.view(torch.int32)):
+        fail("contrib_flat differs from its plain version")
+    ms = timed_ms(lambda: kern.contrib_flat(*a, **kw), reps, device)
+    plain_ms = timed_ms(plain, reps, device)
+    # the function needs the real postings only: ragged_contribs pads
+    # them with tf 0 up to a power of two, and a real posting has tf >= 1
+    n = int(torch.count_nonzero(tfs))
+    return {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms(n * (tfs.element_size() + dls.element_size()
+                                      + w.element_size() + got.element_size())),
+            "bound_by": "bytes", "library_ms": None,
+            "shape": f"n={n} (padded {tfs.numel()}) {scorer}"}
+
+
+def check_pool_score(device, args, reps=20) -> dict:
+    """pool_score against its plain version bit for bit on a main-path
+    batch, full mode and partial mode."""
+    import torch
+
+    from serenedb_tpu_torch.ops import pool_kernels
+    a, kw = args
+    vals, docs = pool_kernels.pool_score(*a, **kw)
+    acc = pool_kernels.pool_score(*a[:13])
+    ref_v, ref_d = pool_kernels.pool_score_plain(*a, **kw)
+    ref_acc = pool_kernels.pool_score_plain(*a[:13])
+    sync(device)
+    if not torch.equal(docs, ref_d) or not torch.equal(
+            vals.view(torch.int32), ref_v.view(torch.int32)):
+        fail("pool_score (full) differs from its plain version")
+    if not torch.equal(acc.view(torch.int32), ref_acc.view(torch.int32)):
+        fail("pool_score (partial) differs from its plain version")
+    ms = timed_ms(lambda: pool_kernels.pool_score(*a, **kw), reps, device)
+    plain_ms = timed_ms(lambda: pool_kernels.pool_score_plain(*a, **kw),
+                        reps, device)
+    soff, cand, nc = a[6], a[13], a[14]
+    kept = int(soff[:, -1].sum())
+    live = int(nc.sum())
+    # each kept posting: its slot, weight and lane, the (doc, tf) pair it
+    # gathers and its doc's norm; each live lane's candidate doc (dead
+    # lanes read none); the offsets, live counts and top-k
+    moved = kept * (12 + 8 + 4) + live * cand.element_size() + \
+        nbytes(soff, nc, vals, docs)
+    return {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms(moved), "bound_by": "bytes",
+            "library_ms": None,
+            "shape": f"qp={cand.shape[0]} cp={cand.shape[1]} live={live} "
+                     f"kept={kept} kk={vals.shape[1]}"}
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1805,6 +2217,11 @@ def main() -> int:
                     "Compiling entry" in line:
                 print("    " + line.strip())
 
+    # the device column cache's cap (the posting pool's region is carved
+    # out of it) as a deployment on an 80 GB card would set it
+    from serenedb_tpu_torch.utils.config import REGISTRY as settings
+    settings.set_global("serene_device_cache_mb", DEVICE_CACHE_MB)
+
     # 3. dense regime
     dense = phase_dense(device)
     print(f"[3] dense: {dense['n_queries']} queries, QPS "
@@ -1824,6 +2241,12 @@ def main() -> int:
           f"{packed['peak_bytes'] / 2**30:.2f} GiB, parity on "
           f"{packed['parity_checked']} queries ok, two calls bit-identical, "
           f"launches {packed['launches']}", flush=True)
+    rg = packed["ragged"]
+    print(f"[4] packed, ragged=True with the posting pool on: QPS "
+          f"{rg['qps']:.2f} (warm), cold first call {rg['cold_s']:.2f} s, "
+          f"{rg['pages_used']} pages resident, {rg['pool_queries']} queries "
+          f"served by the pool; every query bit-equal to the plane result; "
+          f"launches {rg['launches']}", flush=True)
 
     # 5. kernels against their plain versions on the main path's inputs
     if packed["acc_args"] is None or dense["build_dense_args"] is None or \
@@ -1850,8 +2273,6 @@ def main() -> int:
     print(f"    total {time.perf_counter() - t_start:.1f} s", flush=True)
 
     # 6-9. the SQL paths through Database.execute
-    from serenedb_tpu_torch.utils.config import REGISTRY as settings
-    settings.set_global("serene_device_cache_mb", DEVICE_CACHE_MB)
     sql = {}
     for label, tables, queries, exact in (
             ("q1", lambda: {"hits": q1_columns(100_000_000)},
@@ -2013,17 +2434,72 @@ def main() -> int:
         print(f"[14] {what} ({r['shape']}): kernel {r['ms']:.4f} ms, plain "
               f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms "
               f"({r['bound_by']}), library {lib}, bit-equal", flush=True)
+    pw = time_page_write(device, vcalls["page_write"])
+    print(f"[14] vector pool page write ({pw['shape']}, one index_copy_): "
+          f"{pw['ms']:.4f} ms, bound {pw['bound_ms']:.4f} ms (bytes)",
+          flush=True)
     fp = check_float_probe(device)
     print(f"[14] ivf_probe on float data ({fp['shape']}): {fp['metrics']} "
           f"bit-equal to the plain version and to host_dist", flush=True)
     print(f"    total {time.perf_counter() - t_start:.1f} s", flush=True)
 
-    # 15. result lines
+    # 15. paged_search, the reference's serving cell
+    paged = phase_paged(device)
+    q = paged["qps"]
+    print(f"[15] paged_search: 1,000,000 docs, {paged['postings']} postings "
+          f"(index + block store {paged['build_s']:.1f} s), 64 two-term "
+          f"disjunctions, k = 10; first pass over every mode and batch "
+          f"{paged['first_s']:.2f} s; QPS (median of 2-3 alternating runs) "
+          f"pool / host ragged / plane at batch 1: {q['pool'][1]:.1f} / "
+          f"{q['host'][1]:.1f} / {q['plane'][1]:.1f}, batch 8: "
+          f"{q['pool'][8]:.1f} / {q['host'][8]:.1f} / {q['plane'][8]:.1f}, "
+          f"batch 64: {q['pool'][64]:.1f} / {q['host'][64]:.1f} / "
+          f"{q['plane'][64]:.1f}; every query bit-equal across the modes; "
+          f"warm repeat 0 B uploaded, one pool_score launch; 64 pages: "
+          f"{paged['starved']} and bit-equal; pool {paged['pool']}, "
+          f"{paged['pool_queries']} queries served by the pool; launches "
+          f"{paged['launches']}", flush=True)
+    # the kernels against their plain versions now, while the region the
+    # recorded batch reads holds what it held
+    serve_checks = {"pool_score": check_pool_score(device,
+                                                   paged.pop("pool_args")),
+                    "contrib_flat": check_contrib_flat(
+                        device, paged.pop("flat_args"))}
+
+    # 16. serving: _msearch and the PG wire through the front door
+    serving = phase_serving(device)
+    ms = serving["ms"]
+    print(f"[16] serving: {serving['docs']} docs as an ES document table "
+          f"(generated {serving['gen_s']:.1f} s, CREATE INDEX "
+          f"{serving['build_s']:.1f} s) behind FrontDoor; _msearch of 64 "
+          f"two-term match items: cold {ms['cold']:.1f} ms, warm "
+          f"{ms['warm']:.1f} / {ms['warm2']:.1f} ms, pool off "
+          f"{ms['pool off']:.1f} ms, warm in process (no HTTP) "
+          f"{ms['in process']:.1f} ms; the 64 top-k statements alone, "
+          f"serially {ms['top-k statements']:.1f} ms; 64 serial _search "
+          f"requests (batching off) {ms['serial _search']:.1f} ms; mean "
+          f"coalesced batch "
+          f"{serving['mean_batch']:.2f} ({serving['queries']} queries in "
+          f"{serving['dispatches']} dispatches); every item equal to its "
+          f"serial _search; a @@ statement over the PG wire equal to "
+          f"execute ({serving['pg_rows']} rows); launches "
+          f"{serving['launches']}", flush=True)
+
+    # 17. the serving kernels against their plain versions
+    for what, r in serve_checks.items():
+        print(f"[17] {what} ({r['shape']}): kernel {r['ms']:.4f} ms, plain "
+              f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']}), library null, bit-equal", flush=True)
+    print(f"    total {time.perf_counter() - t_start:.1f} s", flush=True)
+
+    # 18. result lines
     launches = {}
     for window in (dense["launches"], packed["launches"],
+                   packed["ragged"]["launches"],
                    *(r["launches"] for r in sql.values()),
                    sift["launches"], colbert["launches"],
-                   bsql["launches"]):
+                   bsql["launches"], paged["launches"],
+                   serving["launches"]):
         for kname, n in window.items():
             launches[kname] = launches.get(kname, 0) + n
     results["agg_scan"] = checks["q1 GROUP BY region"]
@@ -2034,6 +2510,7 @@ def main() -> int:
     results["ivf_probe"] = vchecks["ivf_probe nprobe 16"]
     for name in ("maxsim", "kmeans_assign", "kmeans_update"):
         results[name] = vchecks[name]
+    results.update(serve_checks)
     kernels = []
     for kname, r in results.items():
         kernels.append({

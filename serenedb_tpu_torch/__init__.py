@@ -14,10 +14,38 @@ This package imports `torch` and numpy, never `jax` and nothing of
 (`device.resolve_device`).
 
 Ported so far: BM25/TFIDF/LM top-k search through
-`search.searcher.SegmentSearcher.topk_batch` (dense and packed regimes),
-and SQL analytics through `engine.Database(device=...).connect().execute`
-(single-table scan-filter-aggregate on the `agg_scan`/`agg_fold`
-kernels; the device tiers not ported yet are stubs that decline).
+`search.searcher.SegmentSearcher.topk_batch` (dense and packed regimes,
+and the batched ragged path with the paged posting pool), SQL analytics,
+top-N, joins, and search and vector search through
+`engine.Database(device=...).connect().execute`, and serving: the ES API
+and the PG wire behind `server.frontdoor.FrontDoor`, started by
+`python -m serenedb_tpu_torch.serened`. The tiers not ported yet are
+stubs that decline or raise (ROADMAP.md).
 """
 
 __version__ = "0.1.0"
+
+
+def build_id() -> str:
+    """Version + git revision (copied from serenedb_tpu's `build_id`). The
+    revision is taken only when this package lives inside the git
+    checkout; 'unknown' otherwise."""
+    import os
+    import subprocess
+    rev = "unknown"
+    pkg_root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    try:
+        top = subprocess.run(
+            ["git", "rev-parse", "--show-toplevel"],
+            capture_output=True, text=True, timeout=5, cwd=pkg_root)
+        if top.returncode == 0 and \
+                os.path.realpath(top.stdout.strip()) == \
+                os.path.realpath(pkg_root):
+            r = subprocess.run(
+                ["git", "rev-parse", "--short", "HEAD"],
+                capture_output=True, text=True, timeout=5, cwd=pkg_root)
+            if r.returncode == 0 and r.stdout.strip():
+                rev = r.stdout.strip()
+    except Exception:  # noqa: BLE001 — build id must never break boot
+        pass
+    return f"serenedb-tpu-torch {__version__} ({rev})"

@@ -141,18 +141,44 @@ class DeviceColumnCache:
     publication and the next query keys past the stale upload. Bytes are
     bounded by the serene_device_cache_mb global (LRU past the cap, at
     least one entry kept); superseded generations of a token are swept on
-    store so the card never holds two versions of one column."""
+    store so the card never holds two versions of one column. With
+    `serene_device_cache_trade` on, the cap trades with the posting and
+    vector pools' live pages, as the reference's does."""
 
     def __init__(self):
-        #: key -> [value, nbytes]
+        #: key -> [value, nbytes, last-touch epoch s]
         self._entries: OrderedDict[tuple, list] = OrderedDict()
         self._bytes = 0
         self._lock = threading.Lock()
 
     @staticmethod
-    def _cap_bytes() -> int:
-        return int(_settings_registry.get_global(
+    def _trade_on() -> bool:
+        try:
+            return bool(_settings_registry.get_global(
+                "serene_device_cache_trade"))
+        except KeyError:  # pragma: no cover
+            return False
+
+    def _cap_bytes(self) -> int:
+        """Byte cap of THIS side of the device budget. With the
+        pressure trade on, the cap is the serene_device_cache_mb
+        envelope minus the posting and vector pools' LIVE page bytes,
+        floored at a quarter of the envelope — the pools' residency
+        squeezes the column cache instead of a static carve-out, and
+        vice versa via shed_colder. Consults the pools' locks, so call
+        it OUTSIDE self._lock (the only cross-lock order is
+        cache-unlocked → pool; the pools never call into this cache)."""
+        env = int(_settings_registry.get_global(
             "serene_device_cache_mb")) << 20
+        if self._trade_on():
+            try:
+                from ..search.posting_pool import POOL
+                from ..search.vector_store import VPOOL
+                return max(env // 4,
+                           env - POOL.live_bytes() - VPOOL.live_bytes())
+            except Exception:  # noqa: BLE001 — sizing only, never fatal
+                pass
+        return env
 
     def get(self, key: tuple):
         with self._lock:
@@ -161,6 +187,7 @@ class DeviceColumnCache:
                 metrics.DEVICE_CACHE_MISSES.add()
                 return None
             self._entries.move_to_end(key)
+            entry[2] = time.time()
             metrics.DEVICE_CACHE_HITS.add()
             return entry[0]
 
@@ -168,7 +195,7 @@ class DeviceColumnCache:
         """Store + LRU/byte bookkeeping. `sweep(k) -> bool` marks extra
         keys as superseded (code tiles whose staleness comes from the
         PARTNER table's publication)."""
-        cap = self._cap_bytes()
+        cap = self._cap_bytes()        # pool consult happens pre-lock
         with self._lock:
             old = self._entries.pop(key, None)
             if old is not None:
@@ -181,8 +208,37 @@ class DeviceColumnCache:
             for k in stale:
                 self._bytes -= self._entries.pop(k)[1]
                 metrics.DEVICE_CACHE_EVICTIONS.add()
-            self._entries[key] = [value, nbytes]
+            self._entries[key] = [value, nbytes, time.time()]
             self._bytes += nbytes
+            over = self._bytes - cap
+            tail_idle_s = None
+            if over > 0:
+                for e in self._entries.values():
+                    tail_idle_s = time.time() - e[2]
+                    break
+        if over > 0 and self._trade_on() and tail_idle_s is not None:
+            # pressure trade: before shedding our own tail, offer the
+            # eviction to the COLDEST pool tail (posting pages or vector
+            # pages) if it is idler than ours — freed pages raise this
+            # cache's cap directly
+            try:
+                from ..search.posting_pool import POOL
+                from ..search.vector_store import VPOOL
+                pools = sorted(
+                    ((idle, p) for p in (POOL, VPOOL)
+                     for idle in (p.tail_idle_ns(),) if idle is not None),
+                    reverse=True)
+                shed = False
+                for pool_idle, p in pools:
+                    if pool_idle > tail_idle_s * 1e9 and \
+                            p.shed_colder(int(tail_idle_s * 1e9), over):
+                        shed = True
+                        break
+                if shed:
+                    cap = self._cap_bytes()
+            except Exception:  # noqa: BLE001 — sizing only, never fatal
+                pass
+        with self._lock:
             while self._bytes > cap and len(self._entries) > 1:
                 _, e = self._entries.popitem(last=False)
                 self._bytes -= e[1]

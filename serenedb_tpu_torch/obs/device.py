@@ -9,14 +9,15 @@ part of serenedb_tpu/obs/device.py the analytics path uses).
   reference's ledger is).
 - `note_fused_decline(reason)` / `fused_declines()`: the fused tier's
   per-reason decline counts (queries that fell back to the host path).
-- `stats_section()`: the program ledger, the device column cache and the
-  decline counts in one payload.
+- `stats_section()`: the program ledger, the device column cache, the
+  posting and vector pools and the decline counts in one payload (the
+  `/_stats` and `GET /device` body).
 - `fetch_all(outs)`: device→host readback of a program's outputs as numpy
   arrays.
 - `note_upload(nbytes)`: one host→device upload, counted in
   `device.UPLOADS`.
 - `note_provider` / `provider_name`: publication token → table name, for
-  the vector pool's rows. `device_rows` and `device_cache_rows` (the
+  the pools' rows. `device_rows` and `device_cache_rows` (the
   sdb_device and sdb_device_cache relations) raise: not ported yet.
 """
 
@@ -134,12 +135,14 @@ def fused_declines() -> dict[str, int]:
 
 
 def stats_section() -> dict:
-    """The program ledger, the device column cache's and the vector
-    pool's summaries and the fused decline counts."""
+    """The program ledger, the device column cache's, the posting pool's
+    and the vector pool's summaries and the fused decline counts."""
     from ..exec.device_pipeline import DEVICE_CACHE
+    from ..search.posting_pool import POOL
     from ..search.vector_store import VPOOL
     return {"programs": PROGRAMS.snapshot(),
             "column_cache": DEVICE_CACHE.stats(),
+            "posting_pool": POOL.stats(),
             "vector_pool": VPOOL.stats(),
             "fused_declines": fused_declines()}
 

@@ -23,7 +23,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 SOURCES = {"bm25": CSRC / "bm25.cu", "agg": CSRC / "agg.cu",
            "topn": CSRC / "topn.cu", "join": CSRC / "join.cu",
-           "vector": CSRC / "vector.cu"}
+           "vector": CSRC / "vector.cu", "pool": CSRC / "pool.cu"}
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
@@ -48,6 +48,7 @@ SIGNATURES = {
         "build_dense_tail": [_P, _P, _P, _L, _P, _P, _L, _I, _F, _F, _F, _P],
         "topk_rows": [_P, _L, _L, _P, _I, _P, _I, _P, _P, _P, _L, _P, _L, _P,
                       _P, _P, _P],
+        "contrib_flat": [_P, _P, _P, _L, _I, _F, _F, _F, _P, _P],
     },
     "agg": {
         "agg_scan": [_P, _L, _P],
@@ -68,6 +69,10 @@ SIGNATURES = {
         "maxsim": [_P] * 7 + [_L] + [_I] * 5 + [_P, _L, _P, _L, _P, _P, _P],
         "kmeans_assign": [_P] * 3 + [_L, _I, _I] + [_P] * 4,
         "kmeans_update": [_P] * 3 + [_L, _I, _I, _L] + [_P] * 4,
+    },
+    "pool": {
+        "pool_score": [_P] * 8 + [_L, _L, _I, _L, _I, _F, _F, _F] +
+                      [_P, _P, _P, _I, _P, _L, _P, _L, _P, _P, _P],
     },
 }
 

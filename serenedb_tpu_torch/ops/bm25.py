@@ -788,6 +788,48 @@ def assemble_dense_weights(v_pad: int,
     return W, require, b_pad
 
 
+# -------------------------------------------------- ragged batched serving
+#
+# The batched ragged path (search/searcher.py `_ragged_resolve`) flattens
+# every admitted query's WAND-kept postings into one (entries,) array set,
+# computes the per-posting contributions in ONE elementwise launch, and
+# leaves accumulation + exact top-k to numpy over the candidate sets. The
+# reference's bit-parity contract (its `contrib_expr`: one expression tree
+# for the plane kernel, this path and the posting pool) is kept here by
+# one CUDA function, `contrib()` in csrc/contrib.cuh, which the plane
+# kernels, `contrib_flat` and `pool_score` all call (built -fmad=false).
+# Only bm25 and tfidf decompose this way — LM scorers never take the
+# ragged path.
+
+def contrib_flat(tfs: torch.Tensor, dls: torch.Tensor, w: torch.Tensor,
+                 k1: float, b: float, avgdl: float,
+                 scorer: str = "bm25") -> torch.Tensor:
+    """Per-posting score contribution w·sat(tf, dl) over flat arrays.
+    Padding entries (tf=0, w=0) contribute exactly 0.0."""
+    return bm25_kernels.contrib_flat(tfs, dls, w, k1, b, avgdl, scorer)
+
+
+def ragged_contribs(tfs: np.ndarray, dls: np.ndarray, w: np.ndarray,
+                    k1: float, b: float, avgdl: float, scorer: str,
+                    device: DeviceLike = None) -> np.ndarray:
+    """contrib_flat over host arrays on `device`, padded to a power of two
+    (floor 1,024) as the reference pads them (pads score 0.0 and are
+    sliced back off); uploads through the choke point and reads back."""
+    from ..columnar.device import commit_host_array
+    n = len(tfs)
+    n_pad = _pow2(n, 1024)
+
+    def pad(a, fill, dtype):
+        out = np.full(n_pad, fill, dtype=dtype)
+        out[:n] = a
+        return commit_host_array(out, device)
+
+    c = contrib_flat(pad(tfs, 0, np.int32), pad(dls, 0, np.int32),
+                     pad(w, 0.0, np.float32), scorer_param(scorer, k1), b,
+                     avgdl, scorer)
+    return c.cpu().numpy()[:n]
+
+
 def topk_tie_exact(scores: np.ndarray, docs: np.ndarray, k: int,
                    ) -> tuple[np.ndarray, np.ndarray]:
     """Exact (score desc, doc asc) top-k of a candidate set — the same

@@ -15,6 +15,9 @@ tests hold them against the JAX package and
 - `build_dense` ← `_build_dense`: the dense saturation matrix.
 - `topk_rows` ← the `lax.top_k` of `_score_topk` / `dense_topk`, with the
   conjunction mask fused in: per-row top-k by (score desc, index asc).
+- `contrib_flat` ← `contrib_flat` (`contrib_expr` over flat arrays): the
+  per-posting contributions of the host ragged path; its plain version is
+  `contrib_plain`, the formula every plain version here shares.
 """
 
 from __future__ import annotations
@@ -251,6 +254,38 @@ def bm25_accumulate(block_base, block_gaps, block_tfs8, raw_docs, raw_tfs,
             "bm25_accumulate (tails)")
         LAUNCHES.bump("bm25_accumulate")
     return scores, hits
+
+
+# ------------------------------------------------------------ contrib_flat
+
+#: the scorers `contrib_flat` takes: the reference's `contrib_expr` states
+#: bm25 and tfidf only (the LM family never takes the ragged path)
+FLAT_SCORERS = ("bm25", "tfidf")
+
+
+def contrib_flat(tfs: torch.Tensor, dls: torch.Tensor, w: torch.Tensor,
+                 k1: float, b: float, avgdl: float,
+                 scorer: str = "bm25") -> torch.Tensor:
+    """Per-posting contribution w·sat(tf, dl) over flat int32 tfs, int32
+    dls and f32 w of one length: one launch, one thread a posting, through
+    the plane kernels' own `contrib()`. Padding (tf 0, w 0) gives 0.0."""
+    if scorer not in FLAT_SCORERS:
+        raise ValueError(f"contrib_flat takes {FLAT_SCORERS}, not {scorer!r}")
+    if not (tfs.shape == dls.shape == w.shape) or tfs.dim() != 1:
+        raise ValueError("tfs, dls and w must be flat arrays of one length")
+    if not _is_cuda(tfs, dls, w):
+        LAUNCHES.bump("contrib_flat.plain")
+        return contrib_plain(scorer, tfs.to(torch.float32),
+                             dls.to(torch.float32), w, k1, b, _avg(avgdl))
+    _require(tfs, torch.int32, "tfs")
+    _require(dls, torch.int32, "dls")
+    _require(w, torch.float32, "w")
+    out = torch.empty_like(w)
+    _build.check(_build.load("bm25").contrib_flat(
+        _ptr(tfs), _ptr(dls), _ptr(w), tfs.numel(), SCORERS[scorer], k1, b,
+        _avg(avgdl), _ptr(out), _stream(w)), "contrib_flat")
+    LAUNCHES.bump("contrib_flat")
+    return out
 
 
 # ------------------------------------------------------------- build_dense

@@ -43,44 +43,19 @@
 //    the order wanted), for any k: a search scan that ranks every match
 //    asks for k up to the plane's width.
 //    Bound: bytes — each pass reads the plane (and the hit plane) once.
+//
+// 4. contrib_flat
+//    Replaces `contrib_flat` (`contrib_expr` over flat arrays), the one
+//    elementwise dispatch of the host ragged path (searcher
+//    `_ragged_resolve`): c[i] = w[i] * sat(tfs[i], dls[i]), one thread a
+//    posting, through the same `contrib()` (contrib.cuh) as the plane
+//    kernels, so its bits equal theirs. Padding (tf 0, w 0) gives 0.
+//    Bound: bytes — 12 bytes read and 4 written a posting.
 
+#include "contrib.cuh"
 #include "select.cuh"
 
 #define ROW 128  // postings in one block row
-
-enum { SC_BM25 = 0, SC_TFIDF = 1, SC_LM_DIRICHLET = 2, SC_JM = 3, SC_DFI = 4 };
-
-#define MATCH_EPS 1e-6f
-
-// Per-posting contribution, in the reference's expression order
-// (`contrib_of`, serenedb_tpu/ops/bm25.py). `avg` is max(avgdl, 1e-9);
-// the LM family carries mu / lambda in the k1 slot and p_t in w.
-__device__ __forceinline__ float contrib(int scorer, float tf, float dl,
-                                         float w, float k1, float b,
-                                         float avg) {
-  switch (scorer) {
-    case SC_TFIDF:
-      return w * sqrtf(tf);
-    case SC_LM_DIRICHLET: {
-      float mu = k1;
-      float c = log1pf(tf / (mu * w)) + logf(mu / (dl + mu));
-      return fmaxf(c, 0.0f) + MATCH_EPS;
-    }
-    case SC_JM: {
-      float lam = k1;
-      return log1pf(((1.0f - lam) * tf / fmaxf(dl, 1.0f)) / (lam * w));
-    }
-    case SC_DFI: {
-      float e = w * dl;
-      float excess = (tf - e) / sqrtf(fmaxf(e, 1e-9f));
-      return (tf > e ? log2f(1.0f + excess) : 0.0f) + MATCH_EPS;
-    }
-    default: {
-      float denom = tf + k1 * (1.0f - b + b * dl / avg);
-      return w * (k1 + 1.0f) * tf / fmaxf(denom, 1e-9f);
-    }
-  }
-}
 
 // Dense saturation (`_build_dense`): sat = (k1+1) tf / max(tf + alpha, 1e-9)
 // with alpha = k1 (1 - b + b dl / avg); sqrt(tf) for tfidf.
@@ -349,6 +324,16 @@ __global__ void topk_write_kernel(const unsigned long long* __restrict__ cand,
   idx[t] = (int)(~(unsigned)(key & 0xFFFFFFFFull));
 }
 
+__global__ void contrib_flat_kernel(const int* __restrict__ tfs,
+                                    const int* __restrict__ dls,
+                                    const float* __restrict__ w, long long n,
+                                    int scorer, float k1, float b, float avg,
+                                    float* __restrict__ out) {
+  long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  out[i] = contrib(scorer, (float)tfs[i], (float)dls[i], w[i], k1, b, avg);
+}
+
 static inline unsigned grid_for(long long threads, int block) {
   return (unsigned)((threads + block - 1) / block);
 }
@@ -466,6 +451,18 @@ int topk_rows(const void* scores, long long rows, long long ncols,
   if (!sorted) return (int)cudaErrorInvalidValue;
   topk_write_kernel<<<grid_for(rows * k, 256), 256, 0, s>>>(
       sorted, rows * k, (float*)vals, (int*)idx);
+  return (int)cudaGetLastError();
+}
+
+// Per-posting contributions of n flat postings (int32 tfs and dls, f32 w)
+// into out (n f32).
+int contrib_flat(const void* tfs, const void* dls, const void* w, long long n,
+                 int scorer, float k1, float b, float avg, void* out,
+                 void* stream) {
+  if (n <= 0) return (int)cudaGetLastError();
+  contrib_flat_kernel<<<grid_for(n, 256), 256, 0, (cudaStream_t)stream>>>(
+      (const int*)tfs, (const int*)dls, (const float*)w, n, scorer, k1, b,
+      avg, (float*)out);
   return (int)cudaGetLastError();
 }
 

@@ -13,24 +13,31 @@ Scoring semantics: a document's score is the sum of BM25 contributions of
 every positive leaf term of the query (phrase members and prefix expansions
 included); NOT-subtrees and phrase adjacency affect *matching* only.
 
-Not ported yet: the mesh branch of `topk_batch` (`mesh_n > 1` raises),
-the batched ragged path and the posting pool (`ragged=True` takes the
-score-plane path, as the reference does off the host backend, with
-identical results by the reference's own contract), and the in-program
-cross-shard merge (`serene_shard_combine = device` with shards > 1
-raises).
+`topk_batch(ragged=True)` (the batched-serving path, search/batcher.py)
+takes `_ragged_resolve` on any device, under the reference's other
+conditions (a bm25/tfidf scorer, avgdl > 0, the entry cap, not the dense
+regime): the reference takes it only on its host backend
+(`_host_backend`), yet its paged-search bench expects the posting pool to
+serve on a device, and the pool is that path's device tier. Results are
+bit for bit those of the plane kernel, by the reference's contract
+(`contrib()` in csrc/contrib.cuh is the one expression of all three).
+
+Not ported yet: the mesh branch of `topk_batch` (`mesh_n > 1` raises)
+and the in-program cross-shard merge (`serene_shard_combine = device`
+with shards > 1 raises).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from ..device import DeviceLike, resolve_device
 from ..ops import bm25 as bm25_ops
+from . import posting_pool
 from .analysis import Analyzer
 from .automaton import intersect_sorted, levenshtein_nfa
 from .query import (QAnd, QFuzzy, QNode, QNot, QNothing, QOr, QPhrase,
@@ -40,6 +47,22 @@ from .segment import FieldIndex
 K1 = 1.2
 B = 0.75  # reference defaults: libs/iresearch/search/bm25.hpp
 
+
+class _RaggedSlice(NamedTuple):
+    """One (plane, term) slice of an admitted ragged query, in the
+    plane kernel's flatten order: the KEPT postings (docs/tfs), the
+    term weight, and enough provenance — term id, full posting range,
+    within-term kept positions — for the posting pool to key pages and
+    build page-table gather slots. `idx` is None when every posting of
+    the term survives (light tails, unpruned heavy planes)."""
+
+    docs: np.ndarray
+    tfs: np.ndarray
+    w: float
+    tid: int
+    s: int
+    e: int
+    idx: Optional[np.ndarray]
 
 
 def _maxscore_split(plan) -> set:
@@ -369,6 +392,11 @@ class SegmentSearcher:
     # materializing (256, 8.8M) at MS-MARCO scale
     ACC_ENTRY_CAP = 128 * 1024 * 1024
 
+    #: per-query cap on ragged host-path posting entries: past this the
+    #: candidate sort/accumulate costs approach the dense plane's and the
+    #: query stays on the device dispatch
+    RAGGED_ENTRY_CAP = 1 << 18
+
     def topk_batch(self, nodes: list[QNode], k: int, scorer: str = "bm25",
                    idf_of=None, avgdl_override=None, mesh_n: int = 0,
                    ragged: bool = False,
@@ -378,11 +406,16 @@ class SegmentSearcher:
         disjunctions/conjunctions run fully on device; other shapes get an
         exact-match CPU mask applied to the device scores.
 
-        ragged=True is accepted and takes the score-plane path: the
-        reference's batched ragged path runs only on its host backend and
-        gives results identical to the plane kernel by its own contract;
-        it is not ported yet. mesh_n > 1 (the mesh-sharded branch) is not
-        ported yet and raises."""
+        ragged=True (the batched-serving path, search/batcher.py) admits
+        pure disjunctions to `_ragged_resolve` on any device: WAND-kept
+        postings flatten into ragged (contribution, query-offset) arrays,
+        score in one `contrib_flat` launch (or, page-resident, in the
+        posting pool's `pool_score`), and top-k on the candidate sets —
+        bit-identical to the score-plane kernel by the contrib()
+        contract. Never taken when this store would use the dense matmul
+        path, so ragged on/off can't change a single result bit there
+        either. mesh_n > 1 (the mesh-sharded branch) is not ported yet
+        and raises."""
         if mesh_n > 1:
             raise NotImplementedError(
                 "mesh-sharded scoring is not ported to serenedb_tpu_torch yet")
@@ -461,6 +494,19 @@ class SegmentSearcher:
                     host_results[qi] = self._cpu_score(
                         cand, tids, k, scorer, idf_of, avgdl_override)
                     queries[qi] = (np.empty(0, dtype=np.int64), 0)
+        # the reference's host-backend rule, on any device: its
+        # paged-search bench expects the pool to serve on a device
+        if ragged and (scorer == "tfidf" or avgdl > 0.0) and \
+                store.norms_host is not None:
+            todo = [qi for qi in range(len(shapes))
+                    if prunable[qi] and shapes[qi][0] and
+                    qi not in host_results]
+            if todo:
+                for qi, res in self._ragged_resolve(
+                        store, todo, shapes, plans, k, scorer, idf_of,
+                        avgdl).items():
+                    host_results[qi] = res
+                    queries[qi] = (np.empty(0, dtype=np.int64), 0)
         qb = bm25_ops.assemble_query_batch(store, self.num_docs, queries,
                                            self.index.doc_freq, scorer,
                                            idf_of=idf_of, plans=plans)
@@ -484,6 +530,222 @@ class SegmentSearcher:
 
     def _upload(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+
+    #: byte budget for the ragged memo caches hung off plans and stores
+    #: (_ragged_slices masked copies, _ragged_accum candidate tables,
+    #: the posting pool's batch descriptor memo): past this EVERY memo
+    #: clears — the bounded-cache discipline applied to programs,
+    #: here for the one-entry-per-novel-query-shape growth class
+    RAGGED_MEMO_BYTES_CAP = 64 << 20
+
+    @staticmethod
+    def _ragged_memo_charge(store, nbytes: int) -> None:
+        """Account freshly-memoized ragged bytes against the store's
+        running total; crossing the cap clears every ragged memo (they
+        are pure recomputable functions of plan + store, so clearing is
+        always safe — the next query repays the arithmetic once)."""
+        total = getattr(store, "_ragged_memo_bytes", 0) + int(nbytes)
+        if total > SegmentSearcher.RAGGED_MEMO_BYTES_CAP:
+            for plan in getattr(store, "_plan_cache", {}).values():
+                if plan is None:
+                    continue
+                for attr in ("_ragged_slices", "_ragged_accum"):
+                    if hasattr(plan, attr):
+                        delattr(plan, attr)
+            cache = getattr(store, "_ragged_plain", None)
+            if cache:
+                cache.clear()
+            memo = getattr(store, "_pool_batch_memo", None)
+            if memo:
+                memo.clear()
+            total = int(nbytes)
+        store._ragged_memo_bytes = total
+
+    def _ragged_candidates(self, store, plan, slices):
+        """Sorted candidate-doc union + per-slice scatter indices for
+        one admitted query — a pure function of the plan's kept
+        postings, memoized on the plan so repeat queries pay only the
+        f32 adds + top-k. Shared VERBATIM by the host accumulate and
+        the posting pool's device descriptors, so their per-doc scatter
+        targets cannot diverge."""
+        pre = getattr(plan, "_ragged_accum", None) \
+            if plan is not None else None
+        if pre is not None:
+            return pre
+        cand = np.unique(np.concatenate([sl.docs for sl in slices]))
+        ixs = [np.searchsorted(cand, sl.docs).astype(np.int32)
+               for sl in slices]
+        if plan is not None:
+            plan._ragged_accum = (cand, ixs)
+            self._ragged_memo_charge(
+                store, cand.nbytes + sum(ix.nbytes for ix in ixs))
+        return cand, ixs
+
+    def _ragged_resolve(self, store, qis, shapes, plans, k: int,
+                        scorer: str, idf_of, avgdl,
+                        ) -> dict[int, tuple[np.ndarray, np.ndarray]]:
+        """Batched ragged top-k for pure-disjunction queries.
+
+        Every admitted query's postings — WAND-kept block rows of heavy
+        terms plus light-term tails, exactly the entries the plane kernel
+        would scatter — flatten into one (contribution, query-offset)
+        ragged array set. ONE elementwise `contrib_flat` dispatch scores
+        all postings of all queries; accumulation then runs per query as
+        ordered slice adds over its sorted candidate set (each term
+        touches a doc at most once, so `acc[ix] += c` per slice replays
+        the scatter's per-doc f32 addition order bit-for-bit), and
+        `topk_tie_exact` makes the same (score desc, doc asc) selection
+        as lax.top_k. Queries past RAGGED_ENTRY_CAP stay on the device
+        dispatch.
+
+        Device tier (serene_posting_pool, search/posting_pool.py):
+        queries whose terms are page-resident in the pool's HBM region
+        never flatten on the host at all — one `pool_score` launch
+        (gather, contrib, accumulate, top-k) over page tables scores them with the SAME
+        contrib expression tree and candidate tables, so the host path
+        here remains the bit-identical parity oracle. Partial residency
+        scores the resident slice PREFIX on device and adds the suffix
+        slices below in the same order — an identical f32 addition
+        sequence."""
+        fi = self.index
+        per_q: list[tuple[int, object, list]] = []
+        for qi in qis:
+            tids = shapes[qi][0]
+            plan = plans[qi]
+            tid_arr = np.asarray(tids, dtype=np.int64)
+            if idf_of is not None:
+                idf = np.asarray(idf_of(tid_arr), dtype=np.float32)
+            else:
+                idf = bm25_ops.idf_for(scorer, self.num_docs,
+                                       fi.doc_freq[tid_arr])
+            slices: list[_RaggedSlice] = []
+            entries = 0
+            for plane in (0, 1, 2):
+                for j, tid in enumerate(tids):
+                    tid = int(tid)
+                    s, e = int(store.offsets[tid]), int(store.offsets[tid + 1])
+                    if e <= s:
+                        continue
+                    heavy = bool(store.heavy[tid])
+                    if heavy == (plane == 2):
+                        continue   # heavy → tile planes, light → tails
+                    w = float(idf[j])
+                    if not heavy:
+                        d, t, idx = (store.flat_docs[s:e],
+                                     store.flat_tfs[s:e], None)
+                    else:
+                        d, t, idx = self._ragged_tile_slice(store, plan,
+                                                            tid, plane, s, e)
+                        if d is None:
+                            continue
+                    slices.append(_RaggedSlice(d, t, w, tid, s, e, idx))
+                    entries += len(d)
+            if entries > self.RAGGED_ENTRY_CAP:
+                continue   # device plane amortizes better past the cap
+            per_q.append((qi, plan, slices))
+        if not per_q:
+            return {}
+        out: dict[int, tuple[np.ndarray, np.ndarray]] = {}
+        pool_hits: dict = {}
+        if posting_pool.enabled():
+            pool_hits = posting_pool.POOL.score_queries(
+                self, store, per_q, k, scorer, avgdl, K1, B,
+                self._ragged_candidates)
+        flat_d, flat_t, flat_w = [], [], []
+        work = []   # (qi, spans, slice scatter ixs, device acc0, cand)
+        pos = 0
+        for qi, plan, slices in per_q:
+            hit = pool_hits.get(qi)
+            if hit is not None and hit[0] == "full":
+                out[qi] = (hit[1], hit[2])
+                continue
+            if not slices:
+                out[qi] = (np.empty(0, dtype=np.float32),
+                           np.empty(0, dtype=np.int32))
+                continue
+            cand, ixs = self._ragged_candidates(store, plan, slices)
+            if hit is not None:
+                # partial residency: the device already accumulated the
+                # resident slice prefix — continue from its accumulator
+                acc0, n0 = hit[1], hit[2]
+                use, use_ix = slices[n0:], ixs[n0:]
+            else:
+                acc0, use, use_ix = None, slices, ixs
+            spans = []
+            for sl in use:
+                flat_d.append(sl.docs)
+                flat_t.append(sl.tfs)
+                flat_w.append(np.full(len(sl.docs), sl.w,
+                                      dtype=np.float32))
+                spans.append((pos, pos + len(sl.docs)))
+                pos += len(sl.docs)
+            work.append((qi, spans, use_ix, acc0, cand))
+        if not work:
+            return out
+        if flat_d:
+            dcat = np.concatenate(flat_d)
+            contribs = bm25_ops.ragged_contribs(
+                np.concatenate(flat_t), store.norms_host[dcat],
+                np.concatenate(flat_w), K1, B, avgdl, scorer, self.device)
+        else:
+            contribs = np.empty(0, dtype=np.float32)
+        for qi, spans, use_ix, acc0, cand in work:
+            acc = acc0 if acc0 is not None \
+                else np.zeros(len(cand), dtype=np.float32)
+            for ix, (a, b) in zip(use_ix, spans):
+                acc[ix] += contribs[a:b]
+            out[qi] = bm25_ops.topk_tie_exact(acc, cand, k)
+        return out
+
+    @staticmethod
+    def _ragged_tile_slice(store, plan, tid: int, plane: int, s: int,
+                           e: int):
+        """(docs, tfs, kept_positions) of one heavy term's postings
+        surviving the plan's kept-row pruning on one tile plane, or
+        (None, None, None). kept_positions is None when every posting
+        survives (the slice IS the full term range), else the
+        within-term indices of the survivors — the posting pool expands
+        them into page-table gather slots. Memoized on the plan (plans
+        are memoized per query shape, so repeat queries skip the mask
+        arithmetic) or, plan-free, on the store; masked copies charge
+        RAGGED_MEMO_BYTES_CAP. Cached arrays are read-only by
+        convention — accumulation never writes through them."""
+        cache = None
+        if plan is not None:
+            cache = getattr(plan, "_ragged_slices", None)
+            if cache is None:
+                cache = plan._ragged_slices = {}
+        else:
+            cache = getattr(store, "_ragged_plain", None)
+            if cache is None:
+                cache = store._ragged_plain = {}
+            if len(cache) > 4096:   # vocab-sized growth bound
+                cache.clear()
+        hit = cache.get((plane, tid))
+        if hit is not None:
+            return hit
+        b0 = int(store.block_offsets[tid])
+        rowof = b0 + np.arange(e - s, dtype=np.int64) // bm25_ops.BLOCK
+        m = store.row_plane[rowof] == plane
+        if plan is not None:
+            kept = plan.kept[tid]
+            if len(kept) == 0:
+                m = np.zeros_like(m)
+            else:
+                ix = np.searchsorted(kept, rowof)
+                np.clip(ix, 0, len(kept) - 1, out=ix)
+                m &= kept[ix] == rowof
+        if not m.any():
+            out = (None, None, None)
+        elif m.all():
+            out = (store.flat_docs[s:e], store.flat_tfs[s:e], None)
+        else:
+            idx = np.flatnonzero(m)
+            out = (store.flat_docs[s:e][m], store.flat_tfs[s:e][m], idx)
+            SegmentSearcher._ragged_memo_charge(
+                store, out[0].nbytes + out[1].nbytes + idx.nbytes)
+        cache[(plane, tid)] = out
+        return out
 
     def _finish_batch(self, nodes, shapes, vals, docs, host_results, k,
                       scorer, idf_of, avgdl_override, nd_pad,

@@ -121,7 +121,9 @@ def test_copy_and_index_progress_paths(tmp_path):
 
 def test_stubbed_relations_and_sources_say_not_ported():
     port = Database(device="cpu").connect()
-    for q in ("SELECT * FROM sdb_posting_pool",
+    # the posting pool is ported: its relation answers
+    port.execute("SELECT * FROM sdb_posting_pool").rows()
+    for q in ("SELECT * FROM sdb_device",
               "SELECT * FROM read_csv('x.csv')",
               "SELECT * FROM read_parquet('x.parquet')"):
         state, _ = _sqlstate(port, q)

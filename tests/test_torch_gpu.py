@@ -723,3 +723,92 @@ def test_kmeans_kernels_match_plain(cuda):
     assert LAUNCHES.get("kmeans_update") == 1
     assert torch.equal(new.cpu().view(torch.int32), pnew.view(torch.int32))
     assert torch.equal(pnew[40], c[40]) and torch.equal(pnew[7], c[7])
+
+
+# -- serving: contrib_flat and pool_score ------------------------------------
+
+from serenedb_tpu_torch.ops import pool_kernels as pk  # noqa: E402
+
+
+@pytest.mark.parametrize("scorer", ["bm25", "tfidf"])
+def test_contrib_flat_kernel_matches_plain_bit_for_bit(cuda, scorer):
+    rng = np.random.default_rng(4)
+    n = 1 << 20
+    tfs = rng.integers(0, 300, n).astype(np.int32)
+    dls = rng.integers(1, 5000, n).astype(np.int32)
+    w = rng.random(n).astype(np.float32) * 12
+    tfs[-1000:], w[-1000:] = 0, 0          # padding
+    args = [torch.from_numpy(a).to(cuda) for a in (tfs, dls, w)]
+    before = LAUNCHES.get("contrib_flat")
+    got = kern.contrib_flat(*args, 1.2, 0.75, 83.25, scorer)
+    torch.cuda.synchronize()
+    assert LAUNCHES.get("contrib_flat") == before + 1
+    want = kern.contrib_plain(scorer, args[0].float(), args[1].float(),
+                              args[2], 1.2, 0.75, kern._avg(83.25))
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert not got[-1000:].any()
+
+
+def _pool_batch(nq, qp, cp, tp, pages, seed):
+    """A random batch descriptor over a random region: each query's
+    slices touch distinct lanes; small tf and norm ranges make many equal
+    scores; rows past nq are dead (nc 0)."""
+    rng = np.random.default_rng(seed)
+    docs_pg = rng.integers(0, 50_000, (pages, 1024)).astype(np.int32)
+    tfs_pg = rng.integers(1, 4, (pages, 1024)).astype(np.int32)
+    norms = rng.integers(5, 9, 50_000).astype(np.int32)
+    nc = np.zeros(qp, np.int32)
+    cand = np.full((qp, cp), pk.PAD_DOC, np.int32)
+    per_q = []
+    for q in range(nq):
+        n = int(rng.integers(cp // 4, cp - 1))
+        nc[q] = n
+        cand[q, :n] = np.sort(rng.choice(1 << 30, n, replace=False))
+        sl = [rng.choice(n, int(rng.integers(1, n)), replace=False)
+              for _ in range(int(rng.integers(1, tp + 1)))]
+        per_q.append(sl)
+    ep = max(sum(len(s) for s in sl) for sl in per_q)
+    si = np.zeros((qp, ep), np.int32)
+    w = np.zeros((qp, ep), np.float32)
+    lane = np.zeros((qp, ep), np.int32)
+    soff = np.zeros((qp, tp + 1), np.int32)
+    smax = [0] * tp
+    for q, sl in enumerate(per_q):
+        pos = 0
+        for t, lanes in enumerate(sl):
+            m = len(lanes)
+            si[q, pos:pos + m] = rng.choice(pages * 1024, m, replace=False)
+            w[q, pos:pos + m] = np.float32(rng.choice([1.5, 2.25]))
+            lane[q, pos:pos + m] = lanes
+            soff[q, t] = pos
+            smax[t] = max(smax[t], m)
+            pos += m
+        soff[q, len(sl):] = pos
+    return (docs_pg, tfs_pg, norms, si, w, lane, soff), smax, cand, nc
+
+
+@pytest.mark.parametrize("kk,cp", [(16, 1024), (128, 4096), (8192, 16384),
+                                   (10, 37), (100, 3001)])
+def test_pool_score_kernel_matches_plain_bit_for_bit(cuda, kk, cp):
+    """Full mode (ties, dead lanes and dead rows, kk past 4,096, lane
+    counts that are no power of two) and partial mode equal the plain
+    version bit for bit."""
+    arrays, smax, cand, nc = _pool_batch(6, 8, cp, 4, 64, seed=kk)
+    dev = [torch.from_numpy(a).to(cuda) for a in arrays]
+    c_d, nc_d = torch.from_numpy(cand).to(cuda), torch.from_numpy(nc).to(cuda)
+    before = LAUNCHES.get("pool_score")
+    vals, docs = pk.pool_score(*dev, smax, cp, 1.2, 0.75, 6.5, "bm25",
+                               c_d, nc_d, kk)
+    acc = pk.pool_score(*dev, smax, cp, 1.2, 0.75, 6.5, "bm25")
+    torch.cuda.synchronize()
+    assert LAUNCHES.get("pool_score") == before + 2
+    ref_v, ref_d = pk.pool_score_plain(*dev, smax, cp, 1.2, 0.75, 6.5,
+                                       "bm25", c_d, nc_d, kk)
+    ref_acc = pk.pool_score_plain(*dev, smax, cp, 1.2, 0.75, 6.5, "bm25")
+    assert torch.equal(acc.view(torch.int32), ref_acc.view(torch.int32))
+    assert torch.equal(docs, ref_d)
+    assert torch.equal(vals.view(torch.int32), ref_v.view(torch.int32))
+    # ties exist, and the dead rows hold only the sentinel
+    v = vals[:6].cpu().numpy()
+    assert (v[:, 1:] == v[:, :-1]).any()
+    assert (docs[6:] == pk.PAD_DOC).all()
