@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the port's BM25 search, SQL analytics, top-N, fused-join, vector
-and serving paths on one CUDA card and check them.
+"""Drive the port's BM25 search, SQL analytics, top-N, fused-join, vector,
+serving and sharded paths on one CUDA card and check them.
 
     python3 chip_smoke.py
 
@@ -99,15 +99,34 @@ Phases (any failure exits non-zero and prints no result line):
      equal to its _search run serially with serene_search_batch = off, a
      mean coalesced batch above 1, pool_score and contrib_flat launched;
      one @@ statement over the PG wire equal to execute;
- 17. pool_score (full and partial mode) and contrib_flat against their
+ 17. the sharded tier (bench.py bench_multichip's shapes): its join
+     (1,000,000 probe rows, 200,000 build rows, seed 53; and 10x that,
+     the largest multiple the fused tier admits) at serene_shards 1/2/4 x
+     serene_shard_combine host/device, cold and warm, rows equal to
+     shards = 1 (and at 1x to the host path), a warm device combine one
+     offload and one join_probe launch, a warm host combine one per
+     shard; its search leg (4 segments of 250,000 docs, 16 two-term
+     disjunctions, k = 10) through MultiSearcher.topk_batch and cpu_topk,
+     bit-equal to shards = 1, merge_topk launched on every device-combine
+     call, and each disjunction's match bitmap (match_bitmap) equal to
+     eval_filter; and phase 13's table with two more INSERTs (4
+     segments), its 256 statements at serene_shards = 4 under both
+     combines, bit-equal;
+ 18. pool_score (full and partial mode) and contrib_flat against their
      plain versions, bit for bit, on the 64-batch inputs recorded in
      phase 15 (checked as soon as phase 15 ends, while the pool's region
      holds what that batch read), with their times and bounds;
- 18. one JSON line per kernel, the card line, then the device line.
+ 19. merge_topk (on phase 17's recorded 16-query merge and a crafted
+     batch of ties, -0.0, pads and k past any shard's candidates) and
+     match_bitmap (on a recorded phase 17 launch) against their plain
+     versions bit for bit, with their times and bounds; the K13 entries
+     of ops/agg.py (masked count, sum, min/max, the one-hot chunk counts,
+     group_count) on agg_scan against their plain versions on the card;
+ 20. one JSON line per kernel, the card line, then the device line.
 
 Launch counts are zeroed just before each main-path phase and read just
-after it; the comparisons of phases 5, 10, 14 and 17 run outside those
-windows.
+after it; the comparisons of phases 5, 10, 14, 18 and 19 run outside
+those windows.
 The result cache is off in phases 6-9, so every statement executes, and
 the device column cache's cap is raised to 32 GiB, as a deployment on an
 80 GB card would set it. The script imports the port
@@ -147,6 +166,8 @@ REPLACES = {
     "kmeans_update": "serenedb_tpu/ops/vector.py:157",
     "contrib_flat": "serenedb_tpu/ops/bm25.py:991",
     "pool_score": "serenedb_tpu/search/posting_pool.py:155",
+    "merge_topk": "serenedb_tpu/search/searcher.py:1019",
+    "match_bitmap": "serenedb_tpu/ops/bm25.py:1035",
 }
 SOURCES = {"bm25_accumulate": "serenedb_tpu_torch/ops/csrc/bm25.cu",
            "build_dense": "serenedb_tpu_torch/ops/csrc/bm25.cu",
@@ -161,7 +182,9 @@ SOURCES = {"bm25_accumulate": "serenedb_tpu_torch/ops/csrc/bm25.cu",
            "kmeans_assign": "serenedb_tpu_torch/ops/csrc/vector.cu",
            "kmeans_update": "serenedb_tpu_torch/ops/csrc/vector.cu",
            "contrib_flat": "serenedb_tpu_torch/ops/csrc/bm25.cu",
-           "pool_score": "serenedb_tpu_torch/ops/csrc/pool.cu"}
+           "pool_score": "serenedb_tpu_torch/ops/csrc/pool.cu",
+           "merge_topk": "serenedb_tpu_torch/ops/csrc/merge.cu",
+           "match_bitmap": "serenedb_tpu_torch/ops/csrc/bm25.cu"}
 #: the device column cache's cap in the SQL phases (MiB)
 DEVICE_CACHE_MB = 32768
 #: the vector pool's pages in phases 11-12 (16 KiB each: 6.1 GiB, room for
@@ -1586,7 +1609,10 @@ def phase_bm25_sql(device, n_docs=100_000, append=10_000) -> dict:
             fail(f"bm25_sql: {name} never launched ({launches})")
     out.update({"launches": launches, "checked": checked,
                 "ms_per_statement": [s / len(qs) * 1e3 for s in runs],
-                "n_queries": len(qs)})
+                "n_queries": len(qs),
+                # the sharded phase appends to this table
+                "conn": c, "table": table, "stmt": stmt, "queries": qs,
+                "next_id": n_docs + append})
     return out
 
 
@@ -2175,6 +2201,434 @@ def check_pool_score(device, args, reps=20) -> dict:
                      f"kept={kept} kk={vals.shape[1]}"}
 
 
+# ------------------------------------------------------ the sharded tier
+
+#: bench_multichip's query: count/sum ride the per-shard int64 adds,
+#: min/max the elementwise combine
+SHARD_QUERY = ("SELECT g, count(*), sum(v), sum(w), min(w), max(v) FROM sp "
+               "JOIN sb ON sp.jk = sb.k WHERE v > 0 GROUP BY g ORDER BY g")
+#: multiples of bench_multichip's shape (1M probe rows, 200,000 build rows,
+#: keyspace 400,000): 1x, and 10x, the largest the fused tier admits — at
+#: 16x the two sides hold 6,137,597 distinct keys, past the reference's
+#: MAX_CODE_SPACE (4,194,304), so both packages decline it to the host
+SHARD_SCALES = (1, 10)
+#: (shards, combine) cells of the sharded phase, shards = 1 first
+SHARD_CELLS = ((1, "host"), (2, "host"), (2, "device"), (4, "host"),
+               (4, "device"))
+
+
+def shard_tables(m: int, seed: int = 53) -> dict:
+    """bench_multichip's generator at m times its size: sp (jk BIGINT in
+    [0, 400,000 m), g INT in [0, 16), v BIGINT in [-1000, 1000)) and sb (k
+    a permutation of [0, 200,000 m), w BIGINT in [0, 100))."""
+    rng = np.random.default_rng(seed)
+    npr, nb, keyspace = 1_000_000 * m, 200_000 * m, 400_000 * m
+    sp = {"jk": rng.integers(0, keyspace, npr, dtype=np.int64),
+          "g": rng.integers(0, 16, npr).astype(np.int32),
+          "v": rng.integers(-1000, 1000, npr, dtype=np.int64)}
+    sb = {"k": rng.permutation(np.arange(nb, dtype=np.int64)),
+          "w": rng.integers(0, 100, nb, dtype=np.int64)}
+    return {"sp": sp, "sb": sb}
+
+
+def shard_relational(device, m: int) -> dict:
+    """SHARD_QUERY over shard_tables(m) through Database.execute at
+    serene_shards 1/2/4 x serene_shard_combine host/device (morsels of
+    131,072 rows, 4 workers, result cache off), each cell cold then warm
+    (the median of three): rows equal to shards = 1 on the card (and, at
+    1x, to the host path); every warm device-combine execution is exactly
+    one offload and one join_probe launch, a warm host-combine one per
+    shard."""
+    from serenedb_tpu_torch.columnar.column import Batch
+    from serenedb_tpu_torch.device import LAUNCHES
+    from serenedb_tpu_torch.engine import Database
+    from serenedb_tpu_torch.exec.tables import MemTable
+    from serenedb_tpu_torch.obs import device as obs_device
+    from serenedb_tpu_torch.utils import metrics
+
+    t0 = time.perf_counter()
+    tables = shard_tables(m)
+    out = {"gen_s": time.perf_counter() - t0,
+           "rows": len(tables["sp"]["jk"]), "cells": {}}
+    db = Database(device=device)
+    c = db.connect()
+    for name, cols in tables.items():
+        db.schemas["main"].tables[name] = MemTable(name,
+                                                   Batch.from_pydict(cols))
+    del tables
+    for s in ("SET serene_result_cache = off", "SET serene_device_fused = on",
+              "SET serene_morsel_rows = 131072", "SET serene_workers = 4"):
+        c.execute(s)
+    host = None
+    if m == 1:
+        c.execute("SET serene_device = 'cpu'")
+        t0 = time.perf_counter()
+        host = c.execute(SHARD_QUERY).rows()
+        out["host_ms"] = (time.perf_counter() - t0) * 1e3
+    c.execute("SET serene_device = 'gpu'")
+    declines0 = obs_device.fused_declines()
+
+    def run(shards, combine):
+        c.execute(f"SET serene_shards = {shards}")
+        c.execute(f"SET serene_shard_combine = {combine}")
+        o0 = metrics.DEVICE_OFFLOADS.value
+        p0 = LAUNCHES.get("join_probe")
+        t0 = time.perf_counter()
+        rows = c.execute(SHARD_QUERY).rows()
+        sync(device)
+        return (rows, (time.perf_counter() - t0) * 1e3,
+                metrics.DEVICE_OFFLOADS.value - o0,
+                LAUNCHES.get("join_probe") - p0)
+
+    ref = None
+    for shards, combine in SHARD_CELLS:
+        cold_rows, cold_ms, _o, _p = run(shards, combine)
+        if ref is None:
+            ref = cold_rows
+            if host is not None and ref != host:
+                fail(f"sharded tier {m}x: the card's rows differ from the "
+                     "host path's")
+        # one probe a shard that holds a block (131,072 rows a block)
+        want = 1 if shards == 1 or combine == "device" else \
+            min(shards, -(-out["rows"] // 131072))
+        warm = []
+        for _ in range(3):
+            rows, warm_ms, off, probes = run(shards, combine)
+            if cold_rows != ref or rows != ref:
+                fail(f"sharded tier {m}x: shards={shards} combine="
+                     f"{combine} differs from shards = 1")
+            if off != want or probes != want:
+                fail(f"sharded tier {m}x shards={shards} combine={combine}:"
+                     f" a warm execution took {off} offloads and {probes} "
+                     f"join_probe launches, expected {want}")
+            warm.append(warm_ms)
+        out["cells"][(shards, combine)] = (cold_ms, float(np.median(warm)),
+                                           want)
+    if obs_device.fused_declines() != declines0:
+        fail(f"sharded tier {m}x: fused declines {declines0} -> "
+             f"{obs_device.fused_declines()}")
+    out["groups"] = len(ref)
+    return out
+
+
+def shard_search(device, seg_docs=250_000, vocab=20_000,
+                 postings=3_000_000) -> dict:
+    """bench_multichip's search leg: four segments of 250,000 docs
+    (`synth_posting_index`, 20,000 terms, 3,000,000 sampled postings,
+    seeds 11-14, bases 0/250k/500k/750k) and 16 two-term disjunctions,
+    k = 10, through MultiSearcher.topk_batch and cpu_topk at shards 1/2/4
+    x combine host/device: scores (as uint32) and ids equal to shards =
+    1, merge_topk launched once a call under the device combine and never
+    under the host's. Then each disjunction's unscored match bitmap on
+    every segment (`ops.bm25.match_bitmap` over the query batch's rows),
+    equal to the segment's eval_filter."""
+    import torch
+
+    from serenedb_tpu_torch.device import LAUNCHES
+    from serenedb_tpu_torch.ops import bm25 as bm25_ops
+    from serenedb_tpu_torch.ops import bm25_kernels, merge_kernels
+    from serenedb_tpu_torch.search.analysis import get_analyzer
+    from serenedb_tpu_torch.search.query import parse_query
+    from serenedb_tpu_torch.search.searcher import (MultiSearcher,
+                                                    SegmentSearcher)
+    from serenedb_tpu_torch.utils.config import REGISTRY as settings
+
+    an = get_analyzer("simple")
+    ms = MultiSearcher(an)
+    t0 = time.perf_counter()
+    for si in range(4):
+        fi = synth_posting_index(seg_docs, vocab, postings, 11 + si, device)
+        ms.add_segment(SegmentSearcher(fi, an, seg_docs, device=device),
+                       si * seg_docs)
+    out = {"build_s": time.perf_counter() - t0, "cells": {},
+           "postings": sum(len(s.index.post_docs) for s, _ in ms.segments)}
+    terms = [f"w{100 + 13 * i:07d}" for i in range(32)]
+    nodes = [parse_query(f"{terms[2 * i]} | {terms[2 * i + 1]}", an)
+             for i in range(16)]
+    names = ("serene_shards", "serene_shard_combine", "serene_result_cache")
+    prior = {n: settings.get_global(n) for n in names}
+    # the fragment tier off: every call scores and merges
+    settings.set_global("serene_result_cache", False)
+    rec = Recorder(merge_kernels, "merge_topk",
+                   pick=lambda a, kw: tuple(a[0].shape[:2]) ==
+                   (4, len(nodes)))
+
+    def once(shards, combine):
+        settings.set_global("serene_shards", shards)
+        settings.set_global("serene_shard_combine", combine)
+        m0 = LAUNCHES.get("merge_topk")
+        t0 = time.perf_counter()
+        batch = ms.topk_batch(nodes, 10)
+        sync(device)
+        t1 = time.perf_counter()
+        wand = [ms.cpu_topk(n, 10) for n in nodes]
+        t2 = time.perf_counter()
+        merges = LAUNCHES.get("merge_topk") - m0
+        want = 1 + len(nodes) if combine == "device" else 0
+        if merges != want:
+            fail(f"shard search shards={shards} combine={combine}: "
+                 f"{merges} merge_topk launches, expected {want}")
+        return list(batch) + wand, (t1 - t0) * 1e3, \
+            (t2 - t1) * 1e3 / len(nodes)
+
+    try:
+        with rec:
+            # the cold pass builds the segments' block stores
+            ref, out["cold_ms"], _w = once(1, "host")
+            if any(not len(s) for s, _d in ref):
+                fail("shard search: a query found nothing")
+            times = {cell: ([], []) for cell in SHARD_CELLS}
+            for _ in range(3):          # the cells in turn, three rounds
+                for shards, combine in SHARD_CELLS:
+                    got, b_ms, w_ms = once(shards, combine)
+                    for (s, d), (rs, rd) in zip(got, ref):
+                        if not (np.array_equal(s.view(np.uint32),
+                                               rs.view(np.uint32)) and
+                                np.array_equal(d, rd)):
+                            fail(f"shard search shards={shards} combine="
+                                 f"{combine} differs from shards = 1")
+                    times[(shards, combine)][0].append(b_ms)
+                    times[(shards, combine)][1].append(w_ms)
+            out["cells"] = {cell: (float(np.median(b)), float(np.median(w)))
+                            for cell, (b, w) in times.items()}
+    finally:
+        for n, v in prior.items():
+            settings.set_global(n, v)
+    out["merge_args"] = rec.args
+
+    bm = Recorder(bm25_kernels, "match_bitmap",
+                  pick=lambda a, kw: a[3].numel() > 0)
+    n_checked = 0
+    with bm:
+        for seg, _base in ms.segments:
+            store = seg._device_store()
+            for node in nodes:
+                tids, _req, _mask, _empty = seg._query_shape(node)
+                qb = bm25_ops.assemble_query_batch(
+                    store, seg.num_docs,
+                    [(np.asarray(tids, dtype=np.int64), 0)],
+                    seg.index.doc_freq)
+
+                def t(a):
+                    return torch.from_numpy(np.ascontiguousarray(
+                        a, dtype=np.int32)).to(device)
+                bits = bm25_ops.match_bitmap(
+                    store.block_base, store.block_gaps, store.block_tfs8,
+                    t(qb.row_idx), store.raw_docs, t(qb.raw_idx),
+                    t(qb.tail_docs), store.ndocs_pad)
+                got = torch.nonzero(bits).flatten().cpu().numpy()
+                if not np.array_equal(got, seg.eval_filter(node)):
+                    fail("match_bitmap differs from eval_filter")
+                n_checked += 1
+    out["bitmap_args"] = bm.args
+    out["bitmaps"] = n_checked
+    return out
+
+
+def shard_search_sql(device, bsql: dict, append: int = 10_000) -> dict:
+    """The bm25_sql phase's table (100,000 docs and one INSERT of 10,000)
+    with two more INSERTs of 10,000 docs (the same generator, seed 2): at
+    least four segments. Its 256-query mix at serene_shards = 4 under the
+    host and the device combine: rows equal bit for bit to each other and
+    to shards = 1; merge_topk launched under the device combine only."""
+    from serenedb_tpu_torch.device import LAUNCHES
+    from serenedb_tpu_torch.search.index import find_index
+
+    c, table, stmt, qs = bsql.pop("conn"), bsql.pop("table"), \
+        bsql.pop("stmt"), bsql.pop("queries")
+    extra, _ = dense_corpus(2 * append, seed=2)
+    base = bsql["next_id"]
+    t0 = time.perf_counter()
+    for j in range(2):
+        c.execute("INSERT INTO docs VALUES " + ", ".join(
+            f"({base + j * append + i}, '{d}')"
+            for i, d in enumerate(extra[j * append:(j + 1) * append])))
+        c.execute(stmt.format(q=qs[0]))       # the new segment
+    out = {"insert_s": time.perf_counter() - t0}
+    segs = len(find_index(table, "body").searcher("body").segments)
+    if segs < 4:
+        fail(f"shard search through SQL: {segs} segments")
+    out["segments"] = segs
+    cells = ((1, "host"), (4, "host"), (4, "device"))
+    ref, times = None, {cell: [] for cell in cells}
+    for _ in range(3):                  # the cells in turn, three rounds
+        for shards, combine in cells:
+            c.execute(f"SET serene_shards = {shards}")
+            c.execute(f"SET serene_shard_combine = {combine}")
+            m0 = LAUNCHES.get("merge_topk")
+            t0 = time.perf_counter()
+            got = [c.execute(stmt.format(q=q)).rows() for q in qs]
+            sync(device)
+            times[(shards, combine)].append(
+                (time.perf_counter() - t0) / len(qs) * 1e3)
+            merges = LAUNCHES.get("merge_topk") - m0
+            # a statement whose shards hold no candidate takes no merge
+            if (merges > 0) != (combine == "device") or merges > len(qs):
+                fail(f"shard search through SQL, shards={shards} combine="
+                     f"{combine}: {merges} merge_topk launches")
+            got = [_bits(r) for r in got]
+            if ref is None:
+                ref = got
+            elif got != ref:
+                fail(f"shard search through SQL, shards={shards} combine="
+                     f"{combine}: rows differ from shards = 1")
+    c.execute("SET serene_shards = 1")
+    out["ms"] = {cell: float(np.median(t)) for cell, t in times.items()}
+    out["statements"] = len(qs)
+    return out
+
+
+def phase_shards(device, bsql: dict) -> dict:
+    """The sharded tier's three legs in one launch window."""
+    from serenedb_tpu_torch.device import LAUNCHES
+    LAUNCHES.reset()
+    out = {"relational": {m: shard_relational(device, m)
+                          for m in SHARD_SCALES},
+           "search": shard_search(device),
+           "search_sql": shard_search_sql(device, bsql)}
+    out["launches"] = LAUNCHES.snapshot()
+    for name in ("agg_scan", "join_probe", "merge_topk", "match_bitmap"):
+        if not out["launches"].get(name):
+            fail(f"sharded tier: {name} never launched")
+    return out
+
+
+def crafted_merge(device):
+    """A batch of ties: equal scores across shards, a -0.0 / +0.0 pair,
+    pads, -inf, and k past any shard's candidates."""
+    import torch
+
+    from serenedb_tpu_torch.ops.merge_kernels import PAD_DOC
+    rng = np.random.default_rng(3)
+    S, Q, L = 4, 8, 12
+    scores = rng.choice(np.asarray([2.5, 2.5, 1.25, 0.0, -0.0, 3.75,
+                                    -np.inf], dtype=np.float32), (S, Q, L))
+    docs = np.empty((S, Q, L), dtype=np.int32)
+    for q in range(Q):
+        docs[:, q] = rng.choice(50 * S, S * L, replace=False).reshape(S, L)
+    pads = rng.random((S, Q, L)) < 0.3
+    scores[pads], docs[pads] = -np.inf, PAD_DOC
+    return ((torch.from_numpy(scores).to(device),
+             torch.from_numpy(docs).to(device), 20), {})
+
+
+def check_merge_topk(device, args, reps=20) -> dict:
+    """merge_topk against its plain version bit for bit."""
+    import torch
+
+    from serenedb_tpu_torch.ops import merge_kernels as mk
+    a, kw = args
+    vals, docs = mk.merge_topk(*a, **kw)
+    ref_v, ref_d = mk.merge_topk_plain(*a, **kw)
+    sync(device)
+    if not torch.equal(docs, ref_d) or not torch.equal(
+            vals.view(torch.int32), ref_v.view(torch.int32)):
+        fail("merge_topk differs from its plain version")
+    ms = timed_ms(lambda: mk.merge_topk(*a, **kw), reps, device)
+    plain_ms = timed_ms(lambda: mk.merge_topk_plain(*a, **kw), reps, device)
+    scores, dd = a[0], a[1]
+    return {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms(nbytes(scores, dd, vals, docs)),
+            "bound_by": "bytes", "library_ms": None,
+            "shape": f"(S, Q, L)={tuple(scores.shape)} k={a[2]}"}
+
+
+def check_match_bitmap(device, args, reps=20) -> dict:
+    """match_bitmap against its plain version bit for bit."""
+    import torch
+
+    from serenedb_tpu_torch.ops import bm25_kernels as kern
+    a, kw = args
+    got = kern.match_bitmap(*a, **kw)
+    ref = kern.match_bitmap_plain(*a, **kw)
+    sync(device)
+    if not torch.equal(got, ref):
+        fail("match_bitmap differs from its plain version")
+    ms = timed_ms(lambda: kern.match_bitmap(*a, **kw), reps, device)
+    plain_ms = timed_ms(lambda: kern.match_bitmap_plain(*a, **kw), reps,
+                        device)
+    _b, _g, _t, row_idx, _raw, raw_idx, tail, ndocs_pad = a
+    # each selected packed row: its base, 128 gaps and tfs, its index;
+    # each raw row: 128 docs and its index; each tail doc; the bitmap
+    moved = row_idx.numel() * (4 + 128 * 3 + 4) + \
+        raw_idx.numel() * (128 * 4 + 4) + tail.numel() * 4 + ndocs_pad
+    return {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms(moved), "bound_by": "bytes",
+            "library_ms": None,
+            "shape": f"packed rows={row_idx.numel()} raw rows="
+                     f"{raw_idx.numel()} tails={tail.numel()} "
+                     f"ndocs_pad={ndocs_pad}"}
+
+
+def check_k13_aggs(device, reps=10) -> dict:
+    """The K13 entries of ops/agg.py on the relational leg's 1x probe
+    columns (g as codes, v, the rows with v > 0 as the mask): each entry
+    through agg_scan (and agg_fold for the f32 sum) against the same entry
+    with those wrappers' plain versions swapped in, both on the card:
+    integers equal, the f32 sum within rtol 1e-5 / atol 1e-6; and
+    group_count equal to numpy's count. Returns per entry its ms, the
+    plain version's ms and its bound (bytes: the tiles it reads once,
+    its outputs written once)."""
+    import torch
+
+    from serenedb_tpu_torch.device import LAUNCHES
+    from serenedb_tpu_torch.ops import agg
+    from serenedb_tpu_torch.ops import agg_kernels as K
+    sp = shard_tables(1)["sp"]
+    n = len(sp["g"])
+    rows = -(-n // 128)
+
+    def tiles(a, dtype):
+        t = np.zeros(rows * 128, dtype=dtype)
+        t[:n] = a
+        return torch.from_numpy(t.reshape(rows, 128)).to(device)
+    v = sp["v"].astype(np.int32)
+    d = {"codes": tiles(sp["g"], np.int32), "mask": tiles(v > 0, bool),
+         "v": tiles(v, np.int32), "f": tiles(v / 7.0, np.float32)}
+    entries = {     # entry, the tiles it reads
+        "masked_count": (lambda: agg.masked_count(d["mask"]), ("mask",)),
+        "masked_sum_float": (lambda: agg.masked_sum_float(d["f"],
+                                                          d["mask"]),
+                             ("f", "mask")),
+        "masked_minmax min": (lambda: agg.masked_minmax(d["v"], d["mask"],
+                                                        "min"),
+                              ("v", "mask")),
+        "masked_minmax max": (lambda: agg.masked_minmax(d["f"], d["mask"],
+                                                        "max"),
+                              ("f", "mask")),
+        "group_count_onehot": (lambda: agg.group_count_onehot(
+            d["codes"], d["mask"], 16), ("codes", "mask")),
+    }
+    kernels = (K.agg_scan, K.agg_fold)
+
+    def plain(fn):
+        K.agg_scan, K.agg_fold = K.agg_scan_plain, K.agg_fold_plain
+        try:
+            return fn()
+        finally:
+            K.agg_scan, K.agg_fold = kernels
+    out = {}
+    for name, (fn, reads) in entries.items():
+        l0 = LAUNCHES.get("agg_scan")
+        got, ref = fn(), plain(fn)
+        sync(device)
+        if LAUNCHES.get("agg_scan") <= l0:
+            fail(f"{name} did not launch agg_scan")
+        if name == "masked_sum_float":
+            torch.testing.assert_close(got, ref, rtol=RTOL, atol=ATOL)
+        elif not torch.equal(got, ref):
+            fail(f"{name} differs from its plain version")
+        out[name] = {"ms": timed_ms(fn, reps, device),
+                     "plain_ms": timed_ms(lambda: plain(fn), reps, device),
+                     "bound_ms": bound_ms(nbytes(*(d[t] for t in reads),
+                                                 got))}
+    counts = agg.group_count(d["codes"], d["mask"], 16)
+    if not np.array_equal(counts, np.bincount(sp["g"][sp["v"] > 0],
+                                              minlength=16)):
+        fail("group_count differs from the host count")
+    return out
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -2485,21 +2939,75 @@ def main() -> int:
           f"execute ({serving['pg_rows']} rows); launches "
           f"{serving['launches']}", flush=True)
 
-    # 17. the serving kernels against their plain versions
+    # 17. the sharded tier
+    shards = phase_shards(device, bsql)
+    for m, r in shards["relational"].items():
+        cells = "; ".join(
+            f"shards {sh} {cb}: cold {c_ms:.1f} ms, warm {w_ms:.1f} ms "
+            f"(median of 3), {off} offload(s)"
+            for (sh, cb), (c_ms, w_ms, off) in r["cells"].items())
+        host = f", host path {r['host_ms']:.1f} ms" if "host_ms" in r \
+            else ""
+        print(f"[17] sharded join {m}x: {r['rows']} probe rows (generated "
+              f"{r['gen_s']:.1f} s){host}; {cells}; {r['groups']} groups "
+              f"equal in every cell", flush=True)
+    sr = shards["search"]
+    cells = "; ".join(f"shards {sh} {cb}: topk_batch {b_ms:.2f} ms, "
+                      f"cpu_topk {w_ms:.2f} ms a query"
+                      for (sh, cb), (b_ms, w_ms) in sr["cells"].items())
+    print(f"[17] sharded search: 4 x 250,000 docs, {sr['postings']} "
+          f"postings (built {sr['build_s']:.1f} s), 16 two-term "
+          f"disjunctions, k = 10; cold topk_batch {sr['cold_ms']:.1f} ms; "
+          f"medians of 3 rounds: {cells}; bit-equal to shards = 1; "
+          f"{sr['bitmaps']} match bitmaps equal to eval_filter", flush=True)
+    ss = shards["search_sql"]
+    print(f"[17] sharded search through SQL: {ss['segments']} segments "
+          f"(two INSERTs of 10,000 docs {ss['insert_s']:.1f} s), "
+          f"{ss['statements']} statements, ms per statement (median of 3 "
+          f"rounds) "
+          + ", ".join(f"shards {sh} {cb} {v:.3f}"
+                      for (sh, cb), v in ss["ms"].items())
+          + f"; rows bit-equal across the combines; launches "
+          f"{shards['launches']}", flush=True)
+    print(f"    total {time.perf_counter() - t_start:.1f} s", flush=True)
+
+    # 18. the serving kernels against their plain versions
     for what, r in serve_checks.items():
-        print(f"[17] {what} ({r['shape']}): kernel {r['ms']:.4f} ms, plain "
+        print(f"[18] {what} ({r['shape']}): kernel {r['ms']:.4f} ms, plain "
               f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms "
               f"({r['bound_by']}), library null, bit-equal", flush=True)
     print(f"    total {time.perf_counter() - t_start:.1f} s", flush=True)
 
-    # 18. result lines
+    # 19. the sharded tier's kernels and the K13 entries against their
+    # plain versions
+    if sr["merge_args"] is None or sr["bitmap_args"] is None:
+        fail("merge_topk's or match_bitmap's inputs were not recorded")
+    shard_checks = {"merge_topk": check_merge_topk(device,
+                                                   sr.pop("merge_args")),
+                    "merge_topk crafted": check_merge_topk(
+                        device, crafted_merge(device)),
+                    "match_bitmap": check_match_bitmap(
+                        device, sr.pop("bitmap_args"))}
+    for what, r in shard_checks.items():
+        print(f"[19] {what} ({r['shape']}): kernel {r['ms']:.4f} ms, plain "
+              f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']}), library null, bit-equal", flush=True)
+    k13 = check_k13_aggs(device)
+    print("[19] K13 entries on agg_scan (1,000,000 rows, 16 groups), equal "
+          "to their plain versions on the card: " + "; ".join(
+              f"{k} {r['ms']:.4f} ms (plain {r['plain_ms']:.4f} ms, bound "
+              f"{r['bound_ms']:.5f} ms, bytes)" for k, r in k13.items()),
+          flush=True)
+    print(f"    total {time.perf_counter() - t_start:.1f} s", flush=True)
+
+    # 20. result lines
     launches = {}
     for window in (dense["launches"], packed["launches"],
                    packed["ragged"]["launches"],
                    *(r["launches"] for r in sql.values()),
                    sift["launches"], colbert["launches"],
                    bsql["launches"], paged["launches"],
-                   serving["launches"]):
+                   serving["launches"], shards["launches"]):
         for kname, n in window.items():
             launches[kname] = launches.get(kname, 0) + n
     results["agg_scan"] = checks["q1 GROUP BY region"]
@@ -2511,6 +3019,8 @@ def main() -> int:
     for name in ("maxsim", "kmeans_assign", "kmeans_update"):
         results[name] = vchecks[name]
     results.update(serve_checks)
+    results["merge_topk"] = shard_checks["merge_topk"]
+    results["match_bitmap"] = shard_checks["match_bitmap"]
     kernels = []
     for kname, r in results.items():
         kernels.append({

@@ -50,6 +50,15 @@ def current_device() -> torch.device:
     return conn.db.device if conn is not None else resolve_device(None)
 
 
+def device_scope(device: torch.device):
+    """Make `device` the calling thread's current CUDA device (worker-pool
+    tasks launch kernels from their own threads); a no-op for the CPU."""
+    import contextlib
+    if device is not None and device.type == "cuda":
+        return torch.cuda.device(device)
+    return contextlib.nullcontext()
+
+
 class LaunchLedger:
     """Integer launch counters keyed by kernel name (thread-safe)."""
 

@@ -13,8 +13,9 @@ then `agg_fold` for the float sums, and the host builds the result batch
 exactly as the reference does. Queries the device tier cannot run exactly
 decline to the host path (plan.AggregateNode) where the reference declines
 them: `NotCompilable` and `DeviceNarrowingError`, and nothing else.
-The reference's multi-device mesh branch is not ported: `serene_mesh > 1`
-raises NotImplementedError.
+The reference's multi-device mesh branch is not ported: the port has one
+card, so `serene_mesh > 1` takes the single-device program, as the
+reference does when it has fewer devices than the mesh names.
 """
 
 from __future__ import annotations
@@ -124,9 +125,6 @@ def try_device_aggregate(node, ctx) -> Optional[Batch]:
 
 def _run(node, scan, provider: TableProvider, preds: list[BoundExpr],
          ctx) -> Batch:
-    if int(ctx.settings.get("serene_mesh") or 0) > 1:
-        raise NotImplementedError(
-            "serene_mesh > 1: the multi-device mesh is not ported yet")
     device = _ctx_device(ctx)
     col_names = scan.columns
 

@@ -38,10 +38,12 @@ mutation_epoch) + column + surviving row range — a repeat query on an
 unchanged table uploads nothing, and any write moves the key. Zone maps
 bound what uploads at all (each side's surviving block envelope).
 
-Not ported: the sharded and collective branches (K12). Under
-`serene_shards > 1` the pipeline runs its single dispatch, as the port's
-`device_agg` does (the reference's sharded results are bit-identical to
-it); `serene_mesh > 1` raises NotImplementedError.
+Sharded tier (`serene_shards > 1`, the reference's gate): the probe
+phase runs per round-robin probe shard after one publication-cached build
+launch — N `join_probe` launches and an exact host combine under
+`serene_shard_combine = host`, one launch over the concatenated shard
+spans under `device` (the reference's collective on its one-card mesh).
+`serene_mesh` is never read here, as in the reference.
 """
 
 from __future__ import annotations
@@ -59,6 +61,7 @@ from ..columnar import dtypes as dt
 from ..columnar.column import Batch, Column
 from ..columnar.device import (LANES, DeviceNarrowingError,
                                commit_host_array, pad_len, to_device_column)
+from ..device import device_scope
 from ..obs import device as obs_device
 from ..ops import agg_kernels as K
 from ..ops import join_kernels as J
@@ -258,16 +261,22 @@ class DeviceColumnCache:
                     "cap_bytes": cap}
 
     def column(self, pub: tuple, name: str, host_col_fn,
-               zrange: Optional[tuple], device):
-        """Device tiles of one column (optionally row-sliced), cached by
-        (publication, column, range, device). host_col_fn() materializes
-        the host column only on a miss."""
-        key = (pub, name, "col", (zrange, str(device)))
+               zrange: Optional[tuple], device, spans=None):
+        """Device tiles of one column (optionally row-sliced, or with
+        `spans` restricted to a shard's row spans: exec/shard.py's
+        round-robin block set), cached by (publication, column, range or
+        spans, device). host_col_fn() materializes the host column only
+        on a miss."""
+        rows = zrange if spans is None else ("spans", tuple(spans))
+        key = (pub, name, "col", (rows, str(device)))
         dc = self.get(key)
         if dc is not None:
             return dc
         col = host_col_fn()
-        if zrange is not None:
+        if spans is not None:
+            from .shard import _concat_spans
+            col = _concat_spans(col, spans)
+        elif zrange is not None:
             col = col.slice(zrange[0], zrange[1])
         dc = to_device_column(col, device=device)
         nbytes = dc.data.numel() * dc.data.element_size() + dc.mask.numel()
@@ -275,6 +284,25 @@ class DeviceColumnCache:
         _charge_upload(nbytes)
         self.put(key, dc, nbytes)
         return dc
+
+    def outputs(self, pub: tuple, name: str, tag, build_fn, sweep=None):
+        """Cached device outputs of a launch under ONE key (the sharded
+        tier's build phase: per-code counts and partials) — a repeat
+        query skips the build launch entirely. build_fn() returns a
+        nested tuple of tensors."""
+        key = (pub, name, "arr", tag)
+        val = self.get(key)
+        if val is not None:
+            return val
+        val = build_fn()
+
+        def flat(v):
+            return [v] if isinstance(v, torch.Tensor) else \
+                [t for x in v for t in flat(x)]
+        nbytes = sum(t.numel() * t.element_size() for t in flat(val))
+        metrics.DEVICE_BYTES.add(nbytes)
+        self.put(key, val, nbytes, sweep=sweep)
+        return val
 
     def array(self, pub: tuple, name: str, tag, build_fn, sweep=None):
         """A cached device array (code tiles, row masks): build_fn()
@@ -388,6 +416,9 @@ class _Side:
                 else self.provider.row_count()
         except NotImplementedError:
             raise NotCompilable("provider without row_count")
+        #: per-block scan-conjunct verdicts (the sharded tier combines
+        #: them with the shard-to-shard join filter's)
+        self.verdicts = None
         self.zrange = self._zone_range(ctx)
 
     def host_col(self, name: str) -> Column:
@@ -409,6 +440,7 @@ class _Side:
             block_rows, self.pin)
         if verdicts is None:
             return None
+        self.verdicts = verdicts
         lo, hi = zonemap.surviving_range(verdicts, block_rows, self.nrows)
         if hi <= lo:
             return (0, 0)
@@ -431,20 +463,25 @@ class _Side:
         return lo, hi
 
     @property
+    def lo(self) -> int:
+        return 0 if self.zrange is None else self.zrange[0]
+
+    @property
     def n_live(self) -> int:
         if self.zrange is None:
             return self.nrows
         return self.zrange[1] - self.zrange[0]
 
 
-def _device_env(side: _Side, names: dict, device) -> dict:
+def _device_env(side: _Side, names: dict, device, spans=None) -> dict:
     """{join index: DeviceColumn} of one side's needed columns, through
-    the publication-keyed cache, each checked against its SQL type."""
+    the publication-keyed cache, each checked against its SQL type: the
+    side's surviving range, or with `spans` a shard's row spans."""
     out = {}
     for ji, (name, t) in names.items():
         dc = DEVICE_CACHE.column(
             side.pub, name, (lambda s=side, n=name: s.host_col(n)),
-            side.zrange, device)
+            side.zrange, device, spans)
         kind, _off = K.col_kind(dc)
         want = column_type(t)
         if (want == "f") != (kind == K.COL_F32) or \
@@ -574,9 +611,6 @@ def _run_fused(node, join, probe_side, build_side,
     stage entry: it returns (device outputs, finalize ctx) WITHOUT any
     device→host readback, so the top-N stage can consume the
     accumulators on the card."""
-    if int(ctx.settings.get("serene_mesh") or 0) > 1:
-        raise NotImplementedError(
-            "serene_mesh > 1: the multi-device mesh is not ported yet")
     device = _ctx_device(ctx)
     prof = getattr(ctx, "profile", None)
     from ..obs.trace import current_trace
@@ -812,9 +846,8 @@ def _run_fused(node, join, probe_side, build_side,
     if max(len(p_need), len(b_need)) > K.MAX_COLS:
         raise NotCompilable(f"a join side reads more than {K.MAX_COLS} "
                             "columns (device limit)", "device_cols")
+    p_names = {ji: (pscan.columns[ji], join_types[ji]) for ji in p_need}
     t0 = clock()
-    env_p = _device_env(probe, {ji: (pscan.columns[ji], join_types[ji])
-                                for ji in p_need}, device)
     env_b = _device_env(build, {ji: (bscan.columns[ji - nl], join_types[ji])
                                 for ji in b_need}, device)
 
@@ -826,38 +859,27 @@ def _run_fused(node, join, probe_side, build_side,
     keyset = (tuple(_expr_key(k) for k in join.left_keys),
               tuple(_expr_key(k) for k in join.right_keys))
     dev_tag = str(device)
-    pc_dev = DEVICE_CACHE.array(
-        probe.pub, "__codes__",
-        (build.pub, keyset, probe.zrange, "p", dev_tag),
-        lambda: _code_tiles(cl, g + 1, device),
-        sweep=_partner_stale_pred(probe.pub, build.pub, "p", keyset))
     bc_dev = DEVICE_CACHE.array(
         build.pub, "__codes__",
         (probe.pub, keyset, build.zrange, "b", dev_tag),
         lambda: _code_tiles(cr, g, device),
         sweep=_partner_stale_pred(build.pub, probe.pub, "b", keyset))
-    prow = DEVICE_CACHE.array(probe.pub, "__rowmask__",
-                              (probe.zrange, dev_tag),
-                              lambda: _rowmask_tiles(probe.n_live, device))
     brow = DEVICE_CACHE.array(build.pub, "__rowmask__",
                               (build.zrange, dev_tag),
                               lambda: _rowmask_tiles(build.n_live, device))
-    if prof is not None:
-        prof.add_device_ns(id(pscan), clock() - t0)
-    tspan("device_upload", t0)
 
     # the launch descriptions: data-free, cached like the reference's
-    # programs (keyed by everything the lowering reads)
+    # programs (keyed by everything the lowering reads; the probe side's
+    # decode differs per uploaded span set)
     slot_p = {ji: s for s, ji in enumerate(p_need)}
     slot_b = {ji: s for s, ji in enumerate(b_need)}
-    dec_p = [K.col_kind(env_p[ji]) for ji in p_need]
     dec_b = [K.col_kind(env_b[ji]) for ji in b_need]
     consts_sig = tuple(ce.consts for ce in preds_probe + preds_build) + \
         tuple(ce.consts for _s, _sd, ce in agg_plans if ce is not None) + \
         tuple(agg_filters[si].consts for si in sorted(agg_filters))
-    cache_key = (
-        "fused", join.kind, tuple(p_need), tuple(b_need), tuple(dec_p),
-        tuple(dec_b), g, group_space, tuple(key_plans),
+    shape_sig = (
+        join.kind, tuple(p_need), tuple(b_need), tuple(dec_b), g,
+        group_space, tuple(key_plans),
         tuple(sorted(star_filter.items())),
         tuple(sorted(distinct_plans.items())), consts_sig,
         tuple(_expr_key(p) for p in ppreds),
@@ -869,29 +891,60 @@ def _run_fused(node, join, probe_side, build_side,
               for s in node.aggs),
         tuple(_expr_key(gx) for gx in node.group_exprs))
 
-    def build_specs():
-        return _launch_specs(
-            agg_plans, agg_filters, star_filter, distinct_plans, key_plans,
-            preds_probe, preds_build, slot_p, slot_b, dec_p, dec_b, g,
-            group_space, group_mode, outer_left, outer_right)
+    def specs_for(env_p: dict):
+        dec_p = [K.col_kind(env_p[ji]) for ji in p_need]
 
-    bspec, pspec, uspec, build_slots = obs_device.compiled(
-        "fused", cache_key, build_specs)
+        def build_specs():
+            return _launch_specs(
+                agg_plans, agg_filters, star_filter, distinct_plans,
+                key_plans, preds_probe, preds_build, slot_p, slot_b, dec_p,
+                dec_b, g, group_space, group_mode, outer_left, outer_right)
+        return obs_device.compiled(
+            "fused", ("fused", tuple(dec_p)) + shape_sig, build_specs)
+
+    # sharded tier: the probe phase runs once per probe shard
+    # (round-robin block partitions) after one publication-cached build
+    # launch; the per-shard int64 accumulators combine exactly on the
+    # host (or, under the device combine, one launch over the
+    # concatenated shard spans) — bit-identical to shards = 1. Outer
+    # kinds, FILTER masks and DISTINCT grids run single-dispatch only
+    # (LEFT's max(cnt, 1) weight and presence grids do not add across
+    # shards); chained (fetch=False) callers need ONE launch's outputs
+    # on the card
+    from . import shard as shard_mod
+    n_shards = shard_mod.shard_count(ctx.settings)
+    block_rows = int(ctx.settings.get("serene_morsel_rows"))
+    plain = (join.kind == "inner" and not agg_filters and
+             not star_filter and not distinct_plans)
+    if fetch and plain and n_shards > 1 and probe.n_live > block_rows:
+        return _run_fused_sharded(
+            node, join, probe, build, pscan, p_names, key_plans, agg_plans,
+            group_space, group_mode, dictionaries, cl, g, keyset, device,
+            env_b, b_need, bc_dev, brow, specs_for, shape_sig, ctx, prof,
+            clock, block_rows, n_shards)
+
+    env_p = _device_env(probe, p_names, device)
+    pc_dev = DEVICE_CACHE.array(
+        probe.pub, "__codes__",
+        (build.pub, keyset, probe.zrange, "p", dev_tag),
+        lambda: _code_tiles(cl, g + 1, device),
+        sweep=_partner_stale_pred(probe.pub, build.pub, "p", keyset))
+    prow = DEVICE_CACHE.array(probe.pub, "__rowmask__",
+                              (probe.zrange, dev_tag),
+                              lambda: _rowmask_tiles(probe.n_live, device))
+    if prof is not None:
+        prof.add_device_ns(id(pscan), clock() - t0)
+    tspan("device_upload", t0)
+    bspec, pspec, uspec, build_slots = specs_for(env_p)
+    cache_key = ("fused", tuple(K.col_kind(env_p[ji]) for ji in p_need)) + \
+        shape_sig
 
     from .plan import check_cancel
     check_cancel()
     t0 = clock()
     metrics.DEVICE_OFFLOADS.add()
-    # build phase: per-code partials (agg_scan over the build codes)
     bcols = [(env_b[ji].data, env_b[ji].mask) for ji in b_need]
-    b_rc, b_outs = K.agg_scan(bspec, bcols, brow, bc_dev, 0,
-                              int(brow.shape[0]))
-    b_rc[g:] = 0                                 # sentinel slots g, g+1
-    for out in b_outs:
-        if out[-1].dtype == torch.int64:         # the value counts
-            out[-1][g:] = 0
-        if len(out) == 2 and out[0].dtype == torch.int64:   # int64 sums
-            out[0][g:] = 0
+    b_rc, b_outs = _build_phase(bspec, bcols, brow, bc_dev, g)
     pspec = _with_partials(pspec, build_slots, b_outs)
     # probe phase
     pcols = [(env_p[ji].data, env_p[ji].mask) for ji in p_need]
@@ -917,6 +970,328 @@ def _run_fused(node, join, probe_side, build_side,
         prof.add_device_ns(id(node), clock() - t0)
     metrics.DEVICE_DISPATCH_HIST.observe_ns(time.perf_counter_ns() - t0)
     tspan("device_dispatch", t0)
+    return out
+
+
+def _build_phase(bspec, bcols, brow, bc_dev, g: int):
+    """The build phase: per-code partials, one `agg_scan` over the build
+    codes, with the sentinel slots g and g + 1 zeroed."""
+    b_rc, b_outs = K.agg_scan(bspec, bcols, brow, bc_dev, 0,
+                              int(brow.shape[0]))
+    b_rc[g:] = 0                                 # sentinel slots g, g+1
+    for out in b_outs:
+        if out[-1].dtype == torch.int64:         # the value counts
+            out[-1][g:] = 0
+        if len(out) == 2 and out[0].dtype == torch.int64:   # int64 sums
+            out[0][g:] = 0
+    return b_rc, b_outs
+
+
+# -- sharded execution tier (serene_shards > 1) -----------------------------
+#
+# The fused join/aggregate over round-robin probe-block shards
+# (exec/shard.py), in one of two combines:
+# - host: one `join_probe` launch per shard over that shard's spans, as
+#   concurrent worker-pool tasks, then the exact host combine (int64
+#   adds, elementwise min/max);
+# - device (the reference's shard_map collective): one `join_probe`
+#   launch over the concatenated surviving spans of every shard — the
+#   reference's `data_mesh` has width min(S, devices) = 1 on one card,
+#   so its psum/pmin/pmax combine is that one launch's own accumulation —
+#   and the accumulators stay on the card until the one fetch.
+# Both run after one build `agg_scan`, whose outputs cache per
+# publication pair, so a warm query launches only its probes. Every
+# accumulator is an integer add or a min/max selection over disjoint row
+# sets, so both combines equal the shards = 1 dispatch bit for bit. The
+# build side also publishes PER-SHARD key min/max (the shard-to-shard
+# join filter): probe blocks outside every build shard's range never
+# upload.
+
+#: per-(build publication, keyset) cache of the published shard ranges,
+#: so repeat queries skip the O(n) build-key min/max scans
+_SHARD_RANGES_CACHE: OrderedDict[tuple, object] = OrderedDict()
+_SHARD_RANGES_MAX = 32
+_shard_ranges_lock = threading.Lock()
+
+
+def _shard_build_ranges(join, build: _Side, n_shards: int,
+                        block_rows: int):
+    """The build side's per-shard key ranges (exec/shard.ShardedRanges)
+    or None when no shard publishes a rangeable key / key eval must
+    fall back. Cached per build publication — pure function of it."""
+    from . import shard as shard_mod
+    keyset = (tuple(_expr_key(k) for k in join.left_keys),
+              tuple(_expr_key(k) for k in join.right_keys))
+    ck = (build.pub, keyset, n_shards, block_rows)
+    with _shard_ranges_lock:
+        if ck in _SHARD_RANGES_CACHE:
+            _SHARD_RANGES_CACHE.move_to_end(ck)
+            return _SHARD_RANGES_CACHE[ck]
+    bbatch = build.pin[0] if build.pin is not None \
+        else build.provider.full_batch(build.scan.columns)
+    bbatch = Batch(list(build.scan.columns),
+                   [bbatch.column(c) for c in build.scan.columns])
+    try:
+        rkeys = [k.eval(bbatch) for k in join.right_keys]
+        groups = shard_mod.build_shard_ranges(
+            join.left_keys, rkeys,
+            build.provider.shard_view(n_shards, block_rows,
+                                      bbatch.num_rows))
+    except Exception:
+        # key eval over unfiltered rows may legitimately raise (the
+        # host path evaluates keys only over surviving rows) — then no
+        # shard filter, never an error
+        groups = None
+    with _shard_ranges_lock:
+        while len(_SHARD_RANGES_CACHE) >= _SHARD_RANGES_MAX:
+            _SHARD_RANGES_CACHE.popitem(last=False)
+        _SHARD_RANGES_CACHE[ck] = groups
+    return groups
+
+
+def _sum_i64(arrs) -> np.ndarray:
+    out = np.asarray(arrs[0]).astype(np.int64)
+    for a in arrs[1:]:
+        out = out + np.asarray(a).astype(np.int64)
+    return out
+
+
+def _collective_out_kinds(agg_plans) -> list[str]:
+    """Per-output cross-shard combine kinds in `join_probe`'s output
+    order: the pair counts, then per aggregate its count / (sum, count)
+    / (min or max partial, count)."""
+    kinds = ["sum"]                          # pair counts
+    for spec, _side, _ce in agg_plans:
+        if spec.func == "count_star":
+            continue
+        if spec.func == "count":
+            kinds.append("sum")
+        elif spec.func in ("sum", "avg"):
+            kinds.extend(["sum", "sum"])     # int64 sum + vcnt
+        else:
+            kinds.extend([spec.func, "sum"])  # mm partial + vcnt
+    return kinds
+
+
+def _combine_shard_results(agg_plans, shard_outs: list[list]) -> list:
+    """Exact cross-shard combine of per-shard `join_probe` outputs into
+    the single-dispatch output list _finalize consumes: counts and sums
+    add in int64, min/max reduce elementwise. Integer addition over
+    disjoint row sets is associative, so the combined accumulators equal
+    the shards = 1 dispatch bit for bit."""
+    out = []
+    for kind, per_shard in zip(_collective_out_kinds(agg_plans),
+                               zip(*shard_outs)):
+        if kind == "sum":
+            out.append(_sum_i64(per_shard))
+        else:
+            red = np.minimum.reduce if kind == "min" else np.maximum.reduce
+            out.append(red([np.asarray(m) for m in per_shard]))
+    return out
+
+
+def _run_fused_sharded(node, join, probe: _Side, build: _Side, pscan,
+                       p_names: dict, key_plans, agg_plans,
+                       group_space: int, group_mode: bool, dictionaries,
+                       cl: np.ndarray, g: int, keyset, device, env_b,
+                       b_need, bc_dev, brow, specs_for, shape_sig, ctx,
+                       prof, clock, block_rows: int, n_shards: int) -> Batch:
+    from . import shard as shard_mod
+    from . import zonemap
+    from .plan import check_cancel
+
+    settings = ctx.settings
+    from ..obs.trace import current_trace
+    trace = current_trace()
+    tspan = functools.partial(_trace_span, trace)
+    p_need = sorted(p_names)
+    plo, phi = probe.lo, probe.lo + probe.n_live
+
+    # -- shard-to-shard join filter: per-build-shard key ranges prune
+    # probe blocks (and their uploads) before any transfer
+    t0 = clock()
+    groups = _shard_build_ranges(join, build, n_shards, block_rows)
+    v_shard = None
+    if groups is not None:
+        v_shard = shard_mod.sharded_verdicts(
+            probe.provider, settings, groups, pscan.columns, block_rows,
+            probe.pin)
+    verdicts = zonemap.combine_verdicts(probe.verdicts, v_shard)
+
+    if v_shard is not None:
+        # 4 bytes of code tile + 1 mask byte per needed column ride on
+        # every uploaded probe row; count what per-shard pruning saved
+        nbytes_row = 4 + sum(
+            int(probe.host_col(pscan.columns[ji]).data.dtype.itemsize) + 1
+            for ji in p_need)
+        shard_mod.count_shard_pruned(v_shard, nbytes_row, block_rows,
+                                     probe.nrows)
+        if zonemap.verify_enabled(settings) and \
+                (v_shard == zonemap.SKIP).any():
+            full = probe.pin[0] if probe.pin is not None else \
+                probe.provider.full_batch(pscan.columns)
+            full = Batch(list(pscan.columns),
+                         [full.column(c) for c in pscan.columns])
+            spans = [(int(b) * block_rows,
+                      min((int(b) + 1) * block_rows, probe.nrows))
+                     for b in np.flatnonzero(v_shard == zonemap.SKIP)]
+            shard_mod.verify_sharded_pruned(
+                groups, full, spans,
+                f"fused shard filter {probe.provider.name}")
+
+    n_blocks = (probe.nrows + block_rows - 1) // block_rows
+    if verdicts is None:
+        alive = [b for b in range(n_blocks)
+                 if b * block_rows < phi and (b + 1) * block_rows > plo]
+    else:
+        alive = [int(b) for b in np.flatnonzero(verdicts != zonemap.SKIP)
+                 if int(b) * block_rows < phi and
+                 int(b) * block_rows >= plo]
+    per_shard: dict[int, list[tuple[int, int]]] = {}
+    for b in alive:
+        s = shard_mod.shard_of_block(b, n_shards)
+        per_shard.setdefault(s, []).append(
+            (b * block_rows, min((b + 1) * block_rows, probe.nrows)))
+    shard_ids = sorted(per_shard)
+    pruned = int((v_shard == zonemap.SKIP).sum()) \
+        if v_shard is not None else 0
+    if not shard_ids:
+        # zero pipelines actually ran — the Shards: line still renders
+        # the pruning that short-circuited them
+        shard_mod.stamp_profile(ctx, id(node), 0, pruned)
+        results = _zero_results(agg_plans, group_space)
+        return _finalize(node, key_plans, agg_plans, results, dictionaries,
+                         group_space, group_mode)
+
+    # -- build phase: ONE launch a query (the first shard to need it),
+    # its outputs publication-cached: a warm query skips it ------------
+    dev_tag = str(device)
+    build_mu = threading.Lock()
+
+    def build_outs(bspec):
+        def launch():
+            tb = clock()
+            bcols = [(env_b[ji].data, env_b[ji].mask) for ji in b_need]
+            check_cancel()
+            metrics.DEVICE_OFFLOADS.add()
+            b_rc, b_outs = _build_phase(bspec, bcols, brow, bc_dev, g)
+            if prof is not None:
+                prof.add_device_ns(id(join), clock() - tb)
+            metrics.DEVICE_DISPATCH_HIST.observe_ns(
+                time.perf_counter_ns() - tb)
+            tspan("device_dispatch", tb, phase="build")
+            return b_rc, tuple(tuple(o) for o in b_outs)
+
+        with build_mu:
+            return DEVICE_CACHE.outputs(
+                build.pub, "__bacc__",
+                (probe.pub, keyset, (build.zrange, shape_sig), dev_tag),
+                launch,
+                sweep=_partner_stale_pred(build.pub, probe.pub, dev_tag,
+                                          keyset, name="__bacc__"))
+
+    def probe_inputs(spans: list, tag) -> tuple:
+        """(pspec with the build partials, probe cols, row mask, codes,
+        build match counts) over a span set: the probe tiles through the
+        publication-keyed cache, the build outputs through theirs."""
+        env_p = _device_env(probe, p_names, device, spans)
+        side_tag = f"ps{tag}@{dev_tag}"
+        pc_dev = DEVICE_CACHE.array(
+            probe.pub, "__codes__", (build.pub, keyset, tuple(spans),
+                                     side_tag),
+            lambda: _code_tiles(
+                np.concatenate([cl[a - plo:e - plo] for a, e in spans]),
+                g + 1, device),
+            sweep=_partner_stale_pred(probe.pub, build.pub, side_tag,
+                                      keyset))
+        n_live_s = sum(e - a for a, e in spans)
+        prow = DEVICE_CACHE.array(
+            probe.pub, "__rowmask__", (tuple(spans), tag, dev_tag),
+            lambda: _rowmask_tiles(n_live_s, device))
+        bspec, pspec, _uspec, build_slots = specs_for(env_p)
+        b_rc, b_outs = build_outs(bspec)
+        pspec = _with_partials(pspec, build_slots, b_outs)
+        pcols = [(env_p[ji].data, env_p[ji].mask) for ji in p_need]
+        return pspec, pcols, prow, pc_dev, b_rc
+
+    if shard_mod.combine_mode(settings) == "device":
+        return _run_fused_collective(
+            node, agg_plans, key_plans, group_space, group_mode,
+            dictionaries, per_shard, shard_ids, pruned, probe_inputs,
+            tspan, ctx, prof, clock, t0)
+
+    def run_shard(s: int) -> list[np.ndarray]:
+        check_cancel()
+        with device_scope(device):
+            t_up = time.perf_counter_ns()
+            pspec, pcols, prow, pc_dev, b_rc = probe_inputs(
+                per_shard[s], (n_shards, s))
+            metrics.DEVICE_OFFLOADS.add()
+            tspan("device_upload", t_up, shard=s)
+            t_d = time.perf_counter_ns()
+            rowcount, p_outs = J.join_probe(pspec, pcols, prow, pc_dev,
+                                            b_rc)
+            outs = obs_device.fetch_all(
+                [rowcount] + [t for out in p_outs for t in out])
+            metrics.DEVICE_DISPATCH_HIST.observe_ns(
+                time.perf_counter_ns() - t_d)
+            tspan("device_dispatch", t_d, shard=s)
+            return outs
+
+    shard_outs = shard_mod.run_shard_tasks(settings, run_shard, shard_ids)
+    results = _combine_shard_results(agg_plans, shard_outs)
+    shard_mod.stamp_profile(ctx, id(node), len(shard_ids), pruned)
+    out = _finalize(node, key_plans, agg_plans, results, dictionaries,
+                    group_space, group_mode)
+    if prof is not None:
+        prof.add_device_ns(id(node), clock() - t0)
+    return out
+
+
+def _run_fused_collective(node, agg_plans, key_plans, group_space: int,
+                          group_mode: bool, dictionaries, per_shard: dict,
+                          shard_ids: list, pruned: int, probe_inputs,
+                          tspan, ctx, prof, clock, t0) -> Batch:
+    """The device combine: ONE `join_probe` launch over the surviving
+    shard spans, concatenated in ascending shard, then ascending span
+    order. The reference splits that row set evenly over its mesh axis
+    (width min(S, devices) = 1 here, so one slice) and psums the slices'
+    accumulators: integer adds and min/max selections are exact over any
+    row partition, so one launch over the whole set gives the same
+    accumulators."""
+    from ..obs.resources import wait_scope
+    from ..parallel import mesh as mesh_mod
+    from . import shard as shard_mod
+    from .plan import check_cancel
+
+    S = len(shard_ids)
+    M = mesh_mod.data_mesh_width(S)
+    all_spans = [sp for s in shard_ids for sp in per_shard[s]]
+    pspec, pcols, prow, pc_dev, b_rc = probe_inputs(
+        all_spans, ("coll", tuple(shard_ids), M))
+    if prof is not None:
+        prof.add_device_ns(id(node), clock() - t0)
+    tspan("device_upload", t0, shards=S)
+
+    check_cancel()
+    t_d = time.perf_counter_ns()
+    metrics.DEVICE_OFFLOADS.add()
+    metrics.COLLECTIVE_DISPATCHES.add()
+    # the shard workloads still execute — as row slices of one launch
+    metrics.SHARD_PIPELINES.add(S)
+    with wait_scope("Device", "CollectiveCombine"):
+        rowcount, p_outs = J.join_probe(pspec, pcols, prow, pc_dev, b_rc)
+        results = obs_device.fetch_all(
+            [rowcount] + [t for out in p_outs for t in out])
+    dt_ns = time.perf_counter_ns() - t_d
+    metrics.COLLECTIVE_COMBINE_NS.add(dt_ns)
+    metrics.DEVICE_DISPATCH_HIST.observe_ns(dt_ns)
+    tspan("collective_dispatch", t_d, shards=S, mesh=M)
+    shard_mod.stamp_profile(ctx, id(node), S, pruned, collective=True)
+    out = _finalize(node, key_plans, agg_plans, results, dictionaries,
+                    group_space, group_mode)
+    if prof is not None:
+        prof.add_device_ns(id(node), time.perf_counter_ns() - t_d)
     return out
 
 

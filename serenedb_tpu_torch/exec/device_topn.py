@@ -13,7 +13,9 @@ and no filter. Anything else falls back to the exact CPU lexsort
 (plan.SortNode). The asc direction uses the bitwise-NOT transform
 (~k = -k-1) so int32 min does not overflow under negation. The
 reference's mesh branch (the key tiles sharded across devices) is not
-ported: `serene_mesh > 1` raises NotImplementedError.
+ported: the port has one card, so `serene_mesh > 1` takes the
+single-device path, as the reference does with fewer devices than the
+mesh names.
 """
 
 from __future__ import annotations
@@ -136,9 +138,6 @@ def _topn_indices(provider: TableProvider, scan, col_name: str,
             raise NotCompilable("key touches int32 min")
         if not desc and hi >= _I32_MAX:
             raise NotCompilable("key touches int32 max")
-    if int(ctx.settings.get("serene_mesh") or 0) > 1:
-        raise NotImplementedError(
-            "serene_mesh > 1: the multi-device mesh is not ported yet")
     device = _ctx_device(ctx)
 
     # zone-map skip-scan: block bounds alone can prove a prefix/suffix

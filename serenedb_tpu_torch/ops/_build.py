@@ -23,7 +23,8 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 SOURCES = {"bm25": CSRC / "bm25.cu", "agg": CSRC / "agg.cu",
            "topn": CSRC / "topn.cu", "join": CSRC / "join.cu",
-           "vector": CSRC / "vector.cu", "pool": CSRC / "pool.cu"}
+           "vector": CSRC / "vector.cu", "pool": CSRC / "pool.cu",
+           "merge": CSRC / "merge.cu"}
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
@@ -49,6 +50,7 @@ SIGNATURES = {
         "topk_rows": [_P, _L, _L, _P, _I, _P, _I, _P, _P, _P, _L, _P, _L, _P,
                       _P, _P, _P],
         "contrib_flat": [_P, _P, _P, _L, _I, _F, _F, _F, _P, _P],
+        "match_bitmap": [_P, _P, _P, _P, _L, _P, _P, _L, _P, _L, _L, _P, _P],
     },
     "agg": {
         "agg_scan": [_P, _L, _P],
@@ -73,6 +75,9 @@ SIGNATURES = {
     "pool": {
         "pool_score": [_P] * 8 + [_L, _L, _I, _L, _I, _F, _F, _F] +
                       [_P, _P, _P, _I, _P, _L, _P, _L, _P, _P, _P],
+    },
+    "merge": {
+        "merge_topk": [_P, _P, _L, _L, _L, _I, _P, _L, _P, _L, _P, _P, _P],
     },
 }
 

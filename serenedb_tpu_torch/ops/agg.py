@@ -29,6 +29,8 @@ import torch
 
 from . import agg_kernels as K
 
+ONEHOT_MAX_GROUPS = 1024      # group_count's bound for the chunk partials
+ONEHOT_CHUNK = 2048           # rows per chunk partial (f32-exactness bound)
 SCATTER_SUM_MAX_ROWS = 4 << 20  # rows per group_sum_int_limbs call (int32)
 SCATTER_CHUNK_TILES = SCATTER_SUM_MAX_ROWS // 128
 
@@ -68,6 +70,24 @@ _V = ((K.OP_COL, 0, 0),)     # the value in slot 0
 
 # -- scalar reductions -----------------------------------------------------
 
+def masked_count(mask: torch.Tensor) -> torch.Tensor:
+    """int32 count of the masked rows."""
+    rowcount, _ = _scan(mask, [], 1)
+    return rowcount[0].to(torch.int32)
+
+
+def masked_sum_float(vals: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """f32 sum of the masked values (integers converted to f32 first)."""
+    return group_sum_float(None, mask, vals, 1)[0]
+
+
+def masked_minmax(vals: torch.Tensor, mask: torch.Tensor,
+                  op: str) -> torch.Tensor:
+    """min or max of the masked values in their dtype; with no row, the
+    identity (dtype max for min, min for max; ±inf for floats)."""
+    return group_min_max(None, mask, vals, 1, op)[0]
+
+
 def masked_sum_int_partials(vals: torch.Tensor,
                             mask: torch.Tensor) -> torch.Tensor:
     """Per-tile-row int32 partial sums split into 16-bit halves, (rows, 2)
@@ -88,6 +108,25 @@ def masked_sum_int(vals: torch.Tensor, mask: torch.Tensor) -> int:
 
 
 # -- grouped aggregation ---------------------------------------------------
+
+def group_count_onehot(codes: torch.Tensor, mask: torch.Tensor,
+                       num_groups: int) -> torch.Tensor:
+    """(C, G) f32 per-group counts of each chunk of ONEHOT_CHUNK rows
+    (row-major over the tiles), each exact. One launch over the composite
+    codes chunk · G + code; a code outside [0, G) counts nowhere, as the
+    reference's one-hot row of it is zero."""
+    n = codes.numel()
+    c = max(1, -(-n // ONEHOT_CHUNK))
+    flat = codes.reshape(-1)
+    chunk = torch.arange(n, dtype=torch.int32,
+                         device=codes.device) // ONEHOT_CHUNK
+    inside = (flat >= 0) & (flat < num_groups)
+    comp = torch.where(inside, chunk * num_groups + flat,
+                       torch.zeros_like(flat))
+    rowcount, _ = _scan((mask.reshape(-1) & inside).view(mask.shape), [],
+                        c * num_groups, codes=comp.view(codes.shape))
+    return rowcount.view(c, num_groups).to(torch.float32)
+
 
 def group_count_scatter(codes: torch.Tensor, mask: torch.Tensor,
                         num_groups: int) -> torch.Tensor:
@@ -171,6 +210,19 @@ def group_min_max(codes: torch.Tensor, mask: torch.Tensor,
         v = torch.where(out[1] > out[2], torch.full_like(v, float("nan")),
                         v)
     return v
+
+
+# -- host-facing grouped API ----------------------------------------------
+
+def group_count(codes: torch.Tensor, mask: torch.Tensor,
+                num_groups: int) -> np.ndarray:
+    """(G,) int64 per-group counts: the chunk partials summed on the host
+    up to ONEHOT_MAX_GROUPS groups, else one scatter count."""
+    if num_groups <= ONEHOT_MAX_GROUPS:
+        ys = group_count_onehot(codes, mask, num_groups).cpu().numpy()
+        return ys.astype(np.int64).sum(axis=0)
+    return group_count_scatter(codes, mask, num_groups).cpu().numpy() \
+        .astype(np.int64)
 
 
 def combine_sum_int_limbs(limbs: np.ndarray) -> np.ndarray:

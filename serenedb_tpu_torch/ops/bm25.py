@@ -4,9 +4,10 @@ Port of serenedb_tpu/ops/bm25.py. The host half (idf and weights, the
 block store build, WAND planning, query-batch assembly and packing,
 tie-exact host top-k) is the reference's code, with torch tensors for the
 device-resident fields. The device half (`score_topk_packed`,
-`_build_dense`, `dense_topk`) keeps the reference's signatures and results
-and runs the hand kernels of `bm25_kernels` (CUDA, `csrc/bm25.cu`) on a
-CUDA tensor, or their plain PyTorch versions on a CPU tensor.
+`_build_dense`, `dense_topk`, `match_bitmap`) keeps the reference's
+signatures and results and runs the hand kernels of `bm25_kernels` (CUDA,
+`csrc/bm25.cu`) on a CUDA tensor, or their plain PyTorch versions on a
+CPU tensor.
 
 One change to the host half: every packed row, raw row and light tail
 entry carries its term's rank within its query (`QueryBatch.*_rank`,
@@ -842,6 +843,17 @@ def topk_tie_exact(scores: np.ndarray, docs: np.ndarray, k: int,
     else:
         order = np.argsort(-scores, kind="stable")[:k]
     return scores[order], docs[order]
+
+
+def match_bitmap(block_base: torch.Tensor, block_gaps: torch.Tensor,
+                 block_tfs8: torch.Tensor, row_idx: torch.Tensor,
+                 raw_docs: torch.Tensor, raw_idx: torch.Tensor,
+                 tail_docs: torch.Tensor, ndocs_pad: int) -> torch.Tensor:
+    """Disjunctive match bitmap (unscored filter pushdown): one
+    `match_bitmap` launch (bm25_kernels)."""
+    return bm25_kernels.match_bitmap(block_base, block_gaps, block_tfs8,
+                                     row_idx, raw_docs, raw_idx, tail_docs,
+                                     ndocs_pad)
 
 
 def pad_k(k: int) -> int:

@@ -18,6 +18,8 @@ tests hold them against the JAX package and
 - `contrib_flat` ← `contrib_flat` (`contrib_expr` over flat arrays): the
   per-posting contributions of the host ragged path; its plain version is
   `contrib_plain`, the formula every plain version here shares.
+- `match_bitmap` ← `match_bitmap`: the disjunctive match bitmap of the
+  packed rows, raw rows and tails of an unscored filter.
 """
 
 from __future__ import annotations
@@ -285,6 +287,51 @@ def contrib_flat(tfs: torch.Tensor, dls: torch.Tensor, w: torch.Tensor,
         _ptr(tfs), _ptr(dls), _ptr(w), tfs.numel(), SCORERS[scorer], k1, b,
         _avg(avgdl), _ptr(out), _stream(w)), "contrib_flat")
     LAUNCHES.bump("contrib_flat")
+    return out
+
+
+# ------------------------------------------------------------ match_bitmap
+
+def match_bitmap_plain(block_base, block_gaps, block_tfs8, row_idx,
+                       raw_docs, raw_idx, tail_docs,
+                       ndocs_pad: int) -> torch.Tensor:
+    """Plain version of `match_bitmap`: each plane's live docs set their
+    slot; docs past the bitmap are dropped."""
+    LAUNCHES.bump("match_bitmap.plain")
+    out = torch.zeros(ndocs_pad, dtype=torch.bool, device=raw_docs.device)
+    pdocs, _ = decode_rows_plain(block_base, block_gaps, block_tfs8,
+                                 row_idx)
+    for d in (pdocs.reshape(-1), raw_docs[raw_idx.long()].reshape(-1),
+              tail_docs.reshape(-1)):
+        d = d.long()
+        out[d[(d >= 0) & (d < ndocs_pad)]] = True
+    return out
+
+
+def match_bitmap(block_base: torch.Tensor, block_gaps: torch.Tensor,
+                 block_tfs8: torch.Tensor, row_idx: torch.Tensor,
+                 raw_docs: torch.Tensor, raw_idx: torch.Tensor,
+                 tail_docs: torch.Tensor, ndocs_pad: int) -> torch.Tensor:
+    """bool[ndocs_pad]: True for every live doc of the packed rows
+    `row_idx`, the raw rows `raw_idx` and the flat `tail_docs`."""
+    args = (block_base, block_gaps, block_tfs8, row_idx, raw_docs, raw_idx,
+            tail_docs)
+    if not _is_cuda(*args):
+        return match_bitmap_plain(*args, ndocs_pad)
+    _require(block_base, torch.int32, "block_base")
+    _require(block_gaps, torch.uint16, "block_gaps", 16)
+    _require(block_tfs8, torch.uint8, "block_tfs8", 16)
+    _require(raw_docs, torch.int32, "raw_docs")
+    for name, t in (("row_idx", row_idx), ("raw_idx", raw_idx),
+                    ("tail_docs", tail_docs)):
+        _require(t, torch.int32, name)
+    out = torch.zeros(ndocs_pad, dtype=torch.bool, device=raw_docs.device)
+    _build.check(_build.load("bm25").match_bitmap(
+        _ptr(block_base), _ptr(block_gaps), _ptr(block_tfs8), _ptr(row_idx),
+        row_idx.numel(), _ptr(raw_docs), _ptr(raw_idx), raw_idx.numel(),
+        _ptr(tail_docs), tail_docs.numel(), ndocs_pad, _ptr(out),
+        _stream(raw_docs)), "match_bitmap")
+    LAUNCHES.bump("match_bitmap")
     return out
 
 

@@ -51,6 +51,18 @@
 //    posting, through the same `contrib()` (contrib.cuh) as the plane
 //    kernels, so its bits equal theirs. Padding (tf 0, w 0) gives 0.
 //    Bound: bytes — 12 bytes read and 4 written a posting.
+//
+// 5. match_bitmap
+//    Replaces `match_bitmap`, the disjunctive match bitmap of an unscored
+//    filter: every live doc of the selected packed rows (decoded as in 1:
+//    base + prefix sum of the gaps, tf 0 marks padding), of the selected
+//    raw rows (doc >= 0) and of the tails (doc >= 0) sets its byte of a
+//    zero-filled bool[ndocs_pad]; docs past the bitmap are dropped, as
+//    the reference's scatter drops them. One warp a packed row, one
+//    thread a raw or tail posting. Every writer stores the same 1, so
+//    the stores need no atomics.
+//    Bound: bytes — the rows read (3 bytes a packed posting, 4 a raw or
+//    tail doc) and the bitmap written once.
 
 #include "contrib.cuh"
 #include "select.cuh"
@@ -338,7 +350,61 @@ static inline unsigned grid_for(long long threads, int block) {
   return (unsigned)((threads + block - 1) / block);
 }
 
+// One warp a selected packed row: every valid posting sets its doc.
+__global__ void match_rows_kernel(const int* __restrict__ base,
+                                  const uint16_t* __restrict__ gaps,
+                                  const uint8_t* __restrict__ tfs8,
+                                  const int* __restrict__ row_idx,
+                                  long long n_rows, long long ndocs_pad,
+                                  uint8_t* __restrict__ out) {
+  long long warp = ((long long)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  int lane = threadIdx.x & 31;
+  if (warp >= n_rows) return;  // warp-uniform
+  int docs[4], tfs[4];
+  load_row<true>(base, gaps, tfs8, nullptr, nullptr, row_idx[warp], lane,
+                 docs, tfs);
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    if (tfs[i] > 0 && docs[i] >= 0 && docs[i] < ndocs_pad) out[docs[i]] = 1;
+}
+
+// One thread a doc: row i / ROW of the raw plane at row_idx (or, with
+// row_idx null, the flat tail docs).
+__global__ void match_docs_kernel(const int* __restrict__ docs,
+                                  const int* __restrict__ row_idx,
+                                  long long n, long long ndocs_pad,
+                                  uint8_t* __restrict__ out) {
+  long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  int d = row_idx ? docs[(long long)row_idx[i / ROW] * ROW + i % ROW]
+                  : docs[i];
+  if (d >= 0 && d < ndocs_pad) out[d] = 1;
+}
+
 extern "C" {
+
+// The match bitmap out (ndocs_pad bytes, zeroed by the caller) of the
+// packed rows row_idx, the raw rows raw_idx and the tail docs.
+int match_bitmap(const void* base, const void* gaps, const void* tfs8,
+                 const void* row_idx, long long n_rows, const void* raw_docs,
+                 const void* raw_idx, long long n_raw, const void* tail_docs,
+                 long long n_tail, long long ndocs_pad, void* out,
+                 void* stream) {
+  const int threads = 256;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (n_rows > 0)
+    match_rows_kernel<<<grid_for(n_rows * 32, threads), threads, 0, s>>>(
+        (const int*)base, (const uint16_t*)gaps, (const uint8_t*)tfs8,
+        (const int*)row_idx, n_rows, ndocs_pad, (uint8_t*)out);
+  if (n_raw > 0)
+    match_docs_kernel<<<grid_for(n_raw * ROW, threads), threads, 0, s>>>(
+        (const int*)raw_docs, (const int*)raw_idx, n_raw * ROW, ndocs_pad,
+        (uint8_t*)out);
+  if (n_tail > 0)
+    match_docs_kernel<<<grid_for(n_tail, threads), threads, 0, s>>>(
+        (const int*)tail_docs, nullptr, n_tail, ndocs_pad, (uint8_t*)out);
+  return (int)cudaGetLastError();
+}
 
 // Launch one (plane, layer) of the accumulate: packed != 0 decodes the
 // packed plane, else reads the raw plane. hits may be null.

@@ -618,9 +618,24 @@ class ClassificationAnalyzer(Analyzer):
 
     def __init__(self, labels: dict[str, str], top: int = 1,
                  dim: int = 64):
-        raise NotImplementedError(
-            "the classification analyzer needs functions/embedfns, which "
-            "serenedb_tpu_torch has not ported yet")
+        import numpy as _np
+
+        from ..functions.embedfns import local_embed
+        if not labels:
+            raise errors.SqlError(
+                "22023", "classification tokenizer needs labels")
+        self._embed = local_embed
+        self.top = max(1, int(top))
+        self.dim = int(dim)
+        self.label_names = sorted(labels)
+        cents = []
+        for lab in self.label_names:
+            examples = [lab] + [w for w in str(labels[lab]).split() if w]
+            m = _np.stack([local_embed(e, self.dim) for e in examples])
+            c = m.mean(axis=0)
+            n = float((c * c).sum()) ** 0.5
+            cents.append(c / n if n > 0 else c)
+        self._centroids = _np.stack(cents)
 
     def classify(self, text: str) -> list[str]:
         sims = self._centroids @ self._embed(text, self.dim)
@@ -646,9 +661,21 @@ class NearestNeighborsAnalyzer(Analyzer):
 
     def __init__(self, vocab: list[str], top: int = 2, dim: int = 64,
                  inner: Optional[Analyzer] = None):
-        raise NotImplementedError(
-            "the nearest_neighbors analyzer needs functions/embedfns, which "
-            "serenedb_tpu_torch has not ported yet")
+        import numpy as _np
+
+        from ..functions.embedfns import local_embed
+        vocab = [w for w in vocab if w]
+        if not vocab:
+            raise errors.SqlError(
+                "22023", "nearest_neighbors tokenizer needs a vocabulary")
+        self._embed = local_embed
+        self.top = max(1, int(top))
+        self.dim = int(dim)
+        self.inner = inner or SimpleTextAnalyzer()
+        self.vocab = sorted(set(w.lower() for w in vocab))
+        self._matrix = _np.stack(
+            [local_embed(w, self.dim) for w in self.vocab])
+        self._memo: dict[str, list[str]] = {}
 
     def neighbors(self, term: str) -> list[str]:
         # terms repeat heavily (Zipf) and this sits on the ingest hot

@@ -22,9 +22,12 @@ serve on a device, and the pool is that path's device tier. Results are
 bit for bit those of the plane kernel, by the reference's contract
 (`contrib()` in csrc/contrib.cuh is the one expression of all three).
 
-Not ported yet: the mesh branch of `topk_batch` (`mesh_n > 1` raises)
-and the in-program cross-shard merge (`serene_shard_combine = device`
-with shards > 1 raises).
+With `serene_shards > 1` and `serene_shard_combine = device`, the
+cross-shard merge of a multi-segment searcher is one `merge_topk` launch
+(ops/merge_kernels.py) on the searcher's device, after the card's top-k
+or the host WAND alike. The mesh branch of `topk_batch` needs more than
+one device: with `mesh_n > 1` the port's one card runs the single-device
+kernels, as the reference does with fewer devices than asked for.
 """
 
 from __future__ import annotations
@@ -35,7 +38,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from ..device import DeviceLike, resolve_device
+from ..device import DeviceLike, device_scope, resolve_device
 from ..ops import bm25 as bm25_ops
 from . import posting_pool
 from .analysis import Analyzer
@@ -414,11 +417,9 @@ class SegmentSearcher:
         bit-identical to the score-plane kernel by the contrib()
         contract. Never taken when this store would use the dense matmul
         path, so ragged on/off can't change a single result bit there
-        either. mesh_n > 1 (the mesh-sharded branch) is not ported yet
-        and raises."""
-        if mesh_n > 1:
-            raise NotImplementedError(
-                "mesh-sharded scoring is not ported to serenedb_tpu_torch yet")
+        either. mesh_n > 1 asks for the mesh-sharded branch, which needs
+        that many devices: on the port's one card the single-device
+        kernels run, as the reference's do with fewer devices."""
         if self.num_docs == 0:
             return [(np.empty(0, dtype=np.float32),
                      np.empty(0, dtype=np.int32))] * len(nodes)
@@ -937,7 +938,9 @@ def _run_segment_shards(run_segment, segments: list, cap: int) -> list:
             list(enumerate(segments)), n_shards)
 
         def run_group(entries):
-            return [(i, run_segment(sb)) for i, sb in entries]
+            # the shard task's kernels launch on its segments' device
+            with device_scope(entries[0][1][0].device):
+                return [(i, run_segment(sb)) for i, sb in entries]
 
         parts = shard_mod.run_shard_tasks(None, run_group, groups)
         outs: list = [None] * len(segments)
@@ -973,28 +976,118 @@ def merge_segment_topk(seg_outs: list, bases: list[int], n_queries: int,
 
 
 def _combine_topk(seg_outs: list, bases: list[int], n_queries: int,
-                  k: int) -> list[tuple[np.ndarray, np.ndarray]]:
+                  k: int, device: DeviceLike = None,
+                  ) -> list[tuple[np.ndarray, np.ndarray]]:
     """Cross-segment top-k combine dispatcher: the host single-heap
     merge (the parity oracle), or — when the sharded tier is active
-    with `serene_shard_combine` resolving to device — an IN-PROGRAM
-    merge: each shard's candidate set reduces with an exact per-shard
-    top-k inside one shard_map program and the shards meet in a single
-    `all_gather` hop (exec/shard.py's round-robin segment grouping).
-    Selection is a pure (score desc, doc asc) order on the candidate
-    union, so both combines pick the identical entries in the identical
-    order — bit-identity by construction, asserted by the
-    tests/test_multichip.py parity matrix."""
+    with `serene_shard_combine` resolving to device — the device merge:
+    the shards' candidate sets (exec/shard.py's round-robin segment
+    grouping) meet in one `merge_topk` launch on `device` (the
+    searcher's). Selection is a pure (score desc, doc asc) order on the
+    candidate union, so both combines pick the identical entries in the
+    identical order — bit-identity by construction."""
     from ..exec import shard as shard_mod
     if len(seg_outs) > 1 and k > 0 and n_queries > 0:
         n_shards = shard_mod.shard_count(None)
         if n_shards > 1 and shard_mod.combine_mode(None) == "device":
-            # the in-program merge (K10) is not ported: refuse rather than
-            # serve the device combine from the host heap
-            from .. import errors
-            raise errors.unsupported(
-                "serene_shard_combine = device: the in-program top-k "
-                "merge is not ported yet")
+            out = _device_merge_topk(seg_outs, bases, n_queries, k,
+                                     n_shards, device)
+            if out is not None:
+                return out
     return merge_segment_topk(seg_outs, bases, n_queries, k)
+
+
+#: padding doc sentinel: sorts after every real doc at equal score and
+#: is trimmed host-side; real global doc ids must stay below it
+_PAD_DOC = (1 << 31) - 1
+
+
+def _device_merge_topk(seg_outs: list, bases: list[int], n_queries: int,
+                       k: int, n_shards: int, device: DeviceLike = None):
+    """The sharded top-k merge — the WHOLE query batch in one
+    `merge_topk` launch over the (shard, query, lane) candidates, sized
+    exactly (the reference pads L, k and Q to powers of two for XLA's
+    compile cache). On one card the reference's `data_mesh` has width 1
+    and every shard stacks on its leading axis, as here. None → the
+    caller takes the host heap, under the reference's admission: doc ids
+    at or past the int32 padding sentinel, NaN scores, a single shard
+    group, no candidates at all. Nothing else takes the heap: a kernel
+    that fails to build or launch raises. `device` is the searcher's
+    (the executing connection's outside a searcher)."""
+    import time
+
+    from ..columnar.device import commit_host_array
+    from ..device import current_device
+    from ..exec import shard as shard_mod
+    from ..obs import device as obs_device
+    from ..obs.resources import wait_scope
+    from ..obs.trace import current_trace
+    from ..ops.merge_kernels import merge_topk
+    from ..utils import metrics
+
+    groups = shard_mod.group_round_robin(
+        list(range(len(seg_outs))), n_shards)
+    if len(groups) <= 1:
+        return None
+    # admission: every global doc id must fit below the int32 padding
+    # sentinel, and scores must be NaN-free (NaN breaks the sort/heap
+    # order equivalence)
+    for out, base in zip(seg_outs, bases):
+        for sc, dd in out:
+            if len(dd) and int(np.asarray(dd).max()) + base >= _PAD_DOC:
+                return None
+            if len(sc) and np.isnan(np.asarray(sc)).any():
+                return None
+    S = len(groups)
+    # per-(shard, query) candidate lists, one shared width
+    cands: list[list[tuple[np.ndarray, np.ndarray]]] = []
+    lmax = 0
+    for idxs in groups:
+        row = []
+        for qi in range(n_queries):
+            sc = np.concatenate(
+                [np.asarray(seg_outs[si][qi][0], dtype=np.float32)
+                 for si in idxs])
+            dd = np.concatenate(
+                [np.asarray(seg_outs[si][qi][1]).astype(np.int64) +
+                 bases[si] for si in idxs])
+            lmax = max(lmax, len(sc))
+            row.append((sc, dd))
+        cands.append(row)
+    if lmax == 0:
+        return [(np.empty(0, dtype=np.float32),
+                 np.empty(0, dtype=np.int64))] * n_queries
+    scores = np.full((S, n_queries, lmax), -np.inf, dtype=np.float32)
+    docs = np.full((S, n_queries, lmax), _PAD_DOC, dtype=np.int32)
+    for i, row in enumerate(cands):
+        for qi, (sc, dd) in enumerate(row):
+            scores[i, qi, :len(sc)] = sc
+            docs[i, qi, :len(dd)] = dd.astype(np.int32)
+    dev = resolve_device(device) if device is not None else current_device()
+    t_d = time.perf_counter_ns()
+    metrics.DEVICE_OFFLOADS.add()
+    metrics.COLLECTIVE_DISPATCHES.add()
+    with wait_scope("Device", "CollectiveCombine"):
+        # the candidate planes bypass DEVICE_CACHE (per-dispatch data):
+        # commit_host_array keeps their transfer bytes in the ledger
+        ss, dd2 = obs_device.fetch_all(merge_topk(
+            commit_host_array(scores, dev), commit_host_array(docs, dev),
+            k))
+    dt = time.perf_counter_ns() - t_d
+    metrics.COLLECTIVE_COMBINE_NS.add(dt)
+    metrics.DEVICE_DISPATCH_HIST.observe_ns(dt)
+    trace = current_trace()
+    if trace is not None:
+        trace.add("collective_dispatch", "device", t_d,
+                  time.perf_counter_ns(), shards=S, op="topk_merge",
+                  queries=n_queries)
+    results = []
+    for qi in range(n_queries):
+        sq, dq = ss[qi][:k], dd2[qi][:k]
+        real = dq != _PAD_DOC
+        results.append((sq[real].astype(np.float32),
+                        dq[real].astype(np.int64)))
+    return results
 
 
 class MultiSearcher:
@@ -1010,6 +1103,12 @@ class MultiSearcher:
 
     def add_segment(self, searcher: SegmentSearcher, base_row: int):
         self.segments.append((searcher, base_row))
+
+    @property
+    def device(self) -> Optional[torch.device]:
+        """The segments' device (the cross-shard merge runs there); None
+        before the first segment."""
+        return self.segments[0][0].device if self.segments else None
 
     @property
     def num_docs(self) -> int:
@@ -1107,7 +1206,7 @@ class MultiSearcher:
         seg_outs = _run_segment_shards(run_segment, self.segments, cap)
         return _combine_topk(seg_outs,
                              [b for _, b in self.segments],
-                             len(nodes), k)
+                             len(nodes), k, self.device)
 
     def probe_topk(self, node: QNode, k: int, scorer: str = "bm25",
                    mesh_n: int = 0,
@@ -1224,7 +1323,8 @@ class MultiSearcher:
         cap = session_workers(None)
         outs = _run_segment_shards(run_segment, self.segments, cap)
         return _combine_topk([[o] for o in outs],
-                             [b for _, b in self.segments], 1, k)[0]
+                             [b for _, b in self.segments], 1, k,
+                             self.device)[0]
 
 
 @dataclass

@@ -30,6 +30,7 @@ from serenedb_tpu.exec.tables import MemTable as RMemTable
 from serenedb_tpu.ops import agg as ragg
 from serenedb_tpu.sql import parser as rparser
 from serenedb_tpu_torch.carry import memtable_from_reference
+from serenedb_tpu_torch.columnar.column import Column
 from serenedb_tpu_torch.columnar.device import to_device_column
 from serenedb_tpu_torch.device import LAUNCHES
 from serenedb_tpu_torch.engine import Database
@@ -150,6 +151,82 @@ def test_group_min_max(kind, op):
     got = agg.group_min_max(pc, pm, pv, g, op).numpy()
     assert got.dtype == ref.dtype
     np.testing.assert_array_equal(got, ref)
+
+
+@pytest.mark.parametrize("n", [1, 127, 3000, 20011])
+def test_masked_count(n):
+    rng = np.random.default_rng(n)
+    _c, mask, _v = _tiles(rng, n, "i32")
+    (rm,), (pm,) = _both(mask)
+    LAUNCHES.reset()
+    got = agg.masked_count(pm)
+    assert LAUNCHES.get("agg_scan.plain") == 1
+    ref = ragg.masked_count(rm)
+    assert got.dtype == torch.int32 and got.shape == ()
+    assert int(got) == int(ref) == int(mask.sum())
+
+
+@pytest.mark.parametrize("kind", ["f32", "f32nan", "i32small"])
+@pytest.mark.parametrize("n", [1, 3000, 20011])
+def test_masked_sum_float(kind, n):
+    rng = np.random.default_rng(n)
+    _c, mask, vals = _tiles(rng, n, kind.replace("nan", ""),
+                            nan=kind.endswith("nan"))
+    if kind != "i32small":
+        vals[:1, :6] = 0.0          # keep the infinities out of the sum
+    (rm, rv), (pm, pv) = _both(mask, vals)
+    got = agg.masked_sum_float(pv, pm)
+    ref = np.asarray(ragg.masked_sum_float(rv, rm))
+    assert got.dtype == torch.float32 and got.shape == ()
+    np.testing.assert_allclose(got.numpy(), ref, rtol=FLOAT_RTOL, atol=1e-6,
+                               equal_nan=True)
+
+
+@pytest.mark.parametrize("op", ["min", "max"])
+@pytest.mark.parametrize("kind", ["i32", "i8", "f32", "f32nan", "empty"])
+def test_masked_minmax(kind, op):
+    rng = np.random.default_rng(5)
+    _c, mask, vals = _tiles(rng, 2000, {"empty": "i32"}.get(
+        kind, kind.replace("nan", "")), nan=kind.endswith("nan"))
+    if kind == "empty":
+        mask[:] = False             # the identity
+    (rm, rv), (pm, pv) = _both(mask, vals)
+    got = agg.masked_minmax(pv, pm, op).numpy()
+    ref = np.asarray(ragg.masked_minmax(rv, rm, op))
+    assert got.dtype == ref.dtype and got.shape == ref.shape == ()
+    np.testing.assert_array_equal(got, ref)
+
+
+@pytest.mark.parametrize("g", [1, 3, 17, 1024])
+@pytest.mark.parametrize("n", [1, 2048, 5000])
+def test_group_count_onehot(g, n):
+    """The (chunk, G) f32 partials: every entry equal to the reference's,
+    codes past G counting nowhere."""
+    rng = np.random.default_rng(g + n)
+    codes, mask, _v = _tiles(rng, n, "i32small", g)
+    codes[0, :4] = [g, g + 5, -1, 0]
+    (rc, rm), (pc, pm) = _both(codes, mask)
+    LAUNCHES.reset()
+    got = agg.group_count_onehot(pc, pm, g).numpy()
+    assert LAUNCHES.get("agg_scan.plain") == 1
+    ref = np.asarray(ragg.group_count_onehot(rc, rm, g))
+    assert got.dtype == ref.dtype and got.shape == ref.shape
+    np.testing.assert_array_equal(got, ref)
+
+
+@pytest.mark.parametrize("g", [3, 2000])    # chunk partials, scatter
+def test_group_count(g):
+    """tests/test_ops_agg.py's `test_group_count_paths` inputs."""
+    rng = np.random.default_rng(1)
+    codes_np = rng.integers(0, g, size=4000).astype(np.int64)
+    rdc = r_to_device(RColumn.from_numpy(codes_np))
+    pdc = to_device_column(Column.from_numpy(codes_np), device="cpu")
+    ref = ragg.group_count(rdc.decode(rdc.data), rdc.mask, g)
+    pcodes = K.decode_plain(*K.col_kind(pdc), pdc.data).view(pdc.data.shape)
+    got = agg.group_count(pcodes, pdc.mask, g)
+    assert got.dtype == ref.dtype == np.int64
+    np.testing.assert_array_equal(got, ref)
+    np.testing.assert_array_equal(got, np.bincount(codes_np, minlength=g))
 
 
 def test_entries_launch_the_scan_kernel_plain_version():

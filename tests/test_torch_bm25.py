@@ -280,3 +280,35 @@ def test_wand_plans_equal_the_reference(packed_stores):
         assert rp.kept.keys() == pp.kept.keys()
         for tid in rp.kept:
             np.testing.assert_array_equal(rp.kept[tid], pp.kept[tid])
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_match_bitmap_matches_reference(packed_stores, seed):
+    """The disjunctive match bitmap over packed rows (their padding
+    included), raw rows and tails with -1 pads and a doc past the bitmap:
+    bit for bit the reference's."""
+    ref, port, _df, _norms, _avg = packed_stores
+    rng = np.random.default_rng(seed)
+    n_packed = int(np.asarray(ref.block_base).shape[0])
+    n_raw = int(np.asarray(ref.raw_docs).shape[0])
+    assert n_packed > 1 and n_raw > 1
+    row_idx = rng.choice(n_packed, min(n_packed, 40 + 20 * seed),
+                         replace=False).astype(np.int32)
+    raw_idx = rng.choice(n_raw, min(n_raw, 1 + seed), replace=False) \
+        .astype(np.int32)
+    flat = np.asarray(ref.flat_docs)
+    tail = np.concatenate([rng.choice(flat, 50), [-1, -1, ref.ndocs_pad + 3]]
+                          ).astype(np.int32)
+    want = np.asarray(ref_bm25.match_bitmap(
+        ref.block_base, ref.block_gaps, ref.block_tfs8, jnp.asarray(row_idx),
+        ref.raw_docs, jnp.asarray(raw_idx), jnp.asarray(tail),
+        ref.ndocs_pad))
+    LAUNCHES.reset()
+    got = port_bm25.match_bitmap(
+        port.block_base, port.block_gaps, port.block_tfs8,
+        torch.from_numpy(row_idx), port.raw_docs, torch.from_numpy(raw_idx),
+        torch.from_numpy(tail), port.ndocs_pad)
+    assert LAUNCHES.get("match_bitmap.plain") == 1
+    assert got.dtype == torch.bool and got.shape == want.shape
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert want.sum() > 50

@@ -812,3 +812,101 @@ def test_pool_score_kernel_matches_plain_bit_for_bit(cuda, kk, cp):
     v = vals[:6].cpu().numpy()
     assert (v[:, 1:] == v[:, :-1]).any()
     assert (docs[6:] == pk.PAD_DOC).all()
+
+
+# -- the sharded tier's merge and the K13 entries ----------------------------
+
+
+def _merge_inputs(S, Q, L, seed, tied):
+    """(S, Q, L) candidates: docs unique within a query, pads at (-inf,
+    PAD_DOC), ties across shards, -0.0 beside +0.0, a real -inf."""
+    from serenedb_tpu_torch.ops.merge_kernels import PAD_DOC
+    rng = np.random.default_rng(seed)
+    if tied:
+        scores = rng.choice(np.asarray([3.5, 1.0, 0.0, -0.0, -np.inf, 2.25],
+                                       dtype=np.float32), (S, Q, L))
+    else:
+        scores = rng.standard_normal((S, Q, L)).astype(np.float32)
+    docs = np.empty((S, Q, L), dtype=np.int32)
+    for q in range(Q):
+        docs[:, q, :] = rng.choice(4 * S * L, S * L, replace=False) \
+            .reshape(S, L)
+    pads = rng.random((S, Q, L)) < 0.25
+    scores[pads] = -np.inf
+    docs[pads] = PAD_DOC
+    return scores, docs
+
+
+@pytest.mark.parametrize("S,Q,L,k", [(4, 16, 40, 10), (2, 3, 7, 100),
+                                     (4, 64, 1000, 10), (3, 2, 3000, 5000),
+                                     (4, 1, 1, 1)])
+@pytest.mark.parametrize("tied", [False, True])
+def test_merge_topk_matches_plain_bit_for_bit(cuda, S, Q, L, k, tied):
+    from serenedb_tpu_torch.ops import merge_kernels as mk
+    scores, docs = _merge_inputs(S, Q, L, S * Q + L, tied)
+    sc, dd = torch.from_numpy(scores).to(cuda), torch.from_numpy(docs).to(cuda)
+    before = LAUNCHES.get("merge_topk")
+    vals, out = mk.merge_topk(sc, dd, k)
+    torch.cuda.synchronize()
+    assert LAUNCHES.get("merge_topk") == before + 1
+    ref_v, ref_d = mk.merge_topk_plain(sc, dd, k)
+    assert torch.equal(out, ref_d)
+    assert torch.equal(vals.view(torch.int32), ref_v.view(torch.int32))
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_match_bitmap_matches_plain_bit_for_bit(cuda, seed):
+    fi, store = _store(cuda)
+    rng = np.random.default_rng(seed)
+    nb, nr = store.block_base.shape[0], store.raw_docs.shape[0]
+    row_idx = torch.from_numpy(rng.choice(nb, min(nb, 300), replace=False)
+                               .astype(np.int32)).to(cuda)
+    raw_idx = torch.from_numpy(rng.choice(nr, min(nr, 3), replace=False)
+                               .astype(np.int32)).to(cuda)
+    tail = torch.from_numpy(np.concatenate([
+        rng.choice(fi.post_docs, 500), [-1, store.ndocs_pad + 1]])
+        .astype(np.int32)).to(cuda)
+    args = (store.block_base, store.block_gaps, store.block_tfs8, row_idx,
+            store.raw_docs, raw_idx, tail, store.ndocs_pad)
+    before = LAUNCHES.get("match_bitmap")
+    got = kern.match_bitmap(*args)
+    torch.cuda.synchronize()
+    assert LAUNCHES.get("match_bitmap") == before + 1
+    assert torch.equal(got, kern.match_bitmap_plain(*args))
+    assert int(got.sum()) > 500
+
+
+def test_k13_agg_entries_match_plain(cuda):
+    """masked_count / masked_sum_float / masked_minmax / the one-hot
+    chunk counts and group_count on `agg_scan`, against the same entries
+    on CPU tensors (the plain version): integers equal, f32 sums within
+    rtol 1e-5 / atol 1e-6."""
+    from serenedb_tpu_torch.ops import agg
+    rng = np.random.default_rng(13)
+    n, g = 100_000, 300
+    rows = -(-n // 128)
+    codes = np.zeros(rows * 128, np.int32)
+    codes[:n] = rng.integers(0, g, n)
+    mask = np.zeros(rows * 128, bool)
+    mask[:n] = rng.random(n) > 0.1
+    fv = (rng.standard_normal(rows * 128) * 100).astype(np.float32)
+    iv = rng.integers(-2**31, 2**31, rows * 128, dtype=np.int64) \
+        .astype(np.int32)
+    host = [torch.from_numpy(a.reshape(rows, 128)) for a in
+            (codes, mask, fv, iv)]
+    (cc, cm, cf, ci), (hc, hm, hf, hi) = [t.to(cuda) for t in host], host
+    before = LAUNCHES.get("agg_scan")
+    assert int(agg.masked_count(cm)) == int(agg.masked_count(hm))
+    torch.testing.assert_close(agg.masked_sum_float(cf, cm).cpu(),
+                               agg.masked_sum_float(hf, hm),
+                               rtol=1e-5, atol=1e-6)
+    for op in ("min", "max"):
+        for cv, hv in ((cf, hf), (ci, hi)):
+            assert torch.equal(agg.masked_minmax(cv, cm, op).cpu(),
+                               agg.masked_minmax(hv, hm, op))
+    assert torch.equal(agg.group_count_onehot(cc, cm, g).cpu(),
+                       agg.group_count_onehot(hc, hm, g))
+    np.testing.assert_array_equal(agg.group_count(cc, cm, g),
+                                  agg.group_count(hc, hm, g))
+    torch.cuda.synchronize()
+    assert LAUNCHES.get("agg_scan") >= before + 8

@@ -265,28 +265,55 @@ def test_device_cache_lru_eviction_and_generation_sweep():
 
 
 def test_shards_run_the_single_dispatch(conns):
-    """serene_shards > 1: the port runs its one dispatch (the reference's
-    sharded tier is bit-identical to it)."""
+    """serene_shards = 4 decomposes as the reference's sharded tier does:
+    an admitted plain inner join runs one build and, per combine, one
+    probe launch per surviving shard (host) or one over every shard's
+    spans (device); a warm repeat skips the cached build. A LEFT join
+    stays on the single dispatch. Rows and dispatch counts equal the
+    reference's."""
     rconn, pconn = conns["lr"]
-    q = FUSED_QUERIES[8]
-    ref = _rows(rconn, q, "tpu")
-    pconn.execute("SET serene_shards = 4")
+    inner = ("SELECT l.sk, count(*), sum(l.v), min(r.w), max(r.w) FROM l "
+             "JOIN r ON l.ik = r.ik GROUP BY l.sk ORDER BY l.sk")
+    left = ("SELECT l.sk, count(*), count(r.w) FROM l LEFT JOIN r "
+            "ON l.ik = r.ik GROUP BY l.sk ORDER BY l.sk")
+    for c in (rconn, pconn):
+        c.execute("SET serene_shards = 4")
     try:
-        LAUNCHES.reset()
-        assert _rows(pconn, q, "gpu") == ref
-        assert LAUNCHES.get("join_probe.plain") == 1
+        for combine, probes in (("host", 4), ("device", 1)):
+            for c in (rconn, pconn):
+                c.execute(f"SET serene_shard_combine = {combine}")
+            for q, warm_probes in ((inner, probes), (left, 1)):
+                _rows(rconn, q, "tpu")
+                _rows(pconn, q, "gpu")
+                r0 = rmetrics.DEVICE_OFFLOADS.value
+                ref = _rows(rconn, q, "tpu")
+                r_off = rmetrics.DEVICE_OFFLOADS.value - r0
+                LAUNCHES.reset()
+                assert _rows(pconn, q, "gpu") == ref, (q, combine)
+                assert LAUNCHES.get("join_probe.plain") == warm_probes
+                if q is inner:
+                    assert LAUNCHES.get("agg_scan.plain") == 0
+                    assert r_off == warm_probes
     finally:
-        pconn.execute("SET serene_shards = 1")
+        for c in (rconn, pconn):
+            c.execute("SET serene_shards = 1")
+            c.execute("SET serene_shard_combine = auto")
 
 
 def test_mesh_is_not_ported(conns):
-    _rconn, pconn = conns["lr"]
-    pconn.execute("SET serene_mesh = 2")
+    """serene_mesh = 2: neither package's fused pipeline reads it — the
+    same rows as at serene_mesh = 0, on the same single dispatch."""
+    rconn, pconn = conns["lr"]
+    q = FUSED_QUERIES[0]
+    for c in (rconn, pconn):
+        c.execute("SET serene_mesh = 2")
     try:
-        with pytest.raises(NotImplementedError, match="mesh"):
-            _rows(pconn, FUSED_QUERIES[0], "gpu")
+        LAUNCHES.reset()
+        assert _rows(pconn, q, "gpu") == _rows(rconn, q, "tpu")
+        assert LAUNCHES.get("join_probe.plain") == 1
     finally:
-        pconn.execute("SET serene_mesh = 0")
+        for c in (rconn, pconn):
+            c.execute("SET serene_mesh = 0")
 
 
 def test_program_ledger_counts_fused_lookups(conns):

@@ -210,14 +210,81 @@ def test_entry_points_raise_without_a_card(monkeypatch):
 
 
 def test_embedding_analyzers_say_they_are_not_ported():
+    """The model-backed analyzers (tests/test_analysis.py:237-290 and
+    sqllogic's analyzer_model_backed.test): `CREATE TEXT SEARCH
+    DICTIONARY ... (template = 'classification' | 'nearest_neighbors')`,
+    an index over each, and the tokens and rows they give, equal to the
+    reference's; the refusals of a template without labels or vocabulary
+    too."""
+    from serenedb_tpu import errors as rerrors
+    from serenedb_tpu.engine import Database as RDatabase
+    from serenedb_tpu.search import analysis as ranalysis
+    from serenedb_tpu_torch import errors
+    from serenedb_tpu_torch.engine import Database
     from serenedb_tpu_torch.search import analysis
-    with pytest.raises(NotImplementedError, match="not ported"):
-        analysis.ClassificationAnalyzer({"a": "x"})
-    with pytest.raises(NotImplementedError, match="not ported"):
-        analysis.NearestNeighborsAnalyzer(["a"])
+    setup = [
+        "CREATE TEXT SEARCH DICTIONARY topic (template = 'classification',"
+        " labels = 'sports: football basketball goalkeeper; tech: "
+        "compiler software kernel')",
+        "CREATE TEXT SEARCH DICTIONARY topic2 (template = "
+        "'classification', top = 2, labels = 'sports: football; tech: "
+        "compiler')",
+        "CREATE TEXT SEARCH DICTIONARY fixup (template = "
+        "'nearest_neighbors', vocab = 'football basketball compiler "
+        "software kernel', top = 1)",
+        "CREATE TABLE posts (id INT, body TEXT)",
+        "INSERT INTO posts VALUES (1, 'great football match last night'), "
+        "(2, 'compiler bug in the kernel'), (3, 'basketball finals'), "
+        "(4, 'new software release')",
+        "CREATE INDEX ON posts USING inverted (body topic)",
+        "CREATE TABLE raw (id INT, body TEXT)",
+        "INSERT INTO raw VALUES (1, 'footbal compilr'), (2, 'basketbal')",
+        "CREATE INDEX ON raw USING inverted (body fixup)"]
+    queries = ["SELECT id FROM posts WHERE body ## 'sports' ORDER BY id",
+               "SELECT id FROM posts WHERE body ## 'tech' ORDER BY id",
+               "SELECT id FROM raw WHERE body ## 'football' ORDER BY id",
+               "SELECT id FROM raw WHERE body ## 'basketball' ORDER BY id"]
+    texts = ["football match", "compiler bug", "sports", "", "footbal",
+             "compilr kernel", "basketbal"]
+    rc, pc = RDatabase().connect(), Database(device="cpu").connect()
+    try:
+        for sql in setup:
+            rc.execute(sql)
+            pc.execute(sql)
+        for q in queries:
+            assert pc.execute(q).rows() == rc.execute(q).rows(), q
+        for name in ("topic", "topic2", "fixup"):
+            ra, pa = ranalysis.get_analyzer(name), analysis.get_analyzer(name)
+            assert type(pa).__name__ == type(ra).__name__
+            for t in texts:
+                assert [(x.term, x.position) for x in pa.tokenize(t)] == \
+                    [(x.term, x.position) for x in ra.tokenize(t)], (name, t)
+    finally:
+        for c in (rc, pc):
+            for sql in ("DROP TABLE posts", "DROP TABLE raw",
+                        "DROP TEXT SEARCH DICTIONARY topic",
+                        "DROP TEXT SEARCH DICTIONARY topic2",
+                        "DROP TEXT SEARCH DICTIONARY fixup"):
+                c.execute(sql)
+    with pytest.raises(errors.SqlError) as pe:
+        analysis.ClassificationAnalyzer({})
+    with pytest.raises(rerrors.SqlError) as re_:
+        ranalysis.ClassificationAnalyzer({})
+    assert pe.value.sqlstate == re_.value.sqlstate == "22023"
+    with pytest.raises(errors.SqlError) as pe:
+        analysis.NearestNeighborsAnalyzer([""])
+    with pytest.raises(rerrors.SqlError) as re_:
+        ranalysis.NearestNeighborsAnalyzer([""])
+    assert pe.value.sqlstate == re_.value.sqlstate == "22023"
 
 
 def test_mesh_branch_is_not_ported(searchers):
+    """mesh_n = 2: the reference (8 virtual devices) takes its
+    mesh-sharded branch, the port's one card its single-device kernels —
+    the same top-k within the search tolerance."""
     rs, ps, ran, pan = searchers
-    with pytest.raises(NotImplementedError):
-        ps.topk_batch([parse_query("t0", pan)], 10, mesh_n=2)
+    ref_out = rs.topk_batch([ref_parse(q, ran) for q in QUERIES], 10,
+                            mesh_n=2)
+    port_out = ps.topk_batch([parse_query(q, pan) for q in QUERIES], 10,
+                             mesh_n=2)
+    _compare(ref_out, port_out, QUERIES)

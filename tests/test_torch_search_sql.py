@@ -142,15 +142,20 @@ def test_device_shard_combine_is_refused_not_served_by_the_host():
                    "INSERT INTO docs VALUES (500, 'apple apple')",
                    "SET serene_shards = 2",
                    "SET serene_shard_combine = 'device'"])
+    """The device combine over a two-segment index: the cross-shard merge
+    is one `merge_topk` launch a statement, and the rows equal the
+    reference's device combine and both packages' host combine."""
+    from serenedb_tpu_torch.device import LAUNCHES
     q = ("SELECT id, bm25(body) AS s FROM docs WHERE body @@ 'apple' ORDER "
          "BY s DESC LIMIT 3")
-    with pytest.raises(Exception) as e:
-        conns[1].execute(q)
-    assert getattr(e.value, "sqlstate", None) == "0A000" and \
-        "not ported" in str(e.value)
+    before = LAUNCHES.get("merge_topk.plain")
+    _check(conns, q, scored=True)
+    assert LAUNCHES.get("merge_topk.plain") > before
+    device_rows = conns[1].execute(q).rows()
     conns[1].execute("SET serene_shard_combine = 'host'")
     conns[0].execute("SET serene_shard_combine = 'host'")
     _check(conns, q, scored=True)
+    assert conns[1].execute(q).rows() == device_rows
 
 
 def test_auto_shard_combine_is_host_on_a_host_with_many_cards(monkeypatch):

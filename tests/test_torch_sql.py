@@ -265,13 +265,20 @@ def test_durable_storage_is_not_ported(tmp_path):
 
 
 def test_mesh_is_not_ported(dbs):
-    _rconn, pconn = dbs["h"]
-    pconn.execute("SET serene_mesh = 2")
+    """serene_mesh = 2: the reference (8 virtual devices) runs its mesh
+    program, the port's one card the single-device `agg_scan` — the same
+    rows."""
+    rconn, pconn = dbs["h"]
+    q = "SELECT k, count(*), sum(v), min(v) FROM h GROUP BY k ORDER BY k"
+    for c in (rconn, pconn):
+        c.execute("SET serene_mesh = 2")
     try:
-        with pytest.raises(NotImplementedError, match="mesh"):
-            _rows(pconn, "SELECT k, count(*) FROM h GROUP BY k", "gpu")
+        before = LAUNCHES.get("agg_scan.plain")
+        assert _rows(pconn, q, "gpu") == _rows(rconn, q, "tpu")
+        assert LAUNCHES.get("agg_scan.plain") > before
     finally:
-        pconn.execute("SET serene_mesh = 0")
+        for c in (rconn, pconn):
+            c.execute("SET serene_mesh = 0")
 
 
 @pytest.mark.parametrize("q", [

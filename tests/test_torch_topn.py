@@ -255,10 +255,17 @@ def test_projection_expression_falls_back():
 
 
 def test_mesh_is_not_ported(keys):
-    _rconn, pconn = keys
-    pconn.execute("SET serene_mesh = 2")
+    """serene_mesh = 2: the reference (8 virtual devices) shards its key
+    tiles over a mesh, the port's one card runs `topn_scan` alone — the
+    same rows."""
+    rconn, pconn = keys
+    q = "SELECT * FROM t ORDER BY i LIMIT 5"
+    for c in (rconn, pconn):
+        c.execute("SET serene_mesh = 2")
     try:
-        with pytest.raises(NotImplementedError, match="mesh"):
-            _rows(pconn, "SELECT * FROM t ORDER BY i LIMIT 5", "gpu")
+        before = LAUNCHES.get("topn_scan.plain")
+        assert _rows(pconn, q, "gpu") == _rows(rconn, q, "tpu")
+        assert LAUNCHES.get("topn_scan.plain") > before
     finally:
-        pconn.execute("SET serene_mesh = 0")
+        for c in (rconn, pconn):
+            c.execute("SET serene_mesh = 0")
