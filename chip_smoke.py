@@ -16,7 +16,10 @@ Phases (any failure exits non-zero and prints no result line):
      plus two consecutive calls that must agree bit for bit; then the
      same mix through topk_batch(ragged=True) with the posting pool on
      (65,536 pages inside the device cache's cap), bit-equal to the plane
-     results;
+     results, its QPS against the planes' as medians of three alternating
+     passes; then every query alone on each route (pool, host ragged,
+     planes, the ragged routes admitting every query), one line per
+     route of (kept postings, ms);
   5. each search kernel against its plain PyTorch version on the card, on
      the inputs the main path gave it in phases 3-4 (recorded as it ran),
      and topk_rows also on a plane full of ties: bm25_accumulate and
@@ -48,9 +51,10 @@ Phases (any failure exits non-zero and prints no result line):
      no fused decline, and J2's warm repeat uploads 0 bytes;
  10. agg_scan, agg_fold, topn_scan, chain_topn and join_probe against
      their plain versions on inputs recorded from phases 6-9 (integer
-     outputs and selected indices equal, f32 within rtol 1e-5), with their
-     times, bounds and torch yardsticks, and the two f32 GEMMs of
-     dense_topk timed against their FLOP bound;
+     outputs and selected indices equal, agg_scan's and agg_fold's f32
+     outputs bit for bit), with their times, bounds and torch yardsticks;
+     agg_fold also on a seeded (8,192 x 201) plane; and the two f32
+     GEMMs of dense_topk timed against their FLOP bound;
  11. `sift`: IVF through SQL at sift-128-euclidean's shape (1,000,000 x
      128 integers in [0, 255] around a 16-dimensional subspace, from a
      seed, JSON text in a
@@ -88,8 +92,10 @@ Phases (any failure exits non-zero and prints no result line):
      10, at batches of 1, 8 and 64 with the posting pool on (pool_score),
      off (the host ragged path, contrib_flat) and ragged=False (the
      plane): every query bit-equal across the three, QPS per mode and
-     batch; a warm repeat of the 64-batch uploads 0 bytes and launches
-     pool_score once; a starved budget of 64 pages stays bit-equal;
+     batch; each group of 1, 8 and 64 queries on each route, one line
+     per route and batch of (kept postings, ms); a warm repeat of the
+     64-batch uploads 0 bytes and launches pool_score once; a starved
+     budget of 64 pages stays bit-equal;
  16. serving: 200,000 docs from bench_bm25_1m's generator (cut from 1M
      for the script's time; still the packed regime; the index's
      tokenizer 'simple', as phase 13's) as an ES document table (`_id`,
@@ -119,9 +125,12 @@ Phases (any failure exits non-zero and prints no result line):
  19. merge_topk (on phase 17's recorded 16-query merge and a crafted
      batch of ties, -0.0, pads and k past any shard's candidates) and
      match_bitmap (on a recorded phase 17 launch) against their plain
-     versions bit for bit, with their times and bounds; the K13 entries
-     of ops/agg.py (masked count, sum, min/max, the one-hot chunk counts,
-     group_count) on agg_scan against their plain versions on the card;
+     versions bit for bit, with their times and bounds; K12's one-card
+     form: join_probe at phase 17's collective shape (4 shards, device
+     combine, 1x) against its plain version, with its bound and an
+     index_add_ yardstick; the K13 entries of ops/agg.py (masked count,
+     sum, min/max, the one-hot chunk counts, group_count) on agg_scan
+     against their plain versions on the card, bit for bit;
  20. one JSON line per kernel, the card line, then the device line.
 
 Launch counts are zeroed just before each main-path phase and read just
@@ -918,10 +927,19 @@ def _raw_tensors(raw) -> list:
     return [rowcount] + [t for o in outs for t in o]
 
 
+def same_f32(a, b) -> bool:
+    """Bit for bit, NaN meeting NaN (the card's NaN is canonical, a CPU
+    keeps the payload)."""
+    import torch
+    nan = torch.isnan(a)
+    return torch.equal(nan, torch.isnan(b)) and torch.equal(
+        a[~nan].view(torch.int32), b[~nan].view(torch.int32))
+
+
 def check_agg_scan(device, args, reps=10) -> dict:
-    """agg_scan against its plain version on one recorded launch:
-    integer outputs equal, f32 partial planes within rtol 1e-5; two
-    launches bit-identical."""
+    """agg_scan against its plain version on one recorded launch: every
+    output equal, f32 partial planes and sums bit for bit; two launches
+    bit-identical."""
     import torch
 
     from serenedb_tpu_torch.ops import agg_kernels as K
@@ -930,19 +948,17 @@ def check_agg_scan(device, args, reps=10) -> dict:
     again = _raw_tensors(K.agg_scan(*a, **kw))
     ref = _raw_tensors(K.agg_scan_plain(*a, **kw))
     sync(device)
-    err = 0.0
     for g, g2, r in zip(got, again, ref):
         if g.dtype == torch.float32:
-            torch.testing.assert_close(g, r, rtol=RTOL, atol=ATOL,
-                                       equal_nan=True)
-            fin = torch.isfinite(r)
-            if fin.any():
-                err = max(err, float((g[fin] - r[fin]).abs().max()))
+            if not same_f32(g, r):
+                fail(f"agg_scan's f32 sums differ from its plain version "
+                     f"({tuple(g.shape)})")
             if not torch.equal(g.view(torch.int32), g2.view(torch.int32)):
                 fail("agg_scan: two launches differ")
         elif not (torch.equal(g, r) and torch.equal(g, g2)):
             fail(f"agg_scan differs from its plain version "
                  f"({g.dtype}, {tuple(g.shape)})")
+    err = 0.0
     ms = timed_ms(lambda: K.agg_scan(*a, **kw), reps, device)
     plain_ms = timed_ms(lambda: K.agg_scan_plain(*a, **kw), 2, device)
     spec, cols, rowmask, codes, t0, t1 = a
@@ -956,35 +972,47 @@ def check_agg_scan(device, args, reps=10) -> dict:
         torch.zeros(G, dtype=torch.int64, device=device).index_add_(
             0, idx, vals)
     library_ms = timed_ms(library, reps, device)
+    sp = K.split(spec, rows)
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms(moved), "bound_by": "bytes",
             "library_ms": library_ms,
             "shape": f"rows={rows} cols={len(cols)} G={spec.G} "
                      f"aggs={[x.kind for x in spec.aggs]} "
-                     f"factorized={spec.factorized}"}
+                     f"factorized={spec.factorized} regime={sp.regime} "
+                     f"blocks={sp.blocks}"}
 
 
 def check_agg_fold(device, args, reps=10) -> dict:
-    """agg_fold against its plain version (both add p in order: equal)."""
-    import torch
-
+    """agg_fold against its plain version, bit for bit (NaN meeting NaN);
+    `plane.view(P, G).sum(0)` timed beside it."""
     from serenedb_tpu_torch.ops import agg_kernels as K
     a, kw = args
     plane, G = a[0], a[1]
     got = K.agg_fold(*a, **kw)
+    again = K.agg_fold(*a, **kw)
     ref = K.agg_fold_plain(*a, **kw)
     sync(device)
-    torch.testing.assert_close(got, ref, rtol=RTOL, atol=ATOL,
-                               equal_nan=True)
-    fin = torch.isfinite(ref)
-    err = float((got[fin] - ref[fin]).abs().max()) if fin.any() else 0.0
+    if not same_f32(got, ref) or not same_f32(got, again):
+        fail(f"agg_fold differs from its plain version or between two "
+             f"launches (P={plane.numel() // G}, G={G})")
     ms = timed_ms(lambda: K.agg_fold(*a, **kw), reps, device)
     plain_ms = timed_ms(lambda: K.agg_fold_plain(*a, **kw), 1, device)
     library_ms = timed_ms(lambda: plane.view(-1, G).sum(0), reps, device)
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+    return {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms(nbytes(plane, got)), "bound_by": "bytes",
             "library_ms": library_ms,
             "shape": f"P={plane.numel() // G} G={G}"}
+
+
+def fold_plane(device, P: int, G: int):
+    """A seeded (P x G) f32 plane with NaN and -0.0 cells, as agg_fold's
+    arguments."""
+    import torch
+    rng = np.random.default_rng(P + G)
+    plane = (rng.standard_normal(P * G) * 100).astype(np.float32)
+    plane[rng.random(P * G) < 1e-4] = np.nan
+    plane[::977] = -0.0
+    return ((torch.from_numpy(plane).to(device), G), {})
 
 
 def _topn_keys(spec, cols, rowmask):
@@ -1851,10 +1879,66 @@ def _same_bits(a, b) -> bool:
         a[1].tobytes() == b[1].tobytes()
 
 
+def route_times(searcher, nodes, batch: int, reps: int = 3) -> list:
+    """Each group of `batch` consecutive queries through topk_batch on
+    the three routes — the posting pool (`pool_score`), the host ragged
+    path (`contrib_flat`) and the score planes — with the ragged routes
+    admitting every query. Returns per group its queries' kept postings
+    (the `entries` that `ragged_admits` reads; none for a query the
+    ragged path never takes) and the median ms of `reps` warm calls per
+    route."""
+    from serenedb_tpu_torch.utils.config import REGISTRY as settings
+    seen: list = []
+
+    def admit_all(entries, batch_size):
+        seen.append(entries)
+        return True
+    searcher.ragged_admits = admit_all
+    out = []
+    try:
+        for i in range(0, len(nodes), batch):
+            group = nodes[i:i + batch]
+            ms = {}
+            for route, pool, ragged in (("pool", True, True),
+                                        ("host", False, True),
+                                        ("plane", True, False)):
+                settings.set_global("serene_posting_pool", pool)
+                del seen[:]
+                searcher.topk_batch(group, 10, ragged=ragged)
+                entries = list(seen)    # the cold call's admissions
+                times = []
+                for _ in range(reps):
+                    t0 = time.perf_counter()
+                    searcher.topk_batch(group, 10, ragged=ragged)
+                    times.append((time.perf_counter() - t0) * 1e3)
+                ms[route] = float(np.median(times))
+                if route == "host":
+                    kept = entries
+            out.append({"entries": kept, "batch": len(group), "ms": ms})
+    finally:
+        del searcher.ragged_admits
+        settings.set_global("serene_posting_pool", True)
+    return out
+
+
+def print_routes(phase: int, label: str, rows: list) -> None:
+    """One line per route and batch size: each group's kept postings
+    (summed over its queries) and its ms, in order of postings."""
+    for batch in sorted({r["batch"] for r in rows}):
+        sel = sorted((sum(r["entries"]), r["ms"]) for r in rows
+                     if r["batch"] == batch and r["entries"])
+        for route in ("pool", "host", "plane"):
+            pts = " ".join(f"{e}:{ms[route]:.3f}" for e, ms in sel)
+            print(f"[{phase}] {label} route {route}, batch {batch} "
+                  f"(kept postings:ms) {pts}", flush=True)
+
+
 def ragged_leg(device, searcher, nodes, plane_out, reps=3) -> dict:
     """Phase 4's mix again through `topk_batch(ragged=True)` with the
     posting pool on, on the same searcher: every query bit-equal to the
-    plane results of phase 4."""
+    plane results of phase 4; QPS against the planes' as the median of
+    three alternating passes each; then each query alone on every route
+    (`route_times`)."""
     from serenedb_tpu_torch.device import LAUNCHES
     from serenedb_tpu_torch.search.posting_pool import POOL
     from serenedb_tpu_torch.utils import metrics
@@ -1869,23 +1953,35 @@ def ragged_leg(device, searcher, nodes, plane_out, reps=3) -> dict:
     out = searcher.topk_batch(nodes, 10, ragged=True)
     sync(device)
     cold_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
+    passes = {True: [], False: []}
     for _ in range(reps):
-        again = searcher.topk_batch(nodes, 10, ragged=True)
-    sync(device)
-    warm_s = time.perf_counter() - t0
+        for ragged in (False, True):
+            t0 = time.perf_counter()
+            again = searcher.topk_batch(nodes, 10, ragged=ragged)
+            sync(device)
+            passes[ragged].append(len(nodes) /
+                                  (time.perf_counter() - t0))
+            if ragged:
+                for qi in range(len(nodes)):
+                    if not _same_bits(again[qi], plane_out[qi]):
+                        fail(f"ragged leg: query {qi} differs from the "
+                             "plane result")
     launches = LAUNCHES.snapshot()
     if not launches.get("pool_score"):
         fail(f"ragged leg: pool_score never launched ({launches})")
     for qi in range(len(nodes)):
-        if not (_same_bits(out[qi], plane_out[qi]) and
-                _same_bits(again[qi], plane_out[qi])):
+        if not _same_bits(out[qi], plane_out[qi]):
             fail(f"ragged leg: query {qi} differs from the plane result")
     st = POOL.stats()
+    pool_q = metrics.POSTING_POOL_DEVICE_QUERIES.value - d0
+    routes = route_times(searcher, nodes, 1)
     POOL.clear()
-    return {"qps": reps * len(nodes) / warm_s, "cold_s": cold_s,
+    qps = float(np.median(passes[True]))
+    plane_qps = float(np.median(passes[False]))
+    return {"qps": qps, "plane_qps": plane_qps, "ratio": qps / plane_qps,
+            "passes": passes, "cold_s": cold_s, "routes": routes,
             "launches": launches, "pages_used": st["pages_used"],
-            "pool_queries": metrics.POSTING_POOL_DEVICE_QUERIES.value - d0}
+            "pool_queries": pool_q}
 
 
 def phase_paged(device, n_docs=1_000_000, vocab=30_000,
@@ -1973,6 +2069,14 @@ def phase_paged(device, n_docs=1_000_000, vocab=30_000,
             fail(f"paged_search: a warm repeat uploaded {warm_bytes} B in "
                  f"{warm_launches} pool_score launches (want 0 B, 1)")
         stats = POOL.stats()
+        # the per-route sweep admits every query: its launches are not
+        # the main path's, so the counts go back to what they were
+        counted = LAUNCHES.snapshot()
+        routes = [r for batch in (1, 8, 64)
+                  for r in route_times(seg, nodes, batch)]
+        LAUNCHES.reset()
+        for name, n in counted.items():
+            LAUNCHES.bump(name, n)
         settings.set_global("serene_posting_pages", 64)
         POOL.clear()
         e0 = metrics.POSTING_POOL_EVICTIONS.value
@@ -2002,6 +2106,7 @@ def phase_paged(device, n_docs=1_000_000, vocab=30_000,
                     for m, d in qps.items()},
             "launches": launches, "pool_queries": pool_q, "starved": starved,
             "pool": stats, "postings": int(len(fi.post_docs)),
+            "routes": routes,
             "pool_args": rec_p.args, "flat_args": rec_c.args}
 
 
@@ -2244,6 +2349,7 @@ def shard_relational(device, m: int) -> dict:
     from serenedb_tpu_torch.engine import Database
     from serenedb_tpu_torch.exec.tables import MemTable
     from serenedb_tpu_torch.obs import device as obs_device
+    from serenedb_tpu_torch.ops import join_kernels
     from serenedb_tpu_torch.utils import metrics
 
     t0 = time.perf_counter()
@@ -2282,7 +2388,16 @@ def shard_relational(device, m: int) -> dict:
 
     ref = None
     for shards, combine in SHARD_CELLS:
-        cold_rows, cold_ms, _o, _p = run(shards, combine)
+        # K12's one-card form: the first launch of the device combine at
+        # 4 shards, at 1x, for phase 19
+        rec = Recorder(join_kernels, "join_probe") \
+            if m == 1 and (shards, combine) == (4, "device") else None
+        if rec is not None:
+            with rec:
+                cold_rows, cold_ms, _o, _p = run(shards, combine)
+            out["collective_args"] = rec.args
+        else:
+            cold_rows, cold_ms, _o, _p = run(shards, combine)
         if ref is None:
             ref = cold_rows
             if host is not None and ref != host:
@@ -2565,10 +2680,11 @@ def check_k13_aggs(device, reps=10) -> dict:
     columns (g as codes, v, the rows with v > 0 as the mask): each entry
     through agg_scan (and agg_fold for the f32 sum) against the same entry
     with those wrappers' plain versions swapped in, both on the card:
-    integers equal, the f32 sum within rtol 1e-5 / atol 1e-6; and
-    group_count equal to numpy's count. Returns per entry its ms, the
-    plain version's ms and its bound (bytes: the tiles it reads once,
-    its outputs written once)."""
+    integers equal, the f32 sum bit for bit; and
+    group_count equal to numpy's count. Returns per entry its agg_scan
+    call's ms, the whole entry's, the plain version's and its bound
+    (bytes: the tiles it reads once, its outputs written once), and under
+    "index_add_" the yardstick: one `index_add_` of v into the 16 groups."""
     import torch
 
     from serenedb_tpu_torch.device import LAUNCHES
@@ -2610,18 +2726,32 @@ def check_k13_aggs(device, reps=10) -> dict:
     out = {}
     for name, (fn, reads) in entries.items():
         l0 = LAUNCHES.get("agg_scan")
-        got, ref = fn(), plain(fn)
+        with FirstCalls(K, "agg_scan") as rec:
+            rec.current = name
+            got = fn()
+        ref = plain(fn)
         sync(device)
         if LAUNCHES.get("agg_scan") <= l0:
             fail(f"{name} did not launch agg_scan")
         if name == "masked_sum_float":
-            torch.testing.assert_close(got, ref, rtol=RTOL, atol=ATOL)
+            if not same_f32(got, ref):
+                fail("masked_sum_float differs from its plain version")
         elif not torch.equal(got, ref):
             fail(f"{name} differs from its plain version")
-        out[name] = {"ms": timed_ms(fn, reps, device),
+        a, kw = rec.calls[name]
+        out[name] = {"ms": timed_ms(lambda: K.agg_scan(*a, **kw), reps,
+                                    device),
+                     "entry_ms": timed_ms(fn, reps, device),
                      "plain_ms": timed_ms(lambda: plain(fn), reps, device),
                      "bound_ms": bound_ms(nbytes(*(d[t] for t in reads),
                                                  got))}
+    idx = d["codes"].reshape(-1).to(torch.int64)
+    vals = d["v"].reshape(-1).to(torch.int64)
+
+    def library():
+        torch.zeros(16, dtype=torch.int64, device=device).index_add_(
+            0, idx, vals)
+    out["index_add_"] = timed_ms(library, reps, device)
     counts = agg.group_count(d["codes"], d["mask"], 16)
     if not np.array_equal(counts, np.bincount(sp["g"][sp["v"] > 0],
                                               minlength=16)):
@@ -2697,10 +2827,15 @@ def main() -> int:
           f"launches {packed['launches']}", flush=True)
     rg = packed["ragged"]
     print(f"[4] packed, ragged=True with the posting pool on: QPS "
-          f"{rg['qps']:.2f} (warm), cold first call {rg['cold_s']:.2f} s, "
+          f"{rg['qps']:.2f} against the planes' {rg['plane_qps']:.2f} "
+          f"(medians of 3 alternating passes: ragged "
+          f"{[round(x, 1) for x in rg['passes'][True]]}, planes "
+          f"{[round(x, 1) for x in rg['passes'][False]]}; ratio "
+          f"{rg['ratio']:.3f}), cold first call {rg['cold_s']:.2f} s, "
           f"{rg['pages_used']} pages resident, {rg['pool_queries']} queries "
           f"served by the pool; every query bit-equal to the plane result; "
           f"launches {rg['launches']}", flush=True)
+    print_routes(4, "bm25_8m", rg.pop("routes"))
 
     # 5. kernels against their plain versions on the main path's inputs
     if packed["acc_args"] is None or dense["build_dense_args"] is None or \
@@ -2790,6 +2925,8 @@ def main() -> int:
                                       recorded("agg_scan", key, what))
     checks["agg_fold"] = check_agg_fold(
         device, recorded("agg_fold", ("float", 0), "float GROUP BY k"))
+    checks["agg_fold (8,192 x 201)"] = check_agg_fold(
+        device, fold_plane(device, 8192, 201))
     checks["T1 topn_scan"] = check_topn(
         device, recorded("topn_scan", ("q1", 3), "T1"))
     checks["T2 topn_scan"] = check_topn(
@@ -2913,6 +3050,7 @@ def main() -> int:
           f"{paged['starved']} and bit-equal; pool {paged['pool']}, "
           f"{paged['pool_queries']} queries served by the pool; launches "
           f"{paged['launches']}", flush=True)
+    print_routes(15, "paged_search", paged.pop("routes"))
     # the kernels against their plain versions now, while the region the
     # recorded batch reads holds what it held
     serve_checks = {"pool_score": check_pool_score(device,
@@ -2992,12 +3130,23 @@ def main() -> int:
         print(f"[19] {what} ({r['shape']}): kernel {r['ms']:.4f} ms, plain "
               f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms "
               f"({r['bound_by']}), library null, bit-equal", flush=True)
+    coll = shards["relational"][1].pop("collective_args", None)
+    if coll is None:
+        fail("the device combine's join_probe inputs were not recorded")
+    k12 = check_join_probe(device, coll)
+    print(f"[19] K12 one card: join_probe at phase 17's collective shape "
+          f"(shards 4, device combine, 1x; {k12['shape']}): kernel "
+          f"{k12['ms']:.4f} ms, plain {k12['plain_ms']:.3f} ms, bound "
+          f"{k12['bound_ms']:.4f} ms (bytes), index_add_ "
+          f"{k12['library_ms']:.4f} ms, equal", flush=True)
     k13 = check_k13_aggs(device)
+    k13_lib = k13.pop("index_add_")
     print("[19] K13 entries on agg_scan (1,000,000 rows, 16 groups), equal "
           "to their plain versions on the card: " + "; ".join(
-              f"{k} {r['ms']:.4f} ms (plain {r['plain_ms']:.4f} ms, bound "
-              f"{r['bound_ms']:.5f} ms, bytes)" for k, r in k13.items()),
-          flush=True)
+              f"{k} kernel {r['ms']:.4f} ms (the entry's whole call "
+              f"{r['entry_ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
+              f"{r['bound_ms']:.5f} ms, bytes)" for k, r in k13.items()) +
+          f"; index_add_ into the 16 groups {k13_lib:.4f} ms", flush=True)
     print(f"    total {time.perf_counter() - t_start:.1f} s", flush=True)
 
     # 20. result lines

@@ -372,14 +372,14 @@ def _chunk_outputs(spec: K.ScanSpec, agg_plans, distinct_plans, raw,
     [presence] | [count] | [sum, count] | [min/max, count]), with one
     extra output after a float MIN's count: its non-NaN count, which
     `_min_nan_rule` spends once the chunks are combined. The float sums
-    fold on the device first (agg_fold), and float min/max images decode
-    there."""
+    fold on the device first (agg_fold; a plane of one row is already
+    the sums), and float min/max images decode there."""
     from ..obs import device as obs_device
     rowcount, outs = raw
     G = spec.G
     flat = [rowcount]
     for a, out in zip(spec.aggs, outs):
-        if a.kind == K.AGG_SUM_F:
+        if a.kind == K.AGG_SUM_F and out[0].numel() > G:
             out = (K.agg_fold(out[0], G),) + tuple(out[1:])
         elif a.kind in (K.AGG_MIN_F, K.AGG_MAX_F):
             out = (K.image_decode(out[0]),) + tuple(out[1:])

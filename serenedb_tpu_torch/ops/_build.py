@@ -53,7 +53,7 @@ SIGNATURES = {
         "match_bitmap": [_P, _P, _P, _P, _L, _P, _P, _L, _P, _L, _L, _P, _P],
     },
     "agg": {
-        "agg_scan": [_P, _L, _P],
+        "agg_scan": [_P, _I, _L, _L, _L, _L, _I, _P, _P],
         "agg_fold": [_P, _L, _L, _P, _P],
     },
     "topn": {

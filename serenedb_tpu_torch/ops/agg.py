@@ -10,8 +10,9 @@ on CPU tensors — then reshapes the kernel's outputs to the reference's:
   `group_sum_int_limbs` and `masked_sum_int_partials` return the
   reference's limb / half-word partials, each computed as an exact sum of
   the bytes or halves the program extracts;
-- float sums add into a per-warp f32 partial plane that `agg_fold` adds in
-  order (no float atomics), so a result does not depend on thread order;
+- float sums add into a per-block f32 partial plane (at large G, the sums
+  themselves) that `agg_fold` folds in a fixed order (no float atomics),
+  so a result does not depend on thread order;
 - min/max reduce order-preserving u32 images of f32 values, with the
   reference's NaN propagation and identities for empty groups.
 
@@ -141,7 +142,10 @@ def group_sum_float(codes: torch.Tensor, mask: torch.Tensor,
     prog = _V if _col(vals)[1] == "f" else _V + ((K.OP_I2F, 0, 0),)
     _, outs = _scan(mask, [K.ScanAgg(K.AGG_SUM_F, prog)], num_groups, vals,
                     codes)
-    return K.agg_fold(outs[0][0], num_groups)
+    plane = outs[0][0]
+    # a plane of one row (the large-G regime) is already the sums
+    return K.agg_fold(plane, num_groups) if plane.numel() > num_groups \
+        else plane
 
 
 def _limb_aggs() -> list:

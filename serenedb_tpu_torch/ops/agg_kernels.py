@@ -5,25 +5,32 @@ PyTorch versions.
   (:251-301) with the ops/agg.py reductions in its body: frame-of-
   reference decode, the predicate programs (SQL three-valued logic),
   group codes (direct key plans, factorized codes, or one group),
-  then per aggregate a count, an exact int64 sum, an f32 sum into a
-  per-warp partial plane, an int or f32 min/max, or a DISTINCT presence
-  grid (`_presence_scatter` :455).
+  then per aggregate a count, an exact int64 sum, an f32 sum (a partial
+  plane, or the sums themselves at large G), an int or f32 min/max, or a
+  DISTINCT presence grid (`_presence_scatter` :455).
 - `agg_fold` ← the f32 scatter-add of ops/agg.py `group_sum_float`
-  (:117): adds the partial plane's P rows of each group in order of p.
+  (:117): adds the partial plane's P rows of each group in a fixed
+  two-level order (runs of p in order, then the runs in order).
 
 An expression is a flat postfix program (`exec/device.compile_expr`
 lowers a bound expression to one): a tuple of (opcode, arg, imm) with
 imm a 32-bit pattern (int32, or an f32's bits). The kernel interprets it
 per row on a stack of (32-bit value, valid bit) entries.
 
+`split` picks the kernel's regime and row ranges from the spec and the
+row count alone (SCALAR at G = 1, SMALL where every aggregate's cells
+fit a block's shared memory, else SORT with an f32 sum and LARGE
+without); the f32 sums' add order is part of that definition, and the
+plain versions follow it.
+
 Each wrapper launches its kernel for tensors on a CUDA device and counts
 the launch in `device.LAUNCHES`; for tensors on the CPU it calls the plain
 version (counted under `<name>.plain`). There is no other path. The plain
 versions compute the same function: integer outputs are exact in any
 order, min/max go through the same order-preserving u32 image as the
-kernel, and the f32 sums add each (warp range, group) cell in row order
-and fold the cells in order of p, so kernel and plain version agree bit
-for bit.
+kernel, and the f32 sums add in the kernel's order, so kernel and plain
+version agree bit for bit (NaN payloads aside: the card's NaN is
+canonical).
 """
 
 from __future__ import annotations
@@ -60,17 +67,27 @@ MAX_COLS, MAX_KEYS, MAX_PREDS, MAX_AGGS, MAX_OPS = 16, 8, 8, 16, 192
 MAX_STACK = 8
 DESC_WORDS = 480
 _H_NCOLS, _H_NKEYS, _H_FACT, _H_NPREDS, _H_NAGGS, _H_G, _H_ROWMASK, \
-    _H_CODES, _H_ROWCOUNT, _H_ROW_START, _H_ROW_END, _H_RPW, _H_P = range(13)
+    _H_CODES, _H_ROWCOUNT, _H_ROW_START, _H_ROW_END, _H_RPB = range(12)
+_H_SCRATCH = 14
 _COLS, _KEYS, _PREDS, _AGGS, _OPS = 16, 80, 112, 128, 288
 _COL_W, _KEY_W, _PRED_W, _AGG_W = 4, 4, 2, 10
 
-WARP_ROWS = 32
-#: warps per block of agg_scan
+#: threads of an agg_scan block (8 warps): the rows of one step
+BLOCK_ROWS = 256
 BLOCK_WARPS = 8
-#: most warps (row ranges) one agg_scan launch splits its rows into
-MAX_WARPS = 8192
-#: byte budget of the f32 partial plane (P, G) of the float sums
-FLOAT_PLANE_BYTES = 256 << 20
+#: rows per block: at least SCAN_BLOCK_ROWS, more when a launch would
+#: take more than MAX_BLOCKS blocks
+SCAN_BLOCK_ROWS = 4096
+MAX_BLOCKS = 8192
+#: shared-memory bytes of one block's cells in the SMALL regime
+SMALL_SMEM_BYTES = 48 << 10
+REGIME_SCALAR, REGIME_SMALL, REGIME_LARGE, REGIME_SORT = range(4)
+#: the SORT regime's counting sort: rows a warp histograms; buckets of
+#: 2^bits codes, bits >= SORT_MIN_BITS, at most SORT_MAX_BUCKETS buckets
+SORT_RANGE = 2048
+SORT_MIN_BITS, SORT_MAX_BUCKETS = 8, 4096
+#: agg_fold: runs of max(FOLD_MIN_RUN, ceil(P / FOLD_RUNS)) rows of p
+FOLD_RUNS, FOLD_MIN_RUN = 256, 16
 
 INT32_MIN, INT32_MAX = -2**31, 2**31 - 1
 #: order-preserving u32 images of +inf and -inf (identities of MIN_F and
@@ -123,19 +140,64 @@ def col_kind(dc) -> tuple[int, int]:
     return kind, 0
 
 
-def partition(n_rows: int, G: int, float_sum: bool) -> tuple[int, int]:
-    """(P, rows per warp): the contiguous row ranges of one launch, one
-    per warp. With a float sum, P x G f32 partials must fit
-    FLOAT_PLANE_BYTES. Part of the function's definition, not only of the
-    launch: the f32 sums add in this order."""
-    if n_rows <= 0:
-        return 1, WARP_ROWS
-    cap = MAX_WARPS
-    if float_sum:
-        cap = min(cap, max(1, FLOAT_PLANE_BYTES // (4 * max(G, 1))))
-    p = min(-(-n_rows // WARP_ROWS), cap)
-    rpw = -(-(-(-n_rows // p)) // WARP_ROWS) * WARP_ROWS
-    return -(-n_rows // rpw), rpw
+def _units32(kind: int) -> int:
+    """32-bit cell arrays (of G words) an aggregate takes in the SMALL
+    regime's shared memory (csrc/agg.cu `units32`)."""
+    return {AGG_COUNT: 1, AGG_SUM_I: 1, AGG_SUM_F: 1 + BLOCK_WARPS,
+            AGG_MIN_F: 3, AGG_PRESENCE: 0}.get(kind, 2)
+
+
+def small_cells_bytes(spec: ScanSpec) -> int:
+    """Shared bytes of one block's cells in the SMALL regime: the int64
+    sums, the row counts, then each aggregate's 32-bit arrays."""
+    n64 = sum(a.kind == AGG_SUM_I for a in spec.aggs)
+    n32 = 1 + sum(_units32(a.kind) for a in spec.aggs)
+    return (8 * n64 + 4 * n32) * spec.G
+
+
+@dataclass(frozen=True)
+class Split:
+    """How one agg_scan launch covers its rows: the regime, `blocks`
+    blocks of `rows_per_block` contiguous rows, the rows of each f32
+    sum's partial plane (the fold's P; 1 in SORT, whose plane is the
+    sums) and the dynamic shared bytes a block."""
+    regime: int
+    blocks: int
+    rows_per_block: int
+    plane_rows: int
+    smem: int
+
+
+def split(spec: ScanSpec, n_rows: int) -> Split:
+    """The regime and row ranges of a launch over n_rows rows, from the
+    spec and n_rows alone (never the card): part of the function's
+    definition, since the f32 sums add in this order."""
+    n = max(n_rows, 0)
+    rpb = max(SCAN_BLOCK_ROWS,
+              -(-(-(-n // MAX_BLOCKS)) // BLOCK_ROWS) * BLOCK_ROWS)
+    blocks = max(1, -(-n // rpb))
+    if spec.G == 1:
+        return Split(REGIME_SCALAR, blocks, rpb, blocks,
+                     len(spec.aggs) * BLOCK_ROWS * 16)
+    cells = small_cells_bytes(spec)
+    if cells <= SMALL_SMEM_BYTES:
+        return Split(REGIME_SMALL, blocks, rpb, blocks, cells)
+    return Split(REGIME_SORT if spec.has_float_sum() else REGIME_LARGE,
+                 blocks, rpb, 1, 0)
+
+
+def sort_layout(n_rows: int, G: int, n_aggs: int
+                ) -> tuple[int, int, int, int]:
+    """(bits, buckets, warp ranges, scratch words) of the SORT regime's
+    counting sort (csrc/agg.cu `agg_scan`): the rows' codes, aggregate
+    bits and n_aggs value columns, the same sorted, the histograms, the
+    bucket totals and bases, 4 bytes each."""
+    bits = SORT_MIN_BITS
+    while (G - 1) >> bits >= SORT_MAX_BUCKETS:
+        bits += 1
+    nb = ((G - 1) >> bits) + 1
+    pw = -(-n_rows // SORT_RANGE)
+    return bits, nb, pw, 2 * n_rows * (2 + n_aggs) + pw * nb + 2 * nb
 
 
 # -- helpers -----------------------------------------------------------------
@@ -301,37 +363,54 @@ def decode_plain(kind: int, offset: int, tiles: torch.Tensor
 
 # -- agg_scan ----------------------------------------------------------------
 
-def _outputs(spec: ScanSpec, n_rows: int, device):
-    """Zero/identity-initialised raw outputs: the row counts (G,) int64 and
-    per aggregate a tuple (see `agg_scan`)."""
-    G = spec.G
-    z64 = lambda: torch.zeros(G, dtype=torch.int64, device=device)  # noqa
-    outs = []
-    P, _ = partition(n_rows, G, spec.has_float_sum())
+def _outputs(spec: ScanSpec, sp: Split, device, init: bool = True):
+    """The raw outputs: the row counts (G,) int64 and per aggregate a
+    tuple (see `agg_scan`), views of two buffers; zero/identity-
+    initialised (a fill per min/max), or, with init=False, left unset for
+    the kernel's call, which sets them first (csrc/agg.cu `init_kernel`)."""
+    G, P = spec.G, sp.plane_rows
+    # (dtype, elements, identity) of each output, in order
+    shapes = [[(torch.int64, G, 0)]]
     for a in spec.aggs:
         if a.kind == AGG_COUNT:
-            outs.append((z64(),))
+            shapes.append([(torch.int64, G, 0)])
         elif a.kind == AGG_SUM_I:
-            outs.append((z64(), z64()))
+            shapes.append([(torch.int64, G, 0), (torch.int64, G, 0)])
         elif a.kind == AGG_SUM_F:
-            outs.append((torch.zeros(P * G, dtype=torch.float32,
-                                     device=device), z64()))
+            shapes.append([(torch.float32, P * G, 0), (torch.int64, G, 0)])
         elif a.kind in (AGG_MIN_I, AGG_MAX_I):
             ident = INT32_MAX if a.kind == AGG_MIN_I else INT32_MIN
-            outs.append((torch.full((G,), ident, dtype=torch.int32,
-                                    device=device), z64()))
+            shapes.append([(torch.int32, G, ident), (torch.int64, G, 0)])
         elif a.kind == AGG_MIN_F:
-            outs.append((torch.full((G,), IMG_POS_INF, dtype=torch.int32,
-                                    device=device), z64(), z64()))
+            shapes.append([(torch.int32, G, IMG_POS_INF),
+                           (torch.int64, G, 0), (torch.int64, G, 0)])
         elif a.kind == AGG_MAX_F:
-            outs.append((torch.full((G,), IMG_NEG_INF, dtype=torch.int32,
-                                    device=device), z64()))
+            shapes.append([(torch.int32, G, IMG_NEG_INF),
+                           (torch.int64, G, 0)])
         elif a.kind == AGG_PRESENCE:
-            outs.append((torch.zeros(G * a.pvsize, dtype=torch.int32,
-                                     device=device),))
+            shapes.append([(torch.int32, G * a.pvsize, 0)])
         else:
             raise ValueError(f"unknown aggregate kind {a.kind}")
-    return z64(), outs
+    # two zeroed buffers, int64 and int32, split into the outputs (the
+    # f32 planes are int32 views); a fill per min/max identity
+    flat = [x for group in shapes for x in group]
+    wide = [x[1] for x in flat if x[0] == torch.int64]
+    narrow = [x[1] for x in flat if x[0] != torch.int64]
+    alloc = torch.zeros if init else torch.empty
+    b64 = alloc(sum(wide), dtype=torch.int64, device=device)
+    b32 = alloc(sum(narrow), dtype=torch.int32, device=device)
+    v64, v32 = iter(b64.split(wide)), iter(b32.split(narrow))
+    views = []
+    for dtype, _count, ident in flat:
+        v = next(v64) if dtype == torch.int64 else next(v32)
+        if dtype == torch.float32:
+            v = v.view(torch.float32)
+        elif ident and init:
+            v.fill_(ident)
+        views.append(v)
+    it = iter(views)
+    groups = [tuple(next(it) for _ in group) for group in shapes]
+    return groups[0][0], groups[1:]
 
 
 def _check(spec: ScanSpec, cols, rowmask, codes, tile_start, tile_end):
@@ -364,6 +443,56 @@ def _check(spec: ScanSpec, cols, rowmask, codes, tile_start, tile_end):
                          f"{n_tiles} tiles")
 
 
+def _float_plane(sp: Split, G: int, code: torch.Tensor, am: torch.Tensor,
+                 v: torch.Tensor) -> np.ndarray:
+    """An f32 sum's raw output in the kernel's add order (numpy f32
+    arithmetic, one rounding per add; rows the aggregate skips add +0.0,
+    which leaves a sum that starts at +0.0 unchanged):
+
+    - SCALAR: per block and thread its rows (base + thread, base += 256)
+      in order, the warp's 32 sums in the shuffle tree, the 8 warp sums in
+      warp order: one cell per block;
+    - SMALL: per (block, warp, group) the warp's rows of the group in row
+      order; a block's row folds its 8 warps' rows in warp order;
+    - SORT: per group 0 + its rows in row order (np.add.at's order)."""
+    n = am.shape[0]
+    vals = torch.where(am, v.to(torch.float32),
+                       torch.zeros_like(v, dtype=torch.float32))
+    vals = vals.cpu().numpy()
+    rpb, P = sp.rows_per_block, sp.blocks
+    with np.errstate(invalid="ignore", over="ignore"):
+        if sp.regime == REGIME_SCALAR:
+            x = np.zeros(P * rpb, dtype=np.float32)
+            x[:n] = vals
+            x = x.reshape(P, rpb // BLOCK_ROWS, BLOCK_ROWS)
+            acc = np.zeros((P, BLOCK_ROWS), dtype=np.float32)
+            for step in range(x.shape[1]):
+                acc = acc + x[:, step]
+            t = acc.reshape(P, BLOCK_WARPS, 32)
+            for h in (16, 8, 4, 2, 1):
+                t = t[..., :h] + t[..., h:2 * h]
+            t = t[..., 0]
+            out = t[:, 0]
+            for w in range(1, BLOCK_WARPS):
+                out = out + t[:, w]
+            return out
+        sel = am.cpu().numpy()
+        idx = code.cpu().numpy()[sel]
+        if sp.regime == REGIME_SMALL:
+            rows = np.flatnonzero(sel)
+            warp = (rows // rpb) * BLOCK_WARPS + (rows % BLOCK_ROWS) // 32
+            cells = np.zeros(P * BLOCK_WARPS * G, dtype=np.float32)
+            np.add.at(cells, warp * G + idx, vals[sel])
+            cells = cells.reshape(P, BLOCK_WARPS, G)
+            out = cells[:, 0]
+            for w in range(1, BLOCK_WARPS):
+                out = out + cells[:, w]
+            return out.reshape(-1)
+        out = np.zeros(G, dtype=np.float32)
+        np.add.at(out, idx, vals[sel])
+        return out
+
+
 def agg_scan_plain(spec: ScanSpec, cols, rowmask, codes, tile_start: int,
                    tile_end: int):
     """Plain version of `agg_scan`: the same raw outputs, whole-column."""
@@ -372,7 +501,8 @@ def agg_scan_plain(spec: ScanSpec, cols, rowmask, codes, tile_start: int,
     dev = rowmask.device
     n = (tile_end - tile_start) * 128
     G = spec.G
-    rowcount, outs = _outputs(spec, n, dev)
+    sp = split(spec, n)
+    rowcount, outs = _outputs(spec, sp, dev)
     sl = slice(tile_start, tile_end)
     env = [(decode_plain(k, off, data[sl].reshape(-1)),
             mask[sl].reshape(-1))
@@ -395,7 +525,6 @@ def agg_scan_plain(spec: ScanSpec, cols, rowmask, codes, tile_start: int,
     m &= (code >= 0) & (code < G)
     safe = torch.where(m, code, torch.zeros_like(code))
     rowcount += torch.bincount(safe[m], minlength=G)
-    P, rpw = partition(n, G, spec.has_float_sum())
     for a, out in zip(spec.aggs, outs):
         if a.kind == AGG_PRESENCE:
             data, ok = env[a.pslot]
@@ -415,12 +544,8 @@ def agg_scan_plain(spec: ScanSpec, cols, rowmask, codes, tile_start: int,
         if a.kind == AGG_SUM_I:
             out[0].index_add_(0, idx, _i32(v)[am].to(torch.int64))
         elif a.kind == AGG_SUM_F:
-            # row order within each (warp range, group) cell: index_add_
-            # on the CPU walks its index in order
-            key = (torch.arange(n, device=dev) // rpw) * G + safe
-            plane = torch.zeros(P * G, dtype=torch.float32)
-            plane.index_add_(0, key[am].cpu(), v[am].cpu())
-            out[0].copy_(plane.to(dev))
+            out[0].copy_(torch.from_numpy(
+                _float_plane(sp, G, safe, am, v)).to(dev))
         elif a.kind in (AGG_MIN_I, AGG_MAX_I):
             red = "amin" if a.kind == AGG_MIN_I else "amax"
             out[0].scatter_reduce_(0, idx, _i32(v)[am], red)
@@ -473,8 +598,8 @@ def finish_descriptor(d: np.ndarray, ops: list) -> np.ndarray:
 
 
 def _descriptor(spec: ScanSpec, cols, rowmask, codes, rowcount, outs,
-                tile_start: int, tile_end: int, P: int, rpw: int
-                ) -> np.ndarray:
+                tile_start: int, tile_end: int, sp: Split,
+                scratch: Optional[torch.Tensor]) -> np.ndarray:
     d, place, ops = new_descriptor(cols, spec.col_kinds, spec.col_offsets,
                                    spec.keys, spec.preds)
     d[_H_FACT] = int(spec.factorized)
@@ -483,7 +608,8 @@ def _descriptor(spec: ScanSpec, cols, rowmask, codes, rowcount, outs,
     d[_H_CODES] = codes.data_ptr() if spec.factorized else 0
     d[_H_ROWCOUNT] = rowcount.data_ptr()
     d[_H_ROW_START], d[_H_ROW_END] = tile_start * 128, tile_end * 128
-    d[_H_RPW], d[_H_P] = rpw, P
+    d[_H_RPB] = sp.rows_per_block
+    d[_H_SCRATCH] = scratch.data_ptr() if scratch is not None else 0
     for i, (a, out) in enumerate(zip(spec.aggs, outs)):
         start, count = place(a.ops or ())
         ptrs = [t.data_ptr() for t in out] + [0] * (3 - len(out))
@@ -500,7 +626,9 @@ def agg_scan(spec: ScanSpec, cols, rowmask: torch.Tensor,
     None). Returns the raw outputs (rowcount, [per aggregate]):
 
     - AGG_COUNT (count,); AGG_SUM_I (int64 sum, count);
-    - AGG_SUM_F (f32 partial plane (P*G,), count) — `agg_fold` it;
+    - AGG_SUM_F (f32 partial plane (P*G,), count) — `agg_fold` it (P is
+      `split(spec, rows).plane_rows`; 1 at large G, where the plane is
+      already the sums);
     - AGG_MIN_I/AGG_MAX_I (int32 value, count);
     - AGG_MIN_F (u32 image of the min over non-NaN rows, count, non-NaN
       count); AGG_MAX_F (u32 image of the max, NaN above +inf, count);
@@ -517,38 +645,58 @@ def agg_scan(spec: ScanSpec, cols, rowmask: torch.Tensor,
             raise ValueError("agg_scan: tensors must be contiguous")
     dev = rowmask.device
     n = (tile_end - tile_start) * 128
-    P, rpw = partition(n, spec.G, spec.has_float_sum())
-    rowcount, outs = _outputs(spec, n, dev)
+    sp = split(spec, n)
+    rowcount, outs = _outputs(spec, sp, dev, init=False)
+    scratch = None
+    if sp.regime == REGIME_SORT:
+        if n >= 2**31:
+            raise ValueError("agg_scan: a large-G f32 sum over 2^31 rows")
+        scratch = torch.empty(sort_layout(n, spec.G, len(spec.aggs))[3],
+                              dtype=torch.int32, device=dev)
     desc = _descriptor(spec, cols, rowmask, codes, rowcount, outs,
-                       tile_start, tile_end, P, rpw)
-    desc_dev = torch.from_numpy(desc).to(dev)
+                       tile_start, tile_end, sp, scratch)
     lib = _build.load("agg")
-    n_blocks = -(-P // BLOCK_WARPS)
     LAUNCHES.bump("agg_scan")
-    _build.check(lib.agg_scan(desc_dev.data_ptr(), n_blocks,
-                              _stream(rowmask)), "agg_scan")
+    # the descriptor goes by value: the host array only has to live
+    # through the call
+    _build.check(lib.agg_scan(
+        desc.ctypes.data, sp.regime, sp.blocks, sp.smem, n, spec.G,
+        len(spec.aggs), scratch.data_ptr() if scratch is not None else None,
+        _stream(rowmask)), "agg_scan")
     return rowcount, outs
 
 
 # -- agg_fold ----------------------------------------------------------------
 
+def fold_runs(P: int) -> tuple[int, int]:
+    """(run length L, runs R) of agg_fold over P plane rows."""
+    L = max(FOLD_MIN_RUN, -(-P // FOLD_RUNS))
+    return L, -(-P // L)
+
+
 def agg_fold_plain(plane: torch.Tensor, G: int) -> torch.Tensor:
-    """Plain version of `agg_fold`: out[g] = ((0 + plane[0,g]) + plane[1,g])
-    + ... in f32."""
+    """Plain version of `agg_fold`: per group, each run of L rows of p
+    added in order from its first (`fold_runs`), then the run sums added
+    in order, in f32."""
     LAUNCHES.bump("agg_fold.plain")
     rows = plane.view(-1, G)
-    out = torch.zeros(G, dtype=torch.float32, device=plane.device)
-    for p in range(rows.shape[0]):
-        out = out + rows[p]
+    L, R = fold_runs(rows.shape[0])
+    runs = rows[0::L].clone()
+    for j in range(1, L):
+        part = rows[j::L]
+        runs[:part.shape[0]] = runs[:part.shape[0]] + part
+    out = runs[0].clone()
+    for r in range(1, R):
+        out = out + runs[r]
     return out
 
 
 def agg_fold(plane: torch.Tensor, G: int) -> torch.Tensor:
     """(G,) f32 sums of a (P*G,) partial plane, adding its P rows of each
-    group in order of p."""
+    group in agg_fold's fixed order (`agg_fold_plain`)."""
     _require(plane, (torch.float32,), "plane")
-    if plane.numel() % G:
-        raise ValueError("plane: P*G elements")
+    if plane.numel() % G or plane.numel() == 0:
+        raise ValueError("plane: P*G elements, P >= 1")
     if not _is_cuda(plane):
         return agg_fold_plain(plane, G)
     out = torch.empty(G, dtype=torch.float32, device=plane.device)

@@ -813,22 +813,18 @@ def contrib_flat(tfs: torch.Tensor, dls: torch.Tensor, w: torch.Tensor,
 def ragged_contribs(tfs: np.ndarray, dls: np.ndarray, w: np.ndarray,
                     k1: float, b: float, avgdl: float, scorer: str,
                     device: DeviceLike = None) -> np.ndarray:
-    """contrib_flat over host arrays on `device`, padded to a power of two
-    (floor 1,024) as the reference pads them (pads score 0.0 and are
-    sliced back off); uploads through the choke point and reads back."""
+    """contrib_flat over host arrays on `device`, sized exactly (no pad:
+    the port compiles no program per length); uploads through the choke
+    point (12 bytes a posting) and reads back."""
     from ..columnar.device import commit_host_array
-    n = len(tfs)
-    n_pad = _pow2(n, 1024)
-
-    def pad(a, fill, dtype):
-        out = np.full(n_pad, fill, dtype=dtype)
-        out[:n] = a
-        return commit_host_array(out, device)
-
-    c = contrib_flat(pad(tfs, 0, np.int32), pad(dls, 0, np.int32),
-                     pad(w, 0.0, np.float32), scorer_param(scorer, k1), b,
-                     avgdl, scorer)
-    return c.cpu().numpy()[:n]
+    if len(tfs) == 0:
+        return np.empty(0, dtype=np.float32)
+    c = contrib_flat(
+        commit_host_array(np.asarray(tfs, dtype=np.int32), device),
+        commit_host_array(np.asarray(dls, dtype=np.int32), device),
+        commit_host_array(np.asarray(w, dtype=np.float32), device),
+        scorer_param(scorer, k1), b, avgdl, scorer)
+    return c.cpu().numpy()
 
 
 def topk_tie_exact(scores: np.ndarray, docs: np.ndarray, k: int,

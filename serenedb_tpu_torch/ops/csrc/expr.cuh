@@ -7,8 +7,8 @@
 // columns (data, mask, decode kind, frame-of-reference offset), direct
 // key plans, predicate programs, per-kernel aggregate entries and the
 // flat postfix programs lowered by exec/device.py `compile_expr`. A
-// program is interpreted per row on a small stack of (32-bit value,
-// valid bit) entries with SQL three-valued logic.
+// program is interpreted per row on a small register stack of (32-bit
+// value, valid bit) entries with SQL three-valued logic.
 
 #pragma once
 
@@ -85,12 +85,31 @@ __device__ __forceinline__ uint32_t compare(T a, T b, int code) {
   }
 }
 
+// The interpreter's stack lives in registers: entries shift up on a push
+// and down on a pop, so every index is a constant once the loops unroll
+// (no local memory), and the valid bits sit in one word, the top in bit 0.
+__device__ __forceinline__ void push(uint32_t (&sv)[MAX_STACK], uint32_t& so,
+                                     uint32_t v, bool ok) {
+#pragma unroll
+  for (int i = MAX_STACK - 1; i > 0; --i) sv[i] = sv[i - 1];
+  sv[0] = v;
+  so = (so << 1) | static_cast<uint32_t>(ok);
+}
+
+__device__ __forceinline__ void pop(uint32_t (&sv)[MAX_STACK], uint32_t& so) {
+#pragma unroll
+  for (int i = 0; i < MAX_STACK - 1; ++i) sv[i] = sv[i + 1];
+  so >>= 1;
+}
+
 // Run the postfix program ops[start, start+count) for one row.
-__device__ void eval_expr(const long long* d, int start, int count,
-                          long long row, uint32_t& out_v, bool& out_ok) {
+__device__ __forceinline__ void eval_expr(const long long* d, int start,
+                                          int count, long long row,
+                                          uint32_t& out_v, bool& out_ok) {
   uint32_t sv[MAX_STACK];
-  bool so[MAX_STACK];
-  int sp = 0;
+#pragma unroll
+  for (int i = 0; i < MAX_STACK; ++i) sv[i] = 0u;
+  uint32_t so = 0u;
   for (int i = 0; i < count; ++i) {
     const long long w = d[D_OPS + start + i];
     const int op = static_cast<int>(w & 0xFF);
@@ -100,72 +119,65 @@ __device__ void eval_expr(const long long* d, int start, int count,
     switch (op) {
       case OP_COL: {
         bool ok;
-        sv[sp] = load_col(d, arg, row, ok);
-        so[sp] = ok;
-        ++sp;
+        const uint32_t v = load_col(d, arg, row, ok);
+        push(sv, so, v, ok);
         break;
       }
       case OP_I32:
       case OP_F32:
-        sv[sp] = imm;
-        so[sp] = true;
-        ++sp;
+        push(sv, so, imm, true);
         break;
       case OP_NULL:
-        sv[sp] = 0;
-        so[sp] = false;
-        ++sp;
+        push(sv, so, 0u, false);
         break;
       case OP_I2F:
-        sv[sp - 1] = __float_as_uint(
-            __int2float_rn(static_cast<int>(sv[sp - 1])));
+        sv[0] = __float_as_uint(__int2float_rn(static_cast<int>(sv[0])));
         break;
       case OP_F2I: {
         // PG rounding, half away from zero; the convert saturates and
         // takes NaN to 0 (as XLA's does)
-        const float f = __uint_as_float(sv[sp - 1]);
+        const float f = __uint_as_float(sv[0]);
         const float r = copysignf(floorf(__fadd_rn(fabsf(f), 0.5f)), f);
-        sv[sp - 1] = static_cast<uint32_t>(__float2int_rz(r));
+        sv[0] = static_cast<uint32_t>(__float2int_rz(r));
         break;
       }
       case OP_TOBOOL_I:
-        sv[sp - 1] = sv[sp - 1] != 0u;
+        sv[0] = sv[0] != 0u;
         break;
       case OP_TOBOOL_F:
-        sv[sp - 1] = __uint_as_float(sv[sp - 1]) != 0.0f;
+        sv[0] = __uint_as_float(sv[0]) != 0.0f;
         break;
       case OP_NOT:
-        sv[sp - 1] ^= 1u;
+        sv[0] ^= 1u;
         break;
       case OP_IS_NULL:
-        sv[sp - 1] = !so[sp - 1];
-        so[sp - 1] = true;
+        sv[0] = (so & 1u) ^ 1u;
+        so |= 1u;
         break;
       case OP_IS_NOT_NULL:
-        sv[sp - 1] = so[sp - 1];
-        so[sp - 1] = true;
+        sv[0] = so & 1u;
+        so |= 1u;
         break;
       case OP_WRAP8:
-        sv[sp - 1] = static_cast<uint32_t>(static_cast<int32_t>(
-            static_cast<int8_t>(static_cast<uint8_t>(sv[sp - 1] & 0xFFu))));
+        sv[0] = static_cast<uint32_t>(static_cast<int32_t>(
+            static_cast<int8_t>(static_cast<uint8_t>(sv[0] & 0xFFu))));
         break;
       case OP_SETV:
-        sv[sp - 1] = imm;
+        sv[0] = imm;
         break;
       case OP_SHRA:
-        sv[sp - 1] = static_cast<uint32_t>(
-            static_cast<int32_t>(sv[sp - 1]) >> imm);
+        sv[0] = static_cast<uint32_t>(static_cast<int32_t>(sv[0]) >> imm);
         break;
       case OP_SHRL:
-        sv[sp - 1] >>= imm;
+        sv[0] >>= imm;
         break;
       case OP_ANDI:
-        sv[sp - 1] &= imm;
+        sv[0] &= imm;
         break;
-      default: {  // binary ops
-        --sp;
-        const uint32_t a = sv[sp - 1], b = sv[sp];
-        const bool oa = so[sp - 1], ob = so[sp];
+      default: {  // binary ops: a below b
+        const uint32_t a = sv[1], b = sv[0];
+        const bool oa = (so >> 1) & 1u, ob = so & 1u;
+        pop(sv, so);
         bool ok = oa && ob;
         uint32_t v;
         switch (op) {
@@ -210,13 +222,13 @@ __device__ void eval_expr(const long long* d, int start, int count,
                                           __uint_as_float(b)));
             break;
         }
-        sv[sp - 1] = v;
-        so[sp - 1] = ok;
+        sv[0] = v;
+        so = (so & ~1u) | static_cast<uint32_t>(ok);
       }
     }
   }
   out_v = sv[0];
-  out_ok = so[0];
+  out_ok = so & 1u;
 }
 
 // The row's mask: its row-validity byte, then every predicate program

@@ -104,7 +104,9 @@ __device__ __forceinline__ void warp_minmax(long long* s_val, unsigned peers,
   __syncwarp();
 }
 
-__global__ void __launch_bounds__(THREADS)
+// (THREADS, 1): without a minimum block count ptxas caps the registers
+// low enough to spill the interpreter's register stack
+__global__ void __launch_bounds__(THREADS, 1)
     join_probe_kernel(const long long* __restrict__ gdesc) {
   __shared__ long long d[DESC_WORDS];
   __shared__ long long s_val[WARPS][32];
@@ -202,7 +204,7 @@ __device__ __forceinline__ long long warp_reduce(long long x, int red) {
   return x;
 }
 
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(THREADS, 1)
     join_unmatched_kernel(const long long* __restrict__ gdesc) {
   __shared__ long long d[DESC_WORDS];
   for (int i = threadIdx.x; i < DESC_WORDS; i += THREADS) d[i] = gdesc[i];

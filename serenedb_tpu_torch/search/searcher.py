@@ -395,10 +395,33 @@ class SegmentSearcher:
     # materializing (256, 8.8M) at MS-MARCO scale
     ACC_ENTRY_CAP = 128 * 1024 * 1024
 
-    #: per-query cap on ragged host-path posting entries: past this the
-    #: candidate sort/accumulate costs approach the dense plane's and the
-    #: query stays on the device dispatch
-    RAGGED_ENTRY_CAP = 1 << 18
+    #: `ragged_admits`' cost model, from each query timed alone and in
+    #: batches of 8 and 64 on both routes on an NVIDIA H100 80GB HBM3 at
+    #: 700 W (chip_smoke.py phases 4 and 15: bm25_8m, paged_search):
+    #: - the posting pool's route (one pool_score launch) beat the score
+    #:   planes at every size measured, to 2,240,896 kept postings (0.74
+    #:   against 1.24 ms alone; 3.2 against 5.1 ms for 64 queries): it
+    #:   takes a query up to RAGGED_ENTRY_CAP, that largest size timed;
+    #: - the host ragged route (contrib_flat, numpy accumulate) costs
+    #:   about HOST_BASE_MS + HOST_MS_PER_ENTRY a kept posting a call, the
+    #:   planes about PLANE_BASE_MS + PLANE_MS_PER_QUERY a query of the
+    #:   batch: a query takes the host route while its postings cost less
+    #:   than its share of the planes (alone: to ~11,600 postings; in 64:
+    #:   to ~1,800).
+    RAGGED_ENTRY_CAP = 2_240_896
+    HOST_BASE_MS, HOST_MS_PER_ENTRY = 0.45, 4e-5
+    PLANE_BASE_MS, PLANE_MS_PER_QUERY = 0.85, 0.066
+
+    def ragged_admits(self, entries: int, batch: int) -> bool:
+        """Whether a query of `entries` kept postings, in a batch of
+        `batch` queries, takes `_ragged_resolve` rather than the planes."""
+        if entries > self.RAGGED_ENTRY_CAP:
+            return False
+        if posting_pool.enabled():
+            return True
+        plane_ms = self.PLANE_BASE_MS + self.PLANE_MS_PER_QUERY * batch
+        return entries * self.HOST_MS_PER_ENTRY * batch <= \
+            plane_ms - self.HOST_BASE_MS
 
     def topk_batch(self, nodes: list[QNode], k: int, scorer: str = "bm25",
                    idf_of=None, avgdl_override=None, mesh_n: int = 0,
@@ -596,7 +619,7 @@ class SegmentSearcher:
         touches a doc at most once, so `acc[ix] += c` per slice replays
         the scatter's per-doc f32 addition order bit-for-bit), and
         `topk_tie_exact` makes the same (score desc, doc asc) selection
-        as lax.top_k. Queries past RAGGED_ENTRY_CAP stay on the device
+        as lax.top_k. Queries `ragged_admits` declines stay on the device
         dispatch.
 
         Device tier (serene_posting_pool, search/posting_pool.py):
@@ -641,8 +664,8 @@ class SegmentSearcher:
                             continue
                     slices.append(_RaggedSlice(d, t, w, tid, s, e, idx))
                     entries += len(d)
-            if entries > self.RAGGED_ENTRY_CAP:
-                continue   # device plane amortizes better past the cap
+            if not self.ragged_admits(entries, len(shapes)):
+                continue   # the planes cost less for this query
             per_q.append((qi, plan, slices))
         if not per_q:
             return {}

@@ -230,23 +230,247 @@ def test_group_count(g):
 
 
 def test_entries_launch_the_scan_kernel_plain_version():
+    """On CPU tensors the entry runs the plain versions; the f32 sums'
+    plane folds only where it has more than one row (more than one
+    block of rows): a one-row plane is already the sums."""
     rng = np.random.default_rng(0)
-    codes, mask, vals = _tiles(rng, 500, "f32", 3)
-    _, (pc, pm, pv) = _both(codes, mask, vals)
-    LAUNCHES.reset()
-    agg.group_sum_float(pc, pm, pv, 3)
-    assert LAUNCHES.get("agg_scan.plain") == 1
-    assert LAUNCHES.get("agg_fold.plain") == 1
-    assert LAUNCHES.get("agg_scan") == 0
+    for n, folds in ((500, 0), (K.SCAN_BLOCK_ROWS + 500, 1)):
+        codes, mask, vals = _tiles(rng, n, "f32", 3)
+        _, (pc, pm, pv) = _both(codes, mask, vals)
+        LAUNCHES.reset()
+        agg.group_sum_float(pc, pm, pv, 3)
+        assert LAUNCHES.get("agg_scan.plain") == 1
+        assert LAUNCHES.get("agg_fold.plain") == folds
+        assert LAUNCHES.get("agg_scan") == 0
+
+
+def _spec(G, kinds):
+    return K.ScanSpec([K.COL_F32], [0], factorized=True, G=G,
+                      aggs=[K.ScanAgg(k, ((K.OP_COL, 0, 0),))
+                            for k in kinds])
+
+
+def _small_limit(kinds):
+    """The largest G the SMALL regime takes for these aggregates."""
+    per_group = K.small_cells_bytes(_spec(1, kinds))
+    return K.SMALL_SMEM_BYTES // per_group
 
 
 def test_float_partition_keeps_the_plane_in_budget():
+    """The split: whole blocks of 256-row steps that cover the rows once,
+    at most MAX_BLOCKS of them; SMALL only where a block's cells fit its
+    shared-memory budget; the f32 plane one row per block there and in
+    SCALAR, and no plane (one row: the sums) at large G."""
+    f = [K.AGG_SUM_F, K.AGG_SUM_F, K.AGG_MIN_F, K.AGG_MAX_F]
+    lim = _small_limit(f)
     for n, g in [(0, 1), (1, 1), (2_000_000, 1), (2_000_000, 1 << 21),
-                 (10_000_000, 200)]:
-        p, rpw = K.partition(n, g, True)
-        assert rpw % 32 == 0 and p * rpw >= n and (p - 1) * rpw < max(n, 1)
-        assert p * g * 4 <= max(K.FLOAT_PLANE_BYTES, g * 4)
-        assert p <= K.MAX_WARPS
+                 (10_000_000, 200), (2_097_152, lim), (2_097_152, lim + 1),
+                 (100_000_000, 201), (2_097_152, 1_000_001)]:
+        sp = K.split(_spec(g, f), n)
+        assert sp.rows_per_block % K.BLOCK_ROWS == 0
+        assert sp.blocks * sp.rows_per_block >= n
+        assert (sp.blocks - 1) * sp.rows_per_block < max(n, 1)
+        assert 1 <= sp.blocks <= K.MAX_BLOCKS
+        if g == 1:
+            assert sp.regime == K.REGIME_SCALAR and sp.plane_rows == \
+                sp.blocks
+        elif g <= lim:
+            assert sp.regime == K.REGIME_SMALL and sp.plane_rows == \
+                sp.blocks
+            assert sp.smem == K.small_cells_bytes(_spec(g, f)) <= \
+                K.SMALL_SMEM_BYTES
+        else:
+            assert sp.regime == K.REGIME_SORT and sp.plane_rows == 1
+            ik = [K.AGG_MIN_I, K.AGG_SUM_I]
+            ints = K.split(_spec(g, ik), n)
+            assert ints.regime == (K.REGIME_SMALL if g <= _small_limit(ik)
+                                   else K.REGIME_LARGE)
+        assert sp.plane_rows * g * 4 <= max(K.MAX_BLOCKS * lim * 4, g * 4)
+        # the split reads the spec and the row count only
+        assert K.split(_spec(g, f), n) == sp
+
+
+@pytest.mark.parametrize("n", [1, 255, 4096, 4097, 40_000])
+@pytest.mark.parametrize("g", [1, 7, 100_003])
+def test_split_covers_every_row_once(n, g):
+    """The kernel's rows — block b, step s, thread t on row b·RPB +
+    256·s + t while inside the block's range — cover [0, n) once."""
+    sp = K.split(_spec(g, [K.AGG_SUM_F]), n)
+    seen = []
+    for b in range(sp.blocks):
+        r0 = b * sp.rows_per_block
+        r1 = min(r0 + sp.rows_per_block, n)
+        for base in range(r0, r1, K.BLOCK_ROWS):
+            seen.extend(r for r in range(base, base + K.BLOCK_ROWS)
+                        if r < r1)
+    assert sorted(seen) == list(range(n)) and len(seen) == n
+
+
+def _float_data(rng, n, g):
+    """(codes, mask, vals) tiles with NaN, -0.0 and inf among the values
+    and codes spread over all g groups."""
+    codes, mask, vals = _tiles(rng, n, "f32", g, nan=True)
+    vals[0, :6] = [-0.0, -0.0, np.inf, -np.inf, 1e30, -1e-30]
+    codes[0, :2] = 0         # a group whose first rows are -0.0
+    return codes, mask, vals
+
+
+@pytest.mark.parametrize("where", ["scalar", "small", "edge", "edge+1",
+                                   "100003", "1000001"])
+def test_regimes_hold_the_reference(where):
+    """agg_scan_plain then agg_fold_plain (through ops/agg.py) against the
+    reference's group_sum_float, group_min_max and group_count_scatter in
+    every regime of the split."""
+    lim = _small_limit([K.AGG_SUM_F])
+    g = {"scalar": 1, "small": 201, "edge": lim, "edge+1": lim + 1,
+         "100003": 100_003, "1000001": 1_000_001}[where]
+    regime = K.split(_spec(g, [K.AGG_SUM_F]), 9000).regime
+    assert regime == (K.REGIME_SCALAR if g == 1 else K.REGIME_SMALL
+                      if g <= lim else K.REGIME_SORT)
+    rng = np.random.default_rng(g)
+    codes, mask, vals = _float_data(rng, 9000, g)
+    (rc, rm, rv), (pc, pm, pv) = _both(codes, mask, vals)
+    ref = np.asarray(ragg.group_sum_float(rc, rm, rv, g))
+    got = agg.group_sum_float(pc, pm, pv, g).numpy()
+    np.testing.assert_allclose(got, ref, rtol=FLOAT_RTOL, atol=1e-3,
+                               equal_nan=True)
+    for op in ("min", "max"):
+        np.testing.assert_array_equal(
+            agg.group_min_max(pc, pm, pv, g, op).numpy(),
+            np.asarray(ragg.group_min_max(rc, rm, rv, g, op)))
+    np.testing.assert_array_equal(
+        agg.group_count_scatter(pc, pm, g).numpy(),
+        np.asarray(ragg.group_count_scatter(rc, rm, g)))
+    # two calls agree bit for bit
+    again = agg.group_sum_float(pc, pm, pv, g).numpy()
+    np.testing.assert_array_equal(got.view(np.int32), again.view(np.int32))
+
+
+def _scan_sum(codes, mask, vals, g, t0=0, t1=None):
+    """The raw (plane, count) of one f32 sum through agg_scan_plain."""
+    spec = K.ScanSpec([K.COL_F32], [0], factorized=g > 1, G=g,
+                      aggs=[K.ScanAgg(K.AGG_SUM_F, ((K.OP_COL, 0, 0),))])
+    t1 = codes.shape[0] if t1 is None else t1
+    c = torch.from_numpy(codes.copy())
+    m = torch.from_numpy(mask.copy())
+    _, outs = K.agg_scan_plain(spec, [(torch.from_numpy(vals.copy()),
+                                       torch.ones_like(m))], m,
+                               c if g > 1 else None, t0, t1)
+    return spec, outs[0]
+
+
+def _order_sum(codes, mask, vals, g, spec, n):
+    """The kernel's add order written out as loops over its blocks,
+    steps, warps and lanes, one np.float32 add at a time."""
+    sp = K.split(spec, n)
+    f32 = np.float32
+    c, m, v = codes.reshape(-1), mask.reshape(-1), vals.reshape(-1)
+    with np.errstate(invalid="ignore", over="ignore"):
+        if sp.regime == K.REGIME_SORT:
+            out = np.zeros(g, np.float32)
+            for r in range(n):
+                if m[r]:
+                    out[c[r]] = f32(out[c[r]] + v[r])
+            return out
+        plane = np.zeros(sp.blocks * g, np.float32)
+        for b in range(sp.blocks):
+            r0, r1 = b * sp.rows_per_block, min((b + 1) *
+                                                sp.rows_per_block, n)
+            if sp.regime == K.REGIME_SCALAR:
+                acc = [f32(0)] * K.BLOCK_ROWS
+                for base in range(r0, r1, K.BLOCK_ROWS):
+                    for t in range(K.BLOCK_ROWS):
+                        r = base + t
+                        if r < r1 and m[r]:
+                            acc[t] = f32(acc[t] + v[r])
+                sums = []
+                for w in range(K.BLOCK_WARPS):
+                    x = acc[32 * w:32 * w + 32]
+                    for o in (16, 8, 4, 2, 1):
+                        x = [f32(x[i] + x[i + o]) for i in range(o)]
+                    sums.append(x[0])
+                t = sums[0]
+                for w in range(1, K.BLOCK_WARPS):
+                    t = f32(t + sums[w])
+                plane[b] = t
+                continue
+            rows = np.zeros((K.BLOCK_WARPS, g), np.float32)
+            for base in range(r0, r1, K.BLOCK_ROWS):
+                for t in range(K.BLOCK_ROWS):
+                    r = base + t
+                    if r < r1 and m[r]:
+                        w = t // 32
+                        rows[w, c[r]] = f32(rows[w, c[r]] + v[r])
+            out = rows[0].copy()
+            for w in range(1, K.BLOCK_WARPS):
+                out = (out + rows[w]).astype(np.float32)
+            plane[b * g:(b + 1) * g] = out
+        return plane
+
+
+@pytest.mark.parametrize("g", [1, 13, 1200])
+def test_f32_sums_follow_the_stated_order(g):
+    """The plain version's f32 planes, bit for bit, against the kernel's
+    add order written out one add at a time (SCALAR, SMALL, SORT)."""
+    rng = np.random.default_rng(g + 1)
+    n = 9000
+    codes, mask, vals = _float_data(rng, n, g)
+    spec, (plane, count) = _scan_sum(codes, mask, vals, g)
+    want = _order_sum(codes, mask, vals, g, spec, codes.size)
+    np.testing.assert_array_equal(plane.numpy().view(np.int32),
+                                  want.view(np.int32))
+    assert int(count.sum()) == int(mask.sum())
+
+
+def test_large_g_f32_sum_is_np_add_at_in_row_order():
+    """At large G the sums need no fold: each group's is 0 + its rows in
+    row order, np.add.at's f32 order, bit for bit; -0.0 rows give +0.0."""
+    g = 100_003
+    rng = np.random.default_rng(4)
+    codes, mask, vals = _float_data(rng, 50_000, g)
+    spec, (plane, _count) = _scan_sum(codes, mask, vals, g, 2, 300)
+    assert K.split(spec, 298 * 128).plane_rows == 1
+    sl = slice(2 * 128, 300 * 128)
+    c, m, v = (a.reshape(-1)[sl] for a in (codes, mask, vals))
+    want = np.zeros(g, np.float32)
+    with np.errstate(invalid="ignore"):
+        np.add.at(want, c[m], v[m])
+    np.testing.assert_array_equal(plane.numpy().view(np.int32),
+                                  want.view(np.int32))
+    folded = K.agg_fold_plain(plane, g)
+    np.testing.assert_array_equal(folded.numpy().view(np.int32),
+                                  want.view(np.int32))
+
+
+@pytest.mark.parametrize("p", [1, 2, 15, 17, 300, 4099, 8192])
+def test_fold_tree_is_the_stated_loop(p):
+    """agg_fold_plain equals a Python loop over the same runs bit for
+    bit: runs of L rows added from their first row, then the runs in
+    order."""
+    rng = np.random.default_rng(p)
+    g = 5
+    plane = (rng.standard_normal((p, g)) * 1e3).astype(np.float32)
+    plane[rng.random((p, g)) < 0.01] = np.nan
+    plane[0, 0] = -0.0
+    L, R = K.fold_runs(p)
+    assert R <= K.FOLD_RUNS and L >= K.FOLD_MIN_RUN and (R - 1) * L < p
+    want = np.empty(g, np.float32)
+    for j in range(g):
+        runs = []
+        for r in range(R):
+            s = plane[r * L, j]
+            for q in range(r * L + 1, min(r * L + L, p)):
+                s = np.float32(s + plane[q, j])
+            runs.append(s)
+        t = runs[0]
+        for s in runs[1:]:
+            t = np.float32(t + s)
+        want[j] = t
+    got = K.agg_fold_plain(torch.from_numpy(plane.reshape(-1)), g).numpy()
+    assert np.array_equal(got, want, equal_nan=True)
+    fin = ~np.isnan(want)
+    np.testing.assert_array_equal(got[fin].view(np.int32),
+                                  want[fin].view(np.int32))
 
 
 # -- (b) compile_expr ------------------------------------------------------

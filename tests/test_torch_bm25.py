@@ -312,3 +312,36 @@ def test_match_bitmap_matches_reference(packed_stores, seed):
     assert got.dtype == torch.bool and got.shape == want.shape
     np.testing.assert_array_equal(got.numpy(), want)
     assert want.sum() > 50
+
+
+@pytest.mark.parametrize("scorer", ["bm25", "tfidf"])
+@pytest.mark.parametrize("n", [1, 1500, 4096])
+def test_ragged_contribs_uploads_exactly_its_postings(n, scorer):
+    """`ragged_contribs` sizes its arrays exactly: 12 bytes a posting
+    uploaded (int32 tf, int32 dl, f32 w), and the values of the padded
+    launch it made before (a power of two, floor 1,024), bit for bit;
+    the reference's within rtol 1e-6 (XLA's CPU code rounds its chain
+    differently in the last bit)."""
+    from serenedb_tpu_torch.device import UPLOADS
+    rng = np.random.default_rng(n)
+    tfs = rng.integers(1, 300, n).astype(np.int32)
+    dls = rng.integers(1, 900, n).astype(np.int32)
+    w = (rng.random(n) * 8).astype(np.float32)
+    b0 = UPLOADS.get("bytes")
+    got = port_bm25.ragged_contribs(tfs, dls, w, 1.2, 0.75, 37.5, scorer,
+                                    device="cpu")
+    assert UPLOADS.get("bytes") - b0 == 12 * n
+    assert got.dtype == np.float32 and got.shape == (n,)
+    n_pad = max(1024, 1 << (n - 1).bit_length())
+
+    def pad(a):
+        out = np.zeros(n_pad, dtype=a.dtype)
+        out[:n] = a
+        return torch.from_numpy(out)
+    padded = port_bm25.contrib_flat(
+        pad(tfs), pad(dls), pad(w), port_bm25.scorer_param(scorer, 1.2),
+        0.75, 37.5, scorer).numpy()[:n]
+    np.testing.assert_array_equal(got.view(np.int32),
+                                  padded.view(np.int32))
+    ref = ref_bm25.ragged_contribs(tfs, dls, w, 1.2, 0.75, 37.5, scorer)
+    np.testing.assert_allclose(got, ref, rtol=1e-6, atol=0)

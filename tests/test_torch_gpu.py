@@ -226,44 +226,110 @@ def _all_aggs():
     return aggs
 
 
+def _same_f32(a, b):
+    """Bit for bit, NaN meeting NaN (the card's NaN is canonical)."""
+    a, b = a.cpu(), b.cpu()
+    nan = torch.isnan(a)
+    return torch.equal(nan, torch.isnan(b)) and torch.equal(
+        a[~nan].view(torch.int32), b[~nan].view(torch.int32))
+
+
 def _assert_raw_equal(got, ref):
     (rc, outs), (rc_ref, outs_ref) = got, ref
     assert torch.equal(rc, rc_ref)
     for o, r in zip(outs, outs_ref):
         for a, b in zip(o, r):
             if a.dtype == torch.float32:
-                torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5,
-                                           equal_nan=True)
+                assert _same_f32(a, b)
             else:
                 assert torch.equal(a, b)
 
 
-@pytest.mark.parametrize("mode", ["scalar", "direct", "factorized"])
+def _small_limit(aggs):
+    """The largest G the SMALL regime takes for these aggregates."""
+    per_group = ak.small_cells_bytes(ak.ScanSpec([], [], G=1, aggs=aggs))
+    return ak.SMALL_SMEM_BYTES // per_group
+
+
+@pytest.mark.parametrize("mode", ["scalar", "small", "edge", "edge+1",
+                                  "direct", "factorized", "1000001"])
 def test_agg_scan_matches_plain(cuda, mode):
+    """Every regime of the split, at its boundary G values, bit for bit
+    (f32 partial planes and large-G sums included), on the whole table
+    and on a tile sub-range; two launches bit-identical."""
     dcs, kinds, offs, rowmask = _scan_cols(cuda)
     cols = [(dc.data, dc.mask) for dc in dcs]
     codes, keys, G = None, [], 1
+    lim = _small_limit(_all_aggs())
     if mode == "direct":
         keys = [(ak.KEY_INT, 5, 0, 8), (ak.KEY_INT, 0, -100, 201)]
         G = 8 * 201
-    elif mode == "factorized":
-        G = 100_003
+    elif mode == "small":
+        keys = [(ak.KEY_INT, 5, 0, 8), (ak.KEY_INT, 3, -128, 16)]
+        G = 8 * 16
+    elif mode != "scalar":
+        G = {"edge": lim, "edge+1": lim + 1, "factorized": 100_003,
+             "1000001": 1_000_001}[mode]
         rng = np.random.default_rng(9)
         codes = torch.from_numpy(rng.integers(
             0, G, rowmask.numel()).astype(np.int32)).view_as(
             rowmask).to(cuda)
     spec = ak.ScanSpec(kinds, offs, [_PRED], keys, codes is not None, G,
                        _all_aggs())
+    want = ak.REGIME_SCALAR if G == 1 else ak.REGIME_SMALL if G <= lim \
+        else ak.REGIME_SORT
+    assert ak.split(spec, rowmask.numel()).regime == want
     LAUNCHES.reset()
     got = ak.agg_scan(spec, cols, rowmask, codes, 0, rowmask.shape[0])
     assert LAUNCHES.get("agg_scan") == 1
+    again = ak.agg_scan(spec, cols, rowmask, codes, 0, rowmask.shape[0])
     ref = ak.agg_scan_plain(spec, cols, rowmask, codes, 0, rowmask.shape[0])
     torch.cuda.synchronize()
     _assert_raw_equal(got, ref)
+    _assert_raw_equal(got, again)
     # a sub-range of tiles
     got = ak.agg_scan(spec, cols, rowmask, codes, 7, 300)
     ref = ak.agg_scan_plain(spec, cols, rowmask, codes, 7, 300)
     _assert_raw_equal(got, ref)
+
+
+@pytest.mark.parametrize("skew", [False, True])
+def test_large_regime_matches_plain(cuda, skew):
+    """The LARGE regime (large G, no f32 sum), on codes nearly all
+    distinct and on codes where most rows share a few: the same outputs
+    as the plain version."""
+    dcs, kinds, offs, rowmask = _scan_cols(cuda)
+    cols = [(dc.data, dc.mask) for dc in dcs]
+    rng = np.random.default_rng(10)
+    G = 50_000
+    c = rng.integers(0, G, rowmask.numel())
+    if skew:
+        c[rng.random(c.size) < 0.8] = 7
+    codes = torch.from_numpy(c.astype(np.int32)).view_as(rowmask).to(cuda)
+    aggs = [a for a in _all_aggs() if a.kind != ak.AGG_SUM_F]
+    spec = ak.ScanSpec(kinds, offs, [_PRED], [], True, G, aggs)
+    assert ak.split(spec, rowmask.numel()).regime == ak.REGIME_LARGE
+    got = ak.agg_scan(spec, cols, rowmask, codes, 0, rowmask.shape[0])
+    ref = ak.agg_scan_plain(spec, cols, rowmask, codes, 0, rowmask.shape[0])
+    _assert_raw_equal(got, ref)
+
+
+@pytest.mark.parametrize("P, G", [(8192, 201), (1, 1000), (4, 1_000_001),
+                                  (37, 1_000_001), (300, 1)])
+def test_agg_fold_matches_plain(cuda, P, G):
+    """agg_fold against its plain version bit for bit, and two launches
+    bit-identical, on planes with NaN and -0.0."""
+    rng = np.random.default_rng(P)
+    plane = (rng.standard_normal(P * G) * 100).astype(np.float32)
+    plane[rng.random(P * G) < 1e-3] = np.nan
+    plane[::97] = -0.0
+    dev = torch.from_numpy(plane).to(cuda)
+    LAUNCHES.reset()
+    got = ak.agg_fold(dev, G)
+    again = ak.agg_fold(dev, G)
+    assert LAUNCHES.get("agg_fold") == 2
+    assert _same_f32(got, ak.agg_fold_plain(torch.from_numpy(plane), G))
+    assert torch.equal(got.view(torch.int32), again.view(torch.int32))
 
 
 def test_agg_fold_and_float_sums_are_deterministic(cuda):
@@ -282,8 +348,7 @@ def test_agg_fold_and_float_sums_are_deterministic(cuda):
                            runs[1][0].view(torch.int32))
         assert torch.equal(total.view(torch.int32),
                            runs[1][1].view(torch.int32))
-        torch.testing.assert_close(total, ak.agg_fold_plain(plane, G),
-                                   rtol=0, atol=0, equal_nan=True)
+        assert _same_f32(total, ak.agg_fold_plain(plane, G))
 
 
 def test_f2i_and_float_images_on_the_card(cuda):
@@ -879,8 +944,8 @@ def test_match_bitmap_matches_plain_bit_for_bit(cuda, seed):
 def test_k13_agg_entries_match_plain(cuda):
     """masked_count / masked_sum_float / masked_minmax / the one-hot
     chunk counts and group_count on `agg_scan`, against the same entries
-    on CPU tensors (the plain version): integers equal, f32 sums within
-    rtol 1e-5 / atol 1e-6."""
+    on CPU tensors (the plain version): integers equal, f32 sums bit for
+    bit."""
     from serenedb_tpu_torch.ops import agg
     rng = np.random.default_rng(13)
     n, g = 100_000, 300
@@ -897,9 +962,11 @@ def test_k13_agg_entries_match_plain(cuda):
     (cc, cm, cf, ci), (hc, hm, hf, hi) = [t.to(cuda) for t in host], host
     before = LAUNCHES.get("agg_scan")
     assert int(agg.masked_count(cm)) == int(agg.masked_count(hm))
-    torch.testing.assert_close(agg.masked_sum_float(cf, cm).cpu(),
-                               agg.masked_sum_float(hf, hm),
-                               rtol=1e-5, atol=1e-6)
+    assert _same_f32(agg.masked_sum_float(cf, cm),
+                     agg.masked_sum_float(hf, hm))
+    for g2 in (g, 60_000):
+        assert _same_f32(agg.group_sum_float(cc, cm, cf, g2),
+                         agg.group_sum_float(hc, hm, hf, g2))
     for op in ("min", "max"):
         for cv, hv in ((cf, hf), (ci, hi)):
             assert torch.equal(agg.masked_minmax(cv, cm, op).cpu(),

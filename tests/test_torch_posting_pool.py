@@ -236,6 +236,36 @@ def test_port_routes_are_bit_identical():
             assert _bits_equal(route[i], plane[i]), i
 
 
+def test_ragged_admission_follows_the_card_cost_model():
+    """`ragged_admits`: with the pool on, every query up to
+    RAGGED_ENTRY_CAP; with it off, the host route only while a query's
+    postings cost less than its share of the planes, a share that shrinks
+    with the batch; a declined query keeps the plane route's bits."""
+    _, port, _, pa = _segs(n=1200)
+    S = SegmentSearcher
+    cap1 = (S.PLANE_BASE_MS + S.PLANE_MS_PER_QUERY - S.HOST_BASE_MS) / \
+        S.HOST_MS_PER_ENTRY
+    with _both(serene_posting_pool=True):
+        assert port.ragged_admits(S.RAGGED_ENTRY_CAP, 64)
+        assert not port.ragged_admits(S.RAGGED_ENTRY_CAP + 1, 1)
+    with _both(serene_posting_pool=False):
+        assert port.ragged_admits(int(cap1), 1)
+        assert not port.ragged_admits(int(cap1) + 1, 1)
+        caps = [max(e for e in range(0, 20_000, 50)
+                    if port.ragged_admits(e, b)) for b in (1, 8, 64)]
+        assert caps[0] > caps[1] > caps[2] > 0
+        nodes = [parse_query(q, pa) for q in QS]
+        plane = port.topk_batch(nodes, 10)
+        LAUNCHES.reset()
+        port.ragged_admits = lambda e, b: False
+        try:
+            declined = port.topk_batch(nodes, 10, ragged=True)
+        finally:
+            del port.ragged_admits
+        assert LAUNCHES.get("contrib_flat.plain") == 0
+        assert all(_bits_equal(a, b) for a, b in zip(declined, plane))
+
+
 def test_ragged_memo_charge_clears_past_cap(monkeypatch):
     """Crossing RAGGED_MEMO_BYTES_CAP clears every ragged memo — plan
     slices, candidate tables, plain-store slices and the pool's batch
