@@ -49,10 +49,13 @@ Phases (any failure exits non-zero and prints no result line):
      cold and warm, agg_scan + join_probe (+ chain_topn for J2,
      join_unmatched for J5) launched,
      no fused decline, and J2's warm repeat uploads 0 bytes;
- 10. agg_scan, agg_fold, topn_scan, chain_topn and join_probe against
-     their plain versions on inputs recorded from phases 6-9 (integer
-     outputs and selected indices equal, agg_scan's and agg_fold's f32
-     outputs bit for bit), with their times, bounds and torch yardsticks;
+ 10. agg_scan, agg_fold, topn_scan (T1-T4), chain_topn (J2) and
+     join_probe against their plain versions on inputs recorded from
+     phases 6-9 (integer outputs and selected indices equal, agg_scan's
+     and agg_fold's f32 outputs bit for bit), with their times, bounds
+     and torch yardsticks; each top-N call's kernels and host-to-device
+     copies from one profiled call (topn_scan at most 5 kernels and no
+     copy, chain_topn one kernel under its one-block cap);
      agg_fold also on a seeded (8,192 x 201) plane; and the two f32
      GEMMs of dense_topk timed against their FLOP bound;
  11. `sift`: IVF through SQL at sift-128-euclidean's shape (1,000,000 x
@@ -398,6 +401,33 @@ def nbytes(*ts) -> int:
 
 def bound_ms(n_bytes: int) -> float:
     return n_bytes / HBM_BYTES_PER_S * 1e3
+
+
+def call_activity(fn) -> tuple:
+    """(kernels, host-to-device copies) that one fn() issues on the card,
+    from torch.profiler after a warm-up call: the most over three profiled
+    calls (the profiler can drop an event, never add one)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    kernels = copies = 0
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        n_k = n_c = 0
+        for ev in prof.events():
+            if ev.device_type != DeviceType.CUDA:
+                continue
+            if ev.name.startswith("Memcpy"):
+                n_c += "HtoD" in ev.name
+            elif not ev.name.startswith("Memset"):
+                n_k += 1
+        kernels, copies = max(kernels, n_k), max(copies, n_c)
+    return kernels, copies
 
 
 class Recorder:
@@ -1053,6 +1083,10 @@ def check_topn(device, args, reps=10) -> dict:
         fail(f"topn_scan differs from its plain version (k={k})")
     ms = timed_ms(lambda: TK.topn_scan(*a, **kw), reps, device)
     plain_ms = timed_ms(lambda: TK.topn_scan_plain(*a, **kw), 2, device)
+    kernels, copies = call_activity(lambda: TK.topn_scan(*a, **kw))
+    if not 1 <= kernels <= 5 or copies:
+        fail(f"topn_scan (k={k}) issued {kernels} kernels and {copies} "
+             f"host-to-device copies (at most 5 and none)")
     keys = _topn_keys(spec, cols, rowmask)
     library_ms = timed_ms(lambda: torch.topk(keys, k), reps, device)
     moved = nbytes(*[t for pair in cols for t in pair], rowmask, idx, nsurv)
@@ -1060,13 +1094,15 @@ def check_topn(device, args, reps=10) -> dict:
             "bound_ms": bound_ms(moved), "bound_by": "bytes",
             "library_ms": library_ms,
             "shape": f"rows={rowmask.numel()} cols={len(cols)} k={k} "
-                     f"preds={len(spec.preds)} survivors={int(ref_n[0])}"}
+                     f"preds={len(spec.preds)} survivors={int(ref_n[0])}; "
+                     f"a call: {kernels} kernels, {copies} copies in"}
 
 
-def check_chain(device, args, reps=10) -> dict:
+def check_chain(device, args, reps=100) -> dict:
     """chain_topn against its plain version: slots, present count and
     every gathered output equal; torch.topk on the slots' transformed
-    values timed beside it."""
+    values timed beside it. Both calls are tens of microseconds of host
+    work: 100 calls each, so the host's jitter averages out."""
     import torch
 
     from serenedb_tpu_torch.ops import topn_kernels as TK
@@ -1081,6 +1117,10 @@ def check_chain(device, args, reps=10) -> dict:
     ms = timed_ms(lambda: TK.chain_topn(*a, **kw), reps, device)
     plain_ms = timed_ms(lambda: TK.chain_topn_plain(*a, **kw), 2, device)
     G = rowcount.numel()
+    kernels, copies = call_activity(lambda: TK.chain_topn(*a, **kw))
+    if copies or (G <= TK.CHAIN_ONE_MAX and kernels != 1):
+        fail(f"chain_topn (G={G}) issued {kernels} kernels and {copies} "
+             f"host-to-device copies (one kernel under the cap, no copy)")
     v = src.to(torch.int32) if src is not None else \
         ((torch.arange(G, device=device) // stride) % size).to(torch.int32)
     sv = torch.where(rowcount > 0, v if desc else ~v,
@@ -1097,7 +1137,8 @@ def check_chain(device, args, reps=10) -> dict:
             "bound_ms": bound_ms(moved), "bound_by": "bytes",
             "library_ms": library_ms,
             "shape": f"G={G} k_pad={k} outputs={len(outs)} "
-                     f"present={int(ref[1][0])}"}
+                     f"present={int(ref[1][0])}; a call: {kernels} kernels, "
+                     f"{copies} copies in"}
 
 
 def check_join_probe(device, args, reps=10) -> dict:
@@ -2931,6 +2972,10 @@ def main() -> int:
         device, recorded("topn_scan", ("q1", 3), "T1"))
     checks["T2 topn_scan"] = check_topn(
         device, recorded("topn_scan", ("q1", 4), "T2"))
+    checks["T3 topn_scan"] = check_topn(
+        device, recorded("topn_scan", ("q1", 5), "T3"))
+    checks["T4 topn_scan"] = check_topn(
+        device, recorded("topn_scan", ("hits", 6), "T4"))
     checks["J2 chain_topn"] = check_chain(
         device, recorded("chain_topn", ("tpch", 1), "J2"))
     checks["J1 join_probe"] = check_join_probe(

@@ -57,9 +57,11 @@ SIGNATURES = {
         "agg_fold": [_P, _L, _L, _P, _P],
     },
     "topn": {
-        "topn_scan": [_P, _L, _L, _P, _P, _P, _P, _P, _P],
-        "chain_topn": [_P, _P, _L, _L, _L, _I, _L, _P, _P, _P, _P, _P, _P,
-                       _I, _P, _P, _P, _P],
+        "topn_load": [],
+        "topn_bytes": [_L, _L],
+        "topn_scan": [_P, _L, _L, _P, _L, _P],
+        "chain_bytes": [_L, _L, _L],
+        "chain_topn": [_P, _P],
     },
     "join": {
         "join_probe": [_P, _L, _P],
@@ -80,6 +82,12 @@ SIGNATURES = {
         "merge_topk": [_P, _P, _L, _L, _L, _I, _P, _L, _P, _L, _P, _P, _P],
     },
 }
+
+#: entries that return a count of bytes, not a CUDA error
+SIZE_ENTRIES = {"topn_bytes", "chain_bytes"}
+#: the entry each library runs once, right after it loads (kernel
+#: attributes), by library
+LOAD_HOOKS = {"topn": "topn_load"}
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
@@ -142,7 +150,9 @@ def load(name: str) -> ctypes.CDLL:
             for fn, argtypes in SIGNATURES[name].items():
                 f = getattr(lib, fn)
                 f.argtypes = argtypes
-                f.restype = ctypes.c_int
+                f.restype = _L if fn in SIZE_ENTRIES else ctypes.c_int
+            if name in LOAD_HOOKS:
+                check(getattr(lib, LOAD_HOOKS[name])(), LOAD_HOOKS[name])
             _libs[name] = lib
         return lib
 

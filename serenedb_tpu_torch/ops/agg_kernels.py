@@ -219,7 +219,10 @@ def _require(t: torch.Tensor, dtypes, name: str) -> None:
 
 
 def _stream(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
+    """The current stream of t's card, as the raw handle the kernels take
+    (what torch.cuda.current_stream(t.device).cuda_stream gives, without
+    making a Stream object a call)."""
+    return torch._C._cuda_getCurrentRawStream(t.get_device())
 
 
 def f32_bits(x: float) -> int:

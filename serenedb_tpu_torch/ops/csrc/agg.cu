@@ -122,18 +122,6 @@ __device__ long long block_reduce(long long x, int red, long long* s_red) {
   return x;
 }
 
-// The descriptor travels by value as a kernel parameter (3,840 bytes of
-// the 4 KiB allowed): no upload, no copy to wait for.
-struct Desc {
-  long long w[DESC_WORDS];
-};
-
-__device__ __forceinline__ void load_desc(const long long* __restrict__ g,
-                                          long long* d) {
-  for (int i = threadIdx.x; i < DESC_WORDS; i += blockDim.x) d[i] = g[i];
-  __syncthreads();
-}
-
 // The row's mask and group code; a code outside [0, G) drops the row.
 __device__ __forceinline__ bool row_head(const long long* d, long long row,
                                          bool in, int G, int& code) {

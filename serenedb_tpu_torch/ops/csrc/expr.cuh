@@ -38,6 +38,21 @@ constexpr unsigned FULL = 0xffffffffu;
 constexpr uint32_t IMG_POS_INF = 0xFF800000u;  // image of +inf
 constexpr uint32_t IMG_NEG_INF = 0x007FFFFFu;  // image of -inf
 
+// The descriptor travels by value as a kernel parameter (3,840 bytes of
+// the 4 KiB allowed; agg.cu and topn.cu pass it so): no upload, no copy
+// to wait for.
+struct Desc {
+  long long w[DESC_WORDS];
+};
+
+// Copy the descriptor into the block's shared memory (every thread calls
+// it; it ends with a barrier).
+__device__ __forceinline__ void load_desc(const long long* __restrict__ g,
+                                          long long* d) {
+  for (int i = threadIdx.x; i < DESC_WORDS; i += blockDim.x) d[i] = g[i];
+  __syncthreads();
+}
+
 template <typename T>
 __device__ __forceinline__ T* ptr(long long w) {
   return reinterpret_cast<T*>(static_cast<uintptr_t>(w));

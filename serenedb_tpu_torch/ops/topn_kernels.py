@@ -2,7 +2,7 @@
 PyTorch versions.
 
 - `topn_scan` ← serenedb_tpu/exec/device_topn.py `_topn_indices` (`prog`
-  :202) and exec/device_pipeline.py `_run_fused_topn` (:2637): decode,
+  :202) and exec/device_pipeline.py `_run_fused_topn` (:2582): decode,
   predicates, the key transform (desc v; asc ~v for ints, -v for f32;
   masked rows take the sentinel) and `lax.top_k`, plus the survivor
   count.
@@ -20,7 +20,10 @@ indices. -0.0 is made +0.0 first: the host path's sort ties them (JAX's
 
 Each wrapper launches its kernel for tensors on a CUDA device and counts
 the launch in `device.LAUNCHES`; for tensors on the CPU it calls the plain
-version (counted under `<name>.plain`). There is no other path.
+version (counted under `<name>.plain`). There is no other path. A call's
+outputs and scratch are views of one buffer that the kernel fills (no
+fill beforehand), its descriptor or arguments go by value: no copy to the
+card.
 """
 
 from __future__ import annotations
@@ -36,9 +39,17 @@ from . import agg_kernels as K
 
 #: the largest k either kernel selects (device_topn.MAX_TOPN_K)
 TOPN_MAX_K = 8192
+#: chain_topn runs as one block in one launch up to this many group slots
+#: (at most 32,768, what the block's shared memory holds); above it, as
+#: topn_scan's passes plus one gather. Set from card timings
+#: (scripts/topn_shapes.py, PERF.md): the one block's device time is
+#: below the passes' up to 16,384 slots and about theirs at 32,768, where
+#: it still saves five launches a call.
+CHAIN_ONE_MAX = 32768
+#: stage-1 outputs one chain_topn call gathers
+CHAIN_MAX_OUT = 64
 F_DESC, F_FLOAT = 1, 2
-_H_ROWS, _H_KEYSLOT, _H_FLAGS, _H_KEYS_OUT, _H_HIST, _H_NSURV = range(10, 16)
-_BINS = 256
+_H_KEYSLOT, _H_FLAGS = 11, 12
 
 
 @dataclass
@@ -118,49 +129,39 @@ def topn_scan_plain(spec: TopnSpec, cols, rowmask: torch.Tensor, k: int):
     return _select_plain(hi, k), m.sum().reshape(1).to(torch.int64)
 
 
-def _select_buffers(n: int, k: int, device):
-    return (torch.empty(n, dtype=torch.int64, device=device),       # keys
-            torch.zeros(3, dtype=torch.int64, device=device),       # state
-            torch.zeros(_BINS, dtype=torch.int32, device=device),   # hist
-            torch.empty(k, dtype=torch.int64, device=device),       # sel
-            torch.empty(k, dtype=torch.int64, device=device))       # idx
-
-
 def topn_scan(spec: TopnSpec, cols, rowmask: torch.Tensor, k: int):
     """The k best rows of one table's (R, 128) tiles: cols is one (data,
     mask) pair per input slot, rowmask the row validity. A row survives
     where rowmask and every predicate program are TRUE; the others carry
     the sentinel. Returns (indices (k,) int64 best first, survivor count
-    (1,) int64)."""
+    (1,) int64): views of the one buffer the call writes, its scratch
+    after them."""
     tensors = [t for pair in cols for t in pair] + [rowmask]
     if not K._is_cuda(*tensors):
         return topn_scan_plain(spec, cols, rowmask, k)
     _check_scan(spec, cols, rowmask, k)
     for t in tensors:
-        if not t.is_contiguous():
-            raise ValueError("topn_scan: tensors must be contiguous")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError("topn_scan: tensors must be contiguous tiles "
+                             "at 16-byte boundaries")
     n = rowmask.numel()
     if n >= 2**32 - 1:
         raise ValueError("topn_scan: row index past 32 bits")
-    dev = rowmask.device
-    keys, state, hist, sel, idx = _select_buffers(n, k, dev)
-    nsurv = torch.zeros(1, dtype=torch.int64, device=dev)
-    d, place, ops = K.new_descriptor(cols, spec.col_kinds, spec.col_offsets,
-                                     preds=spec.preds)
+    d, _place, ops = K.new_descriptor(cols, spec.col_kinds, spec.col_offsets,
+                                      preds=spec.preds)
     d[K._H_ROWMASK] = rowmask.data_ptr()
-    d[_H_ROWS], d[_H_KEYSLOT] = n, spec.key_slot
+    d[_H_KEYSLOT] = spec.key_slot
     d[_H_FLAGS] = (F_DESC if spec.desc else 0) | \
         (F_FLOAT if spec.is_float else 0)
-    d[_H_KEYS_OUT], d[_H_HIST], d[_H_NSURV] = keys.data_ptr(), \
-        hist.data_ptr(), nsurv.data_ptr()
-    desc_dev = torch.from_numpy(K.finish_descriptor(d, ops)).to(dev)
+    desc = K.finish_descriptor(d, ops)
     lib = _build.load("topn")
+    size = lib.topn_bytes(n, k)
+    words = torch.empty(-(-size // 8), dtype=torch.int64,
+                        device=rowmask.device)
     LAUNCHES.bump("topn_scan")
-    _build.check(lib.topn_scan(desc_dev.data_ptr(), n, k, keys.data_ptr(),
-                               state.data_ptr(), hist.data_ptr(),
-                               sel.data_ptr(), idx.data_ptr(),
-                               K._stream(rowmask)), "topn_scan")
-    return idx, nsurv
+    _build.check(lib.topn_scan(desc.ctypes.data, n, k, words.data_ptr(),
+                               size, K._stream(rowmask)), "topn_scan")
+    return words[:k], words[k:k + 1]
 
 
 # -- chain_topn --------------------------------------------------------------
@@ -172,6 +173,8 @@ def _check_chain(rowcount, src, G, k, outs) -> None:
         raise ValueError("sort column: (G,) int64")
     if not 1 <= k <= min(TOPN_MAX_K, G):
         raise ValueError(f"k={k} outside [1, min({TOPN_MAX_K}, G)]")
+    if len(outs) > CHAIN_MAX_OUT:
+        raise ValueError(f"at most {CHAIN_MAX_OUT} stage-1 outputs")
     for o in outs:
         if o.numel() % G or o.element_size() not in (4, 8):
             raise ValueError("stage-1 outputs: G rows of 4- or 8-byte "
@@ -210,29 +213,63 @@ def chain_topn(rowcount: torch.Tensor, src, stride: int, size: int,
     is 0 take int32 min. Returns (slot indices (k,) int64 best first,
     present-slot count (1,) int64, each output of `outs` gathered to the
     picked rows — (k,) for a (G,) output, (k, w) for a (G*w,) one)."""
-    tensors = [rowcount, src, *outs]
-    if not K._is_cuda(*tensors):
+    cuda = rowcount.is_cuda
+    if (src is not None and src.is_cuda != cuda) or \
+            any(o.is_cuda != cuda for o in outs):
+        raise ValueError("chain_topn: tensors on mixed devices")
+    if not cuda:
         return chain_topn_plain(rowcount, src, stride, size, desc, k, outs)
+    if not (rowcount.is_contiguous() and
+            (src is None or src.is_contiguous()) and
+            all(o.is_contiguous() for o in outs)):
+        raise ValueError("chain_topn: tensors must be contiguous")
     G = rowcount.numel()
-    _check_chain(rowcount, src, G, k, outs)
-    for t in tensors:
-        if t is not None and not t.is_contiguous():
-            raise ValueError("chain_topn: tensors must be contiguous")
-    dev = rowcount.device
-    keys, state, hist, sel, idx = _select_buffers(G, k, dev)
-    npres = torch.zeros(1, dtype=torch.int64, device=dev)
-    picked = [torch.empty(_picked_shape(o, G, k), dtype=o.dtype, device=dev)
-              for o in outs]
-    src_ptrs = np.asarray([o.data_ptr() for o in outs] or [0], np.int64)
-    row_words = np.asarray([o.numel() * o.element_size() // (4 * G)
-                            for o in outs] or [0], np.int64)
-    dst_ptrs = np.asarray([p.data_ptr() for p in picked] or [0], np.int64)
     lib = _build.load("topn")
+    words_n, head, views, row_words = _chain_layout(lib, rowcount, src, G, k,
+                                                    outs)
+    buf = torch.empty(words_n, dtype=torch.int64, device=rowcount.device)
+    typed = {torch.int64: buf}
+    picked = []
+    for dtype, shape, at in views:
+        if dtype not in typed:
+            typed[dtype] = buf.view(dtype)
+        v = typed[dtype][at:at + k * (shape[1] if len(shape) > 1 else 1)]
+        picked.append(v if len(shape) == 1 else v.view(shape))
+    args = np.array([rowcount.data_ptr(),
+                     src.data_ptr() if src is not None else 0, G, stride,
+                     size, int(desc), k, buf.data_ptr(), head, len(outs),
+                     CHAIN_ONE_MAX, *[o.data_ptr() for o in outs],
+                     *row_words, *[p.data_ptr() for p in picked]], np.int64)
     LAUNCHES.bump("chain_topn")
-    _build.check(lib.chain_topn(
-        rowcount.data_ptr(), src.data_ptr() if src is not None else 0, G,
-        stride, size, int(desc), k, keys.data_ptr(), state.data_ptr(),
-        hist.data_ptr(), npres.data_ptr(), sel.data_ptr(), idx.data_ptr(),
-        len(outs), src_ptrs.ctypes.data, row_words.ctypes.data,
-        dst_ptrs.ctypes.data, K._stream(rowcount)), "chain_topn")
-    return idx, npres, picked
+    _build.check(lib.chain_topn(args.ctypes.data, K._stream(rowcount)),
+                 "chain_topn")
+    return buf[:k], buf[k:k + 1], picked
+
+
+_CHAIN_LAYOUTS: dict = {}
+
+
+def _chain_layout(lib, rowcount, src, G: int, k: int, outs) -> tuple:
+    """The call's buffer, by the shapes alone (kept per shape, checked
+    the first time): its size in int64 words; the kernel's part in bytes
+    (the slots, the count and, above the cap, the selection's scratch);
+    then each output's picked rows at a 16-byte boundary, as (dtype,
+    shape, offset in elements); and each output's 4-byte words a slot."""
+    key = (rowcount.dtype, rowcount.shape, k, CHAIN_ONE_MAX,
+           None if src is None else (src.dtype, src.shape),
+           tuple((o.dtype, o.numel()) for o in outs))
+    layout = _CHAIN_LAYOUTS.get(key)
+    if layout is None:
+        _check_chain(rowcount, src, G, k, outs)
+        head = lib.chain_bytes(G, k, CHAIN_ONE_MAX)
+        views, at = [], head
+        for o in outs:
+            esize = o.element_size()
+            at = -(-at // 16) * 16
+            views.append((o.dtype, _picked_shape(o, G, k), at // esize))
+            at += k * (o.numel() // G) * esize
+        row_words = [o.numel() * o.element_size() // (4 * G) for o in outs]
+        layout = (-(-max(at, head) // 8), head, views, row_words)
+        if len(_CHAIN_LAYOUTS) < 256:
+            _CHAIN_LAYOUTS[key] = layout
+    return layout

@@ -454,22 +454,40 @@ def _key_tiles(cuda, vals: np.ndarray):
     return dc, kind, off
 
 
+#: q1's x ([0, 100,000)) at one 2,097,152-row chunk; the survivor-count
+#: edges (the filter keeps k // 2, 0 or k rows); one value for all rows
+#: (the tie quota spans blocks); k = n on a small table
+_SCAN_CASES = [
+    ("ties", 10, 200_000), ("ties", 5000, 200_000), ("ties", 8192, 200_000),
+    ("wide", 300, 200_000), ("float", 1000, 200_000), ("for8", 7, 200_000),
+    ("q1", 10, 2_097_152), ("q1", 110, 2_097_152), ("q1", 8192, 2_097_152),
+    ("few", 1000, 200_000), ("none", 50, 200_000), ("exact", 700, 200_000),
+    ("one", 1000, 300_000), ("ties", 1000, 1000)]
+
+
 @pytest.mark.parametrize("desc", [True, False])
-@pytest.mark.parametrize("keys,k", [
-    ("ties", 10), ("ties", 5000), ("ties", 8192), ("wide", 300),
-    ("float", 1000), ("for8", 7)])
-def test_topn_scan_matches_plain(cuda, keys, k, desc):
+@pytest.mark.parametrize("keys,k,n", _SCAN_CASES)
+def test_topn_scan_matches_plain(cuda, keys, k, n, desc):
     """Indices equal (tie order included) on tie-heavy int keys, keys of
-    the full int32 range less the sentinel, f32 keys with +-0.0, and FOR8
-    tiles; with and without a predicate."""
+    the full int32 range less the sentinel, f32 keys with +-0.0, FOR8
+    tiles, q1's keys, fewer survivors than k, none, exactly k, one value
+    for every row and k = n; with and without a predicate."""
     rng = np.random.default_rng(4)
-    n = 200_000
-    vals = {"ties": rng.integers(0, 50, n).astype(np.int32),
-            "wide": rng.integers(-2**31 + 1, 2**31 - 1, n).astype(np.int32),
-            "float": rng.choice(np.float32([0.0, -0.0, 1.5, -2.25]), n),
-            "for8": rng.integers(1000, 1200, n).astype(np.int32)}[keys]
+    vals = {"ties": lambda: rng.integers(0, 50, n).astype(np.int32),
+            "wide": lambda: rng.integers(-2**31 + 1, 2**31 - 1, n)
+            .astype(np.int32),
+            "float": lambda: rng.choice(np.float32([0.0, -0.0, 1.5, -2.25]),
+                                        n),
+            "for8": lambda: rng.integers(1000, 1200, n).astype(np.int32),
+            "one": lambda: np.full(n, 77, np.int32)}.get(
+        keys, lambda: rng.integers(0, 100_000, n).astype(np.int32))()
+    flt = rng.integers(0, 3, n).astype(np.int32)
+    keep = {"few": k // 2, "none": 0, "exact": k}.get(keys)
+    if keep is not None:       # the predicate (flt <> 1) keeps `keep` rows
+        flt[:] = 1
+        flt[rng.choice(n, keep, replace=False)] = 0
     dc, kind, off = _key_tiles(cuda, vals)
-    f, fk, fo = _key_tiles(cuda, rng.integers(0, 3, n).astype(np.int32))
+    f, fk, fo = _key_tiles(cuda, flt)
     cols = [(dc.data, dc.mask), (f.data, f.mask)]
     pred = (_COL(1), _I(1), (ak.OP_CMP_I, 0, C["<>"]))
     for preds in ([], [pred]):
@@ -484,21 +502,26 @@ def test_topn_scan_matches_plain(cuda, keys, k, desc):
         assert torch.equal(nsurv, ref_n)
 
 
-@pytest.mark.parametrize("mode", ["agg", "gkey"])
+@pytest.mark.parametrize("mode", ["agg", "gkey", "absent"])
 @pytest.mark.parametrize("desc", [True, False])
-def test_chain_topn_matches_plain(cuda, mode, desc):
+@pytest.mark.parametrize("G", [1000, 10_001, tk.CHAIN_ONE_MAX,
+                               tk.CHAIN_ONE_MAX + 1, 100_000])
+def test_chain_topn_matches_plain(cuda, mode, desc, G):
+    """G on both sides of the one-block cap, k_pad = G (G = 1,000), and
+    every slot absent."""
     rng = np.random.default_rng(6)
-    G = 10_001
-    rowcount = torch.from_numpy(np.where(
-        rng.random(G) < 0.2, 0, rng.integers(1, 5, G))).to(cuda)
-    src = rowcount if mode == "agg" else None
-    stride, size = (1, 1) if mode == "agg" else (101, 99)
+    rowcount = np.where(rng.random(G) < 0.2, 0, rng.integers(1, 5, G))
+    if mode == "absent":
+        rowcount[:] = 0
+    rowcount = torch.from_numpy(rowcount).to(cuda)
+    src = None if mode == "gkey" else rowcount
+    stride, size = (1, 1) if mode != "gkey" else (101, 99)
     outs = [rowcount,
             torch.from_numpy(rng.integers(-9, 9, G).astype(np.int32)).to(
                 cuda),
             torch.from_numpy(rng.integers(0, 2, G * 16).astype(np.int32)).to(
                 cuda)]
-    for k in (8, 64, 8192):
+    for k in sorted({8, 64, min(G, tk.TOPN_MAX_K)}):
         LAUNCHES.reset()
         got = tk.chain_topn(rowcount, src, stride, size, desc, k, outs)
         assert LAUNCHES.get("chain_topn") == 1
@@ -508,6 +531,51 @@ def test_chain_topn_matches_plain(cuda, mode, desc):
         assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
         for a, b in zip(got[2], ref[2]):
             assert torch.equal(a, b)
+
+
+def _device_activity(fn) -> tuple:
+    """(kernels, host-to-device copies) that one fn() issues on the card,
+    from torch.profiler after a warm-up call: the most over three profiled
+    calls (the profiler can drop an event, never add one)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    kernels = copies = 0
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        n_k = n_c = 0
+        for ev in prof.events():
+            if ev.device_type != DeviceType.CUDA:
+                continue
+            if ev.name.startswith("Memcpy"):
+                n_c += "HtoD" in ev.name
+            elif not ev.name.startswith("Memset"):
+                n_k += 1
+        kernels, copies = max(kernels, n_k), max(copies, n_c)
+    return kernels, copies
+
+
+def test_topn_calls_issue_few_kernels_and_no_copy(cuda):
+    """One topn_scan call: at most 5 kernels and no host-to-device copy;
+    one chain_topn call under the one-block cap: exactly one kernel."""
+    rng = np.random.default_rng(9)
+    n = 2_097_152
+    dc, kind, off = _key_tiles(
+        cuda, rng.integers(0, 100_000, n).astype(np.int32))
+    spec = tk.TopnSpec([kind], [off], 0, True, False)
+    kernels, copies = _device_activity(
+        lambda: tk.topn_scan(spec, [(dc.data, dc.mask)], dc.mask, 10))
+    assert 1 <= kernels <= 5 and copies == 0, (kernels, copies)
+    G = 10_001
+    rowcount = torch.from_numpy(rng.integers(0, 5, G)).to(cuda)
+    outs = [rowcount, torch.zeros(G * 3, dtype=torch.int32, device=cuda)]
+    kernels, copies = _device_activity(
+        lambda: tk.chain_topn(rowcount, rowcount, 1, 1, True, 16, outs))
+    assert kernels == 1 and copies == 0, (kernels, copies)
 
 
 def _probe_case(cuda, outer_left: bool, right: bool):

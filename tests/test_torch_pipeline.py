@@ -131,8 +131,18 @@ def _delta(after: dict, before: dict) -> dict:
 
 _PLAIN = ("agg_scan.plain", "join_probe.plain", "chain_topn.plain")
 
-CASES = [("lr", q) for q in FUSED_QUERIES + NEW_SHAPES + CHAINED_SHAPES] + \
-    [("tpch", q) for q in TPCH_QUERIES]
+#: chained top-N edges: the LIMIT passes the group space (k_pad is the
+#: whole space, every slot picked), and a filter that leaves every slot
+#: absent
+CHAIN_EDGES = [
+    "SELECT l.sk, count(*) AS n, sum(w) FROM l JOIN r ON l.ik = r.ik "
+    "GROUP BY l.sk ORDER BY n DESC LIMIT 20",
+    "SELECT l.ik, count(*) AS n FROM l JOIN r ON l.ik = r.ik "
+    "WHERE l.v > 1000 GROUP BY l.ik ORDER BY n DESC LIMIT 5",
+]
+
+CASES = [("lr", q) for q in FUSED_QUERIES + NEW_SHAPES + CHAINED_SHAPES +
+         CHAIN_EDGES] + [("tpch", q) for q in TPCH_QUERIES]
 
 
 @pytest.mark.parametrize("key,q", CASES)

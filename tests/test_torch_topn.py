@@ -172,6 +172,10 @@ def test_signed_zeros_tie_as_the_host_path_ties_them():
 CASES = TOPN_QUERIES + [
     "SELECT * FROM l ORDER BY v DESC LIMIT 5",
     "SELECT v, ts FROM l WHERE v > 250 ORDER BY v DESC LIMIT 7",
+    # the LIMIT passes the survivors (~54), and no row survives: the
+    # selection's tail is the lowest masked rows
+    "SELECT v, ts FROM l WHERE v > 490 ORDER BY v DESC LIMIT 100",
+    "SELECT * FROM l WHERE v * 2 > 1000 ORDER BY v LIMIT 5",
     # declines, each under the reference's reason
     "SELECT * FROM l WHERE v > 0 ORDER BY ik LIMIT 5",         # NULL key
     "SELECT * FROM l ORDER BY ik DESC LIMIT 5",                # NULL key
