@@ -22,8 +22,10 @@ Phases (any failure exits non-zero and prints no result line):
      route of (kept postings, ms);
   5. each search kernel against its plain PyTorch version on the card, on
      the inputs the main path gave it in phases 3-4 (recorded as it ran),
-     and topk_rows also on a plane full of ties: bm25_accumulate and
-     build_dense within rtol 1e-5, atol 1e-6; topk_rows bit for bit;
+     and topk_rows also on a plane full of ties, an all-zero row and a
+     row of NaNs in both of its regimes: bm25_accumulate and build_dense
+     within rtol 1e-5, atol 1e-6; topk_rows bit for bit, at most 5
+     kernels and no copy in a call, with its device ms by kernel;
   6. `q1` (bench.py's generator and three queries, seed 0) at 100,000,000
      rows through Database.execute: serene_device='cpu' (the host oracle),
      then 'gpu' cold and warm; the three must agree tuple for tuple and
@@ -85,9 +87,11 @@ Phases (any failure exits non-zero and prints no result line):
      statements, an INSERT of 10,000 docs (a second segment), the mix
      again; rows held to the port's host WAND (bench.py's rule);
  14. ivf_probe (nprobe 16 and the brute layout), maxsim (one 16-query
-     batch), kmeans_assign and kmeans_update (one k-means iteration)
-     against their plain versions on inputs recorded from phases 11-12,
-     bit for bit, with their times, bounds and yardsticks; and ivf_probe
+     batch), kmeans_assign and kmeans_update (one k-means iteration, and
+     the same rows with >= 90 % of them in one cluster) against their
+     plain versions on inputs recorded from phases 11-12, bit for bit,
+     with their times, bounds and yardsticks (kmeans_update: 4 kernels
+     and no copy in a call, device ms by kernel); and ivf_probe
      on float data at 100,000 x 768 for l2, ip and cos, bit-equal to its
      plain version and to host_dist;
  15. `paged_search` (bench.py bench_paged_search): 1,000,000 docs, 30,000
@@ -406,14 +410,17 @@ def bound_ms(n_bytes: int) -> float:
 def call_activity(fn) -> tuple:
     """(kernels, host-to-device copies) that one fn() issues on the card,
     from torch.profiler after a warm-up call: the most over three profiled
-    calls (the profiler can drop an event, never add one)."""
+    calls (the profiler can drop an event, never add one), and over up to
+    ten while none has shown a kernel (every call launches one)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
     kernels = copies = 0
-    for _ in range(3):
+    for session in range(10):
+        if session >= 3 and kernels:
+            break
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             fn()
@@ -428,6 +435,68 @@ def call_activity(fn) -> tuple:
                 n_k += 1
         kernels, copies = max(kernels, n_k), max(copies, n_c)
     return kernels, copies
+
+
+#: the kernels one call launches, by wrapper (topk_rows in its one-read
+#: regime, k <= TOPK_ONE_MAX)
+TOPK_ONE_KERNELS = ("topk_pass0_kernel", "topk_take_kernel")
+KMEANS_KERNELS = ("km_hist_kernel", "km_prefix_kernel", "km_scatter_kernel",
+                  "km_chunk_kernel")
+
+
+def launch_profile(fn, expect: tuple, calls: int = 5) -> tuple:
+    """(host-to-device copies a call, device ms a call by kernel) of fn(),
+    from torch.profiler over a window of `calls` calls after a warm-up
+    call. A window counts only where it shows each kernel of `expect`
+    exactly `calls` times (the profiler can drop an event, never add one):
+    the first of up to ten such windows gives the numbers. Fails on a
+    kernel outside `expect`, or when no window is complete."""
+    import re
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    counts = {}
+    for _ in range(10):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        counts, ms, copies = {}, {}, 0
+        for ev in prof.events():
+            if ev.device_type != DeviceType.CUDA or \
+                    ev.name.startswith("Memset"):
+                continue
+            if ev.name.startswith("Memcpy"):
+                copies += "HtoD" in ev.name
+                continue
+            m = re.search(r"(\w+_kernel)", ev.name)
+            name = m.group(1) if m else ev.name[:40]
+            if name not in expect:
+                fail(f"a call launched {name}, outside its kernels {expect}")
+            t = getattr(ev, "device_time_total", 0) or \
+                getattr(ev, "cuda_time_total", 0)
+            counts[name] = counts.get(name, 0) + 1
+            ms[name] = ms.get(name, 0.0) + t / 1e3 / calls
+        if all(counts.get(name) == calls for name in expect):
+            return copies / calls, ms
+    fail(f"no profiled window of {calls} calls showed each of {expect} "
+         f"{calls} times (the last: {counts})")
+
+
+def activity_note(fn, expect: tuple) -> str:
+    """A call's kernels, copies in and device ms by kernel, as a note;
+    fails where the call launches other kernels than `expect` or copies
+    anything in from the host."""
+    copies, by = launch_profile(fn, expect)
+    if copies:
+        fail(f"a call made {copies} host-to-device copies (none allowed)")
+    return (f"a call: {len(expect)} kernels, 0 copies in; device ms "
+            + ", ".join(f"{k} {by[k]:.4f}" for k in expect)
+            + f" (sum {sum(by.values()):.4f})")
 
 
 class Recorder:
@@ -677,24 +746,36 @@ def check_topk(device, args, reps=5) -> dict:
     plain_ms = timed_ms(lambda: kern.topk_rows_plain(
         scores, k, hits=hits, require=require), reps, device)
     library_ms = timed_ms(lambda: torch.topk(scores, k, dim=1), reps, device)
-    moved = nbytes(scores, hits, require, vals, idx)
+    if k > kern.TOPK_ONE_MAX:
+        fail(f"the main path's top-k (k={k}) left the one-read regime")
+    note = activity_note(lambda: kern.topk_rows(
+        scores, k, hits=hits, require=require), TOPK_ONE_KERNELS)
+    # the hit plane is read only in the rows that have require > 0
+    masked = int((require > 0).sum()) if hits is not None else 0
+    moved = nbytes(scores, require, vals, idx)
+    if masked:
+        moved += masked * scores.shape[1] * hits.element_size()
     return {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms(moved), "bound_by": "bytes",
             "library_ms": library_ms,
-            "shape": f"{tuple(scores.shape)} k={k} "
-                     f"masked={hits is not None}"}
+            "shape": f"{tuple(scores.shape)} k={k}, {masked} rows "
+                     f"masked; {note}"}
 
 
 def check_topk_ties(device, rows: int, n: int) -> None:
-    """topk_rows on planes full of ties (and -0.0), bit for bit."""
+    """topk_rows on planes full of ties (and -0.0, an all-zero row and a
+    row of positive and negative NaNs), in both regimes, bit for bit."""
     import torch
 
     from serenedb_tpu_torch.ops import bm25_kernels as kern
     rng = np.random.default_rng(0)
     plane = rng.choice(np.float32([0.0, -0.0, 1.5, 3.25]), size=(rows, n))
     plane[0] = 0.0
+    plane[1, ::5] = np.nan
+    plane[1, 2::5] = -np.nan  # below -inf, as lax.top_k orders it
     scores = torch.from_numpy(plane).to(device)
-    for k in (10, 100, 1000):
+    # both regimes: k = TOPK_ONE_MAX + 1 takes the radix one
+    for k in (10, 100, 1000, kern.TOPK_ONE_MAX + 1):
         vals, idx = kern.topk_rows(scores, k)
         ref_v, ref_i = kern.topk_rows_plain(scores, k)
         sync(device)
@@ -1857,7 +1938,8 @@ def time_page_write(device, args, reps=5) -> dict:
 def check_kmeans(device, assign_args, update_args, reps=5) -> dict:
     """kmeans_assign and kmeans_update against their plain versions on one
     k-means iteration's recorded inputs, bit for bit; index_add_ timed as
-    kmeans_update's yardstick (the per-cluster sums in one call)."""
+    kmeans_update's yardstick (the per-cluster sums in one call); then
+    kmeans_update on the same rows with >= 90 % of them in one cluster."""
     import torch
 
     from serenedb_tpu_torch.ops import vector_kernels as vk
@@ -1892,19 +1974,50 @@ def check_kmeans(device, assign_args, update_args, reps=5) -> dict:
     vk.kmeans_update_plain(*ua, **ukw)
     sync(device)
     plain_ms = (time.perf_counter() - t) * 1e3
-    idx64 = uassign.to(torch.int64)
-
-    def library():
+    def library(assign):
+        idx64 = assign.to(torch.int64)
         sums = torch.zeros_like(uc).index_add_(0, idx64, ux)
         torch.zeros(uc.shape[0], device=ux.device).index_add_(
             0, idx64, torch.ones(ux.shape[0], device=ux.device))
         return sums
-    library_ms = timed_ms(library, reps, device)
+    library_ms = timed_ms(lambda: library(uassign), reps, device)
+    note = activity_note(
+        lambda: vk.kmeans_update(*ua, **ukw), KMEANS_KERNELS)
     out["kmeans_update"] = {
         "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
         "bound_ms": bound_ms(nbytes(ux, uassign, uc, new)),
         "bound_by": "bytes", "library_ms": library_ms,
-        "shape": f"N={ux.shape[0]} K={uc.shape[0]} D={ux.shape[1]}"}
+        "shape": f"N={ux.shape[0]} K={uc.shape[0]} D={ux.shape[1]}; "
+                 f"{note}"}
+    # skewed: >= 90 % of the rows in one cluster (a seeded draw)
+    g = torch.Generator(device=ux.device)
+    g.manual_seed(5)
+    skew = torch.where(torch.rand(ux.shape[0], generator=g,
+                                  device=ux.device) < 0.93,
+                       torch.full_like(uassign, 5), uassign).contiguous()
+    largest = int(torch.bincount(skew.to(torch.int64)).max())
+    if largest < 0.9 * ux.shape[0]:
+        fail("the skewed k-means draw holds under 90 % in one cluster")
+    new = vk.kmeans_update(ux, skew, uc)
+    new2 = vk.kmeans_update(ux, skew, uc)
+    t = time.perf_counter()
+    pnew = vk.kmeans_update_plain(ux, skew, uc)
+    sync(device)
+    plain_ms = (time.perf_counter() - t) * 1e3
+    if not (torch.equal(new.view(torch.int32), pnew.view(torch.int32)) and
+            torch.equal(new.view(torch.int32), new2.view(torch.int32))):
+        fail("kmeans_update (skewed) differs from its plain version or "
+             "itself")
+    ms = timed_ms(lambda: vk.kmeans_update(ux, skew, uc), reps, device)
+    library_ms = timed_ms(lambda: library(skew), reps, device)
+    note = activity_note(
+        lambda: vk.kmeans_update(ux, skew, uc), KMEANS_KERNELS)
+    out["kmeans_update skewed"] = {
+        "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": bound_ms(nbytes(ux, skew, uc, new)),
+        "bound_by": "bytes", "library_ms": library_ms,
+        "shape": f"N={ux.shape[0]} K={uc.shape[0]} D={ux.shape[1]}, "
+                 f"{largest} rows in one cluster; {note}"}
     return out
 
 

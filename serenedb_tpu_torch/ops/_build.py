@@ -47,8 +47,8 @@ SIGNATURES = {
         "build_dense_rows": [_I, _P, _P, _P, _P, _P, _P, _L, _P, _P, _L, _I,
                              _F, _F, _F, _P],
         "build_dense_tail": [_P, _P, _P, _L, _P, _P, _L, _I, _F, _F, _F, _P],
-        "topk_rows": [_P, _L, _L, _P, _I, _P, _I, _P, _P, _P, _L, _P, _L, _P,
-                      _P, _P, _P],
+        "topk_bytes": [_L, _L, _I, _I],
+        "topk_rows": [_P, _L, _L, _P, _I, _P, _I, _I, _P, _P],
         "contrib_flat": [_P, _P, _P, _L, _I, _F, _F, _F, _P, _P],
         "match_bitmap": [_P, _P, _P, _P, _L, _P, _P, _L, _P, _L, _L, _P, _P],
     },
@@ -72,7 +72,9 @@ SIGNATURES = {
                      [_P, _P, _L, _P, _L, _P, _P, _P],
         "maxsim": [_P] * 7 + [_L] + [_I] * 5 + [_P, _L, _P, _L, _P, _P, _P],
         "kmeans_assign": [_P] * 3 + [_L, _I, _I] + [_P] * 4,
-        "kmeans_update": [_P] * 3 + [_L, _I, _I, _L] + [_P] * 4,
+        "kmeans_bytes": [_L, _I, _I],
+        "kmeans_update": [_P] * 3 + [_L, _I, _I] + [_P] * 3,
+        "select_cap": [_L, _L, _L, _L, _I, _I],
     },
     "pool": {
         "pool_score": [_P] * 8 + [_L, _L, _I, _L, _I, _F, _F, _F] +
@@ -83,8 +85,10 @@ SIGNATURES = {
     },
 }
 
-#: entries that return a count of bytes, not a CUDA error
-SIZE_ENTRIES = {"topn_bytes", "chain_bytes"}
+#: entries that return a size (bytes, or keys for select_cap), not a CUDA
+#: error
+SIZE_ENTRIES = {"topn_bytes", "chain_bytes", "kmeans_bytes", "topk_bytes",
+                "select_cap"}
 #: the entry each library runs once, right after it loads (kernel
 #: attributes), by library
 LOAD_HOOKS = {"topn": "topn_load"}

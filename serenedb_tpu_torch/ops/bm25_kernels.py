@@ -14,7 +14,8 @@ tests hold them against the JAX package and
   (`_decode_rows`, `contrib_of`): score planes of a query batch.
 - `build_dense` ← `_build_dense`: the dense saturation matrix.
 - `topk_rows` ← the `lax.top_k` of `_score_topk` / `dense_topk`, with the
-  conjunction mask fused in: per-row top-k by (score desc, index asc).
+  conjunction mask fused in: per-row top-k by (score desc, index asc); one
+  read of the plane up to TOPK_ONE_MAX, the radix regime above it.
 - `contrib_flat` ← `contrib_flat` (`contrib_expr` over flat arrays): the
   per-posting contributions of the host ragged path; its plain version is
   `contrib_plain`, the formula every plain version here shares.
@@ -29,15 +30,17 @@ from typing import Optional
 import torch
 
 from ..device import LAUNCHES
-from . import _build, select
+from . import _build
 
 SCORERS = {"bm25": 0, "tfidf": 1, "lm_dirichlet": 2, "jelinek_mercer": 3,
            "dfi": 4}
 MATCH_EPS = 1e-6
-#: most rows one topk_rows launch takes (CUDA grid y limit)
-TOPK_MAX_ROWS = 65535
-#: smallest tile of topk_rows' sort levels (csrc/bm25.cu TOPK_SORT_FLOOR)
-TOPK_SORT_FLOOR = 32
+#: the largest k that topk_rows selects in its one-read regime (at most
+#: 8,192, csrc/bm25.cu TK_ONE_LIMIT); above it, the radix regime. Set from
+#: card timings (scripts/topk_shapes.py, PERF.md): the one read is the
+#: faster at k = 1,024 on both main-path planes, the radix regime from
+#: 2,048.
+TOPK_ONE_MAX = 1024
 
 
 def _is_cuda(*ts) -> bool:
@@ -433,16 +436,27 @@ def _masked(scores: torch.Tensor, hits: Optional[torch.Tensor],
     return torch.where(s == 0, torch.zeros_like(s), s)
 
 
+def _score_image(s: torch.Tensor) -> torch.Tensor:
+    """The order-preserving u32 image of each f32 (in int64): the float
+    order, with a NaN placed by its sign bit, above +inf or below -inf —
+    the order `lax.top_k` and the kernel's key give NaN."""
+    u = s.view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    return torch.where(u >= 0x80000000, 0xFFFFFFFF - u, u | 0x80000000)
+
+
 def topk_rows_plain(scores: torch.Tensor, k: int,
                     hits: Optional[torch.Tensor] = None,
                     require: Optional[torch.Tensor] = None,
                     ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Plain version of `topk_rows`: a stable descending sort keeps equal
-    scores in index order, so the first k are (score desc, index asc)."""
+    """Plain version of `topk_rows`: a stable descending sort of the
+    scores' images keeps equal scores in index order, so the first k are
+    (score desc, index asc)."""
     LAUNCHES.bump("topk_rows.plain")
     s = _masked(scores, hits, require)
-    vals, order = torch.sort(s, dim=1, descending=True, stable=True)
-    return vals[:, :k].contiguous(), order[:, :k].to(torch.int32).contiguous()
+    order = torch.sort(_score_image(s), dim=1, descending=True,
+                       stable=True).indices[:, :k]
+    return (torch.gather(s, 1, order).contiguous(),
+            order.to(torch.int32).contiguous())
 
 
 def topk_rows(scores: torch.Tensor, k: int,
@@ -475,27 +489,17 @@ def topk_rows(scores: torch.Tensor, k: int,
         _require(require, torch.int32, "require")
         if require.shape != (rows,):
             raise ValueError("require must hold one count per row")
+    if rows == 0:
+        return (torch.empty((0, k), dtype=torch.float32, device=scores.device),
+                torch.empty((0, k), dtype=torch.int32, device=scores.device))
     lib = _build.load("bm25")
-    dev = scores.device
-    vals = torch.empty((rows, k), dtype=torch.float32, device=dev)
-    idx = torch.empty((rows, k), dtype=torch.int32, device=dev)
-    stream = _stream(scores)
-    for r0 in range(0, rows, TOPK_MAX_ROWS):
-        r1 = min(rows, r0 + TOPK_MAX_ROWS)
-        nr = r1 - r0
-        state = torch.zeros((nr, 8), dtype=torch.int64, device=dev)
-        state[:, 1] = k
-        hist = torch.zeros((nr, 256), dtype=torch.int32, device=dev)
-        cap_a, cap_b = select.scratch(nr, k, 1, k, TOPK_SORT_FLOOR)
-        cand = torch.empty(cap_a, dtype=torch.int64, device=dev)
-        buf_b = torch.empty(cap_b, dtype=torch.int64, device=dev)
-        counts = torch.zeros(nr, dtype=torch.int32, device=dev)
-        _build.check(lib.topk_rows(
-            _ptr(scores[r0:r1]), nr, n,
-            _ptr(hits[r0:r1]) if hits is not None else None, hits_kind,
-            _ptr(require[r0:r1]) if require is not None else None, k,
-            _ptr(state), _ptr(hist), _ptr(cand), cap_a, _ptr(buf_b), cap_b,
-            _ptr(counts), _ptr(vals[r0:r1]), _ptr(idx[r0:r1]), stream),
-            "topk_rows")
-        LAUNCHES.bump("topk_rows")
-    return vals, idx
+    one = int(k <= TOPK_ONE_MAX)
+    buf = torch.empty(lib.topk_bytes(rows, n, k, one), dtype=torch.uint8,
+                      device=scores.device)
+    _build.check(lib.topk_rows(
+        _ptr(scores), rows, n, _ptr(hits), hits_kind, _ptr(require), k, one,
+        _ptr(buf), _stream(scores)), "topk_rows")
+    LAUNCHES.bump("topk_rows")
+    m = rows * k * 4
+    return (buf[:m].view(torch.float32).view(rows, k),
+            buf[m:2 * m].view(torch.int32).view(rows, k))

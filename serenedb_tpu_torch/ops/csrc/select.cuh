@@ -18,9 +18,11 @@
 //   the merged run is its index in its own run plus its rank in the other),
 //   each merged run cut to K, until one run of K is left. Shared memory does
 //   not grow with K.
-// `levels` runs them; its sizes are mirrored by ops/select.py
-// `level_sizes`, which the wrappers use to allocate the two buffers the
-// levels alternate between, and it refuses a level that would not fit.
+// `levels` runs them and refuses a level that would not fit its buffer;
+// `level_caps` sizes the two buffers the levels alternate between, by the
+// same step. ops/select.py `level_sizes` mirrors it for the Python
+// wrappers that allocate the buffers, and a card test holds the two
+// against each other through vector.cu's `select_cap`.
 
 #pragma once
 
@@ -135,6 +137,42 @@ inline int tile_for(long long K, int floor) {
   return static_cast<int>(t);
 }
 
+// One level's step: a row of n keys in sorted runs of `run` becomes
+// n_out keys in runs of run_out; flat (tiles of T, each cut to keep =
+// min(K, T)) or a pair merge. Called while n != K || run < K.
+inline bool next_level(long long n, long long run, long long K, int T,
+                       long long& n_out, long long& run_out) {
+  const long long keep = K < T ? K : T;
+  const bool flat = 2 * K <= T || run < keep;
+  if (flat) {
+    n_out = ceil_div(n, T) * keep;
+    run_out = keep;
+  } else {
+    run_out = 2 * run < K ? 2 * run : K;
+    n_out = ceil_div(n / run, 2) * run_out;
+  }
+  return flat;
+}
+
+// The keys the two buffers of `levels` must hold for `rows` rows of n
+// keys: the first holds the input and every even level, the second every
+// odd level (at least one key a row). ops/select.py `scratch` follows
+// the same loop; vector.cu's `select_cap` returns these for its tests.
+inline void level_caps(long long rows, long long n, long long run,
+                       long long K, int floor, long long& cap_a,
+                       long long& cap_b) {
+  const int T = tile_for(K, floor);
+  long long most[2] = {n, 1};
+  int cur = 0;
+  while (n != K || run < K) {
+    next_level(n, run, K, T, n, run);
+    cur = 1 - cur;
+    most[cur] = n > most[cur] ? n : most[cur];
+  }
+  cap_a = rows * most[0];
+  cap_b = rows * most[1];
+}
+
 // Opt the kernels into the shared memory they use; once a process.
 inline void allow_smem() {
   static bool done = false;
@@ -160,14 +198,7 @@ inline u64* levels(u64* a, long long cap_a, u64* b, long long cap_b,
   const long long keep = K < T ? K : T;
   while (n != K || run < K) {
     long long n_out, run_out;
-    const bool flat = 2 * K <= T || run < keep;
-    if (flat) {
-      n_out = ceil_div(n, T) * keep;
-      run_out = keep;
-    } else {
-      run_out = 2 * run < K ? 2 * run : K;
-      n_out = ceil_div(n / run, 2) * run_out;
-    }
+    const bool flat = next_level(n, run, K, T, n_out, run_out);
     if (rows * n_out > cap[1 - cur]) return nullptr;
     if (flat) {
       const long long nt = ceil_div(n, T);

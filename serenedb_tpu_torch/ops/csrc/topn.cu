@@ -78,10 +78,16 @@
 
 #include "expr.cuh"
 #include "select.cuh"
+#include "warp_cand.cuh"
 
 namespace {
 
 using namespace expr;
+using cand::append;
+using cand::lanes_below;
+using cand::warp_keep;
+using cand::warp_pick;
+using cand::warp_rank;
 
 typedef unsigned long long u64;
 
@@ -397,10 +403,6 @@ __device__ __forceinline__ u64 make_key(uint32_t h, long long index) {
          static_cast<u64>(~static_cast<uint32_t>(index));
 }
 
-__device__ __forceinline__ unsigned lanes_below() {
-  return (1u << (threadIdx.x & 31)) - 1u;
-}
-
 // Add `weight` rows to each lane's bin (weight 0: nothing): one shared
 // atomic for the warp where its weighted lanes share a bin, else one a
 // lane. Every lane of the warp calls it.
@@ -446,20 +448,6 @@ __device__ __forceinline__ void lane_hist(unsigned* s_hist,
 #pragma unroll
   for (int j = 0; j < N; ++j)
     if (f[j]) atomicAdd(&s_hist[(h[j] >> shift) & mask], 1u);
-}
-
-// Append each flagged lane's key to out at a slot taken from *count: one
-// atomic for the warp. Every lane of the warp calls it.
-__device__ __forceinline__ void append(bool f, u64 key, unsigned* count,
-                                       u64* out) {
-  const unsigned bal = __ballot_sync(FULL, f);
-  if (!bal) return;
-  const int leader = __ffs(bal) - 1;
-  unsigned at = 0;
-  if ((threadIdx.x & 31) == leader)
-    at = atomicAdd(count, static_cast<unsigned>(__popc(bal)));
-  at = __shfl_sync(FULL, at, leader);
-  if (f) out[at + __popc(bal & lanes_below())] = key;
 }
 
 // Inclusive sum of v over the block in thread order, and the block total.
@@ -608,28 +596,6 @@ __global__ void init_kernel(unsigned* ctl) {
     ctl[i] = i == C_LO ? ALL : 0u;
 }
 
-// Ranks of a lane's flagged rows among its warp's, lanes in order and
-// each lane's R rows in order; returns the warp's count.
-__device__ __forceinline__ unsigned warp_rank(const bool (&f)[R],
-                                              unsigned (&rank)[R]) {
-  const int lane = threadIdx.x & 31;
-  unsigned mine = 0;
-#pragma unroll
-  for (int j = 0; j < R; ++j) mine += f[j];
-  unsigned incl = mine;
-  for (int o = 1; o < 32; o <<= 1) {
-    const unsigned y = __shfl_up_sync(FULL, incl, o);
-    if (lane >= o) incl += y;
-  }
-  unsigned r = incl - mine;
-#pragma unroll
-  for (int j = 0; j < R; ++j) {
-    rank[j] = r;
-    r += f[j];
-  }
-  return __shfl_sync(FULL, incl, 31);
-}
-
 // A threshold for a warp's cnt >= k candidates that at least k of them
 // reach: the floor of the 8-bit bin, below the bits they all share, that
 // holds their k-th largest image. Two reads of the candidates, eight a
@@ -672,59 +638,11 @@ __device__ __noinline__ uint32_t warp_floor(const u64* sub, unsigned cnt,
       if (c0 + 32 * j + lane < cnt) atomicAdd(&hist[(e[j] >> sh) & 0xFFu], 1u);
   }
   __syncwarp();
-  // lane l holds bins 8(31-l) .. 8(31-l)+7: lanes in order run from the
-  // top bins down
-  const int b0 = 8 * (31 - lane);
-  unsigned c = 0;
-  for (int i = 0; i < 8; ++i) c += hist[b0 + i];
-  unsigned incl = c;
-  for (int o = 1; o < 32; o <<= 1) {
-    const unsigned y = __shfl_up_sync(FULL, incl, o);
-    if (lane >= o) incl += y;
-  }
-  const bool mine = incl - c < k && k <= incl;
-  unsigned bin = 0;
-  if (mine) {
-    unsigned cum = incl - c;
-    for (int i = 7; i >= 0; --i) {
-      cum += hist[b0 + i];
-      if (cum >= k) {
-        bin = b0 + i;
-        break;
-      }
-    }
-  }
-  bin = __shfl_sync(FULL, bin, __ffs(__ballot_sync(FULL, mine)) - 1);
+  unsigned above;
+  const unsigned bin = warp_pick<8>(hist, k, above);
   const uint32_t high = sh + 8 >= 32 ? 0u : (lo >> (sh + 8)) << (sh + 8);
   __syncwarp();
   return high | (bin << sh);
-}
-
-// Keep a warp's candidates whose image is at least thr, in place (a
-// candidate moves only down); returns their count.
-__device__ __noinline__ unsigned warp_keep(u64* sub, unsigned cnt,
-                                           uint32_t thr) {
-  constexpr int C = 4;
-  const int lane = threadIdx.x & 31;
-  unsigned now = 0;
-  for (unsigned c0 = 0; c0 < cnt; c0 += 32 * C) {
-    u64 e[C];
-#pragma unroll
-    for (int j = 0; j < C; ++j) {
-      const unsigned i = c0 + 32 * j + lane;
-      e[j] = i < cnt ? sub[i] : 0ull;
-    }
-#pragma unroll
-    for (int j = 0; j < C; ++j) {
-      const bool stay = c0 + 32 * j + lane < cnt &&
-                        static_cast<uint32_t>(e[j] >> 32) >= thr;
-      const unsigned bal = __ballot_sync(FULL, stay);
-      if (stay) sub[now + __popc(bal & lanes_below())] = e[j];
-      now += __popc(bal);
-    }
-  }
-  __syncwarp();
-  return now;
 }
 
 // A warp's state of pass 0's candidates, in shared memory so the scan
@@ -752,7 +670,7 @@ __device__ __noinline__ void keep_tile(KeepState* st, u64* sub,
   if (cnt + total > st->cap) {
     if (cnt >= k) {
       const uint32_t thr = max(st->thr, warp_floor(sub, cnt, k, hist));
-      cnt = warp_keep(sub, cnt, thr);
+      cnt = warp_keep(sub, cnt, static_cast<u64>(thr) << 32);
 #pragma unroll
       for (int j = 0; j < R; ++j) keep[j] = keep[j] && h[j] >= thr;
       total = warp_rank(keep, rank);

@@ -56,12 +56,33 @@
 //    index on ties and the first NaN winning, as jnp.argmin. One warp a row.
 //    Bound: bytes — the (N, K) product is read once.
 // 4. kmeans_update
-//    Replaces the centroid update of `_kmeans_program`: the one-hot product
-//    becomes per-block partial sums, each block adding its R rows in row
-//    order into its own (K, D) plane (a thread owns a dimension, so no cell
-//    is shared), then a fold over the planes in block order; integer counts
-//    by atomics; centroid = sum / max(count, 1), or the old centroid where
-//    the count is 0. No (N, K) one-hot matrix is built. Bound: bytes.
+//    Replaces the centroid update of `_kmeans_program` (the one-hot product
+//    `einsum(one_hot, x)` and its counts): a stable counting sort of the
+//    row ids by cluster, then per-cluster sums in chunks of KM_CHUNK sorted
+//    rows. The add order is fixed by the assignment and KM_CHUNK alone,
+//    never by the grid: within a chunk the rows in row order from +0.0,
+//    then each cluster's chunk sums in chunk order; centroid = sum / count
+//    (IEEE-rounded), or the old centroid where the count is 0. Four
+//    launches, no atomics on floats, no (blocks, K, D) planes, and every
+//    word of scratch set by the kernels (one buffer, `kmeans_bytes`):
+//    - hist: warp w counts the clusters of its KM_RANGE rows (a histogram
+//      in shared memory while K <= KM_SMEM_K, else its own row of the
+//      table in device memory) and writes its row of the (warps, K) table;
+//    - prefix: per cluster the exclusive prefix over the warps (in place)
+//      and the count; the last block (an atomic ticket) scans the counts
+//      into each cluster's first sorted slot, first chunk and first slot
+//      of partial sums; empty clusters copy their old centroid;
+//    - scatter: each warp walks its rows again and writes each row id to
+//      its slot (ranks among equal clusters by __match_any_sync), so the
+//      rows of a cluster stay in row order;
+//    - chunk: one warp a (cluster, chunk) (found by a binary search over
+//      the chunk starts); a lane owns four dimensions (one float4 of a
+//      row, eight rows' loads in flight) or, where D % 4 != 0 or x is not
+//      16-byte aligned, one; a one-chunk cluster writes its centroid, a
+//      longer one its chunk sum, and the last of its warps to finish (a
+//      ticket per cluster) folds the chunk sums in order. A dependent add
+//      chain is at most KM_CHUNK rows, whatever the skew.
+//    Bound: bytes — x read once (plus four passes over the assignment).
 
 #include "select.cuh"
 
@@ -344,39 +365,392 @@ __global__ void kmeans_assign_kernel(const float* __restrict__ xc,
   if (lane == 0) out[row] = bk;
 }
 
-// Block b adds rows [b*R, (b+1)*R) in row order into its own (K, D) plane.
-__global__ void kmeans_partial_kernel(const float* __restrict__ x,
-                                      const int* __restrict__ assign,
-                                      long long n, int d, int k, long long R,
-                                      float* __restrict__ part,
-                                      int* __restrict__ counts) {
-  const long long b = blockIdx.x;
-  const long long r0 = b * R;
-  const long long r1 = r0 + R < n ? r0 + R : n;
-  float* plane = part + b * k * static_cast<long long>(d);
-  for (long long r = r0; r < r1; ++r) {
-    const int c = assign[r];
-    float* cell = plane + static_cast<long long>(c) * d;
-    const float* xr = x + r * d;
-    for (int j = threadIdx.x; j < d; j += blockDim.x)
-      cell[j] = __fadd_rn(cell[j], xr[j]);
-    if (threadIdx.x == 0) atomicAdd(&counts[c], 1);
+// ---------------------------------------------------------- kmeans_update
+
+constexpr int KM_CHUNK = 128;        // sorted rows a chunk sums
+constexpr long long KM_RANGE = 2048; // rows a warp counts and scatters
+constexpr long long KM_HCAP = 1LL << 22;  // words of the (warps, K) table
+constexpr int KM_SMEM_K = 8192;      // clusters a shared histogram holds
+constexpr int KM_WARPS = 4;          // warps a hist/scatter block
+constexpr int KM_CHUNK_WARPS = 8;
+constexpr uint32_t KM_FULL = 0xFFFFFFFFu;
+// control words: the prefix kernel's ticket, the number of chunks
+enum : int { KM_TICKET = 0, KM_NCHUNK = 1, KM_CTL = 4 };
+
+struct KmArgs {
+  const float* x;
+  const int* assign;
+  const float* old;
+  float* out;
+  unsigned* ctl;     // KM_CTL
+  unsigned* table;   // (pw, K): counts, then exclusive prefixes, then cursors
+  unsigned* total;   // (K,) rows of each cluster
+  unsigned* start;   // (K,) its first sorted slot
+  unsigned* cstart;  // (K + 1,) its first chunk
+  unsigned* pstart;  // (K,) its first partial-sum slot (clusters of 2+ chunks)
+  unsigned* ticket;  // (K,) chunks of it done
+  unsigned* sorted;  // (n,) row ids by cluster
+  float* partial;    // (npart, D)
+  long long n, range, pw;
+  int k, d, smem, vec;
+};
+
+struct KmPlan {
+  long long range, pw, nchunk, npart, part_off, bytes;
+};
+
+KmPlan km_plan(long long n, long long k, long long d) {
+  KmPlan p;
+  p.range = KM_RANGE;
+  while (sel::ceil_div(n, p.range) * k > KM_HCAP && p.range < n) p.range *= 2;
+  p.pw = sel::ceil_div(n, p.range);
+  p.nchunk = sel::ceil_div(n, KM_CHUNK) + (k < n ? k : n);
+  // a cluster of 2+ chunks holds more than KM_CHUNK rows, so their chunks
+  // number at most n / KM_CHUNK + n / (KM_CHUNK + 1)
+  p.npart = 2 * sel::ceil_div(n, KM_CHUNK);
+  const long long words = KM_CTL + p.pw * k + 5 * k + 1 + n;
+  p.part_off = (words * 4 + 15) / 16 * 16;
+  p.bytes = p.part_off + p.npart * d * 4;
+  return p;
+}
+
+KmArgs km_carve(void* buf, const KmPlan& p, long long n, int k, int d) {
+  KmArgs a{};
+  unsigned* w = static_cast<unsigned*>(buf);
+  a.ctl = w;
+  a.table = a.ctl + KM_CTL;
+  a.total = a.table + p.pw * k;
+  a.start = a.total + k;
+  a.cstart = a.start + k;
+  a.pstart = a.cstart + k + 1;
+  a.ticket = a.pstart + k;
+  a.sorted = a.ticket + k;
+  a.partial = reinterpret_cast<float*>(static_cast<char*>(buf) + p.part_off);
+  a.n = n;
+  a.range = p.range;
+  a.pw = p.pw;
+  a.k = k;
+  a.d = d;
+  return a;
+}
+
+constexpr int KM_AHEAD = 8;        // rows a lane has in flight
+constexpr int KM_FOLD_AHEAD = 32;  // chunk sums a folding lane has in flight
+
+// The clusters of rows base + 32u + lane (u < KM_AHEAD), -1 past r1: all
+// loads in flight together.
+__device__ __forceinline__ void load_codes(const KmArgs& a, long long base,
+                                           long long r1,
+                                           int (&cs)[KM_AHEAD]) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int u = 0; u < KM_AHEAD; ++u) {
+    const long long i = base + 32 * u + lane;
+    cs[u] = i < r1 ? __ldg(a.assign + i) : -1;
   }
 }
 
-__global__ void kmeans_fold_kernel(const float* __restrict__ part,
-                                   long long nb, int k, int d,
-                                   const int* __restrict__ counts,
-                                   const float* __restrict__ old,
-                                   float* __restrict__ out) {
-  const long long e = static_cast<long long>(blockIdx.x) * blockDim.x +
-                      threadIdx.x;
-  const long long kd = static_cast<long long>(k) * d;
-  if (e >= kd) return;
-  float s = 0.0f;
-  for (long long b = 0; b < nb; ++b) s = __fadd_rn(s, part[b * kd + e]);
-  const int cnt = counts[e / d];
-  out[e] = cnt > 0 ? __fdiv_rn(s, static_cast<float>(cnt)) : old[e];
+// Warp w counts the clusters of its rows into its row of the table.
+__global__ void __launch_bounds__(KM_WARPS * 32)
+    km_hist_kernel(const __grid_constant__ KmArgs a) {
+  extern __shared__ unsigned km_sh[];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if (blockIdx.x == 0 && threadIdx.x == 0) a.ctl[KM_TICKET] = 0u;
+  const long long w = static_cast<long long>(blockIdx.x) * KM_WARPS + warp;
+  if (w >= a.pw) return;  // warp-uniform
+  unsigned* row = a.table + w * a.k;
+  unsigned* h = a.smem ? km_sh + warp * a.k : row;
+  for (int c = lane; c < a.k; c += 32) h[c] = 0u;
+  __syncwarp();
+  const long long r0 = w * a.range;
+  const long long r1 = r0 + a.range < a.n ? r0 + a.range : a.n;
+  for (long long base = r0; base < r1; base += 32 * KM_AHEAD) {
+    int cs[KM_AHEAD];
+    load_codes(a, base, r1, cs);
+#pragma unroll
+    for (int u = 0; u < KM_AHEAD; ++u) {
+      const int c = cs[u];
+      const unsigned peers = __match_any_sync(KM_FULL, c);
+      if (c >= 0 && lane == __ffs(peers) - 1) h[c] += __popc(peers);
+      __syncwarp();
+    }
+  }
+  if (a.smem)
+    for (int c = lane; c < a.k; c += 32) row[c] = h[c];
+}
+
+// Block (32, 32): lanes along 32 clusters, row y the y-th part of the
+// warps. The exclusive prefix over the warps in place and each count;
+// then the last block scans the counts.
+__global__ void __launch_bounds__(1024)
+    km_prefix_kernel(const __grid_constant__ KmArgs a) {
+  __shared__ unsigned s[32][33];
+  __shared__ unsigned s_tot[32];
+  __shared__ bool s_last;
+  const int tx = threadIdx.x, ty = threadIdx.y;
+  const int c = blockIdx.x * 32 + tx;
+  const long long seg = (a.pw + 31) / 32;
+  const long long w0 = ty * seg < a.pw ? ty * seg : a.pw;
+  const long long w1 = w0 + seg < a.pw ? w0 + seg : a.pw;
+  unsigned sum = 0;
+  if (c < a.k)
+    for (long long w = w0; w < w1; ++w) sum += a.table[w * a.k + c];
+  s[ty][tx] = sum;
+  __syncthreads();
+  if (c < a.k) {
+    unsigned run = 0, tot = 0;
+    for (int y = 0; y < 32; ++y) {
+      run += y < ty ? s[y][tx] : 0u;
+      tot += s[y][tx];
+    }
+    for (long long w = w0; w < w1; ++w) {
+      const unsigned v = a.table[w * a.k + c];
+      a.table[w * a.k + c] = run;
+      run += v;
+    }
+    if (ty == 0) {
+      a.total[c] = tot;
+      a.ticket[c] = 0u;
+      s_tot[tx] = tot;
+    }
+  }
+  __syncthreads();
+  // empty clusters keep their centroid
+  for (int i = 0; i < 32; ++i) {
+    const int ci = blockIdx.x * 32 + i;
+    if (ci >= a.k) break;
+    if (s_tot[i]) continue;
+    for (int j = ty * 32 + tx; j < a.d; j += 1024)
+      a.out[static_cast<long long>(ci) * a.d + j] =
+          a.old[static_cast<long long>(ci) * a.d + j];
+  }
+  __threadfence();
+  __syncthreads();
+  if (tx == 0 && ty == 0)
+    s_last = atomicAdd(a.ctl + KM_TICKET, 1u) == gridDim.x - 1;
+  __syncthreads();
+  if (!s_last) return;
+  __threadfence();
+  // the last block: exclusive scans of rows, chunks and partial slots
+  const int t = ty * 32 + tx;
+  const int per = (a.k + 1023) / 1024;
+  const int lo = t * per < a.k ? t * per : a.k;
+  const int hi = lo + per < a.k ? lo + per : a.k;
+  unsigned r = 0, ch = 0, pa = 0;
+  for (int i = lo; i < hi; ++i) {
+    const unsigned tot = __ldcg(a.total + i);
+    const unsigned nch = (tot + KM_CHUNK - 1) / KM_CHUNK;
+    r += tot;
+    ch += nch;
+    pa += nch > 1 ? nch : 0u;
+  }
+  __shared__ unsigned sr[1024], sc[1024], sp[1024];
+  sr[t] = r;
+  sc[t] = ch;
+  sp[t] = pa;
+  __syncthreads();
+  for (int o = 1; o < 1024; o <<= 1) {
+    const unsigned xr = t >= o ? sr[t - o] : 0u;
+    const unsigned xc = t >= o ? sc[t - o] : 0u;
+    const unsigned xp = t >= o ? sp[t - o] : 0u;
+    __syncthreads();
+    sr[t] += xr;
+    sc[t] += xc;
+    sp[t] += xp;
+    __syncthreads();
+  }
+  unsigned rr = sr[t] - r, cc = sc[t] - ch, pp = sp[t] - pa;
+  for (int i = lo; i < hi; ++i) {
+    const unsigned tot = __ldcg(a.total + i);
+    const unsigned nch = (tot + KM_CHUNK - 1) / KM_CHUNK;
+    a.start[i] = rr;
+    a.cstart[i] = cc;
+    a.pstart[i] = pp;
+    rr += tot;
+    cc += nch;
+    pp += nch > 1 ? nch : 0u;
+  }
+  if (t == 1023) {
+    a.cstart[a.k] = sc[1023];
+    a.ctl[KM_NCHUNK] = sc[1023];
+  }
+}
+
+// The stable scatter: warp w walks its rows again in order and writes
+// each row id to its cluster's next slot.
+__global__ void __launch_bounds__(KM_WARPS * 32)
+    km_scatter_kernel(const __grid_constant__ KmArgs a) {
+  extern __shared__ unsigned km_sh[];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const long long w = static_cast<long long>(blockIdx.x) * KM_WARPS + warp;
+  if (w >= a.pw) return;  // warp-uniform
+  unsigned* row = a.table + w * a.k;
+  unsigned* cur = a.smem ? km_sh + warp * a.k : row;
+  for (int c = lane; c < a.k; c += 32) cur[c] = a.start[c] + row[c];
+  __syncwarp();
+  const long long r0 = w * a.range;
+  const long long r1 = r0 + a.range < a.n ? r0 + a.range : a.n;
+  const unsigned below = (1u << lane) - 1u;
+  for (long long base = r0; base < r1; base += 32 * KM_AHEAD) {
+    int cs[KM_AHEAD];
+    load_codes(a, base, r1, cs);
+#pragma unroll
+    for (int u = 0; u < KM_AHEAD; ++u) {
+      const int c = cs[u];
+      const unsigned peers = __match_any_sync(KM_FULL, c);
+      if (c >= 0)
+        a.sorted[cur[c] + __popc(peers & below)] =
+            static_cast<unsigned>(base + 32 * u + lane);
+      __syncwarp();
+      if (c >= 0 && lane == __ffs(peers) - 1) cur[c] += __popc(peers);
+      __syncwarp();
+    }
+  }
+}
+
+__device__ __forceinline__ float4 add4(float4 s, float4 v) {
+  return make_float4(__fadd_rn(s.x, v.x), __fadd_rn(s.y, v.y),
+                     __fadd_rn(s.z, v.z), __fadd_rn(s.w, v.w));
+}
+
+__device__ __forceinline__ float4 div4(float4 s, float c) {
+  return make_float4(__fdiv_rn(s.x, c), __fdiv_rn(s.y, c), __fdiv_rn(s.z, c),
+                     __fdiv_rn(s.w, c));
+}
+
+// The sum of the chunk's rn sorted rows (ids from `ids`) over the lane's
+// dims of one tile, in row order from +0.0. V: a lane's dims are one
+// float4 at dim j (else one float at dim j); `on`: the lane has dims here.
+template <bool V>
+__device__ __forceinline__ float4 chunk_sum(const KmArgs& a,
+                                            const unsigned* ids, int rn,
+                                            int j, bool on) {
+  const int lane = threadIdx.x & 31;
+  float4 acc = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  for (int r0 = 0; r0 < rn; r0 += 32) {
+    const unsigned my = r0 + lane < rn ? ids[r0 + lane] : 0u;
+    const int m = rn - r0 < 32 ? rn - r0 : 32;
+    for (int q = 0; q < m; q += KM_AHEAD) {
+      float4 v[KM_AHEAD];
+#pragma unroll
+      for (int u = 0; u < KM_AHEAD; ++u) {
+        const unsigned id = __shfl_sync(KM_FULL, my, (q + u) & 31);
+        v[u] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+        if (on && q + u < m) {
+          const float* p = a.x + static_cast<long long>(id) * a.d + j;
+          // x streams through once: evict it first, so the chunk sums
+          // stay in L2 for the fold
+          if (V)
+            v[u] = __ldcs(reinterpret_cast<const float4*>(p));
+          else
+            v[u].x = __ldcs(p);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < KM_AHEAD; ++u)
+        if (q + u < m) acc = add4(acc, v[u]);
+    }
+  }
+  return acc;
+}
+
+// Fold a cluster's nch chunk sums (slots ps..) over one tile of dims, in
+// chunk order, and write the centroids.
+template <bool V>
+__device__ __forceinline__ void fold_tile(const KmArgs& a, int c, unsigned ps,
+                                          unsigned nch, float cnt, int j,
+                                          bool on) {
+  float4 s = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  for (unsigned q = 0; q < nch; q += KM_FOLD_AHEAD) {
+    float4 v[KM_FOLD_AHEAD];
+#pragma unroll
+    for (int u = 0; u < KM_FOLD_AHEAD; ++u) {
+      v[u] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      if (on && q + u < nch) {
+        const float* p =
+            a.partial + static_cast<long long>(ps + q + u) * a.d + j;
+        if (V)
+          v[u] = __ldcg(reinterpret_cast<const float4*>(p));
+        else
+          v[u].x = __ldcg(p);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < KM_FOLD_AHEAD; ++u)
+      if (q + u < nch) s = add4(s, v[u]);
+  }
+  if (!on) return;
+  float* o = a.out + static_cast<long long>(c) * a.d + j;
+  if (V)
+    *reinterpret_cast<float4*>(o) = div4(s, cnt);
+  else
+    *o = __fdiv_rn(s.x, cnt);
+}
+
+template <bool V>
+__device__ __forceinline__ void chunk_warp(const KmArgs& a, int c,
+                                           unsigned j0, unsigned nch,
+                                           unsigned cnt) {
+  const int lane = threadIdx.x & 31;
+  const int tile = V ? 128 : 32;
+  const int rn = static_cast<int>(
+      cnt - j0 * KM_CHUNK < KM_CHUNK ? cnt - j0 * KM_CHUNK : KM_CHUNK);
+  const unsigned* ids = a.sorted + a.start[c] + j0 * KM_CHUNK;
+  const unsigned ps = nch > 1 ? a.pstart[c] : 0u;
+  for (int t0 = 0; t0 < a.d; t0 += tile) {
+    const int j = t0 + (V ? 4 : 1) * lane;
+    const bool on = j < a.d;
+    const float4 acc = chunk_sum<V>(a, ids, rn, j, on);
+    if (!on) continue;
+    if (nch == 1) {
+      float* o = a.out + static_cast<long long>(c) * a.d + j;
+      if (V)
+        *reinterpret_cast<float4*>(o) = div4(acc, static_cast<float>(cnt));
+      else
+        *o = __fdiv_rn(acc.x, static_cast<float>(cnt));
+    } else {
+      float* p = a.partial + static_cast<long long>(ps + j0) * a.d + j;
+      if (V)
+        *reinterpret_cast<float4*>(p) = acc;
+      else
+        *p = acc.x;
+    }
+  }
+  if (nch == 1) return;
+  // the last warp of the cluster folds its chunk sums
+  __threadfence();
+  unsigned done = 0;
+  if (lane == 0) done = atomicAdd(a.ticket + c, 1u);
+  done = __shfl_sync(KM_FULL, done, 0);
+  if (done != nch - 1) return;
+  __threadfence();
+  for (int t0 = 0; t0 < a.d; t0 += tile) {
+    const int j = t0 + (V ? 4 : 1) * lane;
+    fold_tile<V>(a, c, ps, nch, static_cast<float>(cnt), j, j < a.d);
+  }
+}
+
+__global__ void __launch_bounds__(KM_CHUNK_WARPS * 32)
+    km_chunk_kernel(const __grid_constant__ KmArgs a) {
+  const long long g = static_cast<long long>(blockIdx.x) * KM_CHUNK_WARPS +
+                      (threadIdx.x >> 5);
+  if (g >= a.ctl[KM_NCHUNK]) return;  // warp-uniform
+  // the cluster: the last c with cstart[c] <= g (empty clusters share
+  // the next one's start and are skipped)
+  int lo = 0, hi = a.k;
+  while (hi - lo > 1) {
+    const int mid = (lo + hi) >> 1;
+    if (a.cstart[mid] <= g)
+      lo = mid;
+    else
+      hi = mid;
+  }
+  const unsigned j0 = static_cast<unsigned>(g) - a.cstart[lo];
+  const unsigned nch = a.cstart[lo + 1] - a.cstart[lo];
+  if (a.vec)
+    chunk_warp<true>(a, lo, j0, nch, a.total[lo]);
+  else
+    chunk_warp<false>(a, lo, j0, nch, a.total[lo]);
 }
 
 unsigned grid1(long long n, int threads) {
@@ -400,6 +774,11 @@ void allow_smem() {
   cudaFuncSetAttribute(maxsim_docs_kernel,
                        cudaFuncAttributeMaxDynamicSharedMemorySize,
                        static_cast<int>(MAX_SMEM));
+  const int km = KM_WARPS * KM_SMEM_K * static_cast<int>(sizeof(unsigned));
+  cudaFuncSetAttribute(km_hist_kernel,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize, km);
+  cudaFuncSetAttribute(km_scatter_kernel,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize, km);
   done = true;
 }
 
@@ -525,24 +904,53 @@ int kmeans_assign(const void* x, const void* c, const void* xc, long long n,
   return static_cast<int>(cudaGetLastError());
 }
 
-// kmeans_update: part (ceil(n / R), k, d) and counts (k,) zeroed by the
-// wrapper; out (k, d) the new centroids.
+// Bytes of kmeans_update's one buffer at (n, k, d): every word of it is
+// set by the call.
+long long kmeans_bytes(long long n, int k, int d) {
+  return km_plan(n, k, d).bytes;
+}
+
+// kmeans_update: x (n, d), assign (n,) i32 in [0, k), old (k, d); buf
+// (kmeans_bytes) is the call's scratch, unset; out (k, d) the new
+// centroids. Four launches, no blocking call.
 int kmeans_update(const void* x, const void* assign, const void* old,
-                  long long n, int k, int d, long long R, void* part,
-                  void* counts, void* out, void* stream) {
+                  long long n, int k, int d, void* buf, void* out,
+                  void* stream) {
+  if (n < 1 || k < 1 || d < 1 || n > 0x7FFFFFFFLL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  allow_smem();
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const long long nb = sel::ceil_div(n, R);
-  int threads = 32;
-  while (threads < d && threads < 256) threads <<= 1;
-  kmeans_partial_kernel<<<static_cast<unsigned>(nb), threads, 0, s>>>(
-      static_cast<const float*>(x), static_cast<const int*>(assign), n, d, k,
-      R, static_cast<float*>(part), static_cast<int*>(counts));
-  const long long kd = static_cast<long long>(k) * d;
-  kmeans_fold_kernel<<<grid1(kd, 256), 256, 0, s>>>(
-      static_cast<const float*>(part), nb, k, d,
-      static_cast<const int*>(counts), static_cast<const float*>(old),
-      static_cast<float*>(out));
+  const KmPlan p = km_plan(n, k, d);
+  KmArgs a = km_carve(buf, p, n, k, d);
+  a.x = static_cast<const float*>(x);
+  a.assign = static_cast<const int*>(assign);
+  a.old = static_cast<const float*>(old);
+  a.out = static_cast<float*>(out);
+  a.smem = k <= KM_SMEM_K;
+  a.vec = d % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+          reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  const unsigned nb = static_cast<unsigned>(sel::ceil_div(p.pw, KM_WARPS));
+  const size_t sm = a.smem ? KM_WARPS * static_cast<size_t>(k) * 4 : 0;
+  km_hist_kernel<<<nb, KM_WARPS * 32, sm, s>>>(a);
+  km_prefix_kernel<<<static_cast<unsigned>(sel::ceil_div(k, 32)),
+                     dim3(32, 32), 0, s>>>(a);
+  km_scatter_kernel<<<nb, KM_WARPS * 32, sm, s>>>(a);
+  km_chunk_kernel<<<static_cast<unsigned>(
+                        sel::ceil_div(p.nchunk, KM_CHUNK_WARPS)),
+                    KM_CHUNK_WARPS * 32, 0, s>>>(a);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The keys buffer `which` (0: the first, 1: the second) of select.cuh's
+// levels must hold for `rows` rows of n keys in sorted runs of `run`,
+// cut to `keep` from tiles of at least `floor` (sel::level_caps): what
+// ops/select.py `scratch` mirrors, for the card test that holds the two
+// against each other.
+long long select_cap(long long rows, long long n, long long run,
+                     long long keep, int floor, int which) {
+  long long cap_a, cap_b;
+  sel::level_caps(rows, n, run, keep, floor, cap_a, cap_b);
+  return which ? cap_b : cap_a;
 }
 
 }  // extern "C"

@@ -2,10 +2,11 @@
 
 `sel::levels` takes each row's n keys (sorted runs of `run` keys; 1:
 unsorted) down to its K smallest, alternating between two buffers. The
-wrappers of `ivf_probe`, `maxsim` and `topk_rows` size those buffers from
-`scratch`, which follows the same loop; the kernel side refuses a level
-that would not fit, so a disagreement raises instead of writing past a
-buffer.
+wrappers of `ivf_probe` and `maxsim` size those buffers from
+`scratch`, which follows the loop of `sel::level_caps`; the kernel side
+refuses a level that would not fit, so a disagreement raises instead of
+writing past a buffer, and a card test (`tests/test_torch_gpu.py`) holds
+`scratch` against the C++ sizes (`vector.cu` `select_cap`).
 """
 
 from __future__ import annotations

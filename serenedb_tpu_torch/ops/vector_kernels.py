@@ -12,8 +12,9 @@ PyTorch versions.
 - `kmeans_assign` ← `_assign_program` (:187) and the argmin step of
   `_kmeans_program` (:157), given the x·cᵀ product.
 - `kmeans_update` ← the centroid update of `_kmeans_program`: per-cluster
-  sums in a fixed order (block partial planes folded in block order) and
-  counts, then sum / max(count, 1), the old centroid where count is 0.
+  sums in a fixed order (each cluster's rows in row order, in chunks of
+  KMEANS_CHUNK, the chunk sums in order) and counts, then sum / count, the
+  old centroid where count is 0.
 
 The plain versions compute the same functions in the kernels' order: every
 distance chain is a Python loop of separate `*` and `+` (elementwise over
@@ -440,65 +441,70 @@ def kmeans_assign(x: torch.Tensor, c: torch.Tensor,
     return out
 
 
-def rows_per_block(n: int) -> int:
-    """Rows one block of `kmeans_update` adds (about two blocks an SM of
-    an H100 at large n). The sums' bits depend on it, so both versions
-    take it from here."""
-    return max(256, -(-n // 264))
+#: sorted rows one chunk of `kmeans_update` sums (csrc/vector.cu KM_CHUNK).
+#: The sums' bits depend on it, so both versions take it from here.
+KMEANS_CHUNK = 128
 
 
-def kmeans_update_plain(x, assign, c, rows: int = 0) -> torch.Tensor:
-    """Plain version of `kmeans_update`, in the kernel's add order."""
+def kmeans_update_plain(x, assign, c) -> torch.Tensor:
+    """Plain version of `kmeans_update`, in the kernel's add order: each
+    cluster's rows in row order, cut into chunks of KMEANS_CHUNK; a chunk
+    sums its rows in order from +0.0; a cluster sums its chunk sums in
+    chunk order."""
     LAUNCHES.bump("kmeans_update.plain")
     _check_kmeans(x, c)
     n, d = x.shape
     k = c.shape[0]
-    R = rows or rows_per_block(n)
-    nb = -(-n // R)
-    part = torch.zeros((nb, k, d), dtype=torch.float32, device=x.device)
-    blocks = torch.arange(nb, device=x.device)
+    C = KMEANS_CHUNK
+    dev = x.device
     a64 = assign.to(torch.int64)
-    for j in range(R):
-        r = blocks * R + j
-        ok = r < n
-        if not bool(ok.any()):
-            break
-        b, r = blocks[ok], r[ok]
-        cl = a64[r]
-        part[b, cl] = part[b, cl] + x[r]
-    s = torch.zeros((k, d), dtype=torch.float32, device=x.device)
-    for b in range(nb):
-        s = s + part[b]
+    order = torch.sort(a64, stable=True).indices
     cnt = torch.bincount(a64, minlength=k)[:k]
+    start = torch.cumsum(cnt, 0) - cnt
+    ca = a64[order]
+    rank = torch.arange(n, device=dev) - start[ca]
+    nch = (cnt + C - 1) // C
+    cstart = torch.cumsum(nch, 0) - nch
+    chunk = cstart[ca] + rank // C
+    pos = rank % C
+    part = torch.zeros((int(nch.sum()), d), dtype=torch.float32, device=dev)
+    for j in range(C):
+        at = pos == j
+        if not bool(at.any()):
+            break
+        g = chunk[at]
+        part[g] = part[g] + x[order[at]]
+    s = torch.zeros((k, d), dtype=torch.float32, device=dev)
+    for j in range(int(nch.max())):
+        cl = torch.nonzero(nch > j).squeeze(1)
+        s[cl] = s[cl] + part[cstart[cl] + j]
     new = _f64_round(torch.div, s,
                      torch.clamp(cnt, min=1).to(torch.float32)[:, None])
     return torch.where(cnt[:, None] > 0, new, c)
 
 
-def kmeans_update(x: torch.Tensor, assign: torch.Tensor, c: torch.Tensor,
-                  rows: int = 0) -> torch.Tensor:
-    """New centroids from the assignment: per-cluster sums (each block
-    adds its `rows` rows in order, the block planes fold in block order)
-    over max(count, 1); the old centroid where a cluster is empty."""
+def kmeans_update(x: torch.Tensor, assign: torch.Tensor,
+                  c: torch.Tensor) -> torch.Tensor:
+    """New centroids from the assignment: per-cluster sums (chunks of
+    KMEANS_CHUNK of the cluster's rows in row order, the chunk sums in
+    order) over the count; the old centroid where a cluster is empty."""
     if not _is_cuda(x, assign, c):
-        return kmeans_update_plain(x, assign, c, rows)
+        return kmeans_update_plain(x, assign, c)
     _check_kmeans(x, c)
     n, d = x.shape
     k = c.shape[0]
     if assign.dtype != torch.int32 or assign.shape != (n,) or \
             not assign.is_contiguous():
         raise ValueError("kmeans_update: assign must be contiguous (n,) i32")
-    R = rows or rows_per_block(n)
-    nb = -(-n // R)
+    if n >= 2**31:
+        raise ValueError("kmeans_update: more than 2^31 - 1 rows")
     dev = x.device
-    part = torch.zeros(nb * k * d, dtype=torch.float32, device=dev)
-    counts = torch.zeros(k, dtype=torch.int32, device=dev)
-    out = torch.empty((k, d), dtype=torch.float32, device=dev)
     lib = _build.load("vector")
+    buf = torch.empty(lib.kmeans_bytes(n, k, d), dtype=torch.uint8,
+                      device=dev)
+    out = torch.empty((k, d), dtype=torch.float32, device=dev)
     LAUNCHES.bump("kmeans_update")
     _build.check(lib.kmeans_update(
-        x.data_ptr(), assign.data_ptr(), c.data_ptr(), n, k, d, R,
-        part.data_ptr(), counts.data_ptr(), out.data_ptr(), _stream(x)),
-        "kmeans_update")
+        x.data_ptr(), assign.data_ptr(), c.data_ptr(), n, k, d,
+        buf.data_ptr(), out.data_ptr(), _stream(x)), "kmeans_update")
     return out
-

@@ -238,6 +238,46 @@ def test_topk_rows_plain_mask_matches_reference_masking(hits_dtype):
     np.testing.assert_array_equal(vals.numpy(), np.asarray(ref_vals))
 
 
+@pytest.mark.parametrize("k", [7, 1003])
+def test_topk_rows_plain_on_unaligned_rows_matches_lax_top_k(k):
+    """Rows of 1,003 columns (not a multiple of 4), up to k = ncols, with
+    int hits and a mixed require: equal to lax.top_k of the masked plane."""
+    rng = np.random.default_rng(k)
+    plane = _tie_plane(5, 1003, seed=k, levels=[0.0, 0.5, 1.25, 4.0])
+    plane[2] = -0.0
+    hits = rng.integers(0, 3, size=(5, 1003)).astype(np.int32)
+    require = np.array([0, 1, 2, 1, 0], dtype=np.int32)
+    need = require[:, None]
+    masked = np.where((need <= 0) | (hits >= need), plane, 0.0)
+    masked = np.where(masked == 0, np.float32(0.0), masked)
+    ref_vals, ref_idx = jax.lax.top_k(jnp.asarray(masked), k)
+    vals, idx = bm25_kernels.topk_rows(
+        torch.from_numpy(plane), k, hits=torch.from_numpy(hits),
+        require=torch.from_numpy(require))
+    np.testing.assert_array_equal(idx.numpy(), np.asarray(ref_idx))
+    np.testing.assert_array_equal(vals.numpy(), np.asarray(ref_vals))
+
+
+@pytest.mark.parametrize("k", [3, 40])
+def test_topk_rows_plain_orders_nan_by_its_sign_as_lax_top_k(k):
+    """A positive NaN above +inf, a negative one below -inf, -0.0 tied
+    with +0.0: the plain version's order is lax.top_k's."""
+    rng = np.random.default_rng(k)
+    plane = rng.choice(np.float32([0.0, -0.0, 1.5, -2.0]), size=(3, 41))
+    plane[0, ::5] = np.nan
+    plane[0, 2::5] = -np.nan
+    plane[1, ::4] = -np.nan
+    plane[1, 1::9] = -np.inf
+    plane[2, ::3] = np.inf
+    plane[2, 1::6] = np.nan
+    masked = np.where(plane == 0, np.float32(0.0), plane)
+    ref_vals, ref_idx = jax.lax.top_k(jnp.asarray(masked), k)
+    vals, idx = bm25_kernels.topk_rows(torch.from_numpy(plane), k)
+    np.testing.assert_array_equal(idx.numpy(), np.asarray(ref_idx))
+    np.testing.assert_array_equal(vals.numpy().view(np.uint32),
+                                  np.asarray(ref_vals).view(np.uint32))
+
+
 def test_topk_rows_rejects_k_outside_the_row():
     with pytest.raises(ValueError):
         bm25_kernels.topk_rows(torch.zeros((2, 8)), 9)

@@ -136,30 +136,93 @@ def _tie_plane(rows, n, seed):
     rng = np.random.default_rng(seed)
     plane = rng.choice(np.float32([0.0, 1.5, 2.25, 7.0]), size=(rows, n))
     plane[0] = 0.0                              # a row of ties only
-    plane[1, ::3] = -0.0
-    plane[2] = rng.random(n).astype(np.float32)
+    if rows > 3:
+        plane[1, ::3] = -0.0
+        plane[2] = rng.random(n).astype(np.float32)
+        # NaN by its sign bit: +NaN above +inf, -NaN below -inf
+        plane[3, ::7] = np.nan
+        plane[3, 3::7] = -np.nan
+        plane[3, 5::11] = -np.inf
     return plane
 
 
-@pytest.mark.parametrize("k", [1, 10, 100, 1000, 20_000])
-@pytest.mark.parametrize("hits_dtype", [None, torch.int32, torch.float32])
-def test_topk_rows_kernel_matches_plain_bit_for_bit(cuda, k, hits_dtype):
-    rows, n = 8, 50_000
-    scores = torch.from_numpy(_tie_plane(rows, n, k)).to(cuda)
+def _topk_case(cuda, rows, n, k, hits_dtype, seed):
+    scores = torch.from_numpy(_tie_plane(rows, n, seed)).to(cuda)
     hits = require = None
     if hits_dtype is not None:
         rng = np.random.default_rng(7)
         hits = torch.from_numpy(rng.integers(0, 3, (rows, n))).to(
             cuda, hits_dtype)
-        require = torch.tensor([0, 1, 2, 0, 2, 1, 0, 3], dtype=torch.int32,
-                               device=cuda)
+        require = torch.from_numpy(
+            np.resize(np.int32([0, 1, 2, 0, 2, 1, 0, 3]), rows)).to(cuda)
     before = LAUNCHES.get("topk_rows")
     vals, idx = kern.topk_rows(scores, k, hits, require)
+    again_v, again_i = kern.topk_rows(scores, k, hits, require)
     torch.cuda.synchronize()
-    assert LAUNCHES.get("topk_rows") == before + 1
+    assert LAUNCHES.get("topk_rows") == before + 2
     ref_v, ref_i = kern.topk_rows_plain(scores, k, hits, require)
     assert torch.equal(idx, ref_i)
     assert torch.equal(vals.view(torch.int32), ref_v.view(torch.int32))
+    assert torch.equal(idx, again_i)
+    assert torch.equal(vals.view(torch.int32), again_v.view(torch.int32))
+
+
+@pytest.mark.parametrize("k", [1, 10, 100, 1000, kern.TOPK_ONE_MAX,
+                               kern.TOPK_ONE_MAX + 1, 20_000])
+@pytest.mark.parametrize("hits_dtype", [None, torch.int32, torch.float32])
+@pytest.mark.parametrize("rows,n", [(8, 50_000), (8, 50_001), (1, 50_001)])
+def test_topk_rows_kernel_matches_plain_bit_for_bit(cuda, k, hits_dtype,
+                                                    rows, n):
+    """Both regimes (k on either side of TOPK_ONE_MAX), aligned and
+    unaligned rows (n % 4 != 0), a row of ties, -0.0 and NaN."""
+    _topk_case(cuda, rows, n, k, hits_dtype, seed=k)
+
+
+@pytest.mark.parametrize("k", [1, 10, 37])
+@pytest.mark.parametrize("hits_dtype", [None, torch.int32, torch.float32])
+def test_topk_rows_past_the_grid_row_limit(cuda, k, hits_dtype):
+    """70,000 short rows (more than a grid's y dimension holds) of 37
+    columns, up to k = ncols: one call."""
+    _topk_case(cuda, 70_000, 37, k, hits_dtype, seed=k + 1)
+
+
+def test_topk_rows_misaligned_hits_and_scores(cuda):
+    """hits and scores at different 16-byte offsets: the scalar loads."""
+    rows, n, k = 4, 10_003, 50
+    rng = np.random.default_rng(3)
+    scores = torch.from_numpy(
+        rng.random((rows, n)).astype(np.float32)).to(cuda)
+    flat = torch.from_numpy(rng.integers(0, 3, rows * n + 1)).to(
+        cuda, torch.int32)
+    hits = flat[1:].view(rows, n)
+    require = torch.tensor([1, 2, 0, 1], dtype=torch.int32, device=cuda)
+    vals, idx = kern.topk_rows(scores, k, hits, require)
+    ref_v, ref_i = kern.topk_rows_plain(scores, k, hits, require)
+    torch.cuda.synchronize()
+    assert torch.equal(idx, ref_i)
+    assert torch.equal(vals.view(torch.int32), ref_v.view(torch.int32))
+
+
+_SELECT_FLOORS = [32, 256, 1024]
+
+
+@pytest.mark.parametrize("floor", _SELECT_FLOORS)
+def test_select_scratch_matches_the_kernel_sizes(cuda, floor):
+    """ops/select.py `scratch` (the Python wrappers' buffer sizes) equals
+    select.cuh `sel::level_caps` (vector.cu `select_cap`) over flat and
+    merge levels, unsorted and tile-sorted input."""
+    from serenedb_tpu_torch.ops import _build, select
+    lib = _build.load("vector")
+    for keep in (1, 10, 100, 4096, 8192, 8193, 20_000):
+        tile = select.tile_for(keep, floor)
+        for run in sorted({1, min(keep, tile)}):
+            for m in (1, 3, 17, 1000):
+                n = max(m, -(-keep // run)) * run
+                for rows in (1, 7):
+                    want = select.scratch(rows, n, run, keep, floor)
+                    got = (lib.select_cap(rows, n, run, keep, floor, 0),
+                           lib.select_cap(rows, n, run, keep, floor, 1))
+                    assert got == want, (rows, n, run, keep, floor)
 
 
 # -- analytics: agg_scan and agg_fold ---------------------------------------
@@ -536,13 +599,16 @@ def test_chain_topn_matches_plain(cuda, mode, desc, G):
 def _device_activity(fn) -> tuple:
     """(kernels, host-to-device copies) that one fn() issues on the card,
     from torch.profiler after a warm-up call: the most over three profiled
-    calls (the profiler can drop an event, never add one)."""
+    calls (the profiler can drop an event, never add one), and over up to
+    ten while none has shown a kernel (every call launches one)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
     kernels = copies = 0
-    for _ in range(3):
+    for session in range(10):
+        if session >= 3 and kernels:
+            break
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             fn()
@@ -856,6 +922,78 @@ def test_kmeans_kernels_match_plain(cuda):
     assert LAUNCHES.get("kmeans_update") == 1
     assert torch.equal(new.cpu().view(torch.int32), pnew.view(torch.int32))
     assert torch.equal(pnew[40], c[40]) and torch.equal(pnew[7], c[7])
+
+
+def _kmeans_case(case):
+    """(x, assign, centroids) on the CPU for a named kmeans_update case."""
+    rng = np.random.default_rng(61)
+    n, d, k = {"skewed": (300_001, 128, 64), "empty": (70_000, 32, 100),
+               "d3": (50_003, 3, 16), "d130": (40_000, 130, 32),
+               "large_k": (60_000, 8, 10_000),
+               "misaligned": (20_000, 16, 24)}[case]
+    x = (rng.standard_normal((n, d)) * 4.0 + 10.0).astype(np.float32)
+    if case == "skewed":                 # >= 90 % of the rows in cluster 5
+        a = np.where(rng.random(n) < 0.93, 5, rng.integers(0, k, n))
+    elif case == "empty":                # every third cluster empty
+        a = rng.integers(0, k // 3, n) * 3 + 1
+    else:
+        a = rng.integers(0, k, n)
+    c = rng.standard_normal((k, d)).astype(np.float32)
+    xt = torch.from_numpy(x)
+    if case == "misaligned":             # x 4 bytes off a 16-byte boundary
+        flat = torch.empty(n * d + 1, dtype=torch.float32)
+        flat[1:] = xt.reshape(-1)
+        xt = flat[1:].view(n, d)
+    return xt, torch.from_numpy(a.astype(np.int32)), torch.from_numpy(c)
+
+
+@pytest.mark.parametrize("case", ["skewed", "empty", "d3", "d130",
+                                  "large_k", "misaligned"])
+def test_kmeans_update_matches_plain_bit_for_bit(cuda, case):
+    from serenedb_tpu_torch.ops import vector_kernels as vk
+    x, a, c = _kmeans_case(case)
+    if case == "misaligned":
+        flat = torch.empty(x.numel() + 1, dtype=torch.float32, device=cuda)
+        flat[1:] = x.reshape(-1).to(cuda)
+        xd = flat[1:].view(x.shape)
+        assert xd.data_ptr() % 16 != 0
+    else:
+        xd = x.to(cuda)
+    ad, cd = a.to(cuda), c.to(cuda)
+    LAUNCHES.reset()
+    new = vk.kmeans_update(xd, ad, cd)
+    again = vk.kmeans_update(xd, ad, cd)
+    torch.cuda.synchronize()
+    assert LAUNCHES.get("kmeans_update") == 2
+    ref = vk.kmeans_update_plain(xd, ad, cd)
+    assert torch.equal(new.view(torch.int32), ref.view(torch.int32))
+    assert torch.equal(new.view(torch.int32), again.view(torch.int32))
+    empty = torch.bincount(a.long(), minlength=c.shape[0]) == 0
+    assert torch.equal(new.cpu()[empty], c[empty])
+
+
+def test_topk_and_kmeans_calls_issue_few_kernels_and_no_copy(cuda):
+    """topk_rows (one-read regime): at most 5 kernels a call, no
+    host-to-device copy; kmeans_update: at most its 4 kernels, no copy
+    (the profiler can drop an event, never add one)."""
+    from serenedb_tpu_torch.ops import vector_kernels as vk
+    rng = np.random.default_rng(4)
+    scores = torch.from_numpy(
+        rng.random((16, 200_003)).astype(np.float32)).to(cuda)
+    hits = torch.from_numpy(rng.integers(0, 3, (16, 200_003))).to(
+        cuda, torch.int32)
+    require = torch.ones(16, dtype=torch.int32, device=cuda)
+    kernels, copies = _device_activity(
+        lambda: kern.topk_rows(scores, 10, hits, require))
+    assert 1 <= kernels <= 5 and copies == 0, ("topk_rows", kernels, copies)
+    x = torch.from_numpy(rng.random((100_000, 64)).astype(np.float32)).to(
+        cuda)
+    a = torch.from_numpy(rng.integers(0, 256, 100_000).astype(np.int32)).to(
+        cuda)
+    c = torch.zeros((256, 64), dtype=torch.float32, device=cuda)
+    kernels, copies = _device_activity(lambda: vk.kmeans_update(x, a, c))
+    assert 1 <= kernels <= 4 and copies == 0, ("kmeans_update", kernels,
+                                               copies)
 
 
 # -- serving: contrib_flat and pool_score ------------------------------------

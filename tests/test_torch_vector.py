@@ -240,6 +240,62 @@ def test_kmeans_kernels_plain_semantics():
     assert new[2].tolist() == [1., 0.] and new[0].tolist() == [1., 0.]
 
 
+def _chunk_order_update(x, assign, c, chunk):
+    """kmeans_update's documented order as numpy loops: each cluster's
+    rows in row order, in chunks of `chunk` rows; a chunk sums its rows
+    in order from +0.0 in f32, the cluster its chunk sums in order; then
+    the IEEE-rounded quotient, or the old centroid where the cluster is
+    empty."""
+    out = c.copy()
+    for cl in range(c.shape[0]):
+        rows = np.nonzero(assign == cl)[0]
+        if len(rows) == 0:
+            continue
+        total = np.zeros(x.shape[1], np.float32)
+        for j0 in range(0, len(rows), chunk):
+            acc = np.zeros(x.shape[1], np.float32)
+            for r in rows[j0:j0 + chunk]:
+                acc = (acc + x[r]).astype(np.float32)
+            total = (total + acc).astype(np.float32)
+        out[cl] = (total.astype(np.float64) / len(rows)).astype(np.float32)
+    return out
+
+
+@pytest.mark.parametrize("d", [3, 130])
+def test_kmeans_update_plain_follows_the_chunk_order(d):
+    """A skewed assignment (one cluster holds ~90 % of the rows: 7 full
+    chunks and a partial one), an empty cluster, n not a multiple of the
+    chunk, float data: bit for bit against the loops."""
+    rng = np.random.default_rng(d)
+    n, k = 1001, 6
+    x = (rng.standard_normal((n, d)) * 3.0).astype(np.float32)
+    a = np.where(rng.random(n) < 0.9, 2, rng.integers(0, k, n))
+    a[a == 4] = 0                                    # cluster 4 empty
+    c = rng.standard_normal((k, d)).astype(np.float32)
+    assert np.bincount(a, minlength=k)[2] > 7 * vk.KMEANS_CHUNK
+    want = _chunk_order_update(x, a, c, vk.KMEANS_CHUNK)
+    got = vk.kmeans_update(torch.from_numpy(x),
+                           torch.from_numpy(a.astype(np.int32)),
+                           torch.from_numpy(c)).numpy()
+    np.testing.assert_array_equal(_bits(got), _bits(want))
+
+
+def test_kmeans_on_skewed_128_dim_data_within_tolerance():
+    """JAX parity at D = 128 with one cluster holding ~90 % of the rows."""
+    rng = np.random.default_rng(17)
+    n, d, k = 900, 128, 8
+    centers = rng.standard_normal((k, d)) * 10.0
+    which = np.where(rng.random(n) < 0.9, 0, rng.integers(1, k, n))
+    which[:k] = np.arange(k)
+    x = (centers[which] + rng.standard_normal((n, d))).astype(np.float32)
+    init = x[:k].copy()                  # one seed row a cluster
+    xp = ref_vops.pad_rows(x)
+    rc = np.asarray(ref_vops.kmeans_fit(xp, init, k, 4))
+    pc = vops.kmeans_fit(torch.from_numpy(xp), torch.from_numpy(init), k,
+                         4).numpy()
+    np.testing.assert_allclose(pc, rc, rtol=1e-5, atol=1e-6)
+
+
 def _maxsim_corpus(n_docs, dim, seed):
     rng = np.random.default_rng(seed)
     docs = []
