@@ -57,7 +57,11 @@ Phases (any failure exits non-zero and prints no result line):
      and agg_fold's f32 outputs bit for bit), with their times, bounds
      and torch yardsticks; each top-N call's kernels and host-to-device
      copies from one profiled call (topn_scan at most 5 kernels and no
-     copy, chain_topn one kernel under its one-block cap);
+     copy, chain_topn one kernel under its one-block cap); join_probe
+     (J1, J4, J5 with join_unmatched) bit for bit, a warm call exactly
+     its init + probe (+ unmatched) kernels with no copy in (device ms by
+     kernel), and returning at once behind ~25 ms of queued device work
+     (no stream sync);
      agg_fold also on a seeded (8,192 x 201) plane; and the two f32
      GEMMs of dense_topk timed against their FLOP bound;
  11. `sift`: IVF through SQL at sift-128-euclidean's shape (1,000,000 x
@@ -86,8 +90,11 @@ Phases (any failure exits non-zero and prints no result line):
      CREATE INDEX ... USING inverted, the 256-query mix as @@ + bm25()
      statements, an INSERT of 10,000 docs (a second segment), the mix
      again; rows held to the port's host WAND (bench.py's rule);
- 14. ivf_probe (nprobe 16 and the brute layout), maxsim (one 16-query
-     batch), kmeans_assign and kmeans_update (one k-means iteration, and
+ 14. ivf_probe (nprobe 16 at batch 64 and at batch 1, and the brute
+     layout), maxsim (one 16-query batch, bit for bit and against a
+     second launch, device ms by kernel, its bound at two FP32
+     instructions a multiply-add), kmeans_assign and kmeans_update (one
+     k-means iteration, and
      the same rows with >= 90 % of them in one cluster) against their
      plain versions on inputs recorded from phases 11-12, bit for bit,
      with their times, bounds and yardsticks (kmeans_update: 4 kernels
@@ -134,8 +141,9 @@ Phases (any failure exits non-zero and prints no result line):
      match_bitmap (on a recorded phase 17 launch) against their plain
      versions bit for bit, with their times and bounds; K12's one-card
      form: join_probe at phase 17's collective shape (4 shards, device
-     combine, 1x) against its plain version, with its bound and an
-     index_add_ yardstick; the K13 entries of ops/agg.py (masked count,
+     combine, 1x) against its plain version, with its bound, an
+     index_add_ yardstick and phase 10's launch and sync checks; the K13
+     entries of ops/agg.py (masked count,
      sum, min/max, the one-hot chunk counts, group_count) on agg_scan
      against their plain versions on the card, bit for bit;
  20. one JSON line per kernel, the card line, then the device line.
@@ -163,6 +171,10 @@ import numpy as np
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory rate (data sheet)
 F32_FLOPS = 67e12             # H100 SXM f32 rate outside the tensor cores
+#: FP32 instructions a second outside the tensor cores (132 SMs x 128
+#: lanes x 1.98 GHz): the rate of a product and a sum kept apart, as
+#: maxsim's -fmad=false build computes them
+F32_INSTR = 132 * 128 * 1.98e9
 ATOL, RTOL = 1e-6, 1e-5       # kernel vs plain version, f32 scores
 PARITY_RTOL, PARITY_ATOL = 2e-3, 1e-3   # device vs cpu_topk_wand (bench.py)
 SQL_REL, SQL_ABS = 1e-4, 1e-4  # device vs host floats (test_device_agg.py)
@@ -407,6 +419,15 @@ def bound_ms(n_bytes: int) -> float:
     return n_bytes / HBM_BYTES_PER_S * 1e3
 
 
+def margin(session: int) -> None:
+    """Idle host time at each end of a profiled window, growing with the
+    session (2 ms, doubling to 0.2 s): a short window's device events can
+    go missing from the profiler's results (a one-kernel call showed none
+    in ten sessions late in a run, and one in each of ten when run alone),
+    which an idle margin around the calls is meant to prevent."""
+    time.sleep(min(0.002 * 2 ** session, 0.2))
+
+
 def call_activity(fn) -> tuple:
     """(kernels, host-to-device copies) that one fn() issues on the card,
     from torch.profiler after a warm-up call: the most over three profiled
@@ -423,8 +444,10 @@ def call_activity(fn) -> tuple:
             break
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
+            margin(session)
             fn()
             torch.cuda.synchronize()
+            margin(session)
         n_k = n_c = 0
         for ev in prof.events():
             if ev.device_type != DeviceType.CUDA:
@@ -442,15 +465,21 @@ def call_activity(fn) -> tuple:
 TOPK_ONE_KERNELS = ("topk_pass0_kernel", "topk_take_kernel")
 KMEANS_KERNELS = ("km_hist_kernel", "km_prefix_kernel", "km_scatter_kernel",
                   "km_chunk_kernel")
+#: maxsim at the colbert batch (16 x 32 pairs, 50,048 lanes: one range of
+#: the scratch), its selection two levels of tile_kernel
+MAXSIM_KERNELS = {"maxsim_tiles_kernel": 1, "maxsim_score_kernel": 1,
+                  "tile_kernel": 2, "keys_finish_kernel": 1}
 
 
-def launch_profile(fn, expect: tuple, calls: int = 5) -> tuple:
+def launch_profile(fn, expect, calls: int = 5) -> tuple:
     """(host-to-device copies a call, device ms a call by kernel) of fn(),
     from torch.profiler over a window of `calls` calls after a warm-up
-    call. A window counts only where it shows each kernel of `expect`
-    exactly `calls` times (the profiler can drop an event, never add one):
-    the first of up to ten such windows gives the numbers. Fails on a
-    kernel outside `expect`, or when no window is complete."""
+    call. `expect` names the kernels of one call (a tuple: once each; a
+    dict: name -> launches a call). A window counts only where it shows
+    each kernel of `expect` exactly that many times `calls` (the profiler
+    can drop an event, never add one): the first of up to ten such
+    windows gives the numbers. Fails on a kernel outside `expect`, or
+    when no window is complete."""
     import re
 
     import torch
@@ -459,12 +488,14 @@ def launch_profile(fn, expect: tuple, calls: int = 5) -> tuple:
     fn()
     torch.cuda.synchronize()
     counts = {}
-    for _ in range(10):
+    for window in range(10):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
+            margin(window)
             for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
+            margin(window)
         counts, ms, copies = {}, {}, 0
         for ev in prof.events():
             if ev.device_type != DeviceType.CUDA or \
@@ -481,20 +512,22 @@ def launch_profile(fn, expect: tuple, calls: int = 5) -> tuple:
                 getattr(ev, "cuda_time_total", 0)
             counts[name] = counts.get(name, 0) + 1
             ms[name] = ms.get(name, 0.0) + t / 1e3 / calls
-        if all(counts.get(name) == calls for name in expect):
+        per = expect if isinstance(expect, dict) else dict.fromkeys(expect, 1)
+        if all(counts.get(name) == calls * n for name, n in per.items()):
             return copies / calls, ms
     fail(f"no profiled window of {calls} calls showed each of {expect} "
          f"{calls} times (the last: {counts})")
 
 
-def activity_note(fn, expect: tuple) -> str:
+def activity_note(fn, expect) -> str:
     """A call's kernels, copies in and device ms by kernel, as a note;
     fails where the call launches other kernels than `expect` or copies
     anything in from the host."""
     copies, by = launch_profile(fn, expect)
     if copies:
         fail(f"a call made {copies} host-to-device copies (none allowed)")
-    return (f"a call: {len(expect)} kernels, 0 copies in; device ms "
+    n = sum(expect.values()) if isinstance(expect, dict) else len(expect)
+    return (f"a call: {n} kernels, 0 copies in; device ms "
             + ", ".join(f"{k} {by[k]:.4f}" for k in expect)
             + f" (sum {sum(by.values()):.4f})")
 
@@ -506,10 +539,13 @@ class Recorder:
 
     def __init__(self, module, name: str, pick=lambda a, kw: True):
         self.module, self.name, self.pick = module, name, pick
-        self.orig = getattr(module, name)
         self.args = None
 
     def __enter__(self):
+        # taken here, not in __init__: two recorders of one wrapper chain
+        # (exit them in reverse order)
+        self.orig = getattr(self.module, self.name)
+
         def wrapper(*args, **kw):
             if self.args is None and self.pick(args, kw):
                 self.args = (args, kw)
@@ -1242,6 +1278,24 @@ def check_join_probe(device, args, reps=10) -> dict:
                  f"({g_.dtype}, {tuple(g_.shape)})")
     ms = timed_ms(lambda: J.join_probe(*a, **kw), reps, device)
     plain_ms = timed_ms(lambda: J.join_probe_plain(*a, **kw), 2, device)
+    # a warm call: init, probe (+ unmatched), no copy in; and no stream
+    # sync: behind ~25 ms of queued device work the call returns at once
+    regime = J.probe_regime(spec)
+    expect = ("join_init_kernel", "join_small_kernel"
+              if regime == J.REGIME_SMALL else "join_large_kernel") + \
+        (("join_unmatched_kernel",) if right is not None else ())
+    if len(expect) != J.CALL_LAUNCHES[right is not None]:
+        fail("join_probe: the kernels a call launches and CALL_LAUNCHES "
+             "disagree")
+    note = activity_note(lambda: J.join_probe(*a, **kw), expect)
+    sync(device)
+    torch.cuda._sleep(50_000_000)
+    t0 = time.perf_counter()
+    J.join_probe(*a, **kw)
+    busy_ms = (time.perf_counter() - t0) * 1e3
+    sync(device)
+    if busy_ms > 5.0:
+        fail(f"join_probe waited {busy_ms:.2f} ms for the stream")
     n = rowmask.numel()
     env = [(K.decode_plain(k, off, d.reshape(-1)), m.reshape(-1))
            for (d, m), k, off in zip(cols, spec.col_kinds,
@@ -1270,7 +1324,9 @@ def check_join_probe(device, args, reps=10) -> dict:
             "library_ms": library_ms,
             "shape": f"probe rows={n} G={spec.G} g={spec.g} "
                      f"entries={[x.kind for x in spec.aggs]} "
-                     f"right={right is not None}"}
+                     f"right={right is not None} regime "
+                     f"{('SMALL', 'LARGE')[regime]}; {note}; host "
+                     f"{busy_ms:.3f} ms behind queued work (no sync)"}
 
 
 def time_dense_gemms(device, args, reps=5) -> dict:
@@ -1421,7 +1477,10 @@ def phase_sift(device, n=1_000_000, lists=1024, nprobe=16) -> dict:
             "write": Recorder(vector_store, "_write_program"),
             "probe": Recorder(vk, "ivf_probe",
                               lambda a, kw: kw["nprobe"] == nprobe and
-                              a[6].shape[0] == 64)}
+                              a[6].shape[0] == 64),
+            "probe1": Recorder(vk, "ivf_probe",
+                               lambda a, kw: kw["nprobe"] == nprobe and
+                               a[6].shape[0] == 1)}
     try:
         for r in recs.values():
             r.__enter__()
@@ -1454,7 +1513,7 @@ def phase_sift(device, n=1_000_000, lists=1024, nprobe=16) -> dict:
             qps[bs] = len(qf) / (time.perf_counter() - t)
         launches_window = LAUNCHES.snapshot()
     finally:
-        for r in recs.values():
+        for r in reversed(list(recs.values())):
             r.__exit__()
         for m, nm, orig in saved:
             setattr(m, nm, orig)
@@ -1521,6 +1580,7 @@ def phase_sift(device, n=1_000_000, lists=1024, nprobe=16) -> dict:
             "calls": {"kmeans_assign": recs["assign"].args,
                       "kmeans_update": recs["update"].args,
                       "ivf_probe": recs["probe"].args,
+                      "ivf_probe_1": recs["probe1"].args,
                       "ivf_brute": rec_brute.args,
                       "page_write": recs["write"].args}}
 
@@ -1898,6 +1958,7 @@ def check_maxsim(device, args, reps=3) -> dict:
                 torch.equal(r, y)):
             fail(f"maxsim differs from {name}")
     ms = timed_ms(lambda: vk.maxsim(*a, **kw), reps, device)
+    note = activity_note(lambda: vk.maxsim(*a, **kw), MAXSIM_KERNELS)
     t = time.perf_counter()
     vk.maxsim_plain(*a, **kw)
     sync(device)
@@ -1905,16 +1966,18 @@ def check_maxsim(device, args, reps=3) -> dict:
     region, slotmap, offsets, counts, rowids, queries, dmap = a
     bp, sp, dp = queries.shape
     ntok = int(counts.to(torch.int64).sum())
-    flops = 2 * bp * sp * ntok * dp
+    # a multiply-add is two FP32 instructions here (-fmad=false: the
+    # product and the sum round apart), so the FMA rate does not apply
+    instr = 2 * bp * sp * ntok * dp
     moved = ntok * (dp * 4 + 4) + nbytes(queries, offsets, counts, rowids,
                                          dmap) + bp * kw["kkp"] * 8
-    b_bytes, b_ops = bound_ms(moved), flops / F32_FLOPS * 1e3
+    b_bytes, b_ops = bound_ms(moved), instr / F32_INSTR * 1e3
     return {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": max(b_bytes, b_ops),
             "bound_by": "bytes" if b_bytes >= b_ops else "operations",
             "library_ms": None,
             "shape": f"B={bp} S={sp} dp={dp} docs={dmap.numel()} "
-                     f"tokens={ntok} kkp={kw['kkp']}"}
+                     f"tokens={ntok} kkp={kw['kkp']}; {note}"}
 
 
 def time_page_write(device, args, reps=5) -> dict:
@@ -3165,13 +3228,16 @@ def main() -> int:
 
     # 14. the vector kernels against their plain versions
     vcalls = sift.pop("calls")
-    for name in ("ivf_probe", "ivf_brute", "kmeans_assign", "kmeans_update"):
+    for name in ("ivf_probe", "ivf_probe_1", "ivf_brute", "kmeans_assign",
+                 "kmeans_update"):
         if vcalls[name] is None:
             fail(f"{name}'s main-path inputs were not recorded")
     if colbert["args"] is None:
         fail("maxsim's main-path inputs were not recorded")
     vchecks = {"ivf_probe nprobe 16": check_ivf_probe(device,
                                                       vcalls["ivf_probe"]),
+               "ivf_probe nprobe 16 batch 1": check_ivf_probe(
+                   device, vcalls["ivf_probe_1"], reps=20),
                "ivf_probe brute": check_ivf_probe(device,
                                                   vcalls["ivf_brute"]),
                "maxsim": check_maxsim(device, colbert.pop("args"))}

@@ -64,13 +64,13 @@ SIGNATURES = {
         "chain_topn": [_P, _P],
     },
     "join": {
-        "join_probe": [_P, _L, _P],
-        "join_unmatched": [_P, _L, _P],
+        "join_probe": [_P, _I, _L, _P, _L, _L, _L, _P, _L, _P],
     },
     "vector": {
         "ivf_probe": [_P] * 9 + [_I] * 5 + [_L] + [_I] * 2 +
                      [_P, _P, _L, _P, _L, _P, _P, _P],
-        "maxsim": [_P] * 7 + [_L] + [_I] * 5 + [_P, _L, _P, _L, _P, _P, _P],
+        "maxsim": [_P] * 7 + [_L] + [_I] * 5 +
+                  [_P, _L, _P, _L, _P, _L, _P, _P, _P],
         "kmeans_assign": [_P] * 3 + [_L, _I, _I] + [_P] * 4,
         "kmeans_bytes": [_L, _I, _I],
         "kmeans_update": [_P] * 3 + [_L, _I, _I] + [_P] * 3,

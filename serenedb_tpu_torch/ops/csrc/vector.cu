@@ -38,16 +38,30 @@
 //    broadcast). Bound: bytes — the gathered rows (dp floats each, read
 //    once a query) dominate.
 // 2. maxsim
-//    Replaces `maxsim_program` (:272). One block per doc lane. The batch's
-//    (query, query token) pairs are taken 256 at a time; for each such
-//    group the doc's tokens stream through shared memory in tiles of at
-//    most 32 (through the slot map), and each pair keeps a running max
-//    over them (NaN propagates). A pair's dot product with a token is
-//    accumulated in dim tiles of `tile` (a chain within the tile, the
-//    tiles added in order). Then each query's maxima are summed over s in
-//    order; key = -score + 0.0, empty and pad docs +inf. Shared memory
-//    depends on the width alone, never on the doc's length. Then the
-//    selection. Bound: operations — B*S*T*dp multiply-adds a doc.
+//    Replaces `maxsim_program` (:272). Per (pair, doc token), pair p being
+//    (query p / sp, query token p % sp): part = x[i0]·q[i0], then part +
+//    x[d]·q[d] for d = i0+1 .. i0+tile-1, acc + part over the dim tiles in
+//    order from acc = 0 (each product and sum rounded on its own); each
+//    pair's max over a doc's tokens (NaN propagates; ±0 ties cannot change
+//    a key); a query's score 0 + m[0] + m[1] + ... in s order; key =
+//    -score + 0.0, empty and pad docs +inf. Then the selection.
+//    Bound: operations — B*S*T*dp multiply-adds, two FP32 instructions
+//    each (the build's -fmad=false keeps them apart; tensor cores round
+//    otherwise), ~20.7 ms at the `colbert` batch. Design:
+//    `maxsim_tiles_kernel` is register-tiled SIMT. A block holds 128 pairs
+//    (in shared memory for its whole life at widths up to 128, else
+//    brought a 64-dim slab at a time) and is persistent over chunks of 32
+//    doc lanes; the chunk's tokens stream, across doc boundaries, through
+//    64-token tiles of shared memory (cp.async through the slot map,
+//    double-buffered); each thread keeps 8 pairs x 4 tokens = 32
+//    independent chains in registers, reading x and q as float4 along d.
+//    The segmented max stays in registers (a butterfly over the 16
+//    threads that hold a pair group's tokens), written to a (lane, pair)
+//    scratch when each doc ends; `maxsim_score_kernel` sums each
+//    query's pairs in s order and keys the doc. Shared memory does not
+//    grow with the doc length or the width; the scratch holds a range of
+//    lanes (the wrapper's byte budget), and both kernels run range by
+//    range.
 // 3. kmeans_assign
 //    Replaces `_assign_program` (:187) and the argmin of `_kmeans_program`
 //    (:157), less the x·cᵀ product, which the wrapper takes from
@@ -91,14 +105,18 @@ namespace {
 using sel::u64;
 
 constexpr int STAGE_FLOOR = 2048;  // smallest tile a stage block keys
-constexpr int MAXSIM_THREADS = 256;
-constexpr int MAXSIM_PAIRS = 256;   // (query, query token) pairs a pass holds
-constexpr int MAXSIM_TOKENS = 32;   // most doc tokens a tile holds
+// maxsim: a block holds MS_PB (query, query token) pairs and streams doc
+// tokens in tiles of MS_TT; each thread a register micro-tile of MS_P
+// pairs x MS_T tokens (16 x 16 threads); widths past MS_ONE_SLAB stream
+// dims in slabs of MS_DS; doc lanes go to blocks in chunks of MS_LC
+constexpr int MS_THREADS = 256;
+constexpr int MS_PB = 128, MS_TT = 64, MS_P = 8, MS_T = 4;
+constexpr int MS_ONE_SLAB = 128, MS_DS = 64, MS_LC = 32;
+constexpr int MS_PAD = 4;  // row padding (floats): no bank conflicts
 constexpr int M_L2 = 0, M_IP = 1, M_COS = 2;
 constexpr uint32_t PAD_ROW = 0x7FFFFFFFu;
 constexpr u64 DEAD = (static_cast<u64>(0xFF800000u) << 32) | PAD_ROW;
 constexpr u64 NO_KEY = sel::NO_KEY;  // tile padding: above every real key
-constexpr long long MAX_SMEM = 200 * 1024;
 
 // Ascending image: -0.0 ties +0.0, NaN sorts after +inf.
 __device__ __forceinline__ uint32_t asc_image(float f) {
@@ -240,80 +258,338 @@ __global__ void keys_finish_kernel(const u64* __restrict__ keys, long long n,
   rows[i] = static_cast<int>(k & 0xFFFFFFFFull);
 }
 
-// MaxSim: one block per doc lane, every query of the batch. Pair p of the
-// batch is (query p / sp, query token p % sp); its tokens start at
-// queries + p * dp.
-__global__ void __launch_bounds__(MAXSIM_THREADS)
-    maxsim_docs_kernel(const float* __restrict__ region,
-                       const int* __restrict__ slotmap,
-                       const int* __restrict__ offsets,
-                       const int* __restrict__ counts,
-                       const int* __restrict__ rowids,
-                       const float* __restrict__ queries,
-                       const int* __restrict__ dmap, long long nlanes, int bp,
-                       int sp, int dp, int tile, int TT,
-                       u64* __restrict__ keys) {
-  extern __shared__ float fsm[];
-  const int xs = dp + 1;  // padded token stride: no bank conflicts on t
-  float* x = fsm;                       // (TT, dp + 1) doc tokens
-  float* sim = x + TT * xs;             // (MAXSIM_PAIRS, TT)
-  float* m = sim + MAXSIM_PAIRS * TT;   // (MAXSIM_PAIRS,) running maxima
-  const long long lane = blockIdx.x;
-  const int doc = dmap[lane];
-  const int cnt = counts[doc];
-  const long long base = offsets[doc];
-  const uint32_t row = static_cast<uint32_t>(rowids[doc]);
-  const long long npairs = static_cast<long long>(bp) * sp;
-  float score = 0.0f;  // thread 0's running sum over a query's tokens
-  for (long long p0 = 0; p0 < npairs; p0 += MAXSIM_PAIRS) {
-    const int np = static_cast<int>(
-        npairs - p0 < MAXSIM_PAIRS ? npairs - p0 : MAXSIM_PAIRS);
-    __syncthreads();  // thread 0 has read the last group's maxima
-    for (int i = threadIdx.x; i < np; i += blockDim.x)
-      m[i] = __uint_as_float(0xFF800000u);  // -inf: no live token
-    for (int t0 = 0; t0 < cnt; t0 += TT) {
-      const int nt = cnt - t0 < TT ? cnt - t0 : TT;
-      __syncthreads();  // the last tile's readers are done
-      for (int e = threadIdx.x; e < nt * dp; e += blockDim.x) {
-        const int t = e / dp, d = e - t * dp;
-        const long long slot = slotmap[base + t0 + t];
-        x[t * xs + d] = region[slot * dp + d];
+// ------------------------------------------------------------- MaxSim
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(a),
+               "l"(gmem)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(a),
+               "l"(gmem)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+struct MaxSimArgs {
+  const float* region;
+  const int* slotmap;
+  const int* offsets;
+  const int* counts;
+  const float* queries;  // (npairs, dp): pair p = (query p / sp, token p % sp)
+  const int* dmap;
+  long long nlanes;
+  int npairs, dp, tile;
+  float* m;  // (nlanes, npairs) per (doc lane, pair) maxima
+};
+
+// One dim of the micro-tile: each (pair i, token j) chain takes the
+// product x·q as its tile's first term (k == 0) or adds it, and the tile's
+// last dim adds the chain into acc; k counts dims within the tile.
+__device__ __forceinline__ void ms_dim(const float (&xv)[MS_T],
+                                       const float (&qv)[MS_P],
+                                       float (&part)[MS_P][MS_T],
+                                       float (&acc)[MS_P][MS_T], int& k,
+                                       int tile) {
+  if (k == 0) {
+#pragma unroll
+    for (int i = 0; i < MS_P; ++i)
+#pragma unroll
+      for (int j = 0; j < MS_T; ++j) part[i][j] = __fmul_rn(xv[j], qv[i]);
+  } else {
+#pragma unroll
+    for (int i = 0; i < MS_P; ++i)
+#pragma unroll
+      for (int j = 0; j < MS_T; ++j)
+        part[i][j] = __fadd_rn(part[i][j], __fmul_rn(xv[j], qv[i]));
+  }
+  if (++k == tile) {
+    k = 0;
+#pragma unroll
+    for (int i = 0; i < MS_P; ++i)
+#pragma unroll
+      for (int j = 0; j < MS_T; ++j)
+        acc[i][j] = __fadd_rn(acc[i][j], part[i][j]);
+  }
+}
+
+// Four dims of every chain, all inside one dim tile: the first may open
+// the tile (its product is the chain's first term).
+template <bool OPEN>
+__device__ __forceinline__ void ms_group(const float* __restrict__ x,
+                                         const float* __restrict__ q, int rs,
+                                         int d, float (&part)[MS_P][MS_T]) {
+  float4 xv[MS_T], qv[MS_P];
+#pragma unroll
+  for (int j = 0; j < MS_T; ++j)
+    xv[j] = *reinterpret_cast<const float4*>(x + j * 16 * rs + d);
+#pragma unroll
+  for (int i = 0; i < MS_P; ++i)
+    qv[i] = *reinterpret_cast<const float4*>(q + i * rs + d);
+#pragma unroll
+  for (int i = 0; i < MS_P; ++i)
+#pragma unroll
+    for (int j = 0; j < MS_T; ++j) {
+      float t = OPEN ? __fmul_rn(xv[j].x, qv[i].x)
+                     : __fadd_rn(part[i][j], __fmul_rn(xv[j].x, qv[i].x));
+      t = __fadd_rn(t, __fmul_rn(xv[j].y, qv[i].y));
+      t = __fadd_rn(t, __fmul_rn(xv[j].z, qv[i].z));
+      part[i][j] = __fadd_rn(t, __fmul_rn(xv[j].w, qv[i].w));
+    }
+}
+
+// MaxSim: block (bx, pb) holds pairs [pb·MS_PB, +MS_PB) and walks the doc
+// lanes in chunks of MS_LC (chunk bx, bx + gridDim.x, ...). A chunk's
+// docs' tokens stream, in lane order, through token tiles of MS_TT
+// (cp.async copies through the slot map, double-buffered by step; a step
+// is one (tile, dim slab)); thread (pg, tg) computes pairs pg·8 + i and
+// tokens tg + 16·j of each tile in registers, the chains in the contract's
+// order (four dims a step of float4 loads where every dim tile is a
+// multiple of 4 inside one slab, else one dim at a time). Then a
+// segmented max in registers: per doc lane of the tile, each thread's max
+// over its tokens of that lane, a butterfly over the 16 threads of the
+// pair group, and m[lane][pair] written when the doc ends (a doc that
+// goes on carries its max into the next tile). Shared memory does not
+// grow with the doc length; the queries stay in shared memory for the
+// block's life at widths up to MS_ONE_SLAB, else each step brings its
+// slab of them.
+template <bool VEC>
+__global__ void __launch_bounds__(MS_THREADS, 1)
+    maxsim_tiles_kernel(MaxSimArgs a) {
+  extern __shared__ __align__(16) float fsm[];
+  __shared__ int s_pref[MS_LC + 1];
+  __shared__ long long s_base[MS_LC];
+  __shared__ int s_lane[2][MS_TT];  // a tile's token -> lane in the chunk
+
+  static_assert(MS_THREADS == MS_PB / MS_P * 16,
+                "16 token threads a pair group");
+  constexpr int LPT = MS_THREADS / MS_TT;  // loader threads a token
+  const int tid = threadIdx.x;
+  const int dp = a.dp;
+  const bool one = dp <= MS_ONE_SLAB;
+  const int ds = one ? dp : MS_DS;        // dims a slab holds
+  const int ns = one ? 1 : (dp + MS_DS - 1) / MS_DS;
+  const int rs = ds + MS_PAD;             // smem row stride (floats)
+  const int pb0 = blockIdx.y * MS_PB;
+  float* qres = fsm;                                  // one: (MS_PB, rs)
+  float* xst = fsm + (one ? MS_PB * rs : 0);          // 2 x (TT, rs)
+  float* qst = xst + 2 * MS_TT * rs;                  // !one: 2 x (MS_PB, rs)
+
+  // a slab of the block's pairs into q (rows of rs); pad pairs read 0
+  auto load_q = [&](float* q, int d0, int w) {
+    const int per = VEC ? w / 4 : w;
+    for (int e = tid; e < MS_PB * per; e += MS_THREADS) {
+      const int p = e / per, c = e - p * per;
+      float* dst = q + p * rs + (VEC ? 4 * c : c);
+      if (pb0 + p >= a.npairs) {
+        dst[0] = 0.0f;
+        if (VEC) dst[1] = dst[2] = dst[3] = 0.0f;
+        continue;
       }
-      __syncthreads();
-      for (int e = threadIdx.x; e < np * nt; e += blockDim.x) {
-        const int p = e / nt, t = e - p * nt;
-        const float* xt = x + t * xs;
-        const float* qs = queries + (p0 + p) * dp;
-        float acc = 0.0f;
-        for (int i0 = 0; i0 < dp; i0 += tile) {
-          float part = __fmul_rn(xt[i0], qs[i0]);
-          for (int d = i0 + 1; d < i0 + tile; ++d)
-            part = __fadd_rn(part, __fmul_rn(xt[d], qs[d]));
-          acc = __fadd_rn(acc, part);
-        }
-        sim[p * TT + t] = acc;
+      const float* src = a.queries + static_cast<long long>(pb0 + p) * dp +
+                         d0 + (VEC ? 4 * c : c);
+      if (VEC)
+        cp_async16(dst, src);
+      else
+        cp_async4(dst, src);
+    }
+  };
+  if (one) {
+    load_q(qres, 0, dp);
+    cp_commit();
+  }
+
+  const int pg = tid >> 4, tg = tid & 15;  // compute: pairs, tokens
+  // every dim tile inside one slab and a multiple of 4 dims: the chains
+  // run tile by tile with no per-dim test
+  const bool aligned = VEC && a.tile % 4 == 0 && ds % a.tile == 0;
+  const int lt = tid / LPT, lc = tid % LPT;  // loads: token, column phase
+  const long long nchunks = (a.nlanes + MS_LC - 1) / MS_LC;
+  for (long long ch = blockIdx.x; ch < nchunks; ch += gridDim.x) {
+    const long long l0 = ch * MS_LC;
+    __syncthreads();  // the last chunk's readers of s_pref are done
+    if (tid < 32) {
+      const long long lane = l0 + tid;
+      int cnt = 0;
+      long long base = 0;
+      if (tid < MS_LC && lane < a.nlanes) {
+        const int doc = a.dmap[lane];
+        cnt = a.counts[doc];
+        base = a.offsets[doc];
       }
-      __syncthreads();
-      for (int p = threadIdx.x; p < np; p += blockDim.x) {
-        float best = m[p];
-        for (int t = 0; t < nt && best == best; ++t)
-          best = nan_max(sim[p * TT + t], best);
-        m[p] = best;
+      int incl = cnt;
+      for (int o = 1; o < 32; o <<= 1) {
+        const int y = __shfl_up_sync(0xFFFFFFFFu, incl, o);
+        if (tid >= o) incl += y;
       }
+      if (tid < MS_LC) {
+        s_pref[tid + 1] = incl;
+        s_base[tid] = base;
+      }
+      if (tid == 0) s_pref[0] = 0;
     }
     __syncthreads();
-    if (threadIdx.x == 0) {
-      for (int p = 0; p < np; ++p) {
-        score = __fadd_rn(score, m[p]);
-        const long long g = p0 + p;
-        if (g % sp == sp - 1) {
-          const float key = __fadd_rn(-score, 0.0f);
-          keys[(g / sp) * nlanes + lane] = make_key(asc_image(key), row);
-          score = 0.0f;
+    const int total = s_pref[MS_LC];
+    if (total == 0) continue;
+    const int ntiles = (total + MS_TT - 1) / MS_TT;
+    const int nsteps = ntiles * ns;
+
+    // step (tile, slab) into stage step & 1
+    auto issue = [&](int step) {
+      const int kt = step / ns, sl = step - kt * ns;
+      const int d0 = sl * ds, w = min(ds, dp - d0);
+      float* x = xst + (step & 1) * MS_TT * rs;
+      const int pos = kt * MS_TT + lt;
+      int lane = -1;
+      if (pos < total) {
+        int lo = 0, hi = MS_LC;  // the last lane whose tokens start <= pos
+        while (hi - lo > 1) {
+          const int mid = (lo + hi) >> 1;
+          if (s_pref[mid] <= pos)
+            lo = mid;
+          else
+            hi = mid;
         }
+        lane = lo;
+        const long long slot = a.slotmap[s_base[lo] + (pos - s_pref[lo])];
+        const float* src = a.region + slot * dp + d0;
+        float* dst = x + lt * rs;
+        if (VEC) {
+          for (int c = lc; c < w / 4; c += LPT)
+            cp_async16(dst + 4 * c, src + 4 * c);
+        } else {
+          for (int c = lc; c < w; c += LPT) cp_async4(dst + c, src + c);
+        }
+      }
+      if (sl == 0 && lc == 0) s_lane[kt & 1][lt] = lane;
+      if (!one) load_q(qst + (step & 1) * MS_PB * rs, d0, w);
+      cp_commit();
+    };
+
+    issue(0);
+    float part[MS_P][MS_T], acc[MS_P][MS_T];
+    int k = 0;
+    float carry[MS_P];    // the max so far of a doc that began in an
+    int carry_lane = -1;  // earlier tile, and its lane (-1: none)
+    for (int step = 0; step < nsteps; ++step) {
+      const int kt = step / ns, sl = step - kt * ns;
+      cp_wait_all();
+      __syncthreads();  // step's data landed; step - 1's readers are done
+      if (step + 1 < nsteps) issue(step + 1);
+      if (sl == 0) {
+        k = 0;
+#pragma unroll
+        for (int i = 0; i < MS_P; ++i)
+#pragma unroll
+          for (int j = 0; j < MS_T; ++j) acc[i][j] = 0.0f;
+      }
+      const int w = min(ds, dp - sl * ds);
+      const float* x = xst + (step & 1) * MS_TT * rs + tg * rs;
+      const float* q = (one ? qres : qst + (step & 1) * MS_PB * rs) +
+                       pg * MS_P * rs;
+      if (aligned) {
+        for (int i0 = 0; i0 < w; i0 += a.tile) {
+          ms_group<true>(x, q, rs, i0, part);
+#pragma unroll 2
+          for (int d = i0 + 4; d < i0 + a.tile; d += 4)
+            ms_group<false>(x, q, rs, d, part);
+#pragma unroll
+          for (int i = 0; i < MS_P; ++i)
+#pragma unroll
+            for (int j = 0; j < MS_T; ++j)
+              acc[i][j] = __fadd_rn(acc[i][j], part[i][j]);
+        }
+      } else {
+        for (int d = 0; d < w; ++d) {
+          float xv[MS_T], qv[MS_P];
+#pragma unroll
+          for (int j = 0; j < MS_T; ++j) xv[j] = x[j * 16 * rs + d];
+#pragma unroll
+          for (int i = 0; i < MS_P; ++i) qv[i] = q[i * rs + d];
+          ms_dim(xv, qv, part, acc, k, a.tile);
+        }
+      }
+      if (sl != ns - 1) continue;
+      // the segmented max: the 16 lanes of a half-warp hold one pair
+      // group's 64 tokens, so per doc lane of the tile each takes the max
+      // over its own tokens of that lane, then a butterfly over the 16
+      // (NaN propagates; the order cannot change a key). A doc that runs
+      // past the tile's end carries its max into the next tile.
+      const int t0 = kt * MS_TT, nt = min(MS_TT, total - t0);
+      const int* tl = s_lane[kt & 1];
+      int mine[MS_T];
+#pragma unroll
+      for (int j = 0; j < MS_T; ++j) mine[j] = tl[tg + 16 * j];
+      const int cl = carry_lane;
+      carry_lane = -1;
+      for (int l = tl[0]; l <= tl[nt - 1]; ++l) {
+        float v[MS_P];
+#pragma unroll
+        for (int i = 0; i < MS_P; ++i) {
+          v[i] = __uint_as_float(0xFF800000u);
+#pragma unroll
+          for (int j = 0; j < MS_T; ++j)
+            if (mine[j] == l) v[i] = nan_max(acc[i][j], v[i]);
+        }
+#pragma unroll
+        for (int o = 8; o > 0; o >>= 1)
+#pragma unroll
+          for (int i = 0; i < MS_P; ++i)
+            v[i] = nan_max(__shfl_xor_sync(0xFFFFFFFFu, v[i], o), v[i]);
+        if (l == cl) {
+#pragma unroll
+          for (int i = 0; i < MS_P; ++i) v[i] = nan_max(carry[i], v[i]);
+        }
+        if (s_pref[l + 1] > t0 + nt) {  // the doc goes on: carry it
+#pragma unroll
+          for (int i = 0; i < MS_P; ++i) carry[i] = v[i];
+          carry_lane = l;
+          continue;
+        }
+        const int p = pb0 + pg * MS_P + tg;  // lane tg < MS_P: pair tg
+#pragma unroll
+        for (int i = 0; i < MS_P; ++i)
+          if (tg == i && p < a.npairs) a.m[(l0 + l) * a.npairs + p] = v[i];
       }
     }
   }
+  cp_wait_all();  // a block whose chunks were all empty still waits
+}
+
+// Each (query, doc lane)'s score, 0 + m[s = 0] + m[1] + ... in s order,
+// over its pairs' maxima (-inf for an empty doc); key = -score + 0.0,
+// query b's keys kstride apart.
+__global__ void maxsim_score_kernel(const float* __restrict__ m,
+                                    const int* __restrict__ dmap,
+                                    const int* __restrict__ counts,
+                                    const int* __restrict__ rowids,
+                                    long long nlanes, long long kstride,
+                                    int bp, int sp,
+                                    u64* __restrict__ keys) {
+  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
+                      threadIdx.x;
+  if (i >= nlanes * bp) return;
+  const long long lane = i % nlanes, b = i / nlanes;
+  const int doc = dmap[lane];
+  const bool live = counts[doc] > 0;
+  const float* row = m + lane * (static_cast<long long>(bp) * sp) + b * sp;
+  float score = 0.0f;
+  for (int s = 0; s < sp; ++s)
+    score = __fadd_rn(score, live ? row[s] : __uint_as_float(0xFF800000u));
+  const float key = __fadd_rn(-score, 0.0f);
+  keys[b * kstride + lane] =
+      make_key(asc_image(key), static_cast<uint32_t>(rowids[doc]));
 }
 
 // Squared norm of each row as a chain.
@@ -757,10 +1033,13 @@ unsigned grid1(long long n, int threads) {
   return static_cast<unsigned>((n + threads - 1) / threads);
 }
 
-long long maxsim_smem(int TT, int dp) {
-  return (static_cast<long long>(TT) * (dp + 1) +
-          static_cast<long long>(MAXSIM_PAIRS) * TT + MAXSIM_PAIRS) *
-         static_cast<long long>(sizeof(float));
+// Dynamic shared bytes of maxsim_tiles_kernel at width dp.
+long long maxsim_smem(int dp) {
+  const bool one = dp <= MS_ONE_SLAB;
+  const long long rs = (one ? dp : MS_DS) + MS_PAD;
+  const long long floats =
+      (one ? MS_PB * rs : 2 * MS_PB * rs) + 2 * MS_TT * rs;
+  return floats * static_cast<long long>(sizeof(float));
 }
 
 void allow_smem() {
@@ -771,24 +1050,20 @@ void allow_smem() {
                        cudaFuncAttributeMaxDynamicSharedMemorySize, keys);
   cudaFuncSetAttribute(probe_lanes_kernel,
                        cudaFuncAttributeMaxDynamicSharedMemorySize, keys);
-  cudaFuncSetAttribute(maxsim_docs_kernel,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       static_cast<int>(MAX_SMEM));
+  const int ms = static_cast<int>(maxsim_smem(MS_ONE_SLAB) >
+                                           maxsim_smem(MS_ONE_SLAB + 1)
+                                       ? maxsim_smem(MS_ONE_SLAB)
+                                       : maxsim_smem(MS_ONE_SLAB + 1));
+  cudaFuncSetAttribute(maxsim_tiles_kernel<true>,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize, ms);
+  cudaFuncSetAttribute(maxsim_tiles_kernel<false>,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize, ms);
   const int km = KM_WARPS * KM_SMEM_K * static_cast<int>(sizeof(unsigned));
   cudaFuncSetAttribute(km_hist_kernel,
                        cudaFuncAttributeMaxDynamicSharedMemorySize, km);
   cudaFuncSetAttribute(km_scatter_kernel,
                        cudaFuncAttributeMaxDynamicSharedMemorySize, km);
   done = true;
-}
-
-// Doc tokens one maxsim tile holds at width dp: at most 32, as many as fit
-// the shared memory; 0 when not one token fits (ops/vector_kernels.py
-// mirrors it).
-int maxsim_tile_tokens(int dp) {
-  int tt = MAXSIM_TOKENS;
-  while (tt > 0 && maxsim_smem(tt, dp) > MAX_SMEM) --tt;
-  return tt;
 }
 
 }  // namespace
@@ -857,27 +1132,53 @@ int ivf_probe(const void* region, const void* slotmap, const void* offsets,
 }
 
 // maxsim: queries (bp, sp, dp), dmap (nlanes,) doc ids (pad lanes name the
-// zero-count doc). `keys` (cap_a >= bp * nlanes keys) and buf_b (cap_b)
-// are the levels' scratch; the (bp, kkp) keys (negated scores) and rows go
-// to the outputs.
+// zero-count doc). `m` (bp * sp * mlanes floats) is the per (lane, pair)
+// maxima's scratch: the tiles and score kernels run over ranges of mlanes
+// lanes, reusing it; `keys` (cap_a >= bp * nlanes keys) and buf_b (cap_b)
+// are the levels' scratch; the (bp, kkp) keys (negated scores) and rows
+// go to the outputs.
 int maxsim(const void* region, const void* slotmap, const void* offsets,
            const void* counts, const void* rowids, const void* queries,
            const void* dmap, long long nlanes, int bp, int sp, int dp,
-           int tile, int kkp, void* keys, long long cap_a, void* buf_b,
-           long long cap_b, void* out_keys, void* out_rows, void* stream) {
-  const int TT = maxsim_tile_tokens(dp);
-  if (TT < 1 || kkp < 1 || tile < 1 || dp % tile ||
-      static_cast<long long>(bp) * nlanes > cap_a)
+           int tile, int kkp, void* m, long long mlanes, void* keys,
+           long long cap_a, void* buf_b, long long cap_b, void* out_keys,
+           void* out_rows, void* stream) {
+  if (kkp < 1 || tile < 1 || dp < 1 || dp % tile || bp < 1 || sp < 1 ||
+      mlanes < 1 || static_cast<long long>(bp) * nlanes > cap_a)
     return static_cast<int>(cudaErrorInvalidValue);
   allow_smem();
+  static int sms = 0;
+  if (!sms) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  maxsim_docs_kernel<<<static_cast<unsigned>(nlanes), MAXSIM_THREADS,
-                       static_cast<int>(maxsim_smem(TT, dp)), s>>>(
-      static_cast<const float*>(region), static_cast<const int*>(slotmap),
-      static_cast<const int*>(offsets), static_cast<const int*>(counts),
-      static_cast<const int*>(rowids), static_cast<const float*>(queries),
-      static_cast<const int*>(dmap), nlanes, bp, sp, dp, tile, TT,
-      static_cast<u64*>(keys));
+  const int npairs = bp * sp;
+  const unsigned npb = static_cast<unsigned>((npairs + MS_PB - 1) / MS_PB);
+  const size_t sm = static_cast<size_t>(maxsim_smem(dp));
+  const int* dm = static_cast<const int*>(dmap);
+  for (long long l0 = 0; l0 < nlanes; l0 += mlanes) {
+    const long long n = nlanes - l0 < mlanes ? nlanes - l0 : mlanes;
+    const long long nchunks = (n + MS_LC - 1) / MS_LC;
+    long long gx = sms / static_cast<long long>(npb);
+    gx = gx < 1 ? 1 : (gx > nchunks ? nchunks : gx);
+    MaxSimArgs ma{static_cast<const float*>(region),
+                  static_cast<const int*>(slotmap),
+                  static_cast<const int*>(offsets),
+                  static_cast<const int*>(counts),
+                  static_cast<const float*>(queries), dm + l0, n, npairs, dp,
+                  tile, static_cast<float*>(m)};
+    const dim3 grid(static_cast<unsigned>(gx), npb);
+    if (dp % 4 == 0)
+      maxsim_tiles_kernel<true><<<grid, MS_THREADS, sm, s>>>(ma);
+    else
+      maxsim_tiles_kernel<false><<<grid, MS_THREADS, sm, s>>>(ma);
+    maxsim_score_kernel<<<grid1(n * bp, 256), 256, 0, s>>>(
+        static_cast<const float*>(m), dm + l0,
+        static_cast<const int*>(counts), static_cast<const int*>(rowids), n,
+        nlanes, bp, sp, static_cast<u64*>(keys) + l0);
+  }
   // the doc keys: each query's nlanes keys, unsorted
   const u64* best = sel::levels(static_cast<u64*>(keys), cap_a,
                                 static_cast<u64*>(buf_b), cap_b, bp, nlanes,

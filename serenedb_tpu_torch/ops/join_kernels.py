@@ -17,16 +17,22 @@ count) | (presence grid,). Counts and sums are int64 (the reference's
 8-bit limbs recombine to the same integers).
 
 The wrapper launches the kernels for tensors on a CUDA device and counts
-one `join_probe` launch in `device.LAUNCHES`; for tensors on the CPU it
-calls the plain version (counted under `join_probe.plain`). There is no
-other path.
+one `join_probe` launch (and one `join_unmatched`) in `device.LAUNCHES`;
+for tensors on the CPU it calls the plain version (counted under
+`join_probe.plain`). There is no other path. A card call is one
+allocation carved into every output, init + probe (+ unmatched) launches
+with the descriptors by value, and the probe's regime (`probe_regime`)
+from the spec alone; what the spec fixes (regime, layout, descriptor
+templates) is kept per spec (`_Plan`).
 """
 
 from __future__ import annotations
 
+import operator
 from dataclasses import dataclass, field
 from typing import Optional
 
+import numpy as np
 import torch
 
 from ..device import LAUNCHES
@@ -39,6 +45,14 @@ from . import agg_kernels as K
 _PROBE_KINDS = (JP_COUNT, JP_SUM, JP_MIN, JP_MAX, JP_PRESENCE)
 _H_G, _H_CODES, _H_ROWCOUNT, _H_ROWS, _H_CNT, _H_GSENT, _H_OUTER, _H_PCC, \
     _H_NULLGC = 5, 7, 8, 10, 11, 12, 13, 14, 15
+#: the probe's regimes (csrc/join.cu): block-private cells in shared
+#: memory, or leader-elected global atomics
+REGIME_SMALL, REGIME_LARGE = 0, 1
+#: shared bytes of one block's cells in the SMALL regime
+PROBE_SMALL_BYTES = 48 << 10
+#: kernels one call launches on the card: init and probe, and the
+#: unmatched pass for RIGHT/FULL
+CALL_LAUNCHES = {False: 2, True: 3}
 
 
 @dataclass
@@ -272,29 +286,186 @@ def _descriptor(spec_cols, kinds, offsets, keys, preds, aggs_words,
     return K.finish_descriptor(d, ops)
 
 
-def join_probe(spec: ProbeSpec, cols, rowmask: torch.Tensor,
-               codes: torch.Tensor, cnt_code: torch.Tensor, right=None):
-    """The probe phase over one probe table's (R, 128) tiles: cols is one
-    (data, mask) pair per probe slot, codes the (R, 128) int32 join codes,
-    cnt_code the build phase's (g + 2,) int64 match counts. `right` is
-    None, or for RIGHT/FULL (UnmatchedSpec, build cols, build row mask,
-    build codes). Returns (output-row counts (G,) int64, [per entry])."""
-    tensors = [t for pair in cols for t in pair] + [rowmask, codes, cnt_code]
-    for a in spec.aggs:
-        tensors.extend(t for t in a.src if t is not None)
+# -- the card's call ---------------------------------------------------------
+
+def _units(kind: int) -> tuple[int, int]:
+    """(64-bit, 32-bit) cell arrays of G cells an entry takes in the SMALL
+    regime's shared memory (csrc/join.cu `units64`/`units32`)."""
+    if kind in (JP_SUM, JB_SUM):
+        return 2, 0
+    if kind == JP_PRESENCE:
+        return 0, 0
+    return 1, int(kind in (JP_MIN, JP_MAX, JB_MIN, JB_MAX))
+
+
+def probe_cells_bytes(spec: ProbeSpec) -> int:
+    """Shared bytes of one block's cells in the SMALL regime: the row
+    counts and each entry's 64-bit cells, then the min/max values."""
+    n64 = 1 + sum(_units(a.kind)[0] for a in spec.aggs)
+    n32 = sum(_units(a.kind)[1] for a in spec.aggs)
+    return (8 * n64 + 4 * n32) * spec.G
+
+
+def probe_regime(spec: ProbeSpec) -> int:
+    """SMALL where every output's G cells fit a block's shared-memory
+    budget (block-private cells, one flush a block), else LARGE (leader-
+    elected global atomics). From the spec alone; csrc/join.cu's entry
+    computes the same and refuses a call that disagrees."""
+    return REGIME_SMALL if probe_cells_bytes(spec) <= PROBE_SMALL_BYTES \
+        else REGIME_LARGE
+
+
+class _Plan:
+    """What a card call of one spec needs that the spec alone fixes: the
+    regime, the outputs' layout in the call's one buffer, and (after the
+    first call) the descriptors' words, of which a call writes only the
+    pointers and row counts (`_probe_positions`)."""
+
+    def __init__(self, spec: ProbeSpec, pcc_len: int):
+        self.regime = probe_regime(spec)
+        G = spec.G
+        # the int64 arrays first (w), then the int32 ones that start at 0
+        # (z: presence grids, pcc), at INT32_MAX (x: MIN values) and at
+        # INT32_MIN (n: MAX values); shape: per entry its arrays as (kind,
+        # index)
+        w64, z32, mx, mn, shape = [G], [], [], [], []
+        for a in spec.aggs:
+            if a.kind in (JP_COUNT, JB_COUNT):
+                shape.append((("w", len(w64)),))
+                w64.append(G)
+            elif a.kind in (JP_SUM, JB_SUM):
+                shape.append((("w", len(w64)), ("w", len(w64) + 1)))
+                w64 += [G, G]
+            elif a.kind in (JP_MIN, JB_MIN):
+                shape.append((("x", len(mx)), ("w", len(w64))))
+                mx.append(G)
+                w64.append(G)
+            elif a.kind in (JP_MAX, JB_MAX):
+                shape.append((("n", len(mn)), ("w", len(w64))))
+                mn.append(G)
+                w64.append(G)
+            elif a.kind == JP_PRESENCE:
+                shape.append((("z", len(z32)),))
+                z32.append(G * a.pvsize)
+            else:
+                raise ValueError(f"unknown probe entry kind {a.kind}")
+        if pcc_len:
+            z32.append(pcc_len)
+        # one int64 buffer: the int64 arrays, then the int32 ones packed
+        # two a word (an odd count leaves a pad word, never read)
+        narrow = z32 + mx + mn
+        nn = sum(narrow)
+        self.sizes = w64 + ([-(-nn // 2)] if nn else [])
+        if nn % 2 or len(narrow) > 1:
+            self.narrow = narrow + [1] * (nn % 2)
+        else:
+            self.narrow = None      # the one int32 array is the region
+        base = {"z": len(w64), "x": len(w64) + len(z32),
+                "n": len(w64) + len(z32) + len(mx)}
+        flat = [tuple(i if k == "w" else base[k] + i for k, i in e)
+                for e in shape]
+        self.outs = [operator.itemgetter(*e) if len(e) > 1 else
+                     (lambda v, i=e[0]: (v[i],)) for e in flat]
+        self.pcc = base["z"] + len(z32) - 1 if pcc_len else None
+        self.words = sum(self.sizes)
+        self.n64 = len(w64)
+        self.sections = (2 * sum(w64) + sum(z32), sum(mx), sum(mn))
+        self.tmpl = None        # (probe template, positions, unmatched's)
+
+    def carve(self, device):
+        """(buf, rowcount, outs, pcc): every output and pcc as views of
+        one buffer, left unset (the call's init launch sets them)."""
+        buf = torch.empty(self.words, dtype=torch.int64, device=device)
+        views = list(torch.split_with_sizes(buf, self.sizes))
+        if len(views) > self.n64:
+            region = views.pop().view(torch.int32)
+            views += torch.split_with_sizes(region, self.narrow) \
+                if self.narrow is not None else (region,)
+        return (buf, views[0], [g(views) for g in self.outs],
+                views[self.pcc] if self.pcc is not None else None)
+
+
+#: plans by spec (`_key`)
+_PLANS: dict = {}
+_PLANS_MAX = 256
+
+
+def _key(spec: ProbeSpec, right) -> Optional[tuple]:
+    """The spec's content as a hashable key, or None (a list somewhere in
+    its programs: no plan is kept)."""
+    key = (tuple(spec.col_kinds), tuple(spec.col_offsets), spec.G, spec.g,
+           spec.outer_left, tuple(spec.preds), tuple(spec.keys),
+           tuple((a.kind, a.ops, a.pkind, a.plo, a.pvsize, a.ub_ops)
+                 for a in spec.aggs))
     if right is not None:
-        tensors.extend([t for pair in right[1] for t in pair] +
-                       [right[2], right[3]])
-    if not K._is_cuda(*tensors):
-        return join_probe_plain(spec, cols, rowmask, codes, cnt_code, right)
-    _check(spec, cols, rowmask, codes, cnt_code, right)
-    for t in tensors:
-        if not t.is_contiguous():
-            raise ValueError("join_probe: tensors must be contiguous")
-    dev = rowmask.device
-    rowcount, outs = _outputs(spec, dev)
-    pcc = torch.zeros(spec.g + 2, dtype=torch.int32, device=dev) \
-        if right is not None else None
+        uspec = right[0]
+        key += (tuple(uspec.col_kinds), tuple(uspec.col_offsets),
+                uspec.null_gc, tuple(uspec.preds))
+    try:
+        hash(key)
+    except TypeError:
+        return None
+    return key
+
+
+def _plan(spec: ProbeSpec, right) -> _Plan:
+    key = _key(spec, right)
+    plan = _PLANS.get(key) if key is not None else None
+    if plan is None:
+        plan = _Plan(spec, spec.g + 2 if right is not None else 0)
+        if key is not None:
+            if len(_PLANS) >= _PLANS_MAX:
+                _PLANS.clear()
+            _PLANS[key] = plan
+    return plan
+
+
+def _probe_positions(n_cols: int, n_aggs: int, probe: bool) -> np.ndarray:
+    """The words of a descriptor that hold pointers or the row count, in
+    the order `_probe_values` gives them."""
+    pos = []
+    for i in range(n_cols):
+        pos += [K._COLS + K._COL_W * i, K._COLS + K._COL_W * i + 1]
+    pos += [K._H_ROWMASK, _H_CODES, _H_ROWCOUNT, _H_ROWS, _H_PCC]
+    if probe:
+        pos.append(_H_CNT)
+    per = (3, 4, 5, 6) if probe else (3, 4)
+    for i in range(n_aggs):
+        pos += [K._AGGS + K._AGG_W * i + w for w in per]
+    return np.asarray(pos, dtype=np.int64)
+
+
+def _probe_values(spec, cols, rowmask, codes, cnt_code, rowcount, outs,
+                  pcc) -> list:
+    vals = [t.data_ptr() for pair in cols for t in pair]
+    vals += [rowmask.data_ptr(), codes.data_ptr(), rowcount.data_ptr(),
+             rowmask.numel(), pcc.data_ptr() if pcc is not None else 0,
+             cnt_code.data_ptr()]
+    for a, out in zip(spec.aggs, outs):
+        val, vcnt = a.src
+        vals += [out[0].data_ptr(),
+                 out[1].data_ptr() if len(out) > 1 else 0,
+                 val.data_ptr() if val is not None else 0,
+                 vcnt.data_ptr() if vcnt is not None else 0]
+    return vals
+
+
+def _unmatched_values(spec, right, rowcount, outs, pcc) -> list:
+    _uspec, bcols, brow, bcodes = right
+    vals = [t.data_ptr() for pair in bcols for t in pair]
+    vals += [brow.data_ptr(), bcodes.data_ptr(), rowcount.data_ptr(),
+             brow.numel(), pcc.data_ptr()]
+    for a, out in zip(spec.aggs, outs):
+        if a.kind not in _PROBE_KINDS:
+            vals += [out[0].data_ptr(),
+                     out[1].data_ptr() if len(out) > 1 else 0]
+    return vals
+
+
+def _fresh_descriptors(spec, cols, rowmask, codes, cnt_code, rowcount, outs,
+                       pcc, right):
+    """The probe descriptor (and the unmatched pass's, or None), built
+    word by word."""
     words = []
     for a, out in zip(spec.aggs, outs):
         o0 = out[0].data_ptr()
@@ -316,30 +487,89 @@ def join_probe(spec: ProbeSpec, cols, rowmask: torch.Tensor,
                         _H_CNT: cnt_code.data_ptr(), _H_GSENT: spec.g,
                         _H_OUTER: int(spec.outer_left),
                         _H_PCC: pcc.data_ptr() if pcc is not None else 0})
-    descs = [torch.from_numpy(d).to(dev)]
+    if right is None:
+        return d, None
+    uspec, bcols, brow, bcodes = right
+    uwords = [(a.ub_ops, (a.kind, out[0].data_ptr(),
+                          out[1].data_ptr() if len(out) > 1 else 0))
+              for a, out in zip(spec.aggs, outs)
+              if a.kind not in _PROBE_KINDS]
+    ud = _descriptor(bcols, uspec.col_kinds, uspec.col_offsets, (),
+                     uspec.preds, uwords, {
+                         K._H_ROWMASK: brow.data_ptr(),
+                         _H_CODES: bcodes.data_ptr(),
+                         _H_ROWCOUNT: rowcount.data_ptr(),
+                         _H_ROWS: brow.numel(), _H_GSENT: spec.g,
+                         _H_PCC: pcc.data_ptr(),
+                         _H_NULLGC: uspec.null_gc})
+    return d, ud
+
+
+def probe_descriptors(plan: Optional[_Plan], spec, cols, rowmask, codes,
+                      cnt_code, rowcount, outs, pcc, right=None):
+    """The call's descriptors (probe, unmatched or None): the plan's
+    templates with this call's pointers and row counts written in, or
+    (plan None) a fresh build, which also becomes the plan's templates;
+    the two are equal word for word."""
+    if plan is None or plan.tmpl is None:
+        d, ud = _fresh_descriptors(spec, cols, rowmask, codes, cnt_code,
+                                   rowcount, outs, pcc, right)
+        if plan is not None:
+            n_build = sum(a.kind not in _PROBE_KINDS for a in spec.aggs)
+            plan.tmpl = (
+                d.copy(), _probe_positions(len(cols), len(spec.aggs), True),
+                None if ud is None else (ud.copy(), _probe_positions(
+                    len(right[1]), n_build, False)))
+        return d, ud
+    (tmpl, pos), un = plan.tmpl[:2], plan.tmpl[2]
+    d = tmpl.copy()
+    d[pos] = _probe_values(spec, cols, rowmask, codes, cnt_code, rowcount,
+                           outs, pcc)
+    ud = None
+    if un is not None:
+        ud = un[0].copy()
+        ud[un[1]] = _unmatched_values(spec, right, rowcount, outs, pcc)
+    return d, ud
+
+
+def join_probe(spec: ProbeSpec, cols, rowmask: torch.Tensor,
+               codes: torch.Tensor, cnt_code: torch.Tensor, right=None):
+    """The probe phase over one probe table's (R, 128) tiles: cols is one
+    (data, mask) pair per probe slot, codes the (R, 128) int32 join codes,
+    cnt_code the build phase's (g + 2,) int64 match counts. `right` is
+    None, or for RIGHT/FULL (UnmatchedSpec, build cols, build row mask,
+    build codes). Returns (output-row counts (G,) int64, [per entry]).
+
+    On the card one call is one allocation (every output a view of it)
+    and `CALL_LAUNCHES` kernels: init, probe (+ unmatched), both
+    descriptors by value; no host-to-device copy, no stream sync."""
+    tensors = [t for pair in cols for t in pair] + [rowmask, codes, cnt_code]
+    for a in spec.aggs:
+        tensors.extend(t for t in a.src if t is not None)
     if right is not None:
-        uspec, bcols, brow, bcodes = right
-        uwords = [(a.ub_ops, (a.kind, out[0].data_ptr(),
-                              out[1].data_ptr() if len(out) > 1 else 0))
-                  for a, out in zip(spec.aggs, outs)
-                  if a.kind not in _PROBE_KINDS]
-        ud = _descriptor(bcols, uspec.col_kinds, uspec.col_offsets, (),
-                         uspec.preds, uwords, {
-                             K._H_ROWMASK: brow.data_ptr(),
-                             _H_CODES: bcodes.data_ptr(),
-                             _H_ROWCOUNT: rowcount.data_ptr(),
-                             _H_ROWS: brow.numel(), _H_GSENT: spec.g,
-                             _H_PCC: pcc.data_ptr(),
-                             _H_NULLGC: uspec.null_gc})
-        descs.append(torch.from_numpy(ud).to(dev))
+        tensors.extend([t for pair in right[1] for t in pair] +
+                       [right[2], right[3]])
+    if not all(t.is_cuda for t in tensors) and \
+            not K._is_cuda(*tensors):
+        return join_probe_plain(spec, cols, rowmask, codes, cnt_code, right)
+    _check(spec, cols, rowmask, codes, cnt_code, right)
+    for t in tensors:
+        if not t.is_contiguous():
+            raise ValueError("join_probe: tensors must be contiguous")
+    plan = _plan(spec, right)
+    buf, rowcount, outs, pcc = plan.carve(rowmask.device)
+    d, ud = probe_descriptors(plan, spec, cols, rowmask, codes, cnt_code,
+                              rowcount, outs, pcc, right)
     lib = _build.load("join")
-    stream = K._stream(rowmask)
     LAUNCHES.bump("join_probe")
-    _build.check(lib.join_probe(descs[0].data_ptr(), rowmask.numel(),
-                                stream), "join_probe")
     if right is not None:
         LAUNCHES.bump("join_unmatched")
-        _build.check(lib.join_unmatched(descs[1].data_ptr(),
-                                        right[2].numel(), stream),
-                     "join_unmatched")
+    # the descriptors go by value: the host arrays only have to live
+    # through the call
+    zero, n_max, n_min = plan.sections
+    _build.check(lib.join_probe(
+        d.ctypes.data, plan.regime, rowmask.numel(), buf.data_ptr(), zero,
+        n_max, n_min, ud.ctypes.data if ud is not None else None,
+        right[2].numel() if right is not None else 0, K._stream(rowmask)),
+        "join_probe")
     return rowcount, outs

@@ -41,22 +41,23 @@ PAD_ROW = (1 << 31) - 1
 METRICS = {"l2": 0, "ip": 1, "cos": 2}
 #: the smallest tile a stage block keys (csrc/vector.cu STAGE_FLOOR)
 STAGE_FLOOR = 2048
-#: csrc/vector.cu's maxsim shared memory: (query, token) pairs a pass
-#: holds, most doc tokens a tile holds, the bytes a block may take
-_MAXSIM_PAIRS = 256
-_MAXSIM_TOKENS = 32
-_MAX_SMEM = 200 * 1024
+#: the widest padded token row `maxsim` admits on the card (ROADMAP's
+#: standing ruling on `vec_maxsim`'s width); the kernel itself streams any
+#: width in dim slabs
+MAXSIM_MAX_WIDTH = 50_687
+#: the bytes of (doc lane, pair) maxima a `maxsim` call keeps at once: the
+#: kernels run over ranges of lanes that fit it (at least MAXSIM_LANES)
+MAXSIM_SCRATCH_BYTES = 256 << 20
+MAXSIM_LANES = 32
 
 
-def maxsim_tile_tokens(dp: int) -> int:
-    """Doc tokens one maxsim tile holds at width dp (csrc/vector.cu
-    `maxsim_tile_tokens`): at most 32, as many as fit; 0 when not one
-    token fits, at widths past 50,000."""
-    tt = _MAXSIM_TOKENS
-    while tt > 0 and (tt * (dp + 1) + _MAXSIM_PAIRS * tt
-                      + _MAXSIM_PAIRS) * 4 > _MAX_SMEM:
-        tt -= 1
-    return tt
+def maxsim_scratch_lanes(nlanes: int, npairs: int) -> int:
+    """The doc lanes whose (lane, pair) maxima `maxsim` keeps at once: as
+    many whole groups of MAXSIM_LANES as MAXSIM_SCRATCH_BYTES holds (one
+    group at least), and no more than the call's lanes."""
+    lanes = MAXSIM_SCRATCH_BYTES // (npairs * 4)
+    lanes = max(MAXSIM_LANES, lanes - lanes % MAXSIM_LANES)
+    return min(lanes, max(nlanes, 1))
 
 
 # -- the keys -----------------------------------------------------------------
@@ -357,13 +358,17 @@ def maxsim(region, slotmap, offsets, counts, rowids, queries, dmap, *,
     _check_maxsim(region, slotmap, offsets, counts, rowids, queries, dmap,
                   tile, kkp)
     bp, sp, dp = queries.shape
-    if maxsim_tile_tokens(dp) < 1:
+    if dp > MAXSIM_MAX_WIDTH:
         raise errors.unsupported(
             f"vec_maxsim on the card at width {dp} is not supported yet: "
-            "not one token of that width fits the kernel's shared memory")
+            f"the widest token it takes is {MAXSIM_MAX_WIDTH} floats")
     nlanes = dmap.numel()
     cap_a, cap_b = select.scratch(bp, nlanes, 1, kkp, STAGE_FLOOR)
     dev = queries.device
+    # the (doc lane, pair) maxima that the score kernel sums, for a range
+    # of mlanes lanes at a time
+    mlanes = maxsim_scratch_lanes(nlanes, bp * sp)
+    maxima = torch.empty(mlanes * bp * sp, dtype=torch.float32, device=dev)
     keys = torch.empty(cap_a, dtype=torch.int64, device=dev)
     buf_b = torch.empty(cap_b, dtype=torch.int64, device=dev)
     out_k = torch.empty((bp, kkp), dtype=torch.float32, device=dev)
@@ -373,7 +378,8 @@ def maxsim(region, slotmap, offsets, counts, rowids, queries, dmap, *,
     _build.check(lib.maxsim(
         region.data_ptr(), slotmap.data_ptr(), offsets.data_ptr(),
         counts.data_ptr(), rowids.data_ptr(), queries.data_ptr(),
-        dmap.data_ptr(), nlanes, bp, sp, dp, tile, kkp, keys.data_ptr(),
+        dmap.data_ptr(), nlanes, bp, sp, dp, tile, kkp, maxima.data_ptr(),
+        mlanes, keys.data_ptr(),
         cap_a, buf_b.data_ptr(), cap_b, out_k.data_ptr(), out_r.data_ptr(),
         _stream(queries)), "maxsim")
     return out_k, out_r

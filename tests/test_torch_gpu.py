@@ -6,6 +6,8 @@ fixture skips when no card is present. Run them on a machine with an H100:
     python -m pytest tests/test_torch_gpu.py -q -m gpu
 """
 
+import time
+
 import numpy as np
 import pytest
 import torch
@@ -611,8 +613,12 @@ def _device_activity(fn) -> tuple:
             break
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
+            # idle host time around the call (2 ms, doubling): a short
+            # window's device events can go missing from the results
+            time.sleep(min(0.002 * 2 ** session, 0.2))
             fn()
             torch.cuda.synchronize()
+            time.sleep(min(0.002 * 2 ** session, 0.2))
         n_k = n_c = 0
         for ev in prof.events():
             if ev.device_type != DeviceType.CUDA:
@@ -644,13 +650,19 @@ def test_topn_calls_issue_few_kernels_and_no_copy(cuda):
     assert kernels == 1 and copies == 0, (kernels, copies)
 
 
-def _probe_case(cuda, outer_left: bool, right: bool):
-    """A probe table (slots: FOR8 group key, int value, dictionary-coded
+def _probe_case(cuda, outer_left: bool, right: bool, G: int = 31,
+                skew: bool = False, sparse: bool = False):
+    """A probe table (slots: group key, int value, dictionary-coded
     distinct column), a build table (one int value), and the join codes,
-    with NULLs, unmatched codes and sentinels."""
+    with NULLs, unmatched codes and sentinels. The key spreads over G - 1
+    groups (NULL takes the last), or with `skew` every row holds 7; the
+    probe predicate keeps ~95 % of the rows, or with `sparse` ~10 % (a
+    warp step then adds its rows lane by lane)."""
     rng = np.random.default_rng(8)
     npr, nb, g = 60_000, 9_000, 5_000
-    pcols_raw = [Column(dt.INT, rng.integers(0, 30, npr).astype(np.int32)),
+    keys = np.full(npr, 7, np.int32) if skew else \
+        rng.integers(0, G - 1, npr).astype(np.int32)
+    pcols_raw = [Column(dt.INT, keys),
                  Column(dt.INT, rng.integers(-1000, 1000, npr)
                         .astype(np.int32)),
                  Column(dt.INT, rng.integers(0, 12, npr).astype(np.int32))]
@@ -689,7 +701,8 @@ def _probe_case(cuda, outer_left: bool, right: bool):
     b_rc, b_outs = ak.agg_scan(bspec, bcols, brow, bc, 0, brow.shape[0])
     b_rc[g:] = 0
     kinds = [ak.col_kind(d) for d in pdc]
-    ppred = (_COL(1), _I(-900), (ak.OP_CMP_I, 0, C[">"]))
+    ppred = (_COL(1), _I(800 if sparse else -900),
+             (ak.OP_CMP_I, 0, C[">"]))
     aggs = [
         jk.ProbeAgg(jk.JP_COUNT, (_COL(1),)),
         jk.ProbeAgg(jk.JP_SUM, (_COL(1),)),
@@ -703,7 +716,6 @@ def _probe_case(cuda, outer_left: bool, right: bool):
         jk.ProbeAgg(jk.JB_SUM, src=b_outs[1], ub_ops=(_COL(0),)),
         jk.ProbeAgg(jk.JB_MIN, src=b_outs[2], ub_ops=(_COL(0),) + gate),
     ]
-    G = 31
     spec = jk.ProbeSpec([k for k, _ in kinds], [o for _, o in kinds], G, g,
                         outer_left, [ppred], [(ak.KEY_INT, 0, 0, G)], aggs)
     cols = [(d.data, d.mask) for d in pdc]
@@ -712,10 +724,20 @@ def _probe_case(cuda, outer_left: bool, right: bool):
     return spec, cols, prow, pc, b_rc, rt
 
 
+@pytest.mark.parametrize("G,skew,sparse", [(31, False, False),
+                                           (31, True, False),
+                                           (31, False, True),
+                                           (4001, False, False)])
 @pytest.mark.parametrize("kind", ["inner", "left", "right", "full"])
-def test_join_probe_matches_plain(cuda, kind):
+def test_join_probe_matches_plain(cuda, kind, G, skew, sparse):
+    """Every output bit for bit, in both regimes (G 31: SMALL; 4,001:
+    LARGE), with every row in one group, with few rows a warp, negative
+    min/max and a DISTINCT grid."""
     spec, cols, prow, pc, cnt, rt = _probe_case(
-        cuda, kind in ("left", "full"), kind in ("right", "full"))
+        cuda, kind in ("left", "full"), kind in ("right", "full"), G, skew,
+        sparse)
+    assert jk.probe_regime(spec) == (jk.REGIME_SMALL if G == 31
+                                     else jk.REGIME_LARGE)
     LAUNCHES.reset()
     got = jk.join_probe(spec, cols, prow, pc, cnt, rt)
     assert LAUNCHES.get("join_probe") == 1
@@ -723,6 +745,19 @@ def test_join_probe_matches_plain(cuda, kind):
     ref = jk.join_probe_plain(spec, cols, prow, pc, cnt, rt)
     torch.cuda.synchronize()
     _assert_raw_equal(got, ref)
+    again = jk.join_probe(spec, cols, prow, pc, cnt, rt)
+    torch.cuda.synchronize()
+    _assert_raw_equal(again, ref)
+
+
+@pytest.mark.parametrize("right", [False, True])
+def test_join_probe_call_issues_its_launches_and_no_copy(cuda, right):
+    """A warm call: init + probe (+ unmatched) kernels, and no host-to-
+    device copy (both descriptors go by value)."""
+    spec, cols, prow, pc, cnt, rt = _probe_case(cuda, False, right)
+    kernels, copies = _device_activity(
+        lambda: jk.join_probe(spec, cols, prow, pc, cnt, rt))
+    assert (kernels, copies) == (jk.CALL_LAUNCHES[right], 0)
 
 
 # -- vector kernels (csrc/vector.cu) ------------------------------------------
@@ -898,6 +933,94 @@ def test_maxsim_long_docs_match_plain(cuda, dp):
         np.testing.assert_array_equal(k.cpu().numpy().view(np.int32),
                                       pk.cpu().numpy().view(np.int32))
         np.testing.assert_array_equal(r.cpu().numpy(), pr.cpu().numpy())
+
+
+def _maxsim_edge_case(case):
+    """A MaxSim layout with docs of 0, 1, 33 and 257 tokens among short
+    ones, and the case's queries: (1, 1) pairs; 3 x 5 tokens padded to
+    4 x 8; NaN and inf in doc and query tokens; widths 200 (tile 8, dim
+    slabs), 6 and 130 (not a multiple of 4: one float a copy), and 120
+    with dim tiles of 6 (float4 copies, one dim a step)."""
+    from serenedb_tpu_torch.ops import vector_kernels as vk
+    rng = np.random.default_rng(47)
+    dp, tile = {"dp200": (200, 8), "dp6": (6, 3), "dp130": (130, 10),
+                "dp120": (120, 6)}.get(case, (128, 32))
+    ndocs = 700
+    cnt = rng.integers(1, 20, ndocs).astype(np.int32)
+    cnt[[3, 100, 101, 400]] = (0, 1, 33, 257)
+    lp = 1024
+    counts = np.zeros(lp, np.int32)
+    counts[:ndocs] = cnt
+    offsets = np.zeros(lp, np.int32)
+    offsets[1:ndocs + 1] = np.cumsum(cnt)
+    ntok = int(cnt.sum())
+    x = rng.standard_normal((ntok, dp)).astype(np.float32)
+    slots = rng.permutation(ntok).astype(np.int32)
+    rows = np.full(lp, vk.PAD_ROW, np.int32)
+    rows[:ndocs] = rng.permutation(50_000)[:ndocs]
+    if case == "1x1":
+        q = rng.standard_normal((1, 1, dp)).astype(np.float32)
+    else:
+        q = np.zeros((4, 8, dp), np.float32)
+        q[:3, :5] = rng.standard_normal((3, 5, dp))
+    if case == "nan_inf":
+        x[slots[offsets[10]], 5] = np.nan       # doc 10's first token
+        x[slots[offsets[20] + 1], 7] = np.inf
+        x[slots[offsets[30]], :] = -np.inf
+        q[1, 2, 9] = np.inf                     # 0 · inf: NaN everywhere
+        q[2, 0, 3] = np.nan
+    dc = 128
+    dmap = np.full(-(-ndocs // dc) * dc, ndocs, np.int32)
+    dmap[:ndocs] = np.arange(ndocs)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a))  # noqa: E731
+    return (t(x.reshape(-1)), t(slots), t(offsets), t(counts), t(rows), t(q),
+            t(dmap.reshape(-1, dc))), tile, int(cnt.max())
+
+
+@pytest.mark.parametrize("case", ["1x1", "3x5", "nan_inf", "dp200", "dp6",
+                                  "dp130", "dp120"])
+def test_maxsim_edge_shapes_match_plain(cuda, case):
+    from serenedb_tpu_torch.ops import vector_kernels as vk
+    host, tile, tcap = _maxsim_edge_case(case)
+    dev = [a.to(cuda) for a in host]
+    for kkp in (8, 1024):
+        kw = dict(tile=tile, tcap=tcap, kkp=kkp)
+        LAUNCHES.reset()
+        k, r = vk.maxsim(*dev, **kw)
+        k2, r2 = vk.maxsim(*dev, **kw)
+        assert LAUNCHES.get("maxsim") == 2
+        pk, pr = vk.maxsim_plain(*dev, **kw)
+        torch.cuda.synchronize()
+        for a, b in ((pk, pr), (k2, r2)):
+            np.testing.assert_array_equal(k.cpu().numpy().view(np.int32),
+                                          a.cpu().numpy().view(np.int32))
+            np.testing.assert_array_equal(r.cpu().numpy(), b.cpu().numpy())
+
+
+@pytest.mark.parametrize("case,groups", [("3x5", 1), ("nan_inf", 3),
+                                         ("dp200", 2), ("1x1", 1)])
+def test_maxsim_scratch_in_lane_ranges_matches_plain(cuda, monkeypatch, case,
+                                                    groups):
+    """A scratch budget of a few groups of 32 lanes: the tiles and score
+    kernels run range by range over the 768 lanes, and the keys still
+    equal the plain version's and one range's."""
+    from serenedb_tpu_torch.ops import vector_kernels as vk
+    host, tile, tcap = _maxsim_edge_case(case)
+    dev = [a.to(cuda) for a in host]
+    bp, sp, _ = host[5].shape
+    kw = dict(tile=tile, tcap=tcap, kkp=64)
+    k1, r1 = vk.maxsim(*dev, **kw)
+    monkeypatch.setattr(vk, "MAXSIM_SCRATCH_BYTES",
+                        groups * vk.MAXSIM_LANES * bp * sp * 4 + 4)
+    assert vk.maxsim_scratch_lanes(host[6].numel(), bp * sp) == \
+        groups * vk.MAXSIM_LANES
+    k, r = vk.maxsim(*dev, **kw)
+    pk, pr = vk.maxsim_plain(*dev, **kw)
+    torch.cuda.synchronize()
+    for a, b in ((pk, pr), (k1, r1)):
+        np.testing.assert_array_equal(k.cpu().numpy().view(np.int32),
+                                      a.cpu().numpy().view(np.int32))
+        np.testing.assert_array_equal(r.cpu().numpy(), b.cpu().numpy())
 
 
 def test_kmeans_kernels_match_plain(cuda):

@@ -25,6 +25,7 @@ from serenedb_tpu_torch.device import LAUNCHES, UPLOADS
 from serenedb_tpu_torch.engine import Database
 from serenedb_tpu_torch.exec import device_pipeline as dp
 from serenedb_tpu_torch.obs import device as pobs
+from serenedb_tpu_torch.ops import join_kernels as J
 from serenedb_tpu_torch.utils.config import REGISTRY as PSETTINGS
 
 from test_device_pipeline import FUSED_QUERIES, _mk_conn
@@ -339,3 +340,163 @@ def test_program_ledger_counts_fused_lookups(conns):
     assert after["hits"] + after["misses"] == \
         before["hits"] + before["misses"] + 2
     assert after["hits"] >= before["hits"] + 1
+
+
+#: joins whose group space straddles join_probe's SMALL/LARGE line:
+#: GROUP BY l.ts is G = 6,001 groups, whose count(*) cells take 48,008
+#: bytes (SMALL, under PROBE_SMALL_BYTES); one more count doubles them
+#: (LARGE); GROUP BY l.v is G = 1,001 with a sum (SMALL)
+STRADDLE = [
+    ("SELECT l.ts, count(*) FROM l JOIN r ON l.ik = r.ik GROUP BY l.ts "
+     "ORDER BY l.ts", J.REGIME_SMALL),
+    ("SELECT l.ts, count(*), count(w) FROM l JOIN r ON l.ik = r.ik "
+     "GROUP BY l.ts ORDER BY l.ts", J.REGIME_LARGE),
+    ("SELECT l.ts, count(*), min(w), max(v) FROM l LEFT JOIN r "
+     "ON l.ik = r.ik GROUP BY l.ts ORDER BY l.ts", J.REGIME_LARGE),
+    ("SELECT l.v, count(*), sum(w) FROM l JOIN r ON l.ik = r.ik "
+     "GROUP BY l.v ORDER BY l.v", J.REGIME_SMALL),
+]
+
+
+@pytest.mark.parametrize("q,regime", STRADDLE)
+def test_joins_on_both_sides_of_the_probe_regime_line(conns, q, regime,
+                                                      monkeypatch):
+    """The plain version that both of join_probe's regimes are held to on
+    the card, against the reference at group spaces on either side of
+    the regime line (the card picks the regime from the spec alone)."""
+    rconn, pconn = conns["lr"]
+    specs = []
+    orig = J.join_probe
+
+    def spy(*a, **kw):
+        specs.append(a[0])
+        return orig(*a, **kw)
+    monkeypatch.setattr(J, "join_probe", spy)
+    assert _rows(pconn, q, "gpu") == _rows(rconn, q, "tpu")
+    assert [J.probe_regime(s) for s in specs] == [regime]
+
+
+def _probe_spec(G: int, aggs: list, outer: bool = False) -> "J.ProbeSpec":
+    from serenedb_tpu_torch.ops import agg_kernels as K
+    return J.ProbeSpec([K.COL_I32, K.COL_U8], [0, 3], G, 100, outer,
+                       [((K.OP_COL, 1, 0), (K.OP_I32, 0, 7),
+                         (K.OP_CMP_I, 0, K.CMP_CODES[">"]))],
+                       [(K.KEY_INT, 0, 0, G)], aggs)
+
+
+@pytest.mark.parametrize("G,regime", [(1, J.REGIME_SMALL),
+                                      (3072, J.REGIME_SMALL),
+                                      (3073, J.REGIME_LARGE),
+                                      (1_000_000, J.REGIME_LARGE)])
+def test_probe_regime_line(G, regime):
+    """count(*) and a count take 16 bytes a group: SMALL up to the 48 KiB
+    budget (G 3,072), LARGE past it; a sum and a min add 28 more."""
+    from serenedb_tpu_torch.ops import agg_kernels as K
+    spec = _probe_spec(G, [J.ProbeAgg(J.JP_COUNT, ((K.OP_COL, 0, 0),))])
+    assert J.probe_cells_bytes(spec) == 16 * G
+    assert J.probe_regime(spec) == regime
+    wide = _probe_spec(G, spec.aggs + [
+        J.ProbeAgg(J.JP_SUM, ((K.OP_COL, 0, 0),)),
+        J.ProbeAgg(J.JP_MIN, ((K.OP_COL, 0, 0),)),
+        J.ProbeAgg(J.JP_PRESENCE, ((K.OP_COL, 1, 0),), pvsize=9)])
+    assert J.probe_cells_bytes(wide) == (16 + 16 + 12) * G
+    assert J.probe_regime(wide) == (
+        J.REGIME_SMALL if 44 * G <= J.PROBE_SMALL_BYTES else J.REGIME_LARGE)
+
+
+@pytest.mark.parametrize("right", [False, True])
+def test_memoized_probe_descriptor_equals_a_fresh_build(right):
+    """The card's descriptors come from a template per spec with the
+    call's pointers and row counts written in: word for word what a fresh
+    build gives, call after call, for the probe and the unmatched pass."""
+    import torch
+
+    from serenedb_tpu_torch.ops import agg_kernels as K
+    rng = np.random.default_rng(4)
+    bsum = (torch.zeros(102, dtype=torch.int64),
+            torch.zeros(102, dtype=torch.int64))
+    aggs = [J.ProbeAgg(J.JP_COUNT, ((K.OP_COL, 0, 0),)),
+            J.ProbeAgg(J.JP_SUM, ((K.OP_COL, 0, 0), (K.OP_I32, 0, 3),
+                                  (K.OP_MUL_I, 0, 0))),
+            J.ProbeAgg(J.JP_MAX, ((K.OP_COL, 1, 0),)),
+            J.ProbeAgg(J.JP_PRESENCE, ((K.OP_COL, 1, 0),), pkind=K.KEY_INT,
+                       plo=3, pvsize=5),
+            J.ProbeAgg(J.JB_SUM, src=bsum, ub_ops=((K.OP_COL, 0, 0),)),
+            J.ProbeAgg(J.JB_COUNT, src=(None, bsum[1]),
+                       ub_ops=((K.OP_COL, 0, 0),))]
+    J._PLANS.clear()
+    for call in range(3):
+        spec = _probe_spec(40, aggs, outer=right)
+        r = 4 + call
+        cols = [(torch.from_numpy(rng.integers(0, 40, (r, 128),
+                                               dtype=np.int32)),
+                 torch.ones((r, 128), dtype=torch.bool)),
+                (torch.zeros((r, 128), dtype=torch.uint8),
+                 torch.ones((r, 128), dtype=torch.bool))]
+        rowmask = torch.ones((r, 128), dtype=torch.bool)
+        codes = torch.zeros((r, 128), dtype=torch.int32)
+        cnt = torch.zeros(102, dtype=torch.int64)
+        rt = None
+        if right:
+            rt = (J.UnmatchedSpec([K.COL_I32], [0], 39,
+                                  [((K.OP_COL, 0, 0), (K.OP_I32, 0, 1),
+                                    (K.OP_CMP_I, 0, K.CMP_CODES[">"]))]),
+                  [(torch.zeros((2, 128), dtype=torch.int32),
+                    torch.ones((2, 128), dtype=torch.bool))],
+                  torch.ones((2, 128), dtype=torch.bool),
+                  torch.zeros((2, 128), dtype=torch.int32))
+        plan = J._plan(spec, rt)
+        _buf, rowcount, outs, pcc = plan.carve("cpu")
+        args = (spec, cols, rowmask, codes, cnt, rowcount, outs, pcc, rt)
+        fresh = J.probe_descriptors(None, *args)
+        got = J.probe_descriptors(plan, *args)
+        assert len(J._PLANS) == 1 and plan.tmpl is not None
+        for a, b in zip(got, fresh):
+            if b is None:
+                assert a is None
+            else:
+                np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("right", [False, True])
+@pytest.mark.parametrize("pvsize", [4, 5])
+def test_call_buffer_carves_every_output_at_its_starting_value(right,
+                                                               pvsize):
+    """The card call's one buffer: each output a view of its dtype and
+    shape, none overlapping, and the init launch's three sections (0,
+    INT32_MAX, INT32_MIN; applied here as the kernel applies them) give
+    each output the plain version's starting value; pcc starts at 0."""
+    import torch
+
+    from serenedb_tpu_torch.ops import agg_kernels as K
+    col = ((K.OP_COL, 0, 0),)
+    aggs = [J.ProbeAgg(J.JP_COUNT, col), J.ProbeAgg(J.JP_MIN, col),
+            J.ProbeAgg(J.JP_PRESENCE, col, pvsize=pvsize),
+            J.ProbeAgg(J.JB_SUM), J.ProbeAgg(J.JB_MAX),
+            J.ProbeAgg(J.JP_MAX, col), J.ProbeAgg(J.JB_COUNT),
+            J.ProbeAgg(J.JB_MIN), J.ProbeAgg(J.JP_SUM, col)]
+    spec = _probe_spec(7, aggs)
+    plan = J._Plan(spec, spec.g + 2 if right else 0)
+    buf, rowcount, outs, pcc = plan.carve("cpu")
+    words = buf.view(torch.int32)
+    zero, n_max, n_min = plan.sections
+    words[:zero] = 0
+    words[zero:zero + n_max] = K.INT32_MAX
+    words[zero + n_max:zero + n_max + n_min] = K.INT32_MIN
+    want_rc, want = J._outputs(spec, "cpu")
+    got = [rowcount] + [t for e in outs for t in e]
+    ref = [want_rc] + [t for e in want for t in e]
+    assert [len(e) for e in outs] == [len(e) for e in want]
+    for g, r in zip(got, ref):
+        assert g.dtype == r.dtype and g.shape == r.shape
+        assert torch.equal(g, r)
+    spans = sorted((t.data_ptr(), t.data_ptr() + t.numel() *
+                    t.element_size()) for t in got +
+                   ([pcc] if pcc is not None else []))
+    assert all(a[1] <= b[0] for a, b in zip(spans, spans[1:]))
+    assert spans[-1][1] <= buf.data_ptr() + buf.numel() * 8
+    if right:
+        assert pcc.dtype == torch.int32 and pcc.shape == (spec.g + 2,)
+        assert not pcc.any()
+    else:
+        assert pcc is None

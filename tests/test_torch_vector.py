@@ -602,17 +602,61 @@ def test_maxsim_sql_with_300_token_docs_equals_reference():
 
 def test_maxsim_width_past_the_kernels_shared_memory_is_unsupported(
         monkeypatch):
-    """The one width limit left: a token row must fit the block's shared
-    memory (32 tokens a tile at 128 dims, 1 at 50,000); past it the card's
-    wrapper raises FEATURE_NOT_SUPPORTED before any launch."""
-    assert vk.maxsim_tile_tokens(128) == 32
-    assert 0 < vk.maxsim_tile_tokens(768) <= vk.maxsim_tile_tokens(128)
-    assert vk.maxsim_tile_tokens(16384) >= 1
-    assert vk.maxsim_tile_tokens(65536) == 0
+    """The one width limit left (ROADMAP's standing ruling): the card
+    takes token rows up to MAXSIM_MAX_WIDTH floats, the widths that the
+    kernel's shared memory held one token of before it streamed dim slabs
+    (50,687); past it the card's wrapper raises FEATURE_NOT_SUPPORTED
+    before any launch."""
+    assert vk.MAXSIM_MAX_WIDTH == 50_687
     monkeypatch.setattr(vk, "_is_cuda", lambda *t: True)
-    dp = 65536
     i32 = lambda *v: torch.tensor(v, dtype=torch.int32)  # noqa: E731
-    with pytest.raises(Exception) as e:
-        vk.maxsim(torch.zeros(dp), i32(0), i32(0, 0), i32(1, 0), i32(0, 1),
-                  torch.zeros((1, 1, dp)), i32(0, 1), tile=32, tcap=1, kkp=8)
-    assert getattr(e.value, "sqlstate", None) == "0A000"
+    for dp in (vk.MAXSIM_MAX_WIDTH + 1, 65536):
+        with pytest.raises(Exception) as e:
+            vk.maxsim(torch.zeros(dp), i32(0), i32(0, 0), i32(1, 0),
+                      i32(0, 1), torch.zeros((1, 1, dp)), i32(0, 1),
+                      tile=1, tcap=1, kkp=8)
+        assert getattr(e.value, "sqlstate", None) == "0A000"
+
+
+@pytest.mark.parametrize("nlanes,npairs,want", [
+    (50_048, 512, 50_048),        # the colbert batch: one range
+    (1_000_064, 2_048, 32_768),   # 64 x 32 pairs over 1M docs: 256 MiB
+    (100, 3, 100),                # never more than the call's lanes
+    (0, 8, 1),
+    (10_000, 1 << 22, 32),        # one group of lanes at the least
+    (10_000, 100_000, 640),       # whole groups of 32
+])
+def test_maxsim_scratch_lanes_keep_the_byte_budget(nlanes, npairs, want):
+    lanes = vk.maxsim_scratch_lanes(nlanes, npairs)
+    assert lanes == want
+    assert lanes * npairs * 4 <= vk.MAXSIM_SCRATCH_BYTES or \
+        lanes == vk.MAXSIM_LANES
+
+
+@pytest.mark.parametrize("b,s", [(1, 1), (3, 5)])
+def test_maxsim_pair_counts_and_doc_lengths_match_reference(b, s):
+    """Pair counts that do not fill the kernel's register micro-tile (1 x
+    1; 3 x 5 tokens, padded to 4 x 8) over docs of 0, 1, 33 and 257
+    tokens: the plain version the kernel is held to on the card, against
+    the reference and host_scores."""
+    rng = np.random.default_rng(48 + b)
+    texts = []
+    for n_tok in (1, 33, 0, 257, 5, 1, 33, 2, 257, 9):
+        t = rng.standard_normal((max(n_tok, 1), 24))
+        t = (t / np.linalg.norm(t, axis=1, keepdims=True)).astype(np.float32)
+        texts.append(json.dumps(t[:n_tok].tolist()) if n_tok else None)
+    ref = ref_ivf.build_maxsim_index(_ref_provider(texts), "v", {})
+    port = maxsim_index_from_reference(_maxsim_fields(ref), device="cpu")
+    q = rng.standard_normal((b, s, 24)).astype(np.float32)
+    rk, rr = ref.search_batch(q, 6)
+    LAUNCHES.reset()
+    pk, pr = port.search_batch(q, 6)
+    assert LAUNCHES.get("maxsim.plain") == 1
+    np.testing.assert_allclose(pk, rk, rtol=MAXSIM_RTOL, atol=MAXSIM_ATOL)
+    for i in range(b):
+        hs = port.host_scores(q[i])
+        order = np.lexsort((port.doc_rows, -hs))[:6]
+        np.testing.assert_allclose(-pk[i], hs[order], rtol=MAXSIM_RTOL,
+                                   atol=MAXSIM_ATOL)
+        np.testing.assert_array_equal(pr[i], port.doc_rows[order])
+        np.testing.assert_array_equal(pr[i], rr[i])
