@@ -91,9 +91,11 @@ Phases (any failure exits non-zero and prints no result line):
      statements, an INSERT of 10,000 docs (a second segment), the mix
      again; rows held to the port's host WAND (bench.py's rule);
  14. ivf_probe (nprobe 16 at batch 64 and at batch 1, and the brute
-     layout), maxsim (one 16-query batch, bit for bit and against a
-     second launch, device ms by kernel, its bound at two FP32
-     instructions a multiply-add), kmeans_assign and kmeans_update (one
+     layout; each call exactly its two kernels, lists then rows, and no
+     copy in, device ms by kernel), maxsim (one 16-query batch, bit for
+     bit and against a second launch, device ms by kernel, its bound at
+     two FP32 instructions a multiply-add), kmeans_assign and
+     kmeans_update (one
      k-means iteration, and
      the same rows with >= 90 % of them in one cluster) against their
      plain versions on inputs recorded from phases 11-12, bit for bit,
@@ -137,9 +139,11 @@ Phases (any failure exits non-zero and prints no result line):
      phase 15 (checked as soon as phase 15 ends, while the pool's region
      holds what that batch read), with their times and bounds;
  19. merge_topk (on phase 17's recorded 16-query merge and a crafted
-     batch of ties, -0.0, pads and k past any shard's candidates) and
-     match_bitmap (on a recorded phase 17 launch) against their plain
-     versions bit for bit, with their times and bounds; K12's one-card
+     batch of ties, -0.0, pads and k past any shard's candidates; a call
+     one kernel and no copy in, device ms; torch.topk over the same plane
+     as its yardstick) and match_bitmap (on a recorded phase 17 launch)
+     against their plain versions bit for bit, with their times and
+     bounds; K12's one-card
      form: join_probe at phase 17's collective shape (4 shards, device
      combine, 1x) against its plain version, with its bound, an
      index_add_ yardstick and phase 10's launch and sync checks; the K13
@@ -469,6 +473,11 @@ KMEANS_KERNELS = ("km_hist_kernel", "km_prefix_kernel", "km_scatter_kernel",
 #: the scratch), its selection two levels of tile_kernel
 MAXSIM_KERNELS = {"maxsim_tiles_kernel": 1, "maxsim_score_kernel": 1,
                   "tile_kernel": 2, "keys_finish_kernel": 1}
+#: ivf_probe on the main path (both stages fused: the lists, then the rows)
+IVF_KERNELS = ("ivf_lists_kernel", "ivf_rows_kernel")
+#: merge_topk up to its one-block cap: one kernel a call, by the lanes a
+#: query (S * L) up to 32 and past it
+MERGE_KERNELS = {True: ("merge_warp_kernel",), False: ("merge_block_kernel",)}
 
 
 def launch_profile(fn, expect, calls: int = 5) -> tuple:
@@ -1860,7 +1869,8 @@ def _probe_bound(args) -> tuple:
 
 def check_ivf_probe(device, args, reps=5) -> dict:
     """ivf_probe against its plain version on one recorded launch, bit for
-    bit; two launches bit-identical."""
+    bit; two launches bit-identical; a call exactly IVF_KERNELS with no
+    copy in (device ms by kernel)."""
     from serenedb_tpu_torch.ops import vector_kernels as vk
     a, kw = args
     d, r = vk.ivf_probe(*a, **kw)
@@ -1874,6 +1884,7 @@ def check_ivf_probe(device, args, reps=5) -> dict:
                 np.array_equal(r.cpu().numpy(), y.cpu().numpy())):
             fail(f"ivf_probe differs from {name} ({kw})")
     ms = timed_ms(lambda: vk.ivf_probe(*a, **kw), reps, device)
+    note = activity_note(lambda: vk.ivf_probe(*a, **kw), IVF_KERNELS)
     t = time.perf_counter()
     vk.ivf_probe_plain(*a, **kw)
     sync(device)
@@ -1883,7 +1894,7 @@ def check_ivf_probe(device, args, reps=5) -> dict:
     return {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": max(b_bytes, b_ops),
             "bound_by": "bytes" if b_bytes >= b_ops else "operations",
-            "library_ms": None,
+            "library_ms": None, "note": note,
             "shape": f"{kw['metric']} q={a[6].shape[0]} dp={a[6].shape[1]} "
                      f"lists={kw['l_real']} nprobe={kw['nprobe']} "
                      f"kkp={kw['kkp']} lanes={a[7].numel()}"}
@@ -2845,7 +2856,10 @@ def crafted_merge(device):
 
 
 def check_merge_topk(device, args, reps=20) -> dict:
-    """merge_topk against its plain version bit for bit."""
+    """merge_topk against its plain version bit for bit; a call one kernel
+    (MERGE_KERNELS) with no copy in (device ms); `torch.topk` over the
+    same (Q, S * L) plane as its yardstick (it has no tie order: a
+    yardstick of time only)."""
     import torch
 
     from serenedb_tpu_torch.ops import merge_kernels as mk
@@ -2859,9 +2873,15 @@ def check_merge_topk(device, args, reps=20) -> dict:
     ms = timed_ms(lambda: mk.merge_topk(*a, **kw), reps, device)
     plain_ms = timed_ms(lambda: mk.merge_topk_plain(*a, **kw), reps, device)
     scores, dd = a[0], a[1]
+    S, Q, L = scores.shape
+    note = activity_note(lambda: mk.merge_topk(*a, **kw),
+                         MERGE_KERNELS[S * L <= 32])
+    plane = scores.permute(1, 0, 2).reshape(Q, S * L).contiguous()
+    kk = min(a[2], S * L)
+    lib_ms = timed_ms(lambda: torch.topk(plane, kk), reps, device)
     return {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms(nbytes(scores, dd, vals, docs)),
-            "bound_by": "bytes", "library_ms": None,
+            "bound_by": "bytes", "library_ms": lib_ms, "note": note,
             "shape": f"(S, Q, L)={tuple(scores.shape)} k={a[2]}"}
 
 
@@ -3246,9 +3266,11 @@ def main() -> int:
     for what, r in vchecks.items():
         lib = "null" if r["library_ms"] is None else \
             f"{r['library_ms']:.4f} ms"
+        note = f"; {r['note']}" if "note" in r else ""
         print(f"[14] {what} ({r['shape']}): kernel {r['ms']:.4f} ms, plain "
               f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms "
-              f"({r['bound_by']}), library {lib}, bit-equal", flush=True)
+              f"({r['bound_by']}), library {lib}, bit-equal{note}",
+              flush=True)
     pw = time_page_write(device, vcalls["page_write"])
     print(f"[14] vector pool page write ({pw['shape']}, one index_copy_): "
           f"{pw['ms']:.4f} ms, bound {pw['bound_ms']:.4f} ms (bytes)",
@@ -3351,9 +3373,13 @@ def main() -> int:
                     "match_bitmap": check_match_bitmap(
                         device, sr.pop("bitmap_args"))}
     for what, r in shard_checks.items():
+        lib = "null" if r["library_ms"] is None else \
+            f"{r['library_ms']:.4f} ms (torch.topk)"
+        note = f"; {r['note']}" if "note" in r else ""
         print(f"[19] {what} ({r['shape']}): kernel {r['ms']:.4f} ms, plain "
               f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms "
-              f"({r['bound_by']}), library null, bit-equal", flush=True)
+              f"({r['bound_by']}), library {lib}, bit-equal{note}",
+              flush=True)
     coll = shards["relational"][1].pop("collective_args", None)
     if coll is None:
         fail("the device combine's join_probe inputs were not recorded")

@@ -67,8 +67,9 @@ SIGNATURES = {
         "join_probe": [_P, _I, _L, _P, _L, _L, _L, _P, _L, _P],
     },
     "vector": {
-        "ivf_probe": [_P] * 9 + [_I] * 5 + [_L] + [_I] * 2 +
-                     [_P, _P, _L, _P, _L, _P, _P, _P],
+        "ivf_probe": [_P] * 7 + [_I] * 5 + [_L] + [_I] * 2 +
+                     [_P, _L, _P, _P, _P],
+        "probe_bytes": [_I, _I, _I, _L, _I],
         "maxsim": [_P] * 7 + [_L] + [_I] * 5 +
                   [_P, _L, _P, _L, _P, _L, _P, _P, _P],
         "kmeans_assign": [_P] * 3 + [_L, _I, _I] + [_P] * 4,
@@ -88,7 +89,7 @@ SIGNATURES = {
 #: entries that return a size (bytes, or keys for select_cap), not a CUDA
 #: error
 SIZE_ENTRIES = {"topn_bytes", "chain_bytes", "kmeans_bytes", "topk_bytes",
-                "select_cap"}
+                "select_cap", "probe_bytes"}
 #: the entry each library runs once, right after it loads (kernel
 #: attributes), by library
 LOAD_HOOKS = {"topn": "topn_load"}

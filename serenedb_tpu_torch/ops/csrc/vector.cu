@@ -26,17 +26,50 @@
 // 1. ivf_probe
 //    Replaces serenedb_tpu/ops/vector.py `probe_program` (:204), and with
 //    one all-rows list the brute oracle (search/vector_store.py:454).
-//    Stage 1: one thread per (query, list) computes the centroid distance;
-//    lists at or past l_real read +inf; the nprobe nearest are kept in
-//    `lax.top_k(-d)` order (NaN first, then distance asc, list asc).
-//    Stage 2: one thread per lane of the (nchunks, mc) probe grid maps
-//    tmap/jmap -> probe slot -> list -> logical position -> slotmap ->
-//    region row, scores the row and keys it; lanes past a list's count are
-//    dead. Each stage's block keys one tile of lists or lanes in shared
-//    memory and keeps its smallest (select.cuh's first level); the query
-//    is read from device memory (every thread reads the same word, one
-//    broadcast). Bound: bytes — the gathered rows (dp floats each, read
-//    once a query) dominate.
+//    Stage 1: each query's lists are keyed (list_image of the centroid
+//    distance, the list id; lists at or past l_real read +inf) and the
+//    nprobe nearest kept in `lax.top_k(-d)` order (NaN first, then
+//    distance asc, list asc). Stage 2 scores the rows the probed lists
+//    hold, and keeps the kkp smallest (distance, row) keys.
+//    Bound: bytes — the probed lists' rows (dp floats each, read once a
+//    query), ~8 MB a query at `sift`'s nprobe 16; the centroids are 0.5 MB
+//    a query. Design (in place of a thread a probe-grid lane, the grid
+//    nprobe x the largest list, rows read a float at a time, and 5-6
+//    launches):
+//    - Both stages (`ivf_lists_kernel`, `ivf_rows_kernel`) run one block
+//      code, `probe_stage`: 128 threads, a thread one row of a 128-row
+//      tile. A block takes a query's tiles j, j + blocks, ... (stage 2 at
+//      about 2,048 blocks a call), and while one tile is scored the next
+//      one's rows are located and its first slab is on its way. A tile's
+//      rows come into shared memory a 32-dim slab at a time, whole rows
+//      by cp.async (16 bytes a lane, one float where dp % 4 != 0),
+//      double-buffered, so any dp streams in d order; each thread runs
+//      its row's chain from shared memory, four dims a float4. 32-dim
+//      slabs keep a block to ~40 KB of shared memory, five blocks an SM
+//      (scripts/probe_variants.py: 64 and 128 dims were slower).
+//    - Stage 2 walks only live rows: row g of a query is the list t with
+//      pre[t] <= g < pre[t + 1] (pre the exclusive prefix of the probed
+//      lists' counts), position offsets[list] + g - pre[t]; blocks past
+//      a query's live rows leave at once. The probe grid's maps are not
+//      read: keys are (distance image, unique row id), so the order rows
+//      are scored in cannot move a bit.
+//    - Selection: each tile's keys are sorted by warp (shuffles) and
+//      merged (merge path in shared memory) into the block's running
+//      smallest, unless none is below its last; the block writes them to
+//      scratch. Stage 2's blocks read stage 1's candidates and merge them
+//      themselves (the probe table in shared memory; stage 1 resets
+//      stage 2's tickets, so no memset is launched). The last block of
+//      each group of up to 32 blocks (a ticket) merges the group's
+//      candidates, and the last group's merger (a ticket a query) the
+//      group runs, and writes the outputs, keys above the dead key
+//      written as it. Where a stage's candidates pass one block's merges
+//      (PR_CAP keys) the select.cuh levels take them, then
+//      `lists_finish_kernel` (the probe table) or `keys_finish_kernel`.
+//    - Blocks go query-minor (blockIdx = chunk * qp + query): the blocks
+//      on the card at once are one chunk of many queries, so the brute
+//      layout's queries share each tile in L2.
+//    The main path's calls are 2 launches, no copy in, one scratch buffer
+//    (`probe_bytes`).
 // 2. maxsim
 //    Replaces `maxsim_program` (:272). Per (pair, doc token), pair p being
 //    (query p / sp, query token p % sp): part = x[i0]·q[i0], then part +
@@ -104,7 +137,7 @@ namespace {
 
 using sel::u64;
 
-constexpr int STAGE_FLOOR = 2048;  // smallest tile a stage block keys
+constexpr int STAGE_FLOOR = 2048;  // smallest tile of the selection levels
 // maxsim: a block holds MS_PB (query, query token) pairs and streams doc
 // tokens in tiles of MS_TT; each thread a register micro-tile of MS_P
 // pairs x MS_T tokens (16 x 16 threads); widths past MS_ONE_SLAB stream
@@ -146,120 +179,6 @@ __device__ __forceinline__ float nan_max(float a, float b) {
   return (a != a || a > b) ? a : b;
 }
 
-// dist_tail_expr over dp dims, then + 0.0.
-__device__ float dist_chain(const float* __restrict__ x,
-                           const float* __restrict__ q, int dp, int metric) {
-  if (metric == M_L2) {
-    float dv = __fsub_rn(x[0], q[0]);
-    float acc = __fmul_rn(dv, dv);
-    for (int j = 1; j < dp; ++j) {
-      dv = __fsub_rn(x[j], q[j]);
-      acc = __fadd_rn(acc, __fmul_rn(dv, dv));
-    }
-    return __fadd_rn(acc, 0.0f);
-  }
-  if (metric == M_IP) {
-    float acc = __fmul_rn(x[0], q[0]);
-    for (int j = 1; j < dp; ++j) acc = __fadd_rn(acc, __fmul_rn(x[j], q[j]));
-    return __fadd_rn(-acc, 0.0f);
-  }
-  float xx = __fmul_rn(x[0], x[0]);
-  float qq = __fmul_rn(q[0], q[0]);
-  float dot = __fmul_rn(x[0], q[0]);
-  for (int j = 1; j < dp; ++j) {
-    xx = __fadd_rn(xx, __fmul_rn(x[j], x[j]));
-    qq = __fadd_rn(qq, __fmul_rn(q[j], q[j]));
-    dot = __fadd_rn(dot, __fmul_rn(x[j], q[j]));
-  }
-  const float den = nan_max(__fmul_rn(__fsqrt_rn(xx), __fsqrt_rn(qq)), 1e-9f);
-  return __fadd_rn(__fsub_rn(1.0f, __fdiv_rn(dot, den)), 0.0f);
-}
-
-// Stage 1 of ivf_probe: the keys of one tile of lists for one query.
-__global__ void __launch_bounds__(sel::THREADS)
-    probe_lists_kernel(const float* __restrict__ cents,
-                       const float* __restrict__ queries, int lp, int l_real,
-                       int dp, int metric, int T, int K, long long ntiles,
-                       u64* __restrict__ out) {
-  extern __shared__ u64 keys[];
-  const long long qi = blockIdx.x / ntiles, tile = blockIdx.x % ntiles;
-  const float* q = queries + qi * dp;
-  for (int i = threadIdx.x; i < T; i += blockDim.x) {
-    const long long l = tile * T + i;
-    u64 key = NO_KEY;
-    if (l < lp) {
-      const float d = l < l_real
-                          ? dist_chain(cents + l * dp, q, dp, metric)
-                          : __uint_as_float(0x7F800000u);
-      key = make_key(list_image(d), static_cast<uint32_t>(l));
-    }
-    keys[i] = key;
-  }
-  sel::keep_smallest(keys, T, K, out + (qi * ntiles + tile) * K);
-}
-
-struct ProbeArgs {
-  const float* region;
-  const int* slotmap;
-  const int* offsets;
-  const int* counts;
-  const int* rowids;
-  const float* queries;
-  const int* probe;  // (qp, nprobe) list ids
-  const int* tmap;
-  const int* jmap;
-  long long nlanes;
-  int nprobe, dp, metric;
-};
-
-// Stage 2 of ivf_probe: the keys of one tile of probe-grid lanes for one
-// query.
-__global__ void __launch_bounds__(sel::THREADS)
-    probe_lanes_kernel(ProbeArgs a, int T, int K, long long ntiles,
-                       u64* __restrict__ out) {
-  extern __shared__ u64 keys[];
-  const long long qi = blockIdx.x / ntiles, tile = blockIdx.x % ntiles;
-  const float* q = a.queries + qi * a.dp;
-  const int* probe = a.probe + qi * a.nprobe;
-  for (int i = threadIdx.x; i < T; i += blockDim.x) {
-    const long long l = tile * T + i;
-    u64 key = DEAD;
-    if (l < a.nlanes) {
-      const int cl = probe[a.tmap[l]];
-      const int j = a.jmap[l];
-      if (j < a.counts[cl]) {
-        const long long pos = static_cast<long long>(a.offsets[cl]) + j;
-        const long long slot = a.slotmap[pos];
-        const float d = dist_chain(a.region + slot * a.dp, q, a.dp, a.metric);
-        key = make_key(asc_image(d), static_cast<uint32_t>(a.rowids[pos]));
-      }
-    }
-    keys[i] = key;
-  }
-  sel::keep_smallest(keys, T, K, out + (qi * ntiles + tile) * K);
-}
-
-__global__ void lists_finish_kernel(const u64* __restrict__ keys, long long n,
-                                    int* __restrict__ probe) {
-  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
-                      threadIdx.x;
-  if (i < n) probe[i] = static_cast<int>(keys[i] & 0xFFFFFFFFull);
-}
-
-__global__ void keys_finish_kernel(const u64* __restrict__ keys, long long n,
-                                   float* __restrict__ vals,
-                                   int* __restrict__ rows) {
-  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
-                      threadIdx.x;
-  if (i >= n) return;
-  u64 k = keys[i];
-  if (k > DEAD) k = DEAD;  // behind the K dead entries the carry starts with
-  vals[i] = from_image(static_cast<uint32_t>(k >> 32));
-  rows[i] = static_cast<int>(k & 0xFFFFFFFFull);
-}
-
-// ------------------------------------------------------------- MaxSim
-
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(smem));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(a),
@@ -281,6 +200,623 @@ __device__ __forceinline__ void cp_commit() {
 __device__ __forceinline__ void cp_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
+
+// ---------------------------------------------------------- ivf_probe
+
+// One dim of dist_tail_expr's chain: the first dim opens it (FIRST), every
+// later one adds to it; (a, b, c) = acc (l2, ip) or (xx, qq, dot) (cos).
+template <int M, bool FIRST>
+__device__ __forceinline__ void chain_dim(float x, float q, float& a,
+                                          float& b, float& c) {
+  if (M == M_L2) {
+    const float dv = __fsub_rn(x, q);
+    a = FIRST ? __fmul_rn(dv, dv) : __fadd_rn(a, __fmul_rn(dv, dv));
+  } else if (M == M_IP) {
+    a = FIRST ? __fmul_rn(x, q) : __fadd_rn(a, __fmul_rn(x, q));
+  } else {
+    a = FIRST ? __fmul_rn(x, x) : __fadd_rn(a, __fmul_rn(x, x));
+    b = FIRST ? __fmul_rn(q, q) : __fadd_rn(b, __fmul_rn(q, q));
+    c = FIRST ? __fmul_rn(x, q) : __fadd_rn(c, __fmul_rn(x, q));
+  }
+}
+
+// The chain's end, then + 0.0.
+template <int M>
+__device__ __forceinline__ float chain_end(float a, float b, float c) {
+  if (M == M_L2) return __fadd_rn(a, 0.0f);
+  if (M == M_IP) return __fadd_rn(-a, 0.0f);
+  const float den = nan_max(__fmul_rn(__fsqrt_rn(a), __fsqrt_rn(b)), 1e-9f);
+  return __fadd_rn(__fsub_rn(1.0f, __fdiv_rn(c, den)), 0.0f);
+}
+
+// w dims of one row's chain from shared memory, the row x and the query
+// slab q; `first`: this slab holds dim 0.
+template <int M, bool VEC>
+__device__ __forceinline__ void chain_slab(const float* x, const float* q,
+                                           int w, bool first, float& a,
+                                           float& b, float& c) {
+  int d = 0;
+  if (VEC) {
+    if (first) {
+      const float4 xv = *reinterpret_cast<const float4*>(x);
+      const float4 qv = *reinterpret_cast<const float4*>(q);
+      chain_dim<M, true>(xv.x, qv.x, a, b, c);
+      chain_dim<M, false>(xv.y, qv.y, a, b, c);
+      chain_dim<M, false>(xv.z, qv.z, a, b, c);
+      chain_dim<M, false>(xv.w, qv.w, a, b, c);
+      d = 4;
+    }
+#pragma unroll 4
+    for (; d < w; d += 4) {
+      const float4 xv = *reinterpret_cast<const float4*>(x + d);
+      const float4 qv = *reinterpret_cast<const float4*>(q + d);
+      chain_dim<M, false>(xv.x, qv.x, a, b, c);
+      chain_dim<M, false>(xv.y, qv.y, a, b, c);
+      chain_dim<M, false>(xv.z, qv.z, a, b, c);
+      chain_dim<M, false>(xv.w, qv.w, a, b, c);
+    }
+  } else {
+    if (first) {
+      chain_dim<M, true>(x[0], q[0], a, b, c);
+      d = 1;
+    }
+#pragma unroll 4
+    for (; d < w; ++d) chain_dim<M, false>(x[d], q[d], a, b, c);
+  }
+}
+
+// The probe's blocks: PR_T threads, one row of a tile of PR_T rows each;
+// a tile comes into shared memory a slab of PR_DS dims at a time
+// (double-buffered cp.async).
+constexpr int PR_T = 128;
+constexpr int PR_DS = 32;
+constexpr int PR_KEEP_MAX = 256;  // keys a block keeps over 2+ tiles
+constexpr int PR_CAP = 4096;      // candidates one block merges
+constexpr int PR_GROUP = 32;      // stage 2: blocks a group merges at most
+constexpr int PR_TARGET = 2048;   // stage 2: blocks a call, about
+// the most dynamic shared memory a stage block takes: two stage buffers at
+// the widest slab and the tile merge's two buffers, then a probe table of
+// PR_CAP lists
+constexpr int PR_SMEM_MAX = 2 * (PR_T * (PR_DS + 4) + PR_DS) * 4 +
+                            2 * 2 * PR_KEEP_MAX * 8 + PR_CAP * 4 +
+                            (PR_CAP + 1) * 8;
+
+// One stage's blocks a query: block j of `blocks` takes the query's tiles
+// of PR_T rows j, j + blocks, ... (at most `tpb`), keeping its `keep`
+// smallest keys. Fused stage 1: each stage 2 block merges every stage 1
+// block's keys (at most PR_CAP). Fused stage 2: the last block of each
+// group of `group` blocks merges the group's keys to K, and the last
+// group's merger merges the `groups` group runs (each merge at most
+// PR_CAP keys). Else (one tile a block) select.cuh's levels take them.
+struct StagePlan {
+  int fused, tpb, keep, group;
+  long long blocks, groups;
+};
+
+// The most keys `merge_runs` holds in one of its two buffers, for nruns
+// runs of `run` keys cut to K.
+long long merge_span(long long nruns, long long run, long long K) {
+  long long most = nruns * run;
+  while (nruns > 1) {
+    nruns = (nruns + 1) / 2;
+    run = 2 * run < K ? 2 * run : K;
+    most = nruns * run > most ? nruns * run : most;
+  }
+  return most;
+}
+
+// A block's running best over one tile: its kpad keys and the tile's
+// PR_T, in runs of 32, cut to keep.
+long long tile_span(long long keep) {
+  return merge_span((keep + 31) / 32 + PR_T / 32, 32, keep);
+}
+
+// Stage 1 (`qp` 0): the fewest blocks a query whose keys one block
+// merges. Stage 2: blocks enough for PR_TARGET a call (no more than the
+// tiles), halved while the merges do not fit.
+StagePlan stage_plan(long long n, long long K, long long qp) {
+  const long long b = sel::ceil_div(n < 1 ? 1 : n, PR_T);
+  long long nb = qp ? sel::ceil_div(PR_TARGET, qp) : b;
+  nb = nb < b ? nb : b;
+  for (;; nb = sel::ceil_div(nb, 2)) {
+    const long long tpb = sel::ceil_div(b, nb);
+    const long long keep = K < PR_T * tpb ? K : PR_T * tpb;
+    if (tpb > 1 && keep > PR_KEEP_MAX) break;
+    long long g = nb, ng = 1;
+    if (qp) {
+      g = PR_GROUP;
+      while (g > 1 && merge_span(g, keep, K) > PR_CAP) g >>= 1;
+      g = g < nb ? g : nb;
+      ng = sel::ceil_div(nb, g);
+    }
+    if (merge_span(g, keep, K) <= PR_CAP && merge_span(ng, K, K) <= PR_CAP)
+      return {1, static_cast<int>(tpb), static_cast<int>(keep),
+              static_cast<int>(g), nb, ng};
+    if (nb == 1) break;
+  }
+  return {0, 1, static_cast<int>(K < PR_T ? K : PR_T), 1, b, 1};
+}
+
+inline long long align16(long long b) { return (b + 15) / 16 * 16; }
+
+// The call's one scratch buffer: stage 1's candidates (and its levels'
+// first buffer), stage 2's, the levels' second buffer, the probe table
+// (list ids and the exclusive prefix of their counts; only when stage 1
+// takes the levels), stage 2's group runs and its tickets.
+// ops/vector_kernels.py `probe_plan` mirrors it.
+struct ProbeLayout {
+  StagePlan s1, s2;
+  long long cap_a1, cap_a2, cap_b, grp;
+  long long off_c2, off_b, off_ids, off_pre, off_grp, off_ticket, bytes;
+};
+
+ProbeLayout probe_layout(long long qp, long long lp, long long nprobe,
+                         long long nlanes, long long kkp) {
+  ProbeLayout L{};
+  L.s1 = stage_plan(lp, nprobe, 0);
+  L.s2 = stage_plan(nlanes, kkp, qp);
+  long long cb1 = 0, cb2 = 0;
+  const long long n1 = L.s1.blocks * L.s1.keep, n2 = L.s2.blocks * L.s2.keep;
+  if (L.s1.fused)
+    L.cap_a1 = qp * n1;
+  else
+    sel::level_caps(qp, n1, L.s1.keep, nprobe, STAGE_FLOOR, L.cap_a1, cb1);
+  if (L.s2.fused)
+    L.cap_a2 = qp * n2;
+  else
+    sel::level_caps(qp, n2, L.s2.keep, kkp, STAGE_FLOOR, L.cap_a2, cb2);
+  L.cap_b = cb1 > cb2 ? cb1 : cb2;
+  const long long table = L.s1.fused ? 0 : qp * nprobe;
+  L.off_c2 = align16(L.cap_a1 * 8);
+  L.off_b = align16(L.off_c2 + L.cap_a2 * 8);
+  L.off_ids = align16(L.off_b + L.cap_b * 8);
+  L.off_pre = align16(L.off_ids + table * 4);
+  L.grp = L.s2.fused && L.s2.groups > 1 ? qp * L.s2.groups * kkp : 0;
+  L.off_grp = align16(L.off_pre + (table ? table + qp : 0) * 8);
+  L.off_ticket = align16(L.off_grp + L.grp * 8);
+  // stage 2's tickets: a query's groups', then its own
+  L.bytes = align16(L.off_ticket + qp * (L.s2.groups + 1) * 4);
+  return L;
+}
+
+struct PrArgs {
+  const float* rows;  // stage 1: the centroids; stage 2: the region
+  const int* slotmap;
+  const int* offsets;
+  const int* counts;
+  const int* rowids;
+  const float* queries;
+  const u64* cand1;   // stage 1's candidates (fused stage 1)
+  const int* ids;     // the probe table (stage 1 through the levels)
+  const long long* pre;
+  u64* cand;          // this stage's candidates
+  u64* grp;           // stage 2's group runs (qp, groups, kkp)
+  unsigned* ticket;   // (qp, groups + 1) stage 2's tickets
+  float* out_dist;
+  int* out_rows;
+  long long blocks;   // this stage's blocks a query
+  int qp, dp, lp, l_real, nprobe, kkp, metric;
+  int keep, fused;       // this stage
+  int group, groups;     // stage 2's (stage 1 resets its tickets)
+  int b1, keep1, fused1;
+  // keys of one merge buffer: the block's tile merge, stage 1's candidates
+  // (fused stage 1), a group's and the groups' merges (fused stage 2)
+  int span_tile, span1, span_g, span2;
+  int sel_off;        // bytes of dynamic shared memory before the tile merge's
+  int table_off;      // ... and before the table
+};
+
+// Index of the first key of the sorted run r (n keys) that is >= v
+// (upper: > v).
+__device__ __forceinline__ int rank_of(const u64* r, int n, u64 v,
+                                       bool upper) {
+  int lo = 0, hi = n;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (upper ? r[mid] <= v : r[mid] < v)
+      lo = mid + 1;
+    else
+      hi = mid;
+  }
+  return lo;
+}
+
+// Pairwise merges of `nruns` sorted runs of `run` keys, back to back at a,
+// until one is left, each merged run cut to min(2 run, K); the block
+// ping-pongs between a and b (each as large as the input). Keys of the
+// first run of a pair go before equal keys of the second (merge path, as
+// sel::merge_kernel). The input must be visible (after a barrier). Returns
+// the buffer holding the run; `len` its keys.
+__device__ u64* merge_runs(u64* a, u64* b, int nruns, int run, int K,
+                           int& len) {
+  while (nruns > 1) {
+    const int np = (nruns + 1) >> 1;
+    const int run2 = 2 * run < K ? 2 * run : K;
+    for (int e = threadIdx.x; e < np * 2 * run; e += blockDim.x) {
+      const int p = e / (2 * run), i = e - p * 2 * run;
+      const u64* ra = a + 2 * p * run;
+      const bool hb = 2 * p + 1 < nruns;
+      u64 v;
+      int pos;
+      if (i < run) {
+        v = ra[i];
+        pos = i + (hb ? rank_of(ra + run, run, v, false) : 0);
+      } else {
+        v = hb ? ra[i] : NO_KEY;
+        pos = (i - run) + (hb ? rank_of(ra, run, v, true) : run);
+      }
+      if (pos < run2) b[p * run2 + pos] = v;
+    }
+    __syncthreads();
+    u64* t = a;
+    a = b;
+    b = t;
+    nruns = np;
+    run = run2;
+  }
+  len = run;
+  return a;
+}
+
+// Ascending bitonic sort of one key a lane across the warp.
+__device__ __forceinline__ u64 warp_sort(u64 key) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int k = 2; k <= 32; k <<= 1)
+#pragma unroll
+    for (int j = k >> 1; j > 0; j >>= 1) {
+      const u64 o = __shfl_xor_sync(0xFFFFFFFFu, key, j);
+      const bool keep_min = ((lane & j) == 0) == ((lane & k) == 0);
+      key = keep_min ? (o < key ? o : key) : (o > key ? o : key);
+    }
+  return key;
+}
+
+// Exclusive prefix of counts[ids[t]] over t < n into pre[0..n] (pre[n]
+// the total); the whole block takes part. ids and pre in shared or
+// device memory.
+__device__ void probe_prefix(const int* ids, const int* __restrict__ counts,
+                             int n, long long* pre) {
+  __shared__ long long s_warp[PR_T / 32];
+  __shared__ long long s_carry;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if (threadIdx.x == 0) s_carry = 0;
+  __syncthreads();
+  for (int t0 = 0; t0 < n; t0 += PR_T) {
+    const int t = t0 + threadIdx.x;
+    const long long v = t < n ? counts[ids[t]] : 0;
+    long long incl = v;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const long long y = __shfl_up_sync(0xFFFFFFFFu, incl, o);
+      if (lane >= o) incl += y;
+    }
+    if (lane == 31) s_warp[warp] = incl;
+    __syncthreads();
+    long long base = s_carry;
+    for (int w = 0; w < warp; ++w) base += s_warp[w];
+    if (t < n) pre[t] = base + incl - v;
+    __syncthreads();
+    if (threadIdx.x == PR_T - 1) s_carry = base + incl;
+    __syncthreads();
+  }
+  if (threadIdx.x == 0) pre[n] = s_carry;
+}
+
+// A stage of ivf_probe. Block (chunk, query) = blockIdx.x as chunk * qp +
+// query, so the blocks on the card at once are one chunk of many queries
+// (the brute layout's queries share their rows in L2). A block takes the
+// query's tiles of PR_T rows chunk, chunk + blocks, ...; while one tile
+// is scored the next one's rows are located and its first slab is on its
+// way.
+// Stage 1 keys lists (a tile's rows are lists): list_image(distance) for
+// lists below l_real (+inf past it), the list id as the low word.
+// Stage 2 first takes the probe table (merging stage 1's candidates in
+// shared memory, or reading the levels' table), then keys the query's live
+// rows, the concatenation of its probed lists in probe order (row g: the
+// list t with pre[t] <= g < pre[t + 1], position offsets[list] + g -
+// pre[t]): asc_image(distance), the row id. Blocks past a query's live
+// tiles leave at once.
+// Each tile's keys are sorted by warp and merged into the block's running
+// `keep` smallest. Then the block writes them to its candidates; fused
+// stage 2 then merges by groups (the epilogue below) and writes the kkp
+// outputs (keys past the dead key as it).
+template <int STAGE, bool VEC>
+__device__ __forceinline__ void probe_stage(const PrArgs& a) {
+  extern __shared__ __align__(16) unsigned char pr_smem[];
+  __shared__ long long s_slot[2][PR_T];
+  __shared__ u64 s_best[PR_KEEP_MAX];
+  __shared__ bool s_last;
+  float* fsm = reinterpret_cast<float*>(pr_smem);
+  u64* ksm = reinterpret_cast<u64*>(pr_smem);
+  const int tid = threadIdx.x;
+  const int q = static_cast<int>(blockIdx.x % a.qp);
+  const long long chunk = blockIdx.x / a.qp;
+  const int dp = a.dp;
+  const float* qrow = a.queries + static_cast<long long>(q) * dp;
+
+  // stage 1 resets stage 2's tickets for this call
+  if (STAGE == 1)
+    for (long long t = chunk * PR_T + tid; t <= a.groups;
+         t += a.blocks * PR_T)
+      a.ticket[static_cast<long long>(q) * (a.groups + 1) + t] = 0u;
+
+  // the probe table and the live total
+  const int* ids = nullptr;
+  const long long* pre = nullptr;
+  long long total = a.lp;
+  if (STAGE == 2) {
+    if (a.fused1) {
+      const int n1 = a.b1 * a.keep1;
+      const u64* src = a.cand1 + static_cast<long long>(q) * n1;
+      for (int i = tid; i < n1; i += PR_T) ksm[i] = src[i];
+      __syncthreads();
+      int len;
+      const u64* run = merge_runs(ksm, ksm + a.span1, a.b1, a.keep1,
+                                  a.nprobe, len);
+      int* s_ids = reinterpret_cast<int*>(pr_smem + a.table_off);
+      long long* s_pre = reinterpret_cast<long long*>(
+          pr_smem + a.table_off + (a.nprobe * 4 + 7) / 8 * 8);
+      for (int t = tid; t < a.nprobe; t += PR_T)
+        s_ids[t] = static_cast<int>(run[t] & 0xFFFFFFFFull);
+      __syncthreads();
+      probe_prefix(s_ids, a.counts, a.nprobe, s_pre);
+      __syncthreads();
+      ids = s_ids;
+      pre = s_pre;
+    } else {
+      ids = a.ids + static_cast<long long>(q) * a.nprobe;
+      pre = a.pre + static_cast<long long>(q) * (a.nprobe + 1);
+    }
+    total = pre[a.nprobe];
+  }
+  // the block's tiles of PR_T rows: chunk, chunk + blocks, ... below the
+  // live ones (total <= blocks * tpb * PR_T: the lanes bound a query's
+  // live rows)
+  const long long ntiles = (total + PR_T - 1) / PR_T;
+  long long nwork = ntiles < a.blocks ? ntiles : a.blocks;
+  nwork = nwork > 0 ? nwork : 1;
+  if (chunk >= nwork) {
+    if (!a.fused) {
+      u64* dst = a.cand + (static_cast<long long>(q) * a.blocks + chunk) *
+                              a.keep;
+      for (int i = tid; i < a.keep; i += PR_T) dst[i] = NO_KEY;
+    }
+    return;
+  }
+
+  const int keep = a.keep;
+  const int kpad = (keep + 31) / 32 * 32;
+  for (int i = tid; i < kpad; i += PR_T) s_best[i] = NO_KEY;
+  u64* tsel = reinterpret_cast<u64*>(pr_smem + a.sel_off);
+
+  const int ds = dp < PR_DS ? dp : PR_DS;
+  const int ns = (dp + ds - 1) / ds;
+  const int rs = ds + (VEC ? 4 : 1);
+  const int stage_floats = PR_T * rs + PR_DS;
+  const int lane = tid & 31, warp = tid >> 5;
+
+  // where row g lies (slot -1: nothing to read) and its id
+  auto locate = [&](long long g, long long& slot, uint32_t& low) {
+    slot = -1;
+    low = 0;
+    if (g >= total) return;
+    if (STAGE == 1) {
+      low = static_cast<uint32_t>(g);
+      if (g < a.l_real) slot = g;
+      return;
+    }
+    int lo = 0, hi = a.nprobe;
+    while (hi - lo > 1) {
+      const int mid = (lo + hi) >> 1;
+      if (pre[mid] <= g)
+        lo = mid;
+      else
+        hi = mid;
+    }
+    const long long pos = a.offsets[ids[lo]] + (g - pre[lo]);
+    slot = a.slotmap[pos];
+    low = static_cast<uint32_t>(a.rowids[pos]);
+  };
+  // slab sl of the tile whose slots are s_slot[kb], into stage buffer sb
+  auto issue = [&](int kb, int sl, int sb) {
+    const int d0 = sl * ds, w = min(ds, dp - d0);
+    float* x = fsm + sb * stage_floats;
+    float* qs = x + PR_T * rs;
+    const int per = VEC ? w / 4 : w;
+    for (int e = tid; e < PR_T * per; e += PR_T) {
+      const int r = e / per, c = e - r * per;
+      const long long sr = s_slot[kb][r];
+      if (sr < 0) continue;
+      const float* src = a.rows + sr * dp + d0 + (VEC ? 4 * c : c);
+      if (VEC)
+        cp_async16(x + r * rs + 4 * c, src);
+      else
+        cp_async4(x + r * rs + c, src);
+    }
+    for (int c = tid; c < per; c += PR_T) {
+      if (VEC)
+        cp_async16(qs + 4 * c, qrow + d0 + 4 * c);
+      else
+        cp_async4(qs + c, qrow + d0 + c);
+    }
+    cp_commit();
+  };
+
+  long long t = chunk;
+  int kb = 0, st = 0;  // the tile's slot buffer; the step's stage buffer
+  long long slot;
+  uint32_t low;
+  locate(t * PR_T + tid, slot, low);
+  bool rd = slot >= 0;
+  s_slot[0][tid] = slot;
+  __syncthreads();
+  issue(0, 0, 0);
+  for (;;) {
+    const long long g = t * PR_T + tid;
+    const long long tn = t + a.blocks;
+    const bool more = tn < ntiles;
+    bool rd_next = false;
+    uint32_t low_next = 0;
+    float ca = 0.0f, cb = 0.0f, cc = 0.0f;
+    for (int sl = 0; sl < ns; ++sl, ++st) {
+      if (sl == 0 && more) {  // the next tile's rows, while this one lands
+        long long sn;
+        locate(tn * PR_T + tid, sn, low_next);
+        rd_next = sn >= 0;
+        s_slot[kb ^ 1][tid] = sn;
+      }
+      cp_wait_all();
+      __syncthreads();  // step st landed; step st - 1's readers are done
+      if (sl + 1 < ns)
+        issue(kb, sl + 1, (st + 1) & 1);
+      else if (more)
+        issue(kb ^ 1, 0, (st + 1) & 1);
+      const int w = min(ds, dp - sl * ds);
+      const float* x = fsm + (st & 1) * stage_floats;
+      const float* qs = x + PR_T * rs;
+      x += tid * rs;
+      switch (a.metric) {
+        case M_L2:
+          chain_slab<M_L2, VEC>(x, qs, w, sl == 0, ca, cb, cc);
+          break;
+        case M_IP:
+          chain_slab<M_IP, VEC>(x, qs, w, sl == 0, ca, cb, cc);
+          break;
+        default:
+          chain_slab<M_COS, VEC>(x, qs, w, sl == 0, ca, cb, cc);
+      }
+    }
+    float d;
+    switch (a.metric) {
+      case M_L2: d = chain_end<M_L2>(ca, cb, cc); break;
+      case M_IP: d = chain_end<M_IP>(ca, cb, cc); break;
+      default: d = chain_end<M_COS>(ca, cb, cc);
+    }
+    u64 key = NO_KEY;
+    if (g < total) {
+      if (STAGE == 1)
+        key = make_key(
+            list_image(rd ? d : __uint_as_float(0x7F800000u)), low);
+      else
+        key = make_key(asc_image(d), low);
+    }
+    // the tile's keys, sorted by warp, merged into the running best: runs
+    // of 32 (the best's kpad keys, then the 4 warps') in the tile merge's
+    // buffers (the next tile's first slab may be landing in the stage
+    // buffers). A tile with no key below the best's last (row ids are
+    // unique, so no key ties it) changes nothing and skips the merge.
+    if (__syncthreads_or(key < s_best[keep - 1])) {
+      key = warp_sort(key);
+      tsel[kpad + warp * 32 + lane] = key;
+      for (int i = tid; i < kpad; i += PR_T) tsel[i] = s_best[i];
+      __syncthreads();
+      int len;
+      const u64* best = merge_runs(tsel, tsel + a.span_tile,
+                                   kpad / 32 + PR_T / 32, 32, keep, len);
+      for (int i = tid; i < keep; i += PR_T) s_best[i] = best[i];
+      __syncthreads();
+    }
+    if (!more) break;
+    t = tn;
+    kb ^= 1;
+    low = low_next;
+    rd = rd_next;
+  }
+
+  u64* dst = a.cand + (static_cast<long long>(q) * a.blocks + chunk) * keep;
+  for (int i = tid; i < keep; i += PR_T) dst[i] = s_best[i];
+  if (STAGE == 1 || !a.fused) return;
+
+  // fused stage 2: the last block of each group merges the group's keys,
+  // and the last group's merger the group runs
+  const int G = a.group;
+  const long long gi = chunk / G;
+  const long long nwg = (nwork + G - 1) / G;  // groups with work
+  const int in_g = static_cast<int>(nwork - gi * G < G ? nwork - gi * G : G);
+  unsigned* tk = a.ticket + static_cast<long long>(q) * (a.groups + 1);
+  __threadfence();
+  __syncthreads();
+  if (tid == 0)
+    s_last = atomicAdd(tk + gi, 1u) == static_cast<unsigned>(in_g - 1);
+  __syncthreads();
+  if (!s_last) return;
+  __threadfence();
+  const u64* src = a.cand + (static_cast<long long>(q) * a.blocks + gi * G) *
+                                keep;
+  for (int i = tid; i < in_g * keep; i += PR_T) ksm[i] = __ldcg(src + i);
+  __syncthreads();
+  int len;
+  const u64* run = merge_runs(ksm, ksm + a.span_g, in_g, keep, a.kkp, len);
+  if (nwg > 1) {
+    u64* gdst = a.grp + (static_cast<long long>(q) * a.groups + gi) * a.kkp;
+    for (int i = tid; i < a.kkp; i += PR_T)
+      gdst[i] = i < len ? run[i] : NO_KEY;
+    __threadfence();
+    __syncthreads();
+    if (tid == 0)
+      s_last = atomicAdd(tk + a.groups, 1u) ==
+               static_cast<unsigned>(nwg - 1);
+    __syncthreads();
+    if (!s_last) return;
+    __threadfence();
+    const u64* gsrc = a.grp + static_cast<long long>(q) * a.groups * a.kkp;
+    for (int i = tid; i < nwg * a.kkp; i += PR_T) ksm[i] = __ldcg(gsrc + i);
+    __syncthreads();
+    run = merge_runs(ksm, ksm + a.span2, static_cast<int>(nwg), a.kkp, a.kkp,
+                     len);
+  }
+  for (int i = tid; i < a.kkp; i += PR_T) {
+    u64 k = i < len ? run[i] : DEAD;
+    if (k > DEAD) k = DEAD;  // behind the K dead entries the carry starts with
+    const long long o = static_cast<long long>(q) * a.kkp + i;
+    a.out_dist[o] = from_image(static_cast<uint32_t>(k >> 32));
+    a.out_rows[o] = static_cast<int>(k & 0xFFFFFFFFull);
+  }
+}
+
+// Stage 1: the lists.
+template <bool VEC>
+__global__ void __launch_bounds__(PR_T)
+    ivf_lists_kernel(const __grid_constant__ PrArgs a) {
+  probe_stage<1, VEC>(a);
+}
+
+// Stage 2: the rows.
+template <bool VEC>
+__global__ void __launch_bounds__(PR_T)
+    ivf_rows_kernel(const __grid_constant__ PrArgs a) {
+  probe_stage<2, VEC>(a);
+}
+
+// Stage 1 through the levels: each query's nprobe sorted list keys to the
+// probe table (list ids, the exclusive prefix of their counts). One block
+// a query.
+__global__ void __launch_bounds__(PR_T)
+    lists_finish_kernel(const u64* __restrict__ keys, int nprobe,
+                        const int* __restrict__ counts, int* __restrict__ ids,
+                        long long* __restrict__ pre) {
+  const long long q = blockIdx.x;
+  int* qi = ids + q * nprobe;
+  for (int t = threadIdx.x; t < nprobe; t += PR_T)
+    qi[t] = static_cast<int>(keys[q * nprobe + t] & 0xFFFFFFFFull);
+  __syncthreads();
+  probe_prefix(qi, counts, nprobe, pre + q * (nprobe + 1));
+}
+
+__global__ void keys_finish_kernel(const u64* __restrict__ keys, long long n,
+                                   float* __restrict__ vals,
+                                   int* __restrict__ rows) {
+  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
+                      threadIdx.x;
+  if (i >= n) return;
+  u64 k = keys[i];
+  if (k > DEAD) k = DEAD;  // behind the K dead entries the carry starts with
+  vals[i] = from_image(static_cast<uint32_t>(k >> 32));
+  rows[i] = static_cast<int>(k & 0xFFFFFFFFull);
+}
+
+// ------------------------------------------------------------- MaxSim
 
 struct MaxSimArgs {
   const float* region;
@@ -1045,11 +1581,15 @@ long long maxsim_smem(int dp) {
 void allow_smem() {
   static bool done = false;
   if (done) return;
-  const int keys = sel::TMAX * static_cast<int>(sizeof(u64));
-  cudaFuncSetAttribute(probe_lists_kernel,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize, keys);
-  cudaFuncSetAttribute(probe_lanes_kernel,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize, keys);
+  const int pr = PR_SMEM_MAX;
+  cudaFuncSetAttribute(ivf_lists_kernel<true>,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize, pr);
+  cudaFuncSetAttribute(ivf_lists_kernel<false>,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize, pr);
+  cudaFuncSetAttribute(ivf_rows_kernel<true>,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize, pr);
+  cudaFuncSetAttribute(ivf_rows_kernel<false>,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize, pr);
   const int ms = static_cast<int>(maxsim_smem(MS_ONE_SLAB) >
                                            maxsim_smem(MS_ONE_SLAB + 1)
                                        ? maxsim_smem(MS_ONE_SLAB)
@@ -1071,64 +1611,145 @@ void allow_smem() {
 extern "C" {
 
 // ivf_probe: region rows of dp floats; slotmap/rowids (npos_pad,),
-// offsets/counts (lp,), cents (lp, dp), queries (qp, dp), tmap/jmap
-// (nlanes,) i32. Stage 1 keeps nprobe lists and writes them to `probe`
-// (qp, nprobe); stage 2 keeps kkp keys. buf_a (cap_a keys) and buf_b
-// (cap_b keys) are the wrapper's scratch for both stages' levels
-// (ops/select.py). Outputs (qp, kkp) distances and rows.
+// offsets/counts (lp,), cents (lp, dp), queries (qp, dp). Each query's
+// nprobe nearest lists, then the kkp smallest (distance, row) keys over
+// their rows; nlanes bounds a query's rows (the probe grid's lanes). buf
+// (`probe_bytes`) is the call's scratch, unset; outputs (qp, kkp)
+// distances and rows. Two launches while both stages are fused.
 int ivf_probe(const void* region, const void* slotmap, const void* offsets,
               const void* counts, const void* rowids, const void* cents,
-              const void* queries, const void* tmap, const void* jmap,
-              int qp, int dp, int lp, int l_real, int nprobe, long long nlanes,
-              int kkp, int metric, void* probe, void* buf_a, long long cap_a,
-              void* buf_b, long long cap_b, void* out_dist, void* out_rows,
-              void* stream) {
-  if (nprobe < 1 || kkp < 1 || nprobe > l_real || l_real > lp)
+              const void* queries, int qp, int dp, int lp, int l_real,
+              int nprobe, long long nlanes, int kkp, int metric, void* buf,
+              long long bytes, void* out_dist, void* out_rows, void* stream) {
+  if (qp < 1 || dp < 1 || nprobe < 1 || kkp < 1 || nprobe > l_real ||
+      l_real > lp || nlanes < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const ProbeLayout L = probe_layout(qp, lp, nprobe, nlanes, kkp);
+  if (bytes < L.bytes || L.s1.blocks * qp > 0x7FFFFFFFLL ||
+      L.s2.blocks * qp > 0x7FFFFFFFLL)
     return static_cast<int>(cudaErrorInvalidValue);
   allow_smem();
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  u64* a = static_cast<u64*>(buf_a);
-  u64* b = static_cast<u64*>(buf_b);
-  const int t1 = sel::tile_for(nprobe, STAGE_FLOOR);
-  const int keep1 = nprobe < t1 ? nprobe : t1;
-  const long long nt1 = sel::ceil_div(lp, t1);
-  if (static_cast<long long>(qp) * nt1 * keep1 > cap_a)
+  char* base = static_cast<char*>(buf);
+  u64* c1 = reinterpret_cast<u64*>(base);
+  u64* c2 = reinterpret_cast<u64*>(base + L.off_c2);
+  u64* lb = reinterpret_cast<u64*>(base + L.off_b);
+  u64* grp = reinterpret_cast<u64*>(base + L.off_grp);
+  int* ids = reinterpret_cast<int*>(base + L.off_ids);
+  long long* pre = reinterpret_cast<long long*>(base + L.off_pre);
+  unsigned* ticket = reinterpret_cast<unsigned*>(base + L.off_ticket);
+  const bool vec = dp % 4 == 0 &&
+                   reinterpret_cast<uintptr_t>(region) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(cents) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(queries) % 16 == 0;
+  const int ds = dp < PR_DS ? dp : PR_DS;
+  const long long stage =
+      2LL * (PR_T * (ds + (vec ? 4 : 1)) + PR_DS) * sizeof(float);
+
+  // dynamic shared memory: stage 1 the stage buffers and its tile merge;
+  // stage 2 besides its merges of stage 1's and its own candidates, then
+  // the probe table
+  const long long tile1 = tile_span(L.s1.keep), tile2 = tile_span(L.s2.keep);
+  const long long span1 =
+      L.s1.fused ? merge_span(L.s1.blocks, L.s1.keep, nprobe) : 0;
+  const long long span_g =
+      L.s2.fused ? merge_span(L.s2.group, L.s2.keep, kkp) : 0;
+  const long long span2 =
+      L.s2.fused ? merge_span(L.s2.groups, kkp, kkp) : 0;
+  // [stage buffers | the tile merge's two buffers]; the merges of whole
+  // candidate sets (at a block's start or end) reuse them from offset 0
+  const long long sel_off = align16(stage);
+  const long long sm1 = sel_off + 16 * tile1;
+  long long before = sel_off + 16 * tile2;
+  const long long spans[3] = {span1, span_g, span2};
+  for (int i = 0; i < 3; ++i)
+    before = 16 * spans[i] > before ? 16 * spans[i] : before;
+  const long long table_off = align16(before);
+  const long long sm2 =
+      table_off +
+      (L.s1.fused ? (nprobe * 4LL + 7) / 8 * 8 + (nprobe + 1LL) * 8 : 0);
+  if (sm1 > PR_SMEM_MAX || sm2 > PR_SMEM_MAX)
     return static_cast<int>(cudaErrorInvalidValue);
-  probe_lists_kernel<<<static_cast<unsigned>(qp * nt1), sel::THREADS,
-                       t1 * sizeof(u64), s>>>(
-      static_cast<const float*>(cents), static_cast<const float*>(queries), lp,
-      l_real, dp, metric, t1, keep1, nt1, a);
-  const u64* lists = sel::levels(a, cap_a, b, cap_b, qp, nt1 * keep1, keep1,
-                                 nprobe, STAGE_FLOOR, s);
-  if (!lists) return static_cast<int>(cudaErrorInvalidValue);
-  lists_finish_kernel<<<grid1(static_cast<long long>(qp) * nprobe, 256), 256,
-                        0, s>>>(lists, static_cast<long long>(qp) * nprobe,
-                                static_cast<int*>(probe));
-  ProbeArgs pa{static_cast<const float*>(region),
-               static_cast<const int*>(slotmap),
-               static_cast<const int*>(offsets),
-               static_cast<const int*>(counts),
-               static_cast<const int*>(rowids),
-               static_cast<const float*>(queries),
-               static_cast<const int*>(probe),
-               static_cast<const int*>(tmap),
-               static_cast<const int*>(jmap),
-               nlanes, nprobe, dp, metric};
-  const int t2 = sel::tile_for(kkp, STAGE_FLOOR);
-  const int keep2 = kkp < t2 ? kkp : t2;
-  const long long nt2 = sel::ceil_div(nlanes, t2);
-  if (static_cast<long long>(qp) * nt2 * keep2 > cap_a)
-    return static_cast<int>(cudaErrorInvalidValue);
-  probe_lanes_kernel<<<static_cast<unsigned>(qp * nt2), sel::THREADS,
-                       t2 * sizeof(u64), s>>>(pa, t2, keep2, nt2, a);
-  const u64* best = sel::levels(a, cap_a, b, cap_b, qp, nt2 * keep2, keep2,
-                                kkp, STAGE_FLOOR, s);
-  if (!best) return static_cast<int>(cudaErrorInvalidValue);
-  keys_finish_kernel<<<grid1(static_cast<long long>(qp) * kkp, 256), 256, 0,
-                       s>>>(best, static_cast<long long>(qp) * kkp,
-                            static_cast<float*>(out_dist),
-                            static_cast<int*>(out_rows));
+
+  PrArgs a{};
+  a.offsets = static_cast<const int*>(offsets);
+  a.counts = static_cast<const int*>(counts);
+  a.queries = static_cast<const float*>(queries);
+  a.ticket = ticket;
+  a.grp = grp;
+  a.group = L.s2.group;
+  a.groups = static_cast<int>(L.s2.groups);
+  a.qp = qp;
+  a.dp = dp;
+  a.lp = lp;
+  a.l_real = l_real;
+  a.nprobe = nprobe;
+  a.kkp = kkp;
+  a.metric = metric;
+  // stage 1: the lists
+  a.rows = static_cast<const float*>(cents);
+  a.cand = c1;
+  a.blocks = L.s1.blocks;
+  a.keep = L.s1.keep;
+  a.fused = L.s1.fused;
+  a.span_tile = static_cast<int>(tile1);
+  a.sel_off = static_cast<int>(sel_off);
+  const unsigned g1 = static_cast<unsigned>(L.s1.blocks * qp);
+  if (vec)
+    ivf_lists_kernel<true><<<g1, PR_T, sm1, s>>>(a);
+  else
+    ivf_lists_kernel<false><<<g1, PR_T, sm1, s>>>(a);
+  if (!L.s1.fused) {
+    const u64* lists = sel::levels(c1, L.cap_a1, lb, L.cap_b, qp,
+                                   L.s1.blocks * L.s1.keep, L.s1.keep, nprobe,
+                                   STAGE_FLOOR, s);
+    if (!lists) return static_cast<int>(cudaErrorInvalidValue);
+    lists_finish_kernel<<<static_cast<unsigned>(qp), PR_T, 0, s>>>(
+        lists, nprobe, static_cast<const int*>(counts), ids, pre);
+  }
+  // stage 2: the rows
+  a.rows = static_cast<const float*>(region);
+  a.slotmap = static_cast<const int*>(slotmap);
+  a.rowids = static_cast<const int*>(rowids);
+  a.cand1 = c1;
+  a.ids = ids;
+  a.pre = pre;
+  a.cand = c2;
+  a.out_dist = static_cast<float*>(out_dist);
+  a.out_rows = static_cast<int*>(out_rows);
+  a.b1 = static_cast<int>(L.s1.blocks);
+  a.keep1 = L.s1.keep;
+  a.fused1 = L.s1.fused;
+  a.blocks = L.s2.blocks;
+  a.keep = L.s2.keep;
+  a.fused = L.s2.fused;
+  a.span_tile = static_cast<int>(tile2);
+  a.span1 = static_cast<int>(span1);
+  a.span_g = static_cast<int>(span_g);
+  a.span2 = static_cast<int>(span2);
+  a.table_off = static_cast<int>(table_off);
+  const unsigned g2 = static_cast<unsigned>(L.s2.blocks * qp);
+  if (vec)
+    ivf_rows_kernel<true><<<g2, PR_T, sm2, s>>>(a);
+  else
+    ivf_rows_kernel<false><<<g2, PR_T, sm2, s>>>(a);
+  if (!L.s2.fused) {
+    const u64* best = sel::levels(c2, L.cap_a2, lb, L.cap_b, qp,
+                                  L.s2.blocks * L.s2.keep, L.s2.keep, kkp,
+                                  STAGE_FLOOR, s);
+    if (!best) return static_cast<int>(cudaErrorInvalidValue);
+    keys_finish_kernel<<<grid1(static_cast<long long>(qp) * kkp, 256), 256,
+                         0, s>>>(best, static_cast<long long>(qp) * kkp,
+                                 static_cast<float*>(out_dist),
+                                 static_cast<int*>(out_rows));
+  }
   return static_cast<int>(cudaGetLastError());
+}
+
+// Bytes of ivf_probe's one scratch buffer (ops/vector_kernels.py
+// `probe_plan` computes the same).
+long long probe_bytes(int qp, int lp, int nprobe, long long nlanes, int kkp) {
+  return probe_layout(qp, lp, nprobe, nlanes, kkp).bytes;
 }
 
 // maxsim: queries (bp, sp, dp), dmap (nlanes,) doc ids (pad lanes name the

@@ -12,7 +12,9 @@ picks; the kernel makes that one selection for the whole batch.
 On a CUDA tensor the wrapper launches the kernel and counts the launch in
 `device.LAUNCHES` under `merge_topk`; on a CPU tensor it calls
 `merge_topk_plain` (counted as `merge_topk.plain`). There is no other
-path: a build or launch failure raises.
+path: a build or launch failure raises. Up to MERGE_ONE_MAX lanes a query
+(S * L) a call is one kernel and one output buffer, with no scratch; past
+it the kernel's key array and select.cuh's levels take the scratch.
 """
 
 from __future__ import annotations
@@ -21,12 +23,25 @@ import torch
 
 from ..device import LAUNCHES
 from . import _build, select
-from .bm25_kernels import _is_cuda, _require, _stream
+from .agg_kernels import _stream
+from .bm25_kernels import _is_cuda
 
 #: doc-id sentinel of pad lanes (the reference's `_PAD_DOC`)
 PAD_DOC = (1 << 31) - 1
 #: smallest tile of the selection levels (csrc/merge.cu MERGE_SORT_FLOOR)
 MERGE_SORT_FLOOR = 32
+#: lanes a query (S * L) one block sorts: a call is one kernel up to it
+#: (csrc/merge.cu MERGE_ONE_MAX)
+MERGE_ONE_MAX = 8192
+
+
+def merge_scratch(S: int, Q: int, L: int, kk: int) -> tuple[int, int]:
+    """Keys of the two selection buffers a call takes: none up to
+    MERGE_ONE_MAX lanes a query, else the key array and the levels'
+    second buffer (`select.scratch`)."""
+    if S * L <= MERGE_ONE_MAX:
+        return 0, 0
+    return select.scratch(Q, S * L, 1, kk, MERGE_SORT_FLOOR)
 
 
 def _check(scores: torch.Tensor, docs: torch.Tensor, k: int) -> int:
@@ -64,21 +79,24 @@ def merge_topk(scores: torch.Tensor, docs: torch.Tensor,
     """Each query's top min(k, S * L) candidates over the S shards:
     (vals (Q, kk) f32 with the raw score bits, docs (Q, kk) int32), each
     row by (score desc, doc asc); pads come last."""
-    if not _is_cuda(scores, docs):
+    if not (scores.is_cuda and docs.is_cuda) and not _is_cuda(scores, docs):
         return merge_topk_plain(scores, docs, k)
     kk = _check(scores, docs, k)
-    _require(scores, torch.float32, "scores")
-    _require(docs, torch.int32, "docs")
+    if not (scores.is_contiguous() and docs.is_contiguous()):
+        raise ValueError("merge_topk: scores and docs must be contiguous")
     S, Q, L = scores.shape
     dev = scores.device
-    cap_a, cap_b = select.scratch(Q, S * L, 1, kk, MERGE_SORT_FLOOR)
-    keys = torch.empty(cap_a, dtype=torch.int64, device=dev)
-    buf_b = torch.empty(cap_b, dtype=torch.int64, device=dev)
-    vals = torch.empty((Q, kk), dtype=torch.float32, device=dev)
-    out_docs = torch.empty((Q, kk), dtype=torch.int32, device=dev)
+    out = torch.empty((2, Q, kk), dtype=torch.int32, device=dev)
+    vals, out_docs = out[0].view(torch.float32), out[1]
+    cap_a, cap_b = merge_scratch(S, Q, L, kk)
+    keys = buf_b = 0
+    if cap_a:
+        scratch = torch.empty(cap_a + cap_b, dtype=torch.int64, device=dev)
+        keys = scratch.data_ptr()
+        buf_b = keys + cap_a * 8
     _build.check(_build.load("merge").merge_topk(
-        scores.data_ptr(), docs.data_ptr(), S, Q, L, kk, keys.data_ptr(),
-        cap_a, buf_b.data_ptr(), cap_b, vals.data_ptr(), out_docs.data_ptr(),
-        _stream(scores)), "merge_topk")
+        scores.data_ptr(), docs.data_ptr(), S, Q, L, kk, keys, cap_a, buf_b,
+        cap_b, vals.data_ptr(), out_docs.data_ptr(), _stream(scores)),
+        "merge_topk")
     LAUNCHES.bump("merge_topk")
     return vals, out_docs

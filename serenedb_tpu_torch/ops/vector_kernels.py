@@ -29,6 +29,9 @@ under `<name>.plain`).
 
 from __future__ import annotations
 
+import functools
+from dataclasses import dataclass
+
 import torch
 
 from .. import errors
@@ -39,7 +42,7 @@ from .agg_kernels import _is_cuda, _stream
 #: row-id of dead lanes; the (+inf, _PAD_ROW) key sorts behind every row
 PAD_ROW = (1 << 31) - 1
 METRICS = {"l2": 0, "ip": 1, "cos": 2}
-#: the smallest tile a stage block keys (csrc/vector.cu STAGE_FLOOR)
+#: the smallest tile of the selection levels (csrc/vector.cu STAGE_FLOOR)
 STAGE_FLOOR = 2048
 #: the widest padded token row `maxsim` admits on the card (ROADMAP's
 #: standing ruling on `vec_maxsim`'s width); the kernel itself streams any
@@ -216,12 +219,123 @@ def ivf_probe_plain(region, slotmap, offsets, counts, rowids, cents, queries,
     return _unkey(_smallest(best, kkp))
 
 
-def _stage_scratch(qp: int, n_in: int, keep: int) -> tuple[int, int]:
-    """The levels' buffers after a stage block that keys tiles of n_in
-    lists or lanes and keeps each tile's smallest."""
-    tile = select.tile_for(keep, STAGE_FLOOR)
-    kt = min(keep, tile)
-    return select.scratch(qp, -(-n_in // tile) * kt, kt, keep, STAGE_FLOOR)
+#: kernels a call launches on the card while both of its stages are fused
+#: (`probe_plan`): the main path's calls
+PROBE_CALL_KERNELS = 2
+#: csrc/vector.cu's probe blocks: rows a tile (and threads), the keys a
+#: block keeps over two or more tiles, the keys one block merges, the
+#: blocks a stage 2 group merges at most
+PROBE_TILE = 128
+PROBE_KEEP_MAX = 256
+PROBE_MERGE_CAP = 4096
+PROBE_GROUP = 32
+#: stage 2's blocks a call, about: a query's blocks take its tiles in turn
+PROBE_TARGET = 2048
+
+
+def merge_span(nruns: int, run: int, k: int) -> int:
+    """The most keys one of the two buffers of a block's merge holds, for
+    nruns sorted runs of `run` keys merged pairwise, each cut to k
+    (csrc/vector.cu `merge_span`)."""
+    most = nruns * run
+    while nruns > 1:
+        nruns = (nruns + 1) // 2
+        run = min(2 * run, k)
+        most = max(most, nruns * run)
+    return most
+
+
+@dataclass(frozen=True)
+class StagePlan:
+    """One stage of `ivf_probe`: block j of `blocks` a query takes the
+    query's tiles j, j + blocks, ... (at most `tpb`), keeping its `keep`
+    smallest keys. Fused: one block merges them (stage 1), or the last
+    block of each `group` merges its group's and the last group's merger
+    the `groups` group runs (stage 2); else (one tile a block)
+    select.cuh's levels take them."""
+    fused: bool
+    tpb: int
+    keep: int
+    group: int
+    blocks: int
+    groups: int
+
+
+def stage_plan(n: int, k: int, qp: int) -> StagePlan:
+    """The stage over n rows a query keeping k (csrc/vector.cu
+    `stage_plan`). Stage 1 (qp 0): the fewest blocks whose keys one block
+    merges. Stage 2: blocks enough for PROBE_TARGET a call (no more than
+    the tiles), halved while the merges do not fit one block."""
+    b = -(-max(n, 1) // PROBE_TILE)
+    nb = min(-(-PROBE_TARGET // qp), b) if qp else b
+    while True:
+        tpb = -(-b // nb)
+        keep = min(k, PROBE_TILE * tpb)
+        if tpb > 1 and keep > PROBE_KEEP_MAX:
+            break
+        g, ng = nb, 1
+        if qp:
+            g = PROBE_GROUP
+            while g > 1 and merge_span(g, keep, k) > PROBE_MERGE_CAP:
+                g >>= 1
+            g = min(g, nb)
+            ng = -(-nb // g)
+        if merge_span(g, keep, k) <= PROBE_MERGE_CAP and \
+                merge_span(ng, k, k) <= PROBE_MERGE_CAP:
+            return StagePlan(True, tpb, keep, g, nb, ng)
+        if nb == 1:
+            break
+        nb = -(-nb // 2)
+    return StagePlan(False, 1, min(k, PROBE_TILE), 1, b, 1)
+
+
+@dataclass(frozen=True)
+class ProbePlan:
+    """A call's two stages, its scratch bytes and the kernels it
+    launches."""
+    lists: StagePlan
+    rows: StagePlan
+    bytes: int
+    kernels: int
+
+
+def _align16(b: int) -> int:
+    return -(-b // 16) * 16
+
+
+@functools.lru_cache(maxsize=512)
+def probe_plan(qp: int, lp: int, nprobe: int, nlanes: int,
+               kkp: int) -> ProbePlan:
+    """The plan of an `ivf_probe` call (csrc/vector.cu `probe_layout`):
+    stage 1 over the lp lists keeping nprobe, stage 2 over at most nlanes
+    rows a query keeping kkp. Scratch: stage 1's candidates (the levels'
+    first buffer when it is not fused), stage 2's, the levels' second
+    buffer, the probe table when stage 1 takes the levels, stage 2's
+    group runs and its tickets (a query's groups' and its own)."""
+    s1 = stage_plan(lp, nprobe, 0)
+    s2 = stage_plan(nlanes, kkp, qp)
+    kernels = 2
+    caps = []
+    for st, k in ((s1, nprobe), (s2, kkp)):
+        n = st.blocks * st.keep
+        if st.fused:
+            caps.append((qp * n, 0))
+        else:
+            caps.append(select.scratch(qp, n, st.keep, k, STAGE_FLOOR))
+            # the levels, then the finishing kernel
+            kernels += len(select.level_sizes(n, st.keep, k,
+                                              STAGE_FLOOR)) - 1 + 1
+    (a1, b1), (a2, b2) = caps
+    table = 0 if s1.fused else qp * nprobe
+    grp = qp * s2.groups * kkp if s2.fused and s2.groups > 1 else 0
+    off = _align16(a1 * 8)
+    off = _align16(off + a2 * 8)
+    off = _align16(off + max(b1, b2) * 8)
+    off = _align16(off + table * 4)
+    off = _align16(off + ((table + qp) if table else 0) * 8)
+    off = _align16(off + grp * 8)
+    return ProbePlan(s1, s2, _align16(off + qp * (s2.groups + 1) * 4),
+                     kernels)
 
 
 def ivf_probe(region, slotmap, offsets, counts, rowids, cents, queries,
@@ -231,13 +345,19 @@ def ivf_probe(region, slotmap, offsets, counts, rowids, cents, queries,
     probe grid of its nprobe nearest lists: region (pages, 4096) or
     (rows, dp) f32; slotmap, rowids (npos_pad,), offsets, counts (lp,),
     tmap, jmap (nchunks, mc) i32 (`ops.vector.chunk_maps` for this
-    nprobe: every tmap entry below nprobe); cents (lp, dp), queries (qp,
-    dp) f32.
+    nprobe and an m at least every list's count, as the callers build
+    them: the grid then holds each row of each probed list once); cents
+    (lp, dp), queries (qp, dp) f32.
     Returns (distances (qp, kkp) f32, rows (qp, kkp) i32); dead lanes read
-    (+inf, 2^31 - 1)."""
-    tensors = [region, slotmap, offsets, counts, rowids, cents, queries,
-               tmap, jmap]
-    if not _is_cuda(*tensors):
+    (+inf, 2^31 - 1).
+
+    On the card the kernels walk each probed list's rows and leave the
+    maps unread (the grid's lanes bound a query's rows); one scratch
+    buffer and one output buffer a call, `probe_plan(...).kernels`
+    launches (PROBE_CALL_KERNELS on the main path), no copy in."""
+    tensors = (region, slotmap, offsets, counts, rowids, cents, queries,
+               tmap, jmap)
+    if not all(t.is_cuda for t in tensors) and not _is_cuda(*tensors):
         return ivf_probe_plain(region, slotmap, offsets, counts, rowids, cents,
                                queries, tmap, jmap, metric=metric,
                                l_real=l_real, nprobe=nprobe, kkp=kkp)
@@ -246,23 +366,18 @@ def ivf_probe(region, slotmap, offsets, counts, rowids, cents, queries,
     qp, dp = queries.shape
     lp = cents.shape[0]
     nlanes = tmap.numel()
-    a1, b1 = _stage_scratch(qp, lp, nprobe)
-    a2, b2 = _stage_scratch(qp, nlanes, kkp)
-    cap_a, cap_b = max(a1, a2), max(b1, b2)
+    plan = probe_plan(qp, lp, nprobe, nlanes, kkp)
     dev = queries.device
-    buf_a = torch.empty(cap_a, dtype=torch.int64, device=dev)
-    buf_b = torch.empty(cap_b, dtype=torch.int64, device=dev)
-    probe = torch.empty((qp, nprobe), dtype=torch.int32, device=dev)
-    dist = torch.empty((qp, kkp), dtype=torch.float32, device=dev)
-    rows = torch.empty((qp, kkp), dtype=torch.int32, device=dev)
+    buf = torch.empty(plan.bytes, dtype=torch.uint8, device=dev)
+    out = torch.empty((2, qp, kkp), dtype=torch.int32, device=dev)
+    dist, rows = out[0].view(torch.float32), out[1]
     lib = _build.load("vector")
     LAUNCHES.bump("ivf_probe")
     _build.check(lib.ivf_probe(
         region.data_ptr(), slotmap.data_ptr(), offsets.data_ptr(),
         counts.data_ptr(), rowids.data_ptr(), cents.data_ptr(),
-        queries.data_ptr(), tmap.data_ptr(), jmap.data_ptr(), qp, dp, lp,
-        l_real, nprobe, nlanes, kkp, METRICS[metric], probe.data_ptr(),
-        buf_a.data_ptr(), cap_a, buf_b.data_ptr(), cap_b, dist.data_ptr(),
+        queries.data_ptr(), qp, dp, lp, l_real, nprobe, nlanes, kkp,
+        METRICS[metric], buf.data_ptr(), plan.bytes, dist.data_ptr(),
         rows.data_ptr(), _stream(queries)), "ivf_probe")
     return dist, rows
 

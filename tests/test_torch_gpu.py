@@ -860,6 +860,150 @@ def test_ivf_probe_brute_layout_matches_plain(cuda):
     np.testing.assert_array_equal(r.cpu().numpy(), order)
 
 
+def _ivf_case(n, dp, lists, nprobe, nq, seed, skew=False, empty=0,
+              special=False):
+    """A cluster-major layout for the redesigned probe: n rows of width dp
+    in `lists` lists (`skew`: list 1 holds ~90 % of the rows; `empty`: the
+    first `empty` lists hold none, their centroids all at one far point
+    that query 0 sits on, so its nprobe <= empty probed lists are empty),
+    nq queries, the chunk maps for nprobe; `special` plants NaN, +-inf and
+    -0.0 rows."""
+    from serenedb_tpu_torch.ops import vector as vops
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((n, dp)).astype(np.float32)
+    q = rng.standard_normal((nq, dp)).astype(np.float32)
+    if special:
+        x[5] = np.nan
+        x[9, 2] = np.inf
+        x[11, 0] = -np.inf
+        x[13] = q[0]
+        x[14] = -0.0
+    codes = rng.integers(empty, lists, n)
+    if skew:
+        codes[rng.random(n) < 0.9] = min(empty + 1, lists - 1)
+    codes[:lists - empty] = np.arange(empty, lists)
+    order = np.lexsort((np.arange(n), codes))
+    counts = np.bincount(codes, minlength=lists).astype(np.int32)
+    offsets = np.zeros(lists, np.int32)
+    offsets[1:] = np.cumsum(counts)[:-1]
+    cents = np.zeros((lists, dp), np.float32)
+    for c in range(empty, lists):
+        cents[c] = x[codes == c].mean(0)
+    if empty:
+        cents[:empty] = 50.0
+        q[0] = 50.0
+    m = max(int(counts.max()), 1)
+    tm, jm = vops.chunk_maps(nprobe, m, min(1024, 1 << (m - 1).bit_length()))
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a))  # noqa: E731
+    return (t(x[order]), t(np.arange(n, dtype=np.int32)), t(offsets),
+            t(counts), t(order.astype(np.int32)), t(cents), t(q), t(tm),
+            t(jm))
+
+
+def _probe_bits(cuda, host, **kw):
+    """The call on the card against a repeat call and the plain version,
+    bit for bit; returns the rows."""
+    from serenedb_tpu_torch.ops import vector_kernels as vk
+    dev = [a.to(cuda) for a in host]
+    before = LAUNCHES.get("ivf_probe")
+    d, r = vk.ivf_probe(*dev, **kw)
+    d2, r2 = vk.ivf_probe(*dev, **kw)
+    pd, pr = vk.ivf_probe_plain(*host, **kw)
+    torch.cuda.synchronize()
+    assert LAUNCHES.get("ivf_probe") == before + 2
+    np.testing.assert_array_equal(d.cpu().numpy().view(np.int32),
+                                  pd.numpy().view(np.int32))
+    np.testing.assert_array_equal(r.cpu().numpy(), pr.numpy())
+    assert torch.equal(d2.view(torch.int32), d.view(torch.int32))
+    assert torch.equal(r2, r)
+    return r.cpu().numpy()
+
+
+@pytest.mark.parametrize("qp", [1, 3, 64, 1024])
+@pytest.mark.parametrize("dp", [6, 128, 130, 200])
+def test_ivf_probe_batches_and_widths_match_plain(cuda, qp, dp):
+    """Every metric at the main path's batches and at widths that take
+    one float a copy (6, 130) and more than one slab (130, 200)."""
+    host = _ivf_case(6000, dp, 32, 4, qp, seed=qp + dp, special=True)
+    for metric in ("l2", "ip", "cos"):
+        _probe_bits(cuda, host, metric=metric, l_real=32, nprobe=4, kkp=16)
+
+
+@pytest.mark.parametrize("metric", ["l2", "ip", "cos"])
+def test_ivf_probe_skewed_and_empty_lists_match_plain(cuda, metric):
+    """One list holding ~90 % of the rows (blocks of several tiles), empty
+    lists, and a query whose probed lists are all empty (every output
+    dead)."""
+    from serenedb_tpu_torch.ops import vector_kernels as vk
+    host = _ivf_case(50_000, 32, 64, 4, 8, seed=3, skew=True, empty=4)
+    rows = _probe_bits(cuda, host, metric=metric, l_real=64, nprobe=4,
+                       kkp=16)
+    assert (rows[0] == vk.PAD_ROW).all()
+    if metric != "ip":     # under ip the far lists are every query's nearest
+        assert (rows[1:] != vk.PAD_ROW).all()
+    host = _ivf_case(50_000, 32, 64, 16, 8, seed=3, skew=True, empty=4)
+    _probe_bits(cuda, host, metric=metric, l_real=64, nprobe=16, kkp=64)
+
+
+@pytest.mark.parametrize("lists,nprobe,kkp", [(8192, 5000, 16),
+                                              (64, 48, 600),
+                                              (8192, 300, 4096),
+                                              (16_384, 64, 256)])
+def test_ivf_probe_levels_regimes_match_plain(cuda, lists, nprobe, kkp):
+    """Stages whose candidates pass one block's merges take select.cuh's
+    levels (stage 1 with 5,000 of 8,192 lists; stage 2 at kkp 600 over 48
+    lists and at 4,096), and stage 1 over 16,384 lists keeps 64 in blocks
+    of two tiles: bit-equal all the same."""
+    from serenedb_tpu_torch.ops import vector_kernels as vk
+    host = _ivf_case(40_000, 8, lists, nprobe, 3, seed=lists + kkp,
+                     special=True)
+    plan = vk.probe_plan(3, lists, nprobe, host[7].numel(), kkp)
+    assert not (plan.lists.fused and plan.rows.fused) or \
+        plan.lists.tpb > 1
+    _probe_bits(cuda, host, metric="l2", l_real=lists, nprobe=nprobe,
+                kkp=kkp)
+
+
+def test_ivf_probe_brute_at_many_tiles_a_block_matches_plain(cuda):
+    """The brute layout over 300,000 rows at 16 queries: at kkp 16 2,344
+    blocks a query in 74 groups, at kkp 256 blocks of 16 tiles; bit-equal
+    to the plain version and to host_dist's (distance, row) order."""
+    from serenedb_tpu_torch.ops import vector as vops
+    from serenedb_tpu_torch.ops import vector_kernels as vk
+    rng = np.random.default_rng(44)
+    n, dp = 300_000, 32
+    x = torch.from_numpy(rng.integers(0, 256, (n, dp)).astype(np.float32))
+    q = torch.from_numpy(rng.integers(0, 256, (16, dp)).astype(np.float32))
+    tm, jm = vops.chunk_maps(1, n, 1024)
+    host = (x, torch.arange(n, dtype=torch.int32),
+            torch.zeros(1, dtype=torch.int32),
+            torch.tensor([n], dtype=torch.int32),
+            torch.arange(n, dtype=torch.int32), torch.zeros((1, dp)), q,
+            torch.from_numpy(tm), torch.from_numpy(jm))
+    assert vk.probe_plan(16, 1, 1, tm.size, 16).rows.groups > 1
+    assert vk.probe_plan(16, 1, 1, tm.size, 256).rows.tpb > 1
+    hd = vops.host_dist(x.numpy(), q.numpy()[:, None, :], "l2")
+    order = np.lexsort((np.broadcast_to(np.arange(n), hd.shape), hd))
+    for kkp in (16, 256):
+        rows = _probe_bits(cuda, host, metric="l2", l_real=1, nprobe=1,
+                           kkp=kkp)
+        np.testing.assert_array_equal(rows, order[:, :kkp])
+
+
+def test_probe_plan_bytes_match_the_kernel_over_a_grid(cuda):
+    from serenedb_tpu_torch.ops import _build
+    from serenedb_tpu_torch.ops import vector_kernels as vk
+    lib = _build.load("vector")
+    for qp in (1, 7, 1024):
+        for lp, nprobe in ((1, 1), (1024, 16), (1024, 1024), (8192, 5000),
+                           (65_536, 64)):
+            for nlanes, kkp in ((1024, 16), (20_480, 16), (1_000_448, 16),
+                                (40_960, 600), (114_688, 8192)):
+                plan = vk.probe_plan(qp, lp, nprobe, nlanes, kkp)
+                assert lib.probe_bytes(qp, lp, nprobe, nlanes, kkp) == \
+                    plan.bytes, (qp, lp, nprobe, nlanes, kkp)
+
+
 def test_maxsim_matches_plain_with_empty_docs_and_zero_tokens(cuda):
     from serenedb_tpu_torch.ops import vector_kernels as vk
     rng = np.random.default_rng(43)
@@ -1248,6 +1392,34 @@ def test_merge_topk_matches_plain_bit_for_bit(cuda, S, Q, L, k, tied):
     assert torch.equal(vals.view(torch.int32), ref_v.view(torch.int32))
 
 
+@pytest.mark.parametrize("S,L", [(1, 1), (4, 8), (3, 11), (4, 256),
+                                 (5, 205), (8, 1024), (3, 2731)])
+@pytest.mark.parametrize("tied", [False, True])
+def test_merge_topk_lanes_a_query_match_plain(cuda, S, L, tied):
+    """S * L at 1, 32, 33, 1,024, 1,025, 8,192 (one block a query) and
+    8,193 (the levels): bit-equal to the plain version and to a repeat,
+    ties across shards and -0.0 kept, k past the real candidates (pads
+    written as (-inf, PAD_DOC))."""
+    from serenedb_tpu_torch.ops import merge_kernels as mk
+    scores, docs = _merge_inputs(S, 5, L, S * 7 + L, tied)
+    sc, dd = torch.from_numpy(scores).to(cuda), torch.from_numpy(docs).to(cuda)
+    n = S * L
+    for k in (1, 10, n, n + 5):
+        vals, out = mk.merge_topk(sc, dd, k)
+        v2, o2 = mk.merge_topk(sc, dd, k)
+        ref_v, ref_d = mk.merge_topk_plain(sc, dd, k)
+        torch.cuda.synchronize()
+        assert torch.equal(out, ref_d) and torch.equal(o2, out)
+        assert torch.equal(vals.view(torch.int32), ref_v.view(torch.int32))
+        assert torch.equal(v2.view(torch.int32), vals.view(torch.int32))
+    if n > 1:                        # k = n + 5: every lane, pads last
+        pads = out.cpu().numpy() == mk.PAD_DOC
+        assert pads.any() and (vals.cpu().numpy()[pads] == -np.inf).all()
+    if tied and n >= 32:
+        raw = vals.cpu().numpy().view(np.uint32)
+        assert (raw == 0x80000000).any()          # a -0.0 kept
+
+
 @pytest.mark.parametrize("seed", [0, 1])
 def test_match_bitmap_matches_plain_bit_for_bit(cuda, seed):
     fi, store = _store(cuda)
@@ -1306,3 +1478,73 @@ def test_k13_agg_entries_match_plain(cuda):
                                   agg.group_count(hc, hm, g))
     torch.cuda.synchronize()
     assert LAUNCHES.get("agg_scan") >= before + 8
+
+
+# -- kernels a call, from a captured CUDA graph ------------------------------
+# (last in the file: no profiled test runs after a graph capture)
+
+def _graph_activity(fn) -> tuple:
+    """(kernels, host-to-device copies) that one fn() issues, read from a
+    CUDA graph that captures it (after a warm-up call): its kernel nodes
+    and its memcpy nodes, by libcuda's cuGraphGetNodes and
+    cuGraphNodeGetType. A graph holds every launch, where a profiled
+    window can drop events."""
+    import ctypes
+    fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(g):
+        fn()
+    drv = ctypes.CDLL("libcuda.so.1")
+    graph = ctypes.c_void_p(g.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    assert drv.cuGraphGetNodes(graph, None, ctypes.byref(n)) == 0
+    nodes = (ctypes.c_void_p * n.value)()
+    assert drv.cuGraphGetNodes(graph, nodes, ctypes.byref(n)) == 0
+    kinds = []
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        assert drv.cuGraphNodeGetType(ctypes.c_void_p(node),
+                                      ctypes.byref(kind)) == 0
+        kinds.append(kind.value)
+    # CU_GRAPH_NODE_TYPE_KERNEL = 0, CU_GRAPH_NODE_TYPE_MEMCPY = 1
+    return kinds.count(0), kinds.count(1)
+
+
+@pytest.mark.parametrize("qp,lists,nprobe,kkp", [(1, 1024, 16, 16),
+                                                 (64, 1024, 16, 16),
+                                                 (3, 64, 48, 600),
+                                                 (3, 8192, 5000, 16)])
+def test_ivf_probe_kernels_a_call_match_the_plan(cuda, qp, lists, nprobe,
+                                                 kkp):
+    """A call launches `probe_plan(...).kernels` kernels and copies
+    nothing in: PROBE_CALL_KERNELS (2) in the main path's regime (both
+    stages fused), more where a stage takes the levels; the plan's bytes
+    are the kernel's (`probe_bytes`)."""
+    from serenedb_tpu_torch.ops import _build
+    from serenedb_tpu_torch.ops import vector_kernels as vk
+    host = _ivf_case(40_000, 128 if lists == 1024 else 8, lists, nprobe,
+                     qp, seed=7)
+    dev = [a.to(cuda) for a in host]
+    kw = dict(metric="l2", l_real=lists, nprobe=nprobe, kkp=kkp)
+    plan = vk.probe_plan(qp, lists, nprobe, host[7].numel(), kkp)
+    if lists == 1024:
+        assert plan.lists.fused and plan.rows.fused
+        assert plan.kernels == vk.PROBE_CALL_KERNELS == 2
+    kernels, copies = _graph_activity(lambda: vk.ivf_probe(*dev, **kw))
+    assert (kernels, copies) == (plan.kernels, 0)
+    lib = _build.load("vector")
+    assert lib.probe_bytes(qp, lists, nprobe, host[7].numel(), kkp) == \
+        plan.bytes
+
+
+@pytest.mark.parametrize("S,L", [(1, 1), (4, 8), (3, 11), (4, 10),
+                                 (8, 1024)])
+def test_merge_topk_is_one_kernel_a_call(cuda, S, L):
+    """Up to MERGE_ONE_MAX lanes a query a merge_topk call is one kernel
+    (a warp's sort up to 32 lanes, a block's past it) and copies nothing
+    in."""
+    from serenedb_tpu_torch.ops import merge_kernels as mk
+    scores, docs = _merge_inputs(S, 16, L, S + L, True)
+    sc, dd = torch.from_numpy(scores).to(cuda), torch.from_numpy(docs).to(cuda)
+    assert _graph_activity(lambda: mk.merge_topk(sc, dd, 10)) == (1, 0)

@@ -436,6 +436,21 @@ def _heap_of(scores, docs, k):
     return r_heap(seg_outs, [0] * S, Q, k)
 
 
+@pytest.mark.parametrize("S,L,kk", [(4, 10, 10), (1, 1, 1), (8, 1024, 10),
+                                    (3, 2731, 5), (2, 5000, 9000)])
+def test_merge_scratch_is_none_up_to_one_block(S, L, kk):
+    """Up to MERGE_ONE_MAX lanes a query a call takes no scratch (one
+    kernel); past it the key array and the levels' second buffer."""
+    from serenedb_tpu_torch.ops import merge_kernels as mk
+    from serenedb_tpu_torch.ops import select
+    got = mk.merge_scratch(S, 16, L, kk)
+    if S * L <= mk.MERGE_ONE_MAX:
+        assert got == (0, 0)
+    else:
+        assert got == select.scratch(16, S * L, 1, kk, mk.MERGE_SORT_FLOOR)
+        assert got[0] >= 16 * S * L
+
+
 @pytest.mark.parametrize("seed", range(6))
 def test_merge_topk_plain_against_the_heap(seed):
     """Random and tied (S, Q, L) candidates, docs unique within a query,

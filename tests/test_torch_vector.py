@@ -518,6 +518,164 @@ def test_select_levels_keep_the_smallest_keys_within_their_buffers(
     np.testing.assert_array_equal(got, want)
 
 
+def _merge_runs_model(buf, nruns, run, k, span):
+    """numpy model of csrc/vector.cu `merge_runs`: pairwise merge-path
+    merges of nruns sorted runs of `run` keys, each cut to k, every round
+    within the `span` keys `merge_span` gives a buffer."""
+    no = np.uint64(2**64 - 1)
+    cur = buf[:nruns * run]
+    while nruns > 1:
+        np_, run2 = (nruns + 1) // 2, min(2 * run, k)
+        out = np.empty(np_ * run2, np.uint64)
+        for p in range(np_):
+            a = cur[2 * p * run:(2 * p + 1) * run]
+            b = cur[(2 * p + 1) * run:(2 * p + 2) * run] \
+                if 2 * p + 1 < nruns else np.full(run, no)
+            out[p * run2:(p + 1) * run2] = np.sort(
+                np.concatenate([a, b]), kind="stable")[:run2]
+        assert out.size <= span
+        cur, nruns, run = out, np_, run2
+    return cur[:run]
+
+
+@pytest.mark.parametrize("nruns,run,k", [(1, 16, 16), (5, 32, 16),
+                                         (12, 32, 256), (3, 16, 64),
+                                         (256, 16, 16), (8, 128, 1024),
+                                         (17, 7, 40)])
+def test_probe_merge_span_bounds_the_block_merge(nruns, run, k):
+    """`merge_span` bounds every round of a block's merge of sorted runs
+    (the buffers the kernel carves from shared memory), and the merge
+    keeps the k smallest keys."""
+    rng = np.random.default_rng(nruns * run + k)
+    keys = np.sort(rng.integers(0, 500, (nruns, run)).astype(np.uint64), 1)
+    span = vk.merge_span(nruns, run, k)
+    assert span >= nruns * run
+    got = _merge_runs_model(keys.reshape(-1), nruns, run, k, span)
+    want = np.sort(keys.reshape(-1))[:min(k, nruns * run)]
+    np.testing.assert_array_equal(got[:want.size], want)
+
+
+def _probe_select_model(keys, plan, k):
+    """numpy model of a fused probe stage 2's selection (csrc/vector.cu):
+    block j of plan.blocks takes tiles j, j + blocks, ... of 128 keys;
+    each tile is sorted by 32-key warps and merged into the block's
+    running best (kept to plan.keep, padded to a multiple of 32); the last
+    block of each group of plan.group merges the group's keys to k, and
+    the groups' runs (padded to k) are merged to k where more than one
+    group has work."""
+    no = np.uint64(2**64 - 1)
+    T = vk.PROBE_TILE
+    kpad = -(-plan.keep // 32) * 32
+    ntiles = -(-keys.size // T)
+    nwork = max(1, min(ntiles, plan.blocks))
+    cand = []
+    for c in range(nwork):
+        best = np.full(kpad, no)
+        for t in range(c, ntiles, plan.blocks):
+            tile = np.full(T, no)
+            part = keys[t * T:(t + 1) * T]
+            tile[:part.size] = part
+            tile = np.sort(tile.reshape(-1, 32), 1).reshape(-1)
+            runs = np.concatenate([best, tile])
+            merged = _merge_runs_model(runs, runs.size // 32, 32, plan.keep,
+                                       vk.merge_span(runs.size // 32, 32,
+                                                     plan.keep))
+            best = np.full(kpad, no)
+            best[:plan.keep] = merged[:plan.keep]
+        cand.append(best[:plan.keep])
+    span_g = vk.merge_span(plan.group, plan.keep, k)
+    groups = []
+    for g0 in range(0, nwork, plan.group):
+        part = cand[g0:g0 + plan.group]
+        run = _merge_runs_model(np.concatenate(part), len(part), plan.keep,
+                                k, span_g)
+        if nwork <= plan.group:
+            return run
+        pad = np.full(k, no)
+        pad[:run.size] = run
+        groups.append(pad)
+    return _merge_runs_model(np.concatenate(groups), len(groups), k, k,
+                             vk.merge_span(plan.groups, k, k))
+
+
+@pytest.mark.parametrize("n,k,qp", [(20_480, 16, 1), (20_480, 16, 64),
+                                    (0, 16, 1), (1, 16, 1), (127, 16, 3),
+                                    (129, 200, 1), (40_000, 64, 7),
+                                    (5000, 256, 1), (300, 300, 2),
+                                    (114_688, 16, 1), (114_688, 16, 64),
+                                    (100_000, 256, 1), (300_032, 256, 16)])
+def test_probe_stage_selection_model_keeps_the_smallest(n, k, qp):
+    """The fused stage's selection (per-warp sorts, running merges over a
+    block's tiles, the groups' and the last group's merges) keeps each
+    query's k smallest keys, the live rows at any count (none, part of a
+    tile, many tiles a block, many groups)."""
+    plan = vk.stage_plan(max(n, 1), k, qp)
+    assert plan.fused
+    rng = np.random.default_rng(n + k + qp)
+    keys = rng.permutation(10 * n + 5)[:n].astype(np.uint64)
+    got = _probe_select_model(keys, plan, k)
+    want = np.sort(keys)[:k]
+    np.testing.assert_array_equal(got[:want.size], want)
+    assert (got[want.size:] == np.uint64(2**64 - 1)).all()
+
+
+def test_probe_stage_plan_regimes():
+    """The stage plans of the main path's calls and of the levels."""
+    P = vk.StagePlan
+    # sift: 1,024 lists keeping 16, one merge by each stage 2 block
+    assert vk.stage_plan(1024, 16, 0) == P(True, 1, 16, 8, 8, 1)
+    # its 20,480 lanes (16 x its 1,250-row list): at batch 1 a block a
+    # tile in 5 groups; at batch 64 32 blocks a query, 5 tiles each
+    assert vk.stage_plan(20_480, 16, 1) == P(True, 1, 16, 32, 160, 5)
+    assert vk.stage_plan(20_480, 16, 64) == P(True, 5, 16, 32, 32, 1)
+    # the synthetic skew (114,688 lanes) at batch 1, the brute layout at 16
+    # queries
+    assert vk.stage_plan(114_688, 16, 1) == P(True, 1, 16, 32, 896, 28)
+    assert vk.stage_plan(1_000_448, 16, 16) == P(True, 62, 16, 32, 128, 4)
+    # LIMIT 256 over 100,000 rows: blocks of 4 tiles, groups of 16
+    assert vk.stage_plan(100_000, 256, 1) == P(True, 4, 256, 16, 196, 13)
+    # nprobe = lists = 1,024: 8 blocks of all their 128 lists; 16,384
+    # lists keeping 64: 2 tiles a block
+    assert vk.stage_plan(1024, 1024, 0) == P(True, 1, 128, 8, 8, 1)
+    assert vk.stage_plan(16_384, 64, 0) == P(True, 2, 64, 64, 64, 1)
+    # past one block's merges: one tile a block, the levels
+    assert vk.stage_plan(40_960, 8192, 3) == P(False, 1, 128, 1, 320, 1)
+    assert vk.stage_plan(8192, 5000, 0) == P(False, 1, 128, 1, 64, 1)
+    for n, k, qp in ((1, 1, 1), (20_480, 16, 1), (1_000_448, 16, 64),
+                     (5000, 256, 3)):
+        p = vk.stage_plan(n, k, qp)
+        assert p.blocks * p.tpb * vk.PROBE_TILE >= n
+        assert p.groups * p.group >= p.blocks
+        assert vk.merge_span(p.group, p.keep, k) <= vk.PROBE_MERGE_CAP
+        assert vk.merge_span(p.groups, k, k) <= vk.PROBE_MERGE_CAP
+
+
+def test_probe_plan_carves_one_scratch_and_counts_kernels():
+    """Both stages fused: two kernels; the scratch holds each stage's
+    candidates and the tickets. A stage past one block's merge adds its
+    levels and a finishing kernel, and its buffers."""
+    p = vk.probe_plan(1, 1024, 16, 20_480, 16)
+    assert p.kernels == vk.PROBE_CALL_KERNELS == 2
+    c1, c2, grp = 8 * 16 * 8, 160 * 16 * 8, 5 * 16 * 8
+    assert p.bytes == c1 + c2 + grp + 6 * 4 + 8      # 16-byte aligned
+    p = vk.probe_plan(64, 1024, 16, 20_480, 16)      # one group a query
+    assert p.kernels == 2
+    assert p.bytes == 64 * 8 * 16 * 8 + 64 * 32 * 16 * 8 + 64 * 2 * 4
+    q = vk.probe_plan(3, 64, 8, 40_960, 8192)
+    assert q.lists.fused and not q.rows.fused
+    n2 = q.rows.blocks * q.rows.keep
+    a2, b2 = select.scratch(3, n2, q.rows.keep, 8192, vk.STAGE_FLOOR)
+    levels = len(select.level_sizes(n2, q.rows.keep, 8192,
+                                    vk.STAGE_FLOOR)) - 1
+    assert q.kernels == 2 + levels + 1
+    c1 = 3 * q.lists.blocks * q.lists.keep * 8
+    assert q.bytes >= c1 + a2 * 8 + b2 * 8 + 3 * 4
+    r = vk.probe_plan(3, 8192, 5000, 81_920, 16)
+    assert not r.lists.fused and r.rows.fused
+    # the probe table: list ids and the (nprobe + 1) prefix a query
+    assert r.bytes >= 3 * 5000 * 4 + 3 * 5001 * 8
+
+
 def _limit_pairs(quant):
     rng = np.random.default_rng(31)
     mat = rng.integers(-8, 9, size=(10_400, 4)).astype(np.float32) / 4
