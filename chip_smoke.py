@@ -55,9 +55,10 @@ Phases (any failure exits non-zero and prints no result line):
      join_probe against their plain versions on inputs recorded from
      phases 6-9 (integer outputs and selected indices equal, agg_scan's
      and agg_fold's f32 outputs bit for bit), with their times, bounds
-     and torch yardsticks; each top-N call's kernels and host-to-device
-     copies from one profiled call (topn_scan at most 5 kernels and no
-     copy, chain_topn one kernel under its one-block cap); join_probe
+     and torch yardsticks; each top-N call's kernels and copies in
+     counted at the end of the run from a captured CUDA graph (topn_scan
+     at most 5 kernels and no copy, chain_topn one kernel under its
+     one-block cap); join_probe
      (J1, J4, J5 with join_unmatched) bit for bit, a warm call exactly
      its init + probe (+ unmatched) kernels with no copy in (device ms by
      kernel), and returning at once behind ~25 ms of queued device work
@@ -134,10 +135,17 @@ Phases (any failure exits non-zero and prints no result line):
      eval_filter; and phase 13's table with two more INSERTs (4
      segments), its 256 statements at serene_shards = 4 under both
      combines, bit-equal;
- 18. pool_score (full and partial mode) and contrib_flat against their
-     plain versions, bit for bit, on the 64-batch inputs recorded in
-     phase 15 (checked as soon as phase 15 ends, while the pool's region
-     holds what that batch read), with their times and bounds;
+ 18. pool_score (full and partial mode) and contrib_flat (dl gathered
+     from the resident norms) against their plain versions, bit for bit,
+     on the 64-batch inputs recorded in phase 15 (checked as soon as
+     phase 15 ends), with their times and bounds, and the host route's
+     whole ragged_contribs call (one upload a call) beside contrib_flat;
+     pool_score in both regimes: the recorded batch (ROW) and one
+     synthetic query of 600,000 lanes (LARGE, bit-equal to the plain
+     version), each with its device ms by kernel (torch.profiler, right
+     after phase 15) and, last of all (after a graph capture no profiled
+     window runs), its kernels a call and device ms a call from a
+     captured CUDA graph (ROW: one kernel, no copy in, no memset);
  19. merge_topk (on phase 17's recorded 16-query merge and a crafted
      batch of ties, -0.0, pads and k past any shard's candidates; a call
      one kernel and no copy in, device ms; torch.topk over the same plane
@@ -150,6 +158,10 @@ Phases (any failure exits non-zero and prints no result line):
      entries of ops/agg.py (masked count,
      sum, min/max, the one-hot chunk counts, group_count) on agg_scan
      against their plain versions on the card, bit for bit;
+ Last of all (no profiled window runs after a graph capture): phase
+     10's top-N counts, and any call of phases 5-19 whose profiled
+     windows never showed its kernels complete, from captured graphs
+     (the kernels and copies in a call, held to the same counts);
  20. one JSON line per kernel, the card line, then the device line.
 
 Launch counts are zeroed just before each main-path phase and read just
@@ -432,36 +444,33 @@ def margin(session: int) -> None:
     time.sleep(min(0.002 * 2 ** session, 0.2))
 
 
-def call_activity(fn) -> tuple:
-    """(kernels, host-to-device copies) that one fn() issues on the card,
-    from torch.profiler after a warm-up call: the most over three profiled
-    calls (the profiler can drop an event, never add one), and over up to
-    ten while none has shown a kernel (every call launches one)."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    kernels = copies = 0
-    for session in range(10):
-        if session >= 3 and kernels:
-            break
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            margin(session)
-            fn()
-            torch.cuda.synchronize()
-            margin(session)
-        n_k = n_c = 0
-        for ev in prof.events():
-            if ev.device_type != DeviceType.CUDA:
-                continue
-            if ev.name.startswith("Memcpy"):
-                n_c += "HtoD" in ev.name
-            elif not ev.name.startswith("Memset"):
-                n_k += 1
-        kernels, copies = max(kernels, n_k), max(copies, n_c)
-    return kernels, copies
+#: calls whose kernels a call are read from captured CUDA graphs at the
+#: end of the run, after the last profiled window (no profiled window
+#: runs after a graph capture): (what, fn, ok(kernels, copies), want)
+GRAPH_COUNTS = []
+
+
+def count_by_graph(what: str, fn, ok, want: str) -> None:
+    """Defers one call's count of kernels and copies in to `graph_counts`:
+    a graph holds every launch, where torch.profiler can drop all of a
+    short call's events late in a long run (chain_topn's one kernel once
+    showed in none of ten profiled sessions)."""
+    GRAPH_COUNTS.append((what, fn, ok, want))
+
+
+def graph_counts() -> list:
+    """The deferred counts: each call captured in a CUDA graph, its kernel
+    and memcpy nodes held to its `ok`; fails where one is off. Returns
+    (what, kernels, copies, device ms a call from graph replays)."""
+    out = []
+    for what, fn, ok, want in GRAPH_COUNTS:
+        (kernels, copies, _), g = graph_nodes(fn)
+        if not ok(kernels, copies):
+            fail(f"{what} issued {kernels} kernels and {copies} copies "
+                 f"(want {want}; graph nodes)")
+        out.append((what, kernels, copies, graph_ms(g)))
+        del g
+    return out
 
 
 #: the kernels one call launches, by wrapper (topk_rows in its one-read
@@ -487,8 +496,8 @@ def launch_profile(fn, expect, calls: int = 5) -> tuple:
     dict: name -> launches a call). A window counts only where it shows
     each kernel of `expect` exactly that many times `calls` (the profiler
     can drop an event, never add one): the first of up to ten such
-    windows gives the numbers. Fails on a kernel outside `expect`, or
-    when no window is complete."""
+    windows gives the numbers. Fails on a kernel outside `expect`;
+    None when no window is complete."""
     import re
 
     import torch
@@ -524,18 +533,27 @@ def launch_profile(fn, expect, calls: int = 5) -> tuple:
         per = expect if isinstance(expect, dict) else dict.fromkeys(expect, 1)
         if all(counts.get(name) == calls * n for name, n in per.items()):
             return copies / calls, ms
-    fail(f"no profiled window of {calls} calls showed each of {expect} "
-         f"{calls} times (the last: {counts})")
+    return None
 
 
 def activity_note(fn, expect) -> str:
     """A call's kernels, copies in and device ms by kernel, as a note;
     fails where the call launches other kernels than `expect` or copies
-    anything in from the host."""
-    copies, by = launch_profile(fn, expect)
+    anything in from the host. Where no profiled window is complete, the
+    count of kernels and copies is left to a captured graph at the end of
+    the run (`count_by_graph`) and the ms by kernel are not measured."""
+    n = sum(expect.values()) if isinstance(expect, dict) else len(expect)
+    got = launch_profile(fn, expect)
+    if got is None:
+        count_by_graph(f"a call of {', '.join(expect)}", fn,
+                       lambda k, c: k == n and not c,
+                       f"{n} kernels, no copy in")
+        return (f"a call: {n} kernels, 0 copies in, checked at the end of "
+                f"the run from a captured graph; device ms by kernel not "
+                f"measured (no complete profiled window)")
+    copies, by = got
     if copies:
         fail(f"a call made {copies} host-to-device copies (none allowed)")
-    n = sum(expect.values()) if isinstance(expect, dict) else len(expect)
     return (f"a call: {n} kernels, 0 copies in; device ms "
             + ", ".join(f"{k} {by[k]:.4f}" for k in expect)
             + f" (sum {sum(by.values()):.4f})")
@@ -1194,9 +1212,11 @@ def _topn_keys(spec, cols, rowmask):
     return torch.where(m, kv, torch.full_like(kv, -2**31))
 
 
-def check_topn(device, args, reps=10) -> dict:
+def check_topn(device, args, what, reps=10) -> dict:
     """topn_scan against its plain version: indices and survivor count
-    equal; torch.topk on the same transformed keys timed beside it."""
+    equal; torch.topk on the same transformed keys timed beside it; its
+    kernels a call (at most 5, no copy in) counted at the end of the run
+    from a captured graph."""
     import torch
 
     from serenedb_tpu_torch.ops import topn_kernels as TK
@@ -1209,10 +1229,9 @@ def check_topn(device, args, reps=10) -> dict:
         fail(f"topn_scan differs from its plain version (k={k})")
     ms = timed_ms(lambda: TK.topn_scan(*a, **kw), reps, device)
     plain_ms = timed_ms(lambda: TK.topn_scan_plain(*a, **kw), 2, device)
-    kernels, copies = call_activity(lambda: TK.topn_scan(*a, **kw))
-    if not 1 <= kernels <= 5 or copies:
-        fail(f"topn_scan (k={k}) issued {kernels} kernels and {copies} "
-             f"host-to-device copies (at most 5 and none)")
+    count_by_graph(f"{what} (k={k})", lambda: TK.topn_scan(*a, **kw),
+                   lambda n, c: 1 <= n <= 5 and not c,
+                   "1 to 5 kernels, no copy in")
     keys = _topn_keys(spec, cols, rowmask)
     library_ms = timed_ms(lambda: torch.topk(keys, k), reps, device)
     moved = nbytes(*[t for pair in cols for t in pair], rowmask, idx, nsurv)
@@ -1220,15 +1239,16 @@ def check_topn(device, args, reps=10) -> dict:
             "bound_ms": bound_ms(moved), "bound_by": "bytes",
             "library_ms": library_ms,
             "shape": f"rows={rowmask.numel()} cols={len(cols)} k={k} "
-                     f"preds={len(spec.preds)} survivors={int(ref_n[0])}; "
-                     f"a call: {kernels} kernels, {copies} copies in"}
+                     f"preds={len(spec.preds)} survivors={int(ref_n[0])}"}
 
 
-def check_chain(device, args, reps=100) -> dict:
+def check_chain(device, args, what, reps=100) -> dict:
     """chain_topn against its plain version: slots, present count and
     every gathered output equal; torch.topk on the slots' transformed
     values timed beside it. Both calls are tens of microseconds of host
-    work: 100 calls each, so the host's jitter averages out."""
+    work: 100 calls each, so the host's jitter averages out. Its kernels
+    a call (one under the one-block cap, no copy in) are counted at the
+    end of the run from a captured graph."""
     import torch
 
     from serenedb_tpu_torch.ops import topn_kernels as TK
@@ -1243,10 +1263,10 @@ def check_chain(device, args, reps=100) -> dict:
     ms = timed_ms(lambda: TK.chain_topn(*a, **kw), reps, device)
     plain_ms = timed_ms(lambda: TK.chain_topn_plain(*a, **kw), 2, device)
     G = rowcount.numel()
-    kernels, copies = call_activity(lambda: TK.chain_topn(*a, **kw))
-    if copies or (G <= TK.CHAIN_ONE_MAX and kernels != 1):
-        fail(f"chain_topn (G={G}) issued {kernels} kernels and {copies} "
-             f"host-to-device copies (one kernel under the cap, no copy)")
+    one = G <= TK.CHAIN_ONE_MAX
+    count_by_graph(f"{what} (G={G})", lambda: TK.chain_topn(*a, **kw),
+                   lambda n, c: not c and (n == 1 if one else n >= 1),
+                   ("1 kernel" if one else "kernels") + ", no copy in")
     v = src.to(torch.int32) if src is not None else \
         ((torch.arange(G, device=device) // stride) % size).to(torch.int32)
     sv = torch.where(rowcount > 0, v if desc else ~v,
@@ -1263,8 +1283,7 @@ def check_chain(device, args, reps=100) -> dict:
             "bound_ms": bound_ms(moved), "bound_by": "bytes",
             "library_ms": library_ms,
             "shape": f"G={G} k_pad={k} outputs={len(outs)} "
-                     f"present={int(ref[1][0])}; a call: {kernels} kernels, "
-                     f"{copies} copies in"}
+                     f"present={int(ref[1][0])}"}
 
 
 def check_join_probe(device, args, reps=10) -> dict:
@@ -2222,6 +2241,7 @@ def phase_paged(device, n_docs=1_000_000, vocab=30_000,
     warm repeat uploads 0 bytes and launches pool_score once; a starved
     budget of 64 pages stays bit-equal."""
     from serenedb_tpu_torch.device import LAUNCHES, UPLOADS
+    from serenedb_tpu_torch.ops import bm25 as bm25_ops
     from serenedb_tpu_torch.ops import bm25_kernels as kern
     from serenedb_tpu_torch.ops import pool_kernels
     from serenedb_tpu_torch.search.analysis import get_analyzer
@@ -2268,7 +2288,8 @@ def phase_paged(device, n_docs=1_000_000, vocab=30_000,
     # batch-64 ones: batch 64 runs first
     with Recorder(pool_kernels, "pool_score",
                   lambda a, kw: a[15] > 0) as rec_p, \
-            Recorder(kern, "contrib_flat") as rec_c:
+            Recorder(kern, "contrib_flat") as rec_c, \
+            Recorder(bm25_ops, "ragged_contribs") as rec_r:
         t0 = time.perf_counter()
         for batch in (64, 8, 1):      # cold, then every bucket warm once
             for mode in ("plane", "pool", "host"):
@@ -2326,16 +2347,17 @@ def phase_paged(device, n_docs=1_000_000, vocab=30_000,
     pool_q = metrics.POSTING_POOL_DEVICE_QUERIES.value - d0
     if pool_q <= 0:
         fail("paged_search: the pool served no query")
-    if rec_p.args is None or rec_c.args is None:
-        fail("paged_search: pool_score's or contrib_flat's inputs were not "
-             "recorded")
+    if rec_p.args is None or rec_c.args is None or rec_r.args is None:
+        fail("paged_search: pool_score's, contrib_flat's or "
+             "ragged_contribs' inputs were not recorded")
     return {"build_s": build_s, "first_s": first_s,
             "qps": {m: {b: sorted(v)[len(v) // 2] for b, v in d.items()}
                     for m, d in qps.items()},
             "launches": launches, "pool_queries": pool_q, "starved": starved,
             "pool": stats, "postings": int(len(fi.post_docs)),
             "routes": routes,
-            "pool_args": rec_p.args, "flat_args": rec_c.args}
+            "pool_args": rec_p.args, "flat_args": rec_c.args,
+            "ragged_args": rec_r.args}
 
 
 def serving_corpus(n_docs: int, seed: int = 5) -> list:
@@ -2469,18 +2491,21 @@ def phase_serving(device, n_docs=200_000, n_items=64) -> dict:
 
 
 def check_contrib_flat(device, args, reps=20) -> dict:
-    """contrib_flat against its plain version (contrib_plain) bit for
-    bit, on a main-path launch's inputs."""
+    """contrib_flat against its plain version (contrib_plain over each
+    posting's dl: with `norms`, the resident norm of the doc the second
+    array names) bit for bit, on a main-path launch's inputs."""
     import torch
 
     from serenedb_tpu_torch.ops import bm25_kernels as kern
     a, kw = args
     tfs, dls, w, k1, b, avgdl = a[:6]
     scorer = a[6] if len(a) > 6 else kw.get("scorer", "bm25")
+    norms = a[7] if len(a) > 7 else kw.get("norms")
+    dl = dls if norms is None else norms[dls.long()]
 
     def plain():
         return kern.contrib_plain(scorer, tfs.to(torch.float32),
-                                  dls.to(torch.float32), w, k1, b,
+                                  dl.to(torch.float32), w, k1, b,
                                   kern._avg(avgdl))
     got = kern.contrib_flat(*a, **kw)
     ref = plain()
@@ -2489,14 +2514,37 @@ def check_contrib_flat(device, args, reps=20) -> dict:
         fail("contrib_flat differs from its plain version")
     ms = timed_ms(lambda: kern.contrib_flat(*a, **kw), reps, device)
     plain_ms = timed_ms(plain, reps, device)
-    # the function needs the real postings only: ragged_contribs pads
-    # them with tf 0 up to a power of two, and a real posting has tf >= 1
-    n = int(torch.count_nonzero(tfs))
+    # ragged_contribs sizes the postings exactly (no pad): every posting
+    # is real; with norms each also reads its doc's 4-byte norm
+    n = tfs.numel()
+    per = tfs.element_size() + dls.element_size() + w.element_size() + \
+        got.element_size() + (0 if norms is None else norms.element_size())
     return {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms(n * (tfs.element_size() + dls.element_size()
-                                      + w.element_size() + got.element_size())),
-            "bound_by": "bytes", "library_ms": None,
-            "shape": f"n={n} (padded {tfs.numel()}) {scorer}"}
+            "bound_ms": bound_ms(n * per), "bound_by": "bytes",
+            "library_ms": None,
+            "shape": f"n={n} {scorer}"
+                     + ("" if norms is None else ", dl from the norms")}
+
+
+def check_ragged_contribs(device, args, reps=20) -> dict:
+    """The host ragged route's whole `ragged_contribs` call (one packed
+    upload, the contrib_flat launch, one readback and its sync) on a
+    main-path call's inputs: host ms a call (it ends in a sync), its
+    uploads a call, and finite values of the right length."""
+    from serenedb_tpu_torch.device import UPLOADS
+    from serenedb_tpu_torch.ops import bm25 as bm25_ops
+    a, kw = args
+    bm25_ops.ragged_contribs(*a, **kw)
+    t0, u0 = time.perf_counter(), UPLOADS.get("transfers")
+    for _ in range(reps):
+        got = bm25_ops.ragged_contribs(*a, **kw)
+    ms = (time.perf_counter() - t0) / reps * 1e3
+    uploads = (UPLOADS.get("transfers") - u0) / reps
+    if got.shape != (len(a[0]),) or not np.isfinite(got).all():
+        fail("ragged_contribs gave a wrong shape or non-finite values")
+    if uploads != 1:
+        fail(f"ragged_contribs made {uploads} uploads a call (want 1)")
+    return {"ms": ms, "uploads": uploads, "n": len(a[0])}
 
 
 def check_pool_score(device, args, reps=20) -> dict:
@@ -2532,6 +2580,163 @@ def check_pool_score(device, args, reps=20) -> dict:
             "library_ms": None,
             "shape": f"qp={cand.shape[0]} cp={cand.shape[1]} live={live} "
                      f"kept={kept} kk={vals.shape[1]}"}
+
+
+def graph_nodes(fn) -> tuple:
+    """(kernels, host-to-device copies, memsets) of one fn(), from the
+    nodes of a CUDA graph that captures it after a warm-up call
+    (libcuda's cuGraphGetNodes and cuGraphNodeGetType): a graph holds
+    every launch, where a profiled window can drop events. Returns the
+    graph too, for `graph_ms`."""
+    import ctypes
+
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(g):
+        fn()
+    drv = ctypes.CDLL("libcuda.so.1")
+    graph = ctypes.c_void_p(g.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    if drv.cuGraphGetNodes(graph, None, ctypes.byref(n)):
+        fail("cuGraphGetNodes failed")
+    nodes = (ctypes.c_void_p * n.value)()
+    drv.cuGraphGetNodes(graph, nodes, ctypes.byref(n))
+    kinds = []
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        drv.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind))
+        kinds.append(kind.value)
+    # CU_GRAPH_NODE_TYPE_KERNEL = 0, _MEMCPY = 1, _MEMSET = 2
+    return (kinds.count(0), kinds.count(1), kinds.count(2)), g
+
+
+def graph_ms(g, reps: int = 50) -> float:
+    """Device ms of one call: `reps` replays of its captured graph between
+    CUDA events (the kernels back to back, no host time between)."""
+    import torch
+    g.replay()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        g.replay()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / reps
+
+
+def kernel_split(fn, calls: int = 5) -> dict:
+    """Device ms a call by kernel name (torch.profiler, the mean over
+    `calls` calls after a warm-up); the profiler can drop events, so the
+    graph's node count and replay time stand beside it."""
+    import re
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        margin(0)
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        margin(0)
+    ms = {}
+    for ev in prof.events():
+        if ev.device_type != DeviceType.CUDA or ev.name.startswith("Mem"):
+            continue
+        m = re.search(r"(\w+_kernel)", ev.name)
+        name = m.group(1) if m else ev.name[:40]
+        t = getattr(ev, "device_time_total", 0) or \
+            getattr(ev, "cuda_time_total", 0)
+        ms[name] = ms.get(name, 0.0) + t / 1e3 / calls
+    return ms
+
+
+def synth_pool_row(device, cp: int, seed: int = 3, pages: int = 1024):
+    """One query of cp live lanes over a random region of `pages` pages:
+    two slices, each over every lane in a random order, k 10 (the
+    candidates ascend, as `_ragged_candidates` makes them)."""
+    import torch
+    rng = np.random.default_rng(seed)
+    ep = 2 * cp
+
+    def t(x):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(device)
+    args = (t(rng.integers(0, 1_000_000, (pages, 1024)).astype(np.int32)),
+            t(rng.integers(1, 20, (pages, 1024)).astype(np.int32)),
+            t(rng.integers(5, 300, 1_000_000).astype(np.int32)),
+            t(rng.integers(0, pages * 1024, (1, ep)).astype(np.int32)),
+            t(np.repeat(np.float32([1.5, 2.25]), cp)[None, :]),
+            t(np.concatenate([rng.permutation(cp), rng.permutation(cp)]
+                             ).astype(np.int32)[None, :]),
+            t(np.int32([[0, cp, ep]])), [cp, cp], cp, 1.2, 0.75, 150.0,
+            "bm25",
+            t(np.sort(rng.choice(1 << 30, cp, replace=False)).astype(
+                np.int32)[None, :]),
+            t(np.int32([cp])), 10)
+    return args, {}
+
+
+def pool_regime_calls(device, args) -> dict:
+    """pool_score's two calls that phase 18 reads in both regimes: the
+    recorded phase 15 batch (ROW) and one synthetic query of 600,000
+    lanes, past the ROW cap (LARGE; bit-equal to the plain version
+    here). Each with its device ms by kernel from torch.profiler, read
+    now, right after phase 15: the profiler drops kernel events late in a
+    long process (ROW: a complete window of `launch_profile`, one
+    pool_row_kernel a call)."""
+    import torch
+
+    from serenedb_tpu_torch.ops import pool_kernels
+    out = {}
+    big = synth_pool_row(device, 600_000)
+    for what, want, (a, kw) in (("recorded batch", "row", args),
+                                ("600,000 lanes", "large", big)):
+        regime = pool_kernels.pool_regime(a[8], a[15])
+        if regime != want:
+            fail(f"pool_score's {what} took the {regime} regime")
+
+        def call(a=a, kw=kw):
+            return pool_kernels.pool_score(*a, **kw)
+        if regime == "large":
+            got, ref = call(), pool_kernels.pool_score_plain(*a, **kw)
+            sync(device)
+            if not (torch.equal(got[1], ref[1]) and torch.equal(
+                    got[0].view(torch.int32), ref[0].view(torch.int32))):
+                fail("pool_score (LARGE) differs from its plain version")
+            split = kernel_split(call)
+        else:
+            got = launch_profile(call, {"pool_row_kernel": 1})
+            split = got[1] if got else {}
+        out[what] = {"call": call, "regime": regime, "by_kernel": split,
+                     "shape": f"qp={a[13].shape[0]} cp={a[8]} kk={a[15]} "
+                              f"kept={int(a[6][:, -1].sum())}"}
+    return out
+
+
+def pool_graphs(device, calls: dict) -> dict:
+    """Each of `pool_regime_calls`' calls from a captured CUDA graph: its
+    kernels, copies in and memsets (graph nodes) and its device ms (graph
+    replays), and the wrapper's whole call (CUDA events). A ROW call must
+    be one kernel with no copy and no memset. Run last: no profiled
+    window runs after a graph capture."""
+    out = {}
+    for what, r in calls.items():
+        (kern_n, copies, memsets), g = graph_nodes(r["call"])
+        if r["regime"] == "row" and (kern_n, copies, memsets) != (1, 0, 0):
+            fail(f"a ROW pool_score call issued {kern_n} kernels, {copies} "
+                 f"copies in, {memsets} memsets (want 1, 0, 0)")
+        out[what] = dict(r, kernels=kern_n, copies=copies, memsets=memsets,
+                         device_ms=graph_ms(g),
+                         call_ms=timed_ms(r["call"], 20, device))
+        del g
+    return out
 
 
 # ------------------------------------------------------ the sharded tier
@@ -3165,15 +3370,15 @@ def main() -> int:
     checks["agg_fold (8,192 x 201)"] = check_agg_fold(
         device, fold_plane(device, 8192, 201))
     checks["T1 topn_scan"] = check_topn(
-        device, recorded("topn_scan", ("q1", 3), "T1"))
+        device, recorded("topn_scan", ("q1", 3), "T1"), "T1 topn_scan")
     checks["T2 topn_scan"] = check_topn(
-        device, recorded("topn_scan", ("q1", 4), "T2"))
+        device, recorded("topn_scan", ("q1", 4), "T2"), "T2 topn_scan")
     checks["T3 topn_scan"] = check_topn(
-        device, recorded("topn_scan", ("q1", 5), "T3"))
+        device, recorded("topn_scan", ("q1", 5), "T3"), "T3 topn_scan")
     checks["T4 topn_scan"] = check_topn(
-        device, recorded("topn_scan", ("hits", 6), "T4"))
+        device, recorded("topn_scan", ("hits", 6), "T4"), "T4 topn_scan")
     checks["J2 chain_topn"] = check_chain(
-        device, recorded("chain_topn", ("tpch", 1), "J2"))
+        device, recorded("chain_topn", ("tpch", 1), "J2"), "J2 chain_topn")
     checks["J1 join_probe"] = check_join_probe(
         device, recorded("join_probe", ("tpch", 0), "J1"))
     checks["J4 join_probe"] = check_join_probe(
@@ -3299,10 +3504,12 @@ def main() -> int:
     print_routes(15, "paged_search", paged.pop("routes"))
     # the kernels against their plain versions now, while the region the
     # recorded batch reads holds what it held
-    serve_checks = {"pool_score": check_pool_score(device,
-                                                   paged.pop("pool_args")),
+    pool_args = paged.pop("pool_args")
+    serve_checks = {"pool_score": check_pool_score(device, pool_args),
                     "contrib_flat": check_contrib_flat(
                         device, paged.pop("flat_args"))}
+    ragged_call = check_ragged_contribs(device, paged.pop("ragged_args"))
+    pool_calls = pool_regime_calls(device, pool_args)
 
     # 16. serving: _msearch and the PG wire through the front door
     serving = phase_serving(device)
@@ -3360,6 +3567,11 @@ def main() -> int:
         print(f"[18] {what} ({r['shape']}): kernel {r['ms']:.4f} ms, plain "
               f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms "
               f"({r['bound_by']}), library null, bit-equal", flush=True)
+    print(f"[18] ragged_contribs, the host route's whole call on the same "
+          f"{ragged_call['n']} postings: {ragged_call['ms']:.4f} ms (host "
+          f"clock, its readback's sync included; the contrib_flat wrapper "
+          f"above {serve_checks['contrib_flat']['ms']:.4f} ms), "
+          f"{ragged_call['uploads']:.0f} upload a call", flush=True)
     print(f"    total {time.perf_counter() - t_start:.1f} s", flush=True)
 
     # 19. the sharded tier's kernels and the K13 entries against their
@@ -3397,6 +3609,25 @@ def main() -> int:
               f"{r['entry_ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
               f"{r['bound_ms']:.5f} ms, bytes)" for k, r in k13.items()) +
           f"; index_add_ into the 16 groups {k13_lib:.4f} ms", flush=True)
+    print(f"    total {time.perf_counter() - t_start:.1f} s", flush=True)
+
+    # measured last (after a graph capture no profiled window runs): the
+    # kernels a call of phase 10's top-N calls (and of any call whose
+    # profiled windows were incomplete), and pool_score in both regimes,
+    # from captured graphs
+    for what, kernels, copies, dev_ms in graph_counts():
+        print(f"[graph] {what}: a call {kernels} kernels, {copies} copies "
+              f"in (graph nodes); device {dev_ms:.4f} ms a call (graph "
+              f"replays)", flush=True)
+    for what, r in pool_graphs(device, pool_calls).items():
+        by = ", ".join(f"{k} {v:.4f}" for k, v in r["by_kernel"].items()) \
+            or "not measured (no complete profiled window)"
+        print(f"[18] pool_score, {what} ({r['shape']}), {r['regime']} "
+              f"regime: a call {r['kernels']} kernels, {r['copies']} copies "
+              f"in, {r['memsets']} memsets (graph nodes); device "
+              f"{r['device_ms']:.4f} ms a call (graph replays); by kernel "
+              f"(torch.profiler) {by}; the wrapper's call "
+              f"{r['call_ms']:.4f} ms", flush=True)
     print(f"    total {time.perf_counter() - t_start:.1f} s", flush=True)
 
     # 20. result lines

@@ -49,7 +49,7 @@ SIGNATURES = {
         "build_dense_tail": [_P, _P, _P, _L, _P, _P, _L, _I, _F, _F, _F, _P],
         "topk_bytes": [_L, _L, _I, _I],
         "topk_rows": [_P, _L, _L, _P, _I, _P, _I, _I, _P, _P],
-        "contrib_flat": [_P, _P, _P, _L, _I, _F, _F, _F, _P, _P],
+        "contrib_flat": [_P, _P, _P, _P, _L, _I, _F, _F, _F, _P, _P],
         "match_bitmap": [_P, _P, _P, _P, _L, _P, _P, _L, _P, _L, _L, _P, _P],
     },
     "agg": {
@@ -79,7 +79,7 @@ SIGNATURES = {
     },
     "pool": {
         "pool_score": [_P] * 8 + [_L, _L, _I, _L, _I, _F, _F, _F] +
-                      [_P, _P, _P, _I, _P, _L, _P, _L, _P, _P, _P],
+                      [_P, _P, _P, _I, _P, _L, _P, _L, _P, _P, _I, _I, _P],
     },
     "merge": {
         "merge_topk": [_P, _P, _L, _L, _L, _I, _P, _L, _P, _L, _P, _P, _P],

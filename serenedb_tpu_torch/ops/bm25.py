@@ -25,6 +25,7 @@ score = Σ_t idf_t · (k1 + 1) · tf/(tf + k1·(1 − b + b·dl/avgdl)).
 from __future__ import annotations
 
 import os
+import threading
 from dataclasses import dataclass
 from typing import Optional
 
@@ -803,28 +804,76 @@ def assemble_dense_weights(v_pad: int,
 # ragged path.
 
 def contrib_flat(tfs: torch.Tensor, dls: torch.Tensor, w: torch.Tensor,
-                 k1: float, b: float, avgdl: float,
-                 scorer: str = "bm25") -> torch.Tensor:
-    """Per-posting score contribution w·sat(tf, dl) over flat arrays.
-    Padding entries (tf=0, w=0) contribute exactly 0.0."""
-    return bm25_kernels.contrib_flat(tfs, dls, w, k1, b, avgdl, scorer)
+                 k1: float, b: float, avgdl: float, scorer: str = "bm25",
+                 norms: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Per-posting score contribution w·sat(tf, dl) over flat arrays
+    (with `norms`, `dls` holds doc ids and dl is norms[doc]). Padding
+    entries (tf=0, w=0) contribute exactly 0.0."""
+    return bm25_kernels.contrib_flat(tfs, dls, w, k1, b, avgdl, scorer,
+                                     norms)
+
+
+#: per thread, the pinned host buffers `ragged_contribs` stages through on
+#: a card (grown to a power of two, reused by every later call of the
+#: thread: each call waits for its readback before it returns)
+_STAGE = threading.local()
+
+
+def _staging(n: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """This thread's pinned (int32 input of >= 3n words, f32 output of
+    >= n) buffers."""
+    bufs = getattr(_STAGE, "bufs", None)
+    if bufs is None or bufs[1].numel() < n:
+        cap = 1 << max(n - 1, 1023).bit_length()
+        bufs = (torch.empty(3 * cap, dtype=torch.int32, pin_memory=True),
+                torch.empty(cap, dtype=torch.float32, pin_memory=True))
+        _STAGE.bufs = bufs
+    return bufs
 
 
 def ragged_contribs(tfs: np.ndarray, dls: np.ndarray, w: np.ndarray,
                     k1: float, b: float, avgdl: float, scorer: str,
-                    device: DeviceLike = None) -> np.ndarray:
-    """contrib_flat over host arrays on `device`, sized exactly (no pad:
-    the port compiles no program per length); uploads through the choke
-    point (12 bytes a posting) and reads back."""
+                    device: DeviceLike = None,
+                    norms: Optional[torch.Tensor] = None) -> np.ndarray:
+    """contrib_flat over host arrays, sized exactly (no pad: the port
+    compiles no program per length). With `norms` (the store's resident
+    int32 doc lengths) `dls` holds doc ids, the kernel gathers each dl,
+    and the call runs on norms' device; else on `device`. The three
+    arrays travel as one packed upload (tfs, dls, w: three runs of 4-byte
+    words, 12 bytes a posting, counted at the upload choke point); on a
+    card through a pinned staging buffer, each run padded to a multiple
+    of four words, and the result comes back by one copy into pinned
+    memory and one stream sync."""
     from ..columnar.device import commit_host_array
-    if len(tfs) == 0:
+    from ..obs import device as obs_device
+    n = len(tfs)
+    if n == 0:
         return np.empty(0, dtype=np.float32)
-    c = contrib_flat(
-        commit_host_array(np.asarray(tfs, dtype=np.int32), device),
-        commit_host_array(np.asarray(dls, dtype=np.int32), device),
-        commit_host_array(np.asarray(w, dtype=np.float32), device),
-        scorer_param(scorer, k1), b, avgdl, scorer)
-    return c.cpu().numpy()
+    dev = norms.device if norms is not None else resolve_device(device)
+    kw = dict(k1=scorer_param(scorer, k1), b=b, avgdl=avgdl, scorer=scorer,
+              norms=norms)
+    if dev.type != "cuda":
+        packed = np.empty(3 * n, dtype=np.int32)
+        packed[:n], packed[n:2 * n] = tfs, dls
+        packed[2 * n:] = np.asarray(w, dtype=np.float32).view(np.int32)
+        buf = commit_host_array(packed, dev)
+        return contrib_flat(buf[:n], buf[n:2 * n],
+                            buf[2 * n:].view(torch.float32), **kw).numpy()
+    # each run starts on a 16-byte boundary (m words apart), so the
+    # kernel reads all three with vector loads
+    m = -(-n // 4) * 4
+    stage_in, stage_out = _staging(m)
+    host = stage_in.numpy()
+    host[:n], host[m:m + n] = tfs, dls
+    host[2 * m:2 * m + n] = np.asarray(w, dtype=np.float32).view(np.int32)
+    buf = torch.empty(3 * m, dtype=torch.int32, device=dev)
+    buf.copy_(stage_in[:3 * m], non_blocking=True)
+    obs_device.note_upload(12 * m)
+    c = contrib_flat(buf[:n], buf[m:m + n],
+                     buf[2 * m:2 * m + n].view(torch.float32), **kw)
+    stage_out[:n].copy_(c, non_blocking=True)
+    torch.cuda.current_stream(dev).synchronize()
+    return stage_out[:n].numpy().copy()
 
 
 def topk_tie_exact(scores: np.ndarray, docs: np.ndarray, k: int,

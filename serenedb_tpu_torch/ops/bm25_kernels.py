@@ -27,6 +27,7 @@ from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
 
 from ..device import LAUNCHES
@@ -74,9 +75,14 @@ def _f32(x: float) -> torch.Tensor:
     return torch.tensor(x, dtype=torch.float32)
 
 
+_EPS_DL = float(np.float32(1e-9))
+
+
 def _avg(avgdl: float) -> float:
-    """max(f32(avgdl), 1e-9) as the kernels receive it."""
-    return float(torch.maximum(_f32(avgdl), _f32(1e-9)))
+    """max(f32(avgdl), 1e-9) as the kernels receive it (on Python floats
+    that hold f32 values: a torch op costs more than the small kernel
+    calls it precedes; a NaN stays NaN, as torch.maximum keeps it)."""
+    return max(float(np.float32(avgdl)), _EPS_DL)
 
 
 def _f64(fn, x: torch.Tensor) -> torch.Tensor:
@@ -269,26 +275,32 @@ FLAT_SCORERS = ("bm25", "tfidf")
 
 
 def contrib_flat(tfs: torch.Tensor, dls: torch.Tensor, w: torch.Tensor,
-                 k1: float, b: float, avgdl: float,
-                 scorer: str = "bm25") -> torch.Tensor:
+                 k1: float, b: float, avgdl: float, scorer: str = "bm25",
+                 norms: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Per-posting contribution w·sat(tf, dl) over flat int32 tfs, int32
-    dls and f32 w of one length: one launch, one thread a posting, through
-    the plane kernels' own `contrib()`. Padding (tf 0, w 0) gives 0.0."""
+    dls and f32 w of one length: one launch, four postings a thread,
+    through the plane kernels' own `contrib()`. With `norms` (int32, the
+    resident doc lengths) `dls` holds doc ids and dl is norms[doc].
+    Padding (tf 0, w 0) gives 0.0."""
     if scorer not in FLAT_SCORERS:
         raise ValueError(f"contrib_flat takes {FLAT_SCORERS}, not {scorer!r}")
     if not (tfs.shape == dls.shape == w.shape) or tfs.dim() != 1:
         raise ValueError("tfs, dls and w must be flat arrays of one length")
-    if not _is_cuda(tfs, dls, w):
+    if not _is_cuda(tfs, dls, w, norms):
         LAUNCHES.bump("contrib_flat.plain")
+        dl = dls if norms is None else norms[dls.long()]
         return contrib_plain(scorer, tfs.to(torch.float32),
-                             dls.to(torch.float32), w, k1, b, _avg(avgdl))
+                             dl.to(torch.float32), w, k1, b, _avg(avgdl))
     _require(tfs, torch.int32, "tfs")
     _require(dls, torch.int32, "dls")
     _require(w, torch.float32, "w")
+    if norms is not None:
+        _require(norms, torch.int32, "norms")
     out = torch.empty_like(w)
     _build.check(_build.load("bm25").contrib_flat(
-        _ptr(tfs), _ptr(dls), _ptr(w), tfs.numel(), SCORERS[scorer], k1, b,
-        _avg(avgdl), _ptr(out), _stream(w)), "contrib_flat")
+        _ptr(tfs), _ptr(dls), _ptr(w), _ptr(norms), tfs.numel(),
+        SCORERS[scorer], k1, b, _avg(avgdl), _ptr(out), _stream(w)),
+        "contrib_flat")
     LAUNCHES.bump("contrib_flat")
     return out
 

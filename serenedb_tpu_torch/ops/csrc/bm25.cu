@@ -67,10 +67,16 @@
 // 4. contrib_flat
 //    Replaces `contrib_flat` (`contrib_expr` over flat arrays), the one
 //    elementwise dispatch of the host ragged path (searcher
-//    `_ragged_resolve`): c[i] = w[i] * sat(tfs[i], dls[i]), one thread a
-//    posting, through the same `contrib()` (contrib.cuh) as the plane
-//    kernels, so its bits equal theirs. Padding (tf 0, w 0) gives 0.
-//    Bound: bytes — 12 bytes read and 4 written a posting.
+//    `_ragged_resolve`): c[i] = w[i] * sat(tfs[i], dl), through the same
+//    `contrib()` (contrib.cuh) as the plane kernels, so its bits equal
+//    theirs. dl is dls[i], or, where the caller passes `norms`, the
+//    resident norm of the doc dls[i] (the route then uploads doc ids and
+//    no host gather of the norms runs). Four postings a thread, each
+//    array read with one 16-byte load where it is aligned (the route's
+//    three runs of one packed upload are). Padding (tf 0, w 0)
+//    gives 0.
+//    Bound: bytes — 12 bytes read and 4 written a posting, and with
+//    `norms` the 4-byte norm of each posting's doc.
 //
 // 5. match_bitmap
 //    Replaces `match_bitmap`, the disjunctive match bitmap of an unscored
@@ -910,14 +916,52 @@ void topk_allow_smem() {
 
 }  // namespace
 
+// Four postings a thread. vec: bit j set when array j (tfs, dls, w, out)
+// is 16-byte aligned.
 __global__ void contrib_flat_kernel(const int* __restrict__ tfs,
                                     const int* __restrict__ dls,
-                                    const float* __restrict__ w, long long n,
-                                    int scorer, float k1, float b, float avg,
+                                    const float* __restrict__ w,
+                                    const int* __restrict__ norms,
+                                    long long n, int vec, int scorer,
+                                    float k1, float b, float avg,
                                     float* __restrict__ out) {
-  long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const long long i = 4 * ((long long)blockIdx.x * blockDim.x + threadIdx.x);
   if (i >= n) return;
-  out[i] = contrib(scorer, (float)tfs[i], (float)dls[i], w[i], k1, b, avg);
+  const bool whole = i + 4 <= n;
+  int tf[4] = {0, 0, 0, 0}, dl[4] = {0, 0, 0, 0};
+  float wt[4] = {0.f, 0.f, 0.f, 0.f};
+  if (whole && (vec & 1)) {
+    const int4 x = *reinterpret_cast<const int4*>(tfs + i);
+    tf[0] = x.x, tf[1] = x.y, tf[2] = x.z, tf[3] = x.w;
+  } else {
+    for (int j = 0; j < 4 && i + j < n; ++j) tf[j] = tfs[i + j];
+  }
+  if (whole && (vec & 2)) {
+    const int4 x = *reinterpret_cast<const int4*>(dls + i);
+    dl[0] = x.x, dl[1] = x.y, dl[2] = x.z, dl[3] = x.w;
+  } else {
+    for (int j = 0; j < 4 && i + j < n; ++j) dl[j] = dls[i + j];
+  }
+  if (whole && (vec & 4)) {
+    const float4 x = *reinterpret_cast<const float4*>(w + i);
+    wt[0] = x.x, wt[1] = x.y, wt[2] = x.z, wt[3] = x.w;
+  } else {
+    for (int j = 0; j < 4 && i + j < n; ++j) wt[j] = w[i + j];
+  }
+  if (norms) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      if (i + j < n) dl[j] = norms[dl[j]];
+  }
+  float c[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+    c[j] = contrib(scorer, (float)tf[j], (float)dl[j], wt[j], k1, b, avg);
+  if (whole && (vec & 8)) {
+    *reinterpret_cast<float4*>(out + i) = make_float4(c[0], c[1], c[2], c[3]);
+  } else {
+    for (int j = 0; j < 4 && i + j < n; ++j) out[i + j] = c[j];
+  }
 }
 
 static inline unsigned grid_for(long long threads, int block) {
@@ -1119,14 +1163,20 @@ int topk_rows(const void* scores, long long rows, long long ncols,
 }
 
 // Per-posting contributions of n flat postings (int32 tfs and dls, f32 w)
-// into out (n f32).
-int contrib_flat(const void* tfs, const void* dls, const void* w, long long n,
-                 int scorer, float k1, float b, float avg, void* out,
-                 void* stream) {
+// into out (n f32). With norms (int32, the resident doc lengths) non-null,
+// dls holds doc ids and each posting's dl is norms[dls[i]].
+int contrib_flat(const void* tfs, const void* dls, const void* w,
+                 const void* norms, long long n, int scorer, float k1,
+                 float b, float avg, void* out, void* stream) {
   if (n <= 0) return (int)cudaGetLastError();
-  contrib_flat_kernel<<<grid_for(n, 256), 256, 0, (cudaStream_t)stream>>>(
-      (const int*)tfs, (const int*)dls, (const float*)w, n, scorer, k1, b,
-      avg, (float*)out);
+  const int vec = (((size_t)tfs & 15) == 0) |
+                  (((size_t)dls & 15) == 0) << 1 |
+                  (((size_t)w & 15) == 0) << 2 |
+                  (((size_t)out & 15) == 0) << 3;
+  contrib_flat_kernel<<<grid_for((n + 3) / 4, 256), 256, 0,
+                        (cudaStream_t)stream>>>(
+      (const int*)tfs, (const int*)dls, (const float*)w, (const int*)norms, n,
+      vec, scorer, k1, b, avg, (float*)out);
   return (int)cudaGetLastError();
 }
 

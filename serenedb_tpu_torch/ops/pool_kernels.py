@@ -19,6 +19,15 @@ The batch descriptor (search/posting_pool.py `_dispatch` builds it):
 - `slice_max`: per slice index, the longest such slice of any query;
 - full mode only: `cand` (qp, cp) int32 candidate docs (ascending, pads
   0x7FFFFFFF), `nc` (qp,) int32 live lanes, and `kk` <= cp.
+
+Two regimes, a function of (cp, kk) alone (`pool_regime`, mirroring
+csrc/pool.cu's two caps; the C entry refuses a disagreement). ROW, the
+main path's: one launch, a cluster of blocks a query (its size chosen by
+the C entry from the batch and the card), each holding its share of the
+query's lanes in shared memory, the top-k selected in the cluster; the
+call allocates its outputs only. LARGE, past the caps: a launch a slice
+into a zeroed accumulator in device memory, then a key array and
+select.cuh's levels.
 """
 
 from __future__ import annotations
@@ -36,6 +45,23 @@ PAD_DOC = (1 << 31) - 1
 POOL_SORT_FLOOR = 32
 #: most queries one launch takes (CUDA grid y limit)
 POOL_MAX_ROWS = 65535
+#: the ROW regime's caps (csrc/pool.cu POOL_ROW_KK and POOL_ROW_LANES,
+#: both from card timings): the most kk a row selects, and the most lanes
+#: a row may have
+POOL_ROW_KK = 32
+POOL_ROW_LANES = 56_048
+#: blocks a query in a ROW launch; 0 leaves the choice to the C entry
+#: (csrc/pool.cu `row_cluster`). Card tests and scripts/pool_shapes.py
+#: --sweep set 1, 2, 4 or 8.
+ROW_CLUSTER = 0
+
+
+def pool_regime(cp: int, kk: int) -> str:
+    """The regime of a batch of cp lanes a row at kk (0: partial mode):
+    "row" (one launch, a cluster of blocks a query) or "large" (a launch
+    a slice, the accumulator and the keys in device memory)."""
+    return "row" if 0 < cp <= POOL_ROW_LANES and 0 <= kk <= POOL_ROW_KK \
+        else "large"
 
 
 def _select_plain(acc: torch.Tensor, cand: torch.Tensor, nc: torch.Tensor,
@@ -119,23 +145,31 @@ def pool_score(docs_pg: torch.Tensor, tfs_pg: torch.Tensor,
         _require(t, torch.int32, name)
     _require(w, torch.float32, "w")
     dev = si.device
-    smax = torch.tensor([int(x) for x in slice_max], dtype=torch.int64)
-    acc = torch.zeros((qp, cp), dtype=torch.float32, device=dev)
-    vals = docs = keys = buf_b = None
-    cap_a = cap_b = 0
     if full:
         _require(cand, torch.int32, "cand")
         _require(nc, torch.int32, "nc")
-        cap_a, cap_b = select.scratch(qp, cp, 1, kk, POOL_SORT_FLOOR)
-        keys = torch.empty(cap_a, dtype=torch.int64, device=dev)
-        buf_b = torch.empty(cap_b, dtype=torch.int64, device=dev)
+    row = pool_regime(cp, kk if full else 0) == "row"
+    vals = docs = acc = keys = buf_b = smax = None
+    cap_a = cap_b = 0
+    if full:
         vals = torch.empty((qp, kk), dtype=torch.float32, device=dev)
         docs = torch.empty((qp, kk), dtype=torch.int32, device=dev)
+    if row:
+        if not full:
+            acc = torch.empty((qp, cp), dtype=torch.float32, device=dev)
+    else:
+        smax = torch.tensor([int(x) for x in slice_max], dtype=torch.int64)
+        acc = torch.zeros((qp, cp), dtype=torch.float32, device=dev)
+        if full:
+            cap_a, cap_b = select.scratch(qp, cp, 1, kk, POOL_SORT_FLOOR)
+            keys = torch.empty(cap_a, dtype=torch.int64, device=dev)
+            buf_b = torch.empty(cap_b, dtype=torch.int64, device=dev)
     _build.check(_build.load("pool").pool_score(
         _ptr(docs_pg), _ptr(tfs_pg), _ptr(norms), _ptr(si), _ptr(w),
-        _ptr(lane), _ptr(soff), smax.data_ptr(), qp, ep, tp, cp,
-        SCORERS[scorer], k1, b, _avg(avgdl), _ptr(acc), _ptr(cand),
-        _ptr(nc), kk if full else 0, _ptr(keys), cap_a, _ptr(buf_b), cap_b,
-        _ptr(vals), _ptr(docs), _stream(si)), "pool_score")
+        _ptr(lane), _ptr(soff), None if smax is None else smax.data_ptr(),
+        qp, ep, tp, cp, SCORERS[scorer], k1, b, _avg(avgdl), _ptr(acc),
+        _ptr(cand), _ptr(nc), kk if full else 0, _ptr(keys), cap_a,
+        _ptr(buf_b), cap_b, _ptr(vals), _ptr(docs), int(row), ROW_CLUSTER,
+        _stream(si)), "pool_score")
     LAUNCHES.bump("pool_score")
     return (vals, docs) if full else acc

@@ -407,7 +407,12 @@ class SegmentSearcher:
     #:   planes about PLANE_BASE_MS + PLANE_MS_PER_QUERY a query of the
     #:   batch: a query takes the host route while its postings cost less
     #:   than its share of the planes (alone: to ~11,600 postings; in 64:
-    #:   to ~1,800).
+    #:   to ~1,800). The host constants were kept when that route's call
+    #:   became one packed upload and one readback: ten least-squares fits
+    #:   over phase 15's 73 groups (scripts/pool_shapes.py) gave a base of
+    #:   0.222-0.515 ms (median 0.385) and 2.7e-5-4.9e-5 ms a posting,
+    #:   against 0.349-0.665 (0.469) and 2.9e-5-6.2e-5 before; the change
+    #:   is smaller than either's spread between runs.
     RAGGED_ENTRY_CAP = 2_240_896
     HOST_BASE_MS, HOST_MS_PER_ENTRY = 0.45, 4e-5
     PLANE_BASE_MS, PLANE_MS_PER_QUERY = 0.85, 0.066
@@ -707,10 +712,12 @@ class SegmentSearcher:
         if not work:
             return out
         if flat_d:
-            dcat = np.concatenate(flat_d)
+            # doc ids go up; the kernel gathers each dl from the resident
+            # norms (the same int32 values as norms_host)
             contribs = bm25_ops.ragged_contribs(
-                np.concatenate(flat_t), store.norms_host[dcat],
-                np.concatenate(flat_w), K1, B, avgdl, scorer, self.device)
+                np.concatenate(flat_t), np.concatenate(flat_d),
+                np.concatenate(flat_w), K1, B, avgdl, scorer,
+                norms=store.norms)
         else:
             contribs = np.empty(0, dtype=np.float32)
         for qi, spans, use_ix, acc0, cand in work:

@@ -385,3 +385,45 @@ def test_ragged_contribs_uploads_exactly_its_postings(n, scorer):
                                   padded.view(np.int32))
     ref = ref_bm25.ragged_contribs(tfs, dls, w, 1.2, 0.75, 37.5, scorer)
     np.testing.assert_allclose(got, ref, rtol=1e-6, atol=0)
+
+
+@pytest.mark.parametrize("scorer", ["bm25", "tfidf"])
+@pytest.mark.parametrize("n", [0, 1, 1503, 4096])
+def test_ragged_contribs_gathers_the_store_norms(n, scorer):
+    """`ragged_contribs` in the route's form: doc ids go up in one packed
+    upload (12 bytes a posting) and each dl is gathered from the store's
+    resident norms, which hold norms_host's int32 values; the result
+    equals the dl form (dls = norms_host[docs]) bit for bit, and the
+    reference's given the same dls bit for bit for tfidf, within rtol
+    1e-6 for bm25 (XLA's CPU code rounds bm25's chain differently in the
+    last bit of ~5 % of the postings)."""
+    from serenedb_tpu_torch.device import UPLOADS
+    offsets, docs, tfs, doc_freq, norms = _postings(5000, 60, 9000, seed=n)
+    store = port_bm25.build_block_store(offsets, docs, tfs, doc_freq, norms,
+                                        5000, device="cpu")
+    assert store.norms.dtype == torch.int32
+    np.testing.assert_array_equal(store.norms[:5000].numpy(),
+                                  store.norms_host)
+    assert store.norms_host.dtype == np.int32
+    rng = np.random.default_rng(n)
+    d = rng.integers(0, 5000, n).astype(np.int32)
+    t = rng.integers(1, 300, n).astype(np.int32)
+    w = (rng.random(n) * 8).astype(np.float32)
+    LAUNCHES.reset()
+    b0 = UPLOADS.get("bytes")
+    got = port_bm25.ragged_contribs(t, d, w, 1.2, 0.75, 37.5, scorer,
+                                    norms=store.norms)
+    assert UPLOADS.get("bytes") - b0 == 12 * n
+    assert LAUNCHES.get("contrib_flat.plain") == (1 if n else 0)
+    assert got.dtype == np.float32 and got.shape == (n,)
+    dls = store.norms_host[d]
+    by_dl = port_bm25.ragged_contribs(t, dls, w, 1.2, 0.75, 37.5, scorer,
+                                      device="cpu")
+    np.testing.assert_array_equal(got.view(np.int32), by_dl.view(np.int32))
+    if n:
+        ref = ref_bm25.ragged_contribs(t, dls, w, 1.2, 0.75, 37.5, scorer)
+        if scorer == "tfidf":
+            np.testing.assert_array_equal(got.view(np.int32),
+                                          ref.view(np.int32))
+        else:
+            np.testing.assert_allclose(got, ref, rtol=1e-6, atol=0)

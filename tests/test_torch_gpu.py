@@ -1287,10 +1287,11 @@ def test_contrib_flat_kernel_matches_plain_bit_for_bit(cuda, scorer):
     assert not got[-1000:].any()
 
 
-def _pool_batch(nq, qp, cp, tp, pages, seed):
+def _pool_batch(nq, qp, cp, tp, pages, seed, sizes=None):
     """A random batch descriptor over a random region: each query's
     slices touch distinct lanes; small tf and norm ranges make many equal
-    scores; rows past nq are dead (nc 0)."""
+    scores; rows past nq are dead (nc 0). `sizes` gives the live rows'
+    lane counts (else each draws one in [cp / 4, cp - 1))."""
     rng = np.random.default_rng(seed)
     docs_pg = rng.integers(0, 50_000, (pages, 1024)).astype(np.int32)
     tfs_pg = rng.integers(1, 4, (pages, 1024)).astype(np.int32)
@@ -1299,10 +1300,12 @@ def _pool_batch(nq, qp, cp, tp, pages, seed):
     cand = np.full((qp, cp), pk.PAD_DOC, np.int32)
     per_q = []
     for q in range(nq):
-        n = int(rng.integers(cp // 4, cp - 1))
+        n = int(sizes[q]) if sizes is not None else \
+            int(rng.integers(cp // 4, cp - 1))
         nc[q] = n
         cand[q, :n] = np.sort(rng.choice(1 << 30, n, replace=False))
-        sl = [rng.choice(n, int(rng.integers(1, n)), replace=False)
+        sl = [rng.choice(n, int(rng.integers(1, n)) if n > 1 else 1,
+                         replace=False)
               for _ in range(int(rng.integers(1, tp + 1)))]
         per_q.append(sl)
     ep = max(sum(len(s) for s in sl) for sl in per_q)
@@ -1325,31 +1328,133 @@ def _pool_batch(nq, qp, cp, tp, pages, seed):
     return (docs_pg, tfs_pg, norms, si, w, lane, soff), smax, cand, nc
 
 
-@pytest.mark.parametrize("kk,cp", [(16, 1024), (128, 4096), (8192, 16384),
-                                   (10, 37), (100, 3001)])
-def test_pool_score_kernel_matches_plain_bit_for_bit(cuda, kk, cp):
-    """Full mode (ties, dead lanes and dead rows, kk past 4,096, lane
-    counts that are no power of two) and partial mode equal the plain
-    version bit for bit."""
-    arrays, smax, cand, nc = _pool_batch(6, 8, cp, 4, 64, seed=kk)
+_CAP = pk.POOL_ROW_LANES
+#: id -> (live rows, rows, cp, kk, live rows' lane counts or None, seed,
+#: regime); the first five shapes and seeds are the test's earlier cases
+POOL_CASES = {
+    "kk16": (6, 8, 1024, 16, None, 16, "row"),
+    "kk128": (6, 8, 4096, 128, None, 128, "large"),
+    "kk8192": (6, 8, 16384, 8192, None, 8192, "large"),
+    "kk10-cp37": (6, 8, 37, 10, None, 10, "row"),
+    "kk100-cp3001": (6, 8, 3001, 100, None, 100, "large"),
+    "kk32": (6, 8, 4096, 32, None, 38, "row"),
+    "kk1000": (3, 4, 19_048, 1000, [19_048, 999, 5], 1003, "large"),
+    "batch1": (1, 1, 19_048, 10, [19_048], 11, "row"),
+    "batch64": (64, 64, 19_048, 10, None, 74, "row"),
+    "skewed": (64, 64, _CAP, 10, [_CAP] + [300 + 7 * i for i in range(63)],
+               74, "row"),
+    "at-cap": (3, 4, _CAP, 10, [_CAP, _CAP - 1, 5], 13, "row"),
+    "at-cap-kk32": (2, 3, _CAP, 32, [_CAP, 31], 34, "row"),
+    "one-past-cap": (3, 4, _CAP + 1, 10, [_CAP + 1, 20, 4], 13, "large"),
+    "far-past-cap": (2, 2, 1_000_000, 10, [1_000_000, 1000], 12, "large"),
+    "kk-past-nc": (5, 8, 600, 32, [3, 1, 31, 32, 600], 37, "row"),
+    "kk-past-nc-large": (5, 8, 600, 100, [37, 1, 99, 100, 600], 105,
+                         "large"),
+}
+
+
+@pytest.mark.parametrize("case", list(POOL_CASES))
+def test_pool_score_kernel_matches_plain_bit_for_bit(cuda, case):
+    """Full mode (ties, dead lanes and dead rows, kk past nc and past
+    4,096, lane counts that are no power of two) and partial mode equal
+    the plain version bit for bit in both regimes, at batch 1 and 64, a
+    skewed batch, rows at the ROW cap, one lane past it and far past it;
+    a second call gives the same bits; a ROW call allocates its outputs
+    and nothing else."""
+    nq, qp, cp, kk, sizes, seed, regime = POOL_CASES[case]
+    assert pk.pool_regime(cp, kk) == regime
+    pages = max(64, cp // 1024 + 1)     # a slice's slots are distinct
+    arrays, smax, cand, nc = _pool_batch(nq, qp, cp, 4, pages, seed=seed,
+                                         sizes=sizes)
     dev = [torch.from_numpy(a).to(cuda) for a in arrays]
     c_d, nc_d = torch.from_numpy(cand).to(cuda), torch.from_numpy(nc).to(cuda)
+    args = (*dev, smax, cp, 1.2, 0.75, 6.5, "bm25")
+    torch.cuda.synchronize()
     before = LAUNCHES.get("pool_score")
-    vals, docs = pk.pool_score(*dev, smax, cp, 1.2, 0.75, 6.5, "bm25",
-                               c_d, nc_d, kk)
-    acc = pk.pool_score(*dev, smax, cp, 1.2, 0.75, 6.5, "bm25")
+    a0 = torch.cuda.memory_stats().get("allocation.all.allocated", 0)
+    vals, docs = pk.pool_score(*args, c_d, nc_d, kk)
+    a1 = torch.cuda.memory_stats().get("allocation.all.allocated", 0)
+    acc = pk.pool_score(*args)
+    a2 = torch.cuda.memory_stats().get("allocation.all.allocated", 0)
     torch.cuda.synchronize()
     assert LAUNCHES.get("pool_score") == before + 2
-    ref_v, ref_d = pk.pool_score_plain(*dev, smax, cp, 1.2, 0.75, 6.5,
-                                       "bm25", c_d, nc_d, kk)
-    ref_acc = pk.pool_score_plain(*dev, smax, cp, 1.2, 0.75, 6.5, "bm25")
+    if regime == "row":
+        assert (a1 - a0, a2 - a1) == (2, 1)
+    ref_v, ref_d = pk.pool_score_plain(*args, c_d, nc_d, kk)
+    ref_acc = pk.pool_score_plain(*args)
     assert torch.equal(acc.view(torch.int32), ref_acc.view(torch.int32))
     assert torch.equal(docs, ref_d)
     assert torch.equal(vals.view(torch.int32), ref_v.view(torch.int32))
-    # ties exist, and the dead rows hold only the sentinel
-    v = vals[:6].cpu().numpy()
-    assert (v[:, 1:] == v[:, :-1]).any()
-    assert (docs[6:] == pk.PAD_DOC).all()
+    v2, d2 = pk.pool_score(*args, c_d, nc_d, kk)
+    assert torch.equal(d2, docs)
+    assert torch.equal(v2.view(torch.int32), vals.view(torch.int32))
+    assert torch.equal(pk.pool_score(*args).view(torch.int32),
+                       acc.view(torch.int32))
+    # ties exist among the live rows' winners, and the dead rows and the
+    # slots past nc hold only the pads
+    v, d = vals.cpu().numpy(), docs.cpu().numpy()
+    won = [v[q, :min(int(nc[q]), kk)] for q in range(nq)]
+    assert any((x[1:] == x[:-1]).any() for x in won)
+    for q in range(qp):
+        assert (d[q, min(int(nc[q]), kk):] == pk.PAD_DOC).all()
+        assert np.isneginf(v[q, min(int(nc[q]), kk):]).all()
+
+
+@pytest.mark.parametrize("blocks", [1, 2, 4, 8])
+def test_pool_score_every_cluster_size_matches_plain(cuda, monkeypatch,
+                                                      blocks):
+    """A query's lanes split over 1, 2, 4 or 8 blocks of a cluster (the
+    entries of each slice taken in turn by the cluster's blocks and added
+    through distributed shared memory, each block's best merged by the
+    first) give the plain version's bits, full and partial mode."""
+    arrays, smax, cand, nc = _pool_batch(7, 8, 19_048, 4, 64, seed=blocks)
+    dev = [torch.from_numpy(a).to(cuda) for a in arrays]
+    c_d, nc_d = torch.from_numpy(cand).to(cuda), torch.from_numpy(nc).to(cuda)
+    args = (*dev, smax, 19_048, 1.2, 0.75, 6.5, "bm25")
+    monkeypatch.setattr(pk, "ROW_CLUSTER", blocks)
+    vals, docs = pk.pool_score(*args, c_d, nc_d, 10)
+    acc = pk.pool_score(*args)
+    ref_v, ref_d = pk.pool_score_plain(*args, c_d, nc_d, 10)
+    assert torch.equal(docs, ref_d)
+    assert torch.equal(vals.view(torch.int32), ref_v.view(torch.int32))
+    assert torch.equal(acc.view(torch.int32),
+                       pk.pool_score_plain(*args).view(torch.int32))
+
+
+@pytest.mark.parametrize("scorer", ["bm25", "tfidf"])
+@pytest.mark.parametrize("n", [(1 << 20) + 3, 4096, 5])
+def test_contrib_flat_with_norms_matches_plain_bit_for_bit(cuda, scorer, n):
+    """With `norms`, the second array holds doc ids: bit-equal to
+    contrib_plain over the gathered norms, from three runs of one packed
+    buffer (misaligned where n % 4 != 0) and from separate arrays; and
+    `ragged_contribs` (one upload, one readback) gives the same bits."""
+    from serenedb_tpu_torch.device import UPLOADS
+    rng = np.random.default_rng(n)
+    norms = torch.from_numpy(
+        rng.integers(1, 5000, 70_000).astype(np.int32)).to(cuda)
+    tfs = rng.integers(0, 300, n).astype(np.int32)
+    docs = rng.integers(0, 70_000, n).astype(np.int32)
+    w = rng.random(n).astype(np.float32) * 12
+    packed = torch.from_numpy(np.concatenate(
+        [tfs, docs, w.view(np.int32)])).to(cuda)
+    runs = (packed[:n], packed[n:2 * n], packed[2 * n:].view(torch.float32))
+    want = kern.contrib_plain(scorer, runs[0].float(),
+                              norms[runs[1].long()].float(), runs[2], 1.2,
+                              0.75, kern._avg(83.25))
+    before = LAUNCHES.get("contrib_flat")
+    got = kern.contrib_flat(*runs, 1.2, 0.75, 83.25, scorer, norms)
+    apart = kern.contrib_flat(*(r.clone() for r in runs), 1.2, 0.75, 83.25,
+                              scorer, norms)
+    torch.cuda.synchronize()
+    assert LAUNCHES.get("contrib_flat") == before + 2
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert torch.equal(apart.view(torch.int32), want.view(torch.int32))
+    t0 = UPLOADS.get("transfers")
+    host = bm25_ops.ragged_contribs(tfs, docs, w, 1.2, 0.75, 83.25, scorer,
+                                    norms=norms)
+    assert UPLOADS.get("transfers") - t0 == 1
+    np.testing.assert_array_equal(host.view(np.int32),
+                                  want.cpu().numpy().view(np.int32))
 
 
 # -- the sharded tier's merge and the K13 entries ----------------------------
@@ -1483,12 +1588,12 @@ def test_k13_agg_entries_match_plain(cuda):
 # -- kernels a call, from a captured CUDA graph ------------------------------
 # (last in the file: no profiled test runs after a graph capture)
 
-def _graph_activity(fn) -> tuple:
+def _graph_activity(fn, memsets: bool = False) -> tuple:
     """(kernels, host-to-device copies) that one fn() issues, read from a
     CUDA graph that captures it (after a warm-up call): its kernel nodes
-    and its memcpy nodes, by libcuda's cuGraphGetNodes and
-    cuGraphNodeGetType. A graph holds every launch, where a profiled
-    window can drop events."""
+    and its memcpy nodes (and, with `memsets`, its memset nodes third),
+    by libcuda's cuGraphGetNodes and cuGraphNodeGetType. A graph holds
+    every launch, where a profiled window can drop events."""
     import ctypes
     fn()
     torch.cuda.synchronize()
@@ -1507,7 +1612,9 @@ def _graph_activity(fn) -> tuple:
         assert drv.cuGraphNodeGetType(ctypes.c_void_p(node),
                                       ctypes.byref(kind)) == 0
         kinds.append(kind.value)
-    # CU_GRAPH_NODE_TYPE_KERNEL = 0, CU_GRAPH_NODE_TYPE_MEMCPY = 1
+    # CU_GRAPH_NODE_TYPE_KERNEL = 0, _MEMCPY = 1, _MEMSET = 2
+    if memsets:
+        return kinds.count(0), kinds.count(1), kinds.count(2)
     return kinds.count(0), kinds.count(1)
 
 
@@ -1548,3 +1655,102 @@ def test_merge_topk_is_one_kernel_a_call(cuda, S, L):
     scores, docs = _merge_inputs(S, 16, L, S + L, True)
     sc, dd = torch.from_numpy(scores).to(cuda), torch.from_numpy(docs).to(cuda)
     assert _graph_activity(lambda: mk.merge_topk(sc, dd, 10)) == (1, 0)
+
+
+@pytest.mark.parametrize("qp,cp,kk", [(1, 19_048, 10), (64, 19_048, 10),
+                                      (64, 19_048, 0), (8, 16384, 32)])
+def test_pool_score_row_regime_is_one_kernel_a_call(cuda, qp, cp, kk):
+    """A ROW-regime pool_score call, full or partial mode, is one kernel,
+    with no memset and no copy in (no zeroed accumulator, no slice_max
+    upload)."""
+    sizes = [cp] + [cp // 3 + i for i in range(qp - 1)]
+    arrays, smax, cand, nc = _pool_batch(qp, qp, cp, 3, 64, seed=qp,
+                                         sizes=sizes)
+    dev = [torch.from_numpy(a).to(cuda) for a in arrays]
+    c_d, nc_d = torch.from_numpy(cand).to(cuda), torch.from_numpy(nc).to(cuda)
+    assert pk.pool_regime(cp, kk) == "row"
+    full = (c_d, nc_d, kk) if kk else ()
+    assert _graph_activity(lambda: pk.pool_score(
+        *dev, smax, cp, 1.2, 0.75, 6.5, "bm25", *full),
+        memsets=True) == (1, 0, 0)
+
+
+@pytest.mark.parametrize("G", [10_001, tk.CHAIN_ONE_MAX + 1])
+def test_topn_calls_from_a_captured_graph(cuda, G):
+    """One topn_scan call is 1 to 5 kernels and no copy in; one chain_topn
+    call is one kernel under its one-block cap (more past it) and no copy
+    in, counted from a captured graph as chip_smoke.py counts phase 10's
+    top-N calls."""
+    rng = np.random.default_rng(9)
+    n = 2_097_152
+    dc, kind, off = _key_tiles(
+        cuda, rng.integers(0, 100_000, n).astype(np.int32))
+    spec = tk.TopnSpec([kind], [off], 0, True, False)
+    kernels, copies = _graph_activity(
+        lambda: tk.topn_scan(spec, [(dc.data, dc.mask)], dc.mask, 10))
+    assert 1 <= kernels <= 5 and copies == 0, (kernels, copies)
+    rowcount = torch.from_numpy(rng.integers(0, 5, G)).to(cuda)
+    outs = [rowcount, torch.zeros(G * 3, dtype=torch.int32, device=cuda)]
+    kernels, copies = _graph_activity(
+        lambda: tk.chain_topn(rowcount, rowcount, 1, 1, True, 16, outs))
+    assert copies == 0, copies
+    assert kernels == 1 if G <= tk.CHAIN_ONE_MAX else kernels >= 1, kernels
+
+
+@pytest.mark.parametrize("which", ["topk_rows", "kmeans_update",
+                                   "join_probe", "join_probe_right",
+                                   "maxsim"])
+def test_profiled_calls_also_count_from_a_captured_graph(cuda, which):
+    """The calls whose kernels chip_smoke.py reads with torch.profiler
+    capture in a CUDA graph, which it counts instead where no profiled
+    window is complete: the graph holds the call's kernels and no copy
+    in."""
+    from serenedb_tpu_torch.ops import vector_kernels as vk
+    rng = np.random.default_rng(4)
+    if which == "topk_rows":
+        scores = torch.from_numpy(
+            rng.random((16, 200_003)).astype(np.float32)).to(cuda)
+        hits = torch.from_numpy(rng.integers(0, 3, (16, 200_003))).to(
+            cuda, torch.int32)
+        require = torch.ones(16, dtype=torch.int32, device=cuda)
+        want = 2                      # the one-read regime: pass 0, TAKE
+        fn = lambda: kern.topk_rows(scores, 10, hits, require)  # noqa: E731
+    elif which == "kmeans_update":
+        x = torch.from_numpy(rng.random((100_000, 64)).astype(np.float32)
+                             ).to(cuda)
+        a = torch.from_numpy(rng.integers(0, 256, 100_000).astype(np.int32)
+                             ).to(cuda)
+        c = torch.zeros((256, 64), dtype=torch.float32, device=cuda)
+        want = 4
+        fn = lambda: vk.kmeans_update(x, a, c)  # noqa: E731
+    elif which.startswith("join_probe"):
+        right = which.endswith("right")
+        spec, cols, prow, pc, cnt, rt = _probe_case(cuda, False, right)
+        want = jk.CALL_LAUNCHES[right]
+        fn = lambda: jk.join_probe(spec, cols, prow, pc, cnt,  # noqa: E731
+                                   rt)
+    else:
+        ndocs, dp, lp = 300, 64, 512
+        cnt = rng.integers(1, 12, ndocs).astype(np.int32)
+        counts = np.zeros(lp, np.int32)
+        counts[:ndocs] = cnt
+        offsets = np.zeros(lp, np.int32)
+        offsets[1:ndocs + 1] = np.cumsum(cnt)
+        ntok = int(cnt.sum())
+        rows = np.full(lp, vk.PAD_ROW, np.int32)
+        rows[:ndocs] = rng.permutation(10_000)[:ndocs]
+        dmap = np.full(3 * 128, ndocs, np.int32)
+        dmap[:ndocs] = np.arange(ndocs)
+        t = lambda a: torch.from_numpy(  # noqa: E731
+            np.ascontiguousarray(a)).to(cuda)
+        args = (t(rng.standard_normal((ntok, dp)).astype(np.float32)),
+                t(np.arange(max(ntok, 8), dtype=np.int32)), t(offsets),
+                t(counts), t(rows),
+                t(rng.standard_normal((4, 8, dp)).astype(np.float32)),
+                t(dmap.reshape(3, 128)))
+        want = None                   # tiles, score, then the selection
+        fn = lambda: vk.maxsim(*args, tile=32,  # noqa: E731
+                               tcap=int(cnt.max()), kkp=8)
+    kernels, copies = _graph_activity(fn)
+    assert copies == 0, copies
+    assert kernels == want if want else kernels >= 3, kernels

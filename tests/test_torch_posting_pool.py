@@ -44,6 +44,8 @@ from serenedb_tpu_torch.obs import device as obs_device
 from serenedb_tpu_torch.search import posting_pool
 from serenedb_tpu_torch.search.analysis import get_analyzer
 from serenedb_tpu_torch.search.batcher import SearchBatcher
+from serenedb_tpu_torch.ops import bm25_kernels as kern
+from serenedb_tpu_torch.ops import pool_kernels as pool_kernels_mod
 from serenedb_tpu_torch.search.posting_pool import POOL
 from serenedb_tpu_torch.search.query import parse_query
 from serenedb_tpu_torch.search.searcher import MultiSearcher, SegmentSearcher
@@ -535,3 +537,105 @@ def test_column_cache_trades_its_budget_with_the_pools():
     finally:
         REF_CACHE.clear()
         DEVICE_CACHE.clear()
+
+
+@pytest.mark.parametrize("cp,kk,regime", [
+    (1, 0, "row"), (1, 1, "row"), (2048, 10, "row"), (2049, 10, "row"),
+    (19_048, 10, "row"), (19_048, 0, "row"), (19_048, 32, "row"),
+    (19_048, 33, "large"), (19_048, 1000, "large"), (19_048, 8192, "large"),
+    (pool_kernels_mod.POOL_ROW_LANES, 10, "row"),
+    (pool_kernels_mod.POOL_ROW_LANES, 32, "row"),
+    (pool_kernels_mod.POOL_ROW_LANES + 1, 10, "large"),
+    (pool_kernels_mod.POOL_ROW_LANES, 0, "row"),
+    (pool_kernels_mod.POOL_ROW_LANES + 1, 0, "large"),
+    (2_000_000, 10, "large")])
+def test_pool_regime_at_its_edges(cp, kk, regime):
+    """ROW while kk <= 32 and cp <= POOL_ROW_LANES (both caps from card
+    timings: csrc/pool.cu asserts that a block then holds a whole row);
+    LARGE past either."""
+    assert pool_kernels_mod.POOL_ROW_KK == 32
+    assert pool_kernels_mod.pool_regime(cp, kk) == regime
+
+
+def _pool_case(seed, sizes, cp, tp):
+    """A batch descriptor of len(sizes) queries over a random region (rows
+    whose size is 0 are dead), small tf and norm ranges for ties."""
+    rng = np.random.default_rng(seed)
+    pages = 8
+    docs_pg = rng.integers(0, 5000, (pages, 1024)).astype(np.int32)
+    tfs_pg = rng.integers(1, 4, (pages, 1024)).astype(np.int32)
+    norms = rng.integers(5, 9, 5000).astype(np.int32)
+    qp = len(sizes)
+    cand = np.full((qp, cp), pool_kernels_mod.PAD_DOC, np.int32)
+    slices = []
+    for q, n in enumerate(sizes):
+        cand[q, :n] = np.sort(rng.choice(1 << 30, n, replace=False))
+        slices.append([rng.choice(n, int(rng.integers(1, n + 1)),
+                                  replace=False) for _ in range(tp)]
+                      if n else [])
+    ep = max(1, max(sum(len(x) for x in sl) for sl in slices))
+    si = np.zeros((qp, ep), np.int32)
+    w = np.zeros((qp, ep), np.float32)
+    lane = np.zeros((qp, ep), np.int32)
+    soff = np.zeros((qp, tp + 1), np.int32)
+    smax = [0] * tp
+    for q, sl in enumerate(slices):
+        pos = 0
+        for t, lanes in enumerate(sl):
+            m = len(lanes)
+            si[q, pos:pos + m] = rng.choice(pages * 1024, m, replace=False)
+            w[q, pos:pos + m] = rng.choice([1.5, 2.25])
+            lane[q, pos:pos + m] = lanes
+            soff[q, t] = pos
+            smax[t] = max(smax[t], m)
+            pos += m
+        soff[q, len(sl):] = pos
+    return (docs_pg, tfs_pg, norms, si, w, lane, soff), smax, cand, \
+        np.int32(sizes)
+
+
+@pytest.mark.parametrize("scorer", ["bm25", "tfidf"])
+@pytest.mark.parametrize("sizes,cp,kk", [
+    ([40, 7, 0, 40], 40, 10), ([40, 7, 0, 40], 40, 32),
+    ([300, 1, 2], 300, 33), ([300, 1, 2], 300, 0), ([1], 1, 1),
+    ([0, 0], 16, 4)])
+def test_pool_score_plain_follows_the_host_add_order_and_tie_order(
+        scorer, sizes, cp, kk):
+    """The plain version, which the kernels equal bit for bit, is each
+    lane's contributions added in slice order from +0.0 (the host ragged
+    path's `acc[ix] += c`), then each row's kk best live lanes by (score
+    desc, doc asc) with (-inf, PAD_DOC) pads, written out as loops."""
+    import torch
+    pk = pool_kernels_mod
+    arrays, smax, cand, nc = _pool_case(len(sizes) + kk, sizes, cp, 3)
+    docs_pg, tfs_pg, norms, si, w, lane, soff = arrays
+    t = [torch.from_numpy(a) for a in arrays]
+    args = (*t, smax, cp, 1.2, 0.75, 6.5, scorer)
+    got = pk.pool_score(*args, torch.from_numpy(cand), torch.from_numpy(nc),
+                        kk) if kk else pk.pool_score(*args)
+    slot = si.reshape(-1).astype(np.int64)
+    c = kern.contrib_plain(
+        scorer, torch.from_numpy(tfs_pg.reshape(-1)[slot]).float(),
+        torch.from_numpy(norms[docs_pg.reshape(-1)[slot]]).float(),
+        torch.from_numpy(w.reshape(-1)), 1.2, 0.75,
+        kern._avg(6.5)).numpy().reshape(si.shape)
+    acc = np.zeros((len(sizes), cp), np.float32)
+    for q in range(len(sizes)):
+        for s in range(soff.shape[1] - 1):
+            for e in range(soff[q, s], soff[q, s + 1]):
+                acc[q, lane[q, e]] = np.float32(acc[q, lane[q, e]] +
+                                                c[q, e])
+    if not kk:
+        np.testing.assert_array_equal(got.numpy().view(np.int32),
+                                      acc.view(np.int32))
+        return
+    for q in range(len(sizes)):
+        order = sorted(range(nc[q]), key=lambda i: (-acc[q, i], cand[q, i]))
+        top = order[:kk]
+        want_v = np.full(kk, -np.inf, np.float32)
+        want_d = np.full(kk, pk.PAD_DOC, np.int32)
+        want_v[:len(top)] = acc[q, top] + np.float32(0.0)   # -0.0 as +0.0
+        want_d[:len(top)] = cand[q, top]
+        np.testing.assert_array_equal(got[0][q].numpy().view(np.int32),
+                                      want_v.view(np.int32))
+        np.testing.assert_array_equal(got[1][q].numpy(), want_d)
