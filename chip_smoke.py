@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Drive the port's BM25 search, SQL analytics, top-N, fused-join, vector,
-serving and sharded paths on one CUDA card and check them.
+serving, sharded and durable paths on one CUDA card and check them.
 
     python3 chip_smoke.py
 
@@ -88,9 +88,10 @@ Phases (any failure exits non-zero and prints no result line):
      passages with every 7th a 1,030-token page, at 128 and 768 dims,
      against the f64 oracle (docs longer than one token tile);
  13. `bm25_sql`: the `bm25` shape's corpus (100,000 docs) through SQL:
-     CREATE INDEX ... USING inverted, the 256-query mix as @@ + bm25()
-     statements, an INSERT of 10,000 docs (a second segment), the mix
-     again; rows held to the port's host WAND (bench.py's rule);
+     CREATE INDEX ... USING inverted (built by the native indexer, which
+     the phase requires), the 256-query mix as @@ + bm25() statements,
+     an INSERT of 10,000 docs (a second segment), the mix again; rows
+     held to the port's host WAND (bench.py's rule);
  14. ivf_probe (nprobe 16 at batch 64 and at batch 1, and the brute
      layout; each call exactly its two kernels, lists then rows, and no
      copy in, device ms by kernel), maxsim (one 16-query batch, bit for
@@ -116,7 +117,8 @@ Phases (any failure exits non-zero and prints no result line):
  16. serving: 200,000 docs from bench_bm25_1m's generator (cut from 1M
      for the script's time; still the packed regime; the index's
      tokenizer 'simple', as phase 13's) as an ES document table (`_id`,
-     `_source`, `body`) with an inverted index, behind one
+     `_source`, `body`) with an inverted index (built by the native
+     indexer, which the phase requires), behind one
      FrontDoor serving HTTP and the PG wire; one _msearch of 64 two-term
      match items cold, twice warm and once with the pool off, each item
      equal to its _search run serially with serene_search_batch = off, a
@@ -158,15 +160,30 @@ Phases (any failure exits non-zero and prints no result line):
      entries of ops/agg.py (masked count,
      sum, min/max, the one-hot chunk counts, group_count) on agg_scan
      against their plain versions on the card, bit for bit;
+ 20. the durable tier: phase 7's `hits` table (10,000,000 rows, seed 3)
+     and phase 13's 100,000-doc corpus put into durable tables of a fresh
+     data directory through SQL (CREATE TABLE, INSERT ... SELECT, VACUUM,
+     CREATE INDEX ... USING inverted); close(), reopen on the card;
+     INSERT 10,000 docs and 1,000 `hits` rows, acknowledged, then crash()
+     (no flush) and reopen again. After each reopen: phase 7's six
+     queries and T4 on 'gpu' equal to 'cpu' and to an in-memory database
+     built from the same rows (agg_scan and topn_scan launched); every
+     acknowledged row read back; the 256-query @@ + bm25() mix bit-equal
+     to the in-memory database's and held to the host WAND. It prints
+     the seconds of the write, the checkpoint, the close and each
+     recovery, the directory's bytes and the native indexer's seconds;
+     the native indexer must build every index here, as in phases 13 and
+     16 (pyarrow is needed: the script fails without it);
  Last of all (no profiled window runs after a graph capture): phase
      10's top-N counts, and any call of phases 5-19 whose profiled
      windows never showed its kernels complete, from captured graphs
      (the kernels and copies in a call, held to the same counts);
- 20. one JSON line per kernel, the card line, then the device line.
+ 21. one JSON line per kernel, the card line, then the device line.
 
 Launch counts are zeroed just before each main-path phase and read just
-after it; the comparisons of phases 5, 10, 14, 18 and 19 run outside
-those windows.
+after it (phase 20 counts its durable database's launches only, not
+the in-memory one it is held against); the comparisons of phases 5, 10,
+14, 18 and 19 run outside those windows.
 The result cache is off in phases 6-9, so every statement executes, and
 the device column cache's cap is raised to 32 GiB, as a deployment on an
 80 GB card would set it. The script imports the port
@@ -1773,6 +1790,44 @@ def phase_colbert(device, n_docs=50_000, dim=128, q_tokens=32, batch=16,
             [r[0] for r in host_rows]}
 
 
+def wand_parity(label: str, ms, qs: list, rows: list, step: int = 4) -> int:
+    """Every `step`-th statement's rows (id, score) held to the host WAND
+    (cpu_topk) by bench.py's rule: scores within PARITY_RTOL/ATOL, ids
+    equal but where scores tie within 1e-3. Returns the count checked."""
+    from serenedb_tpu_torch.search.query import parse_query
+    checked = 0
+    for qi in range(0, len(qs), step):
+        ref_s, ref_d = ms.cpu_topk(parse_query(qs[qi], ms.analyzer), 10)
+        got = rows[qi]
+        if len(got) != len(ref_s):
+            fail(f"{label} query {qi}: {len(got)} rows, host {len(ref_s)}")
+        gs = np.asarray([r[1] for r in got], np.float64)
+        if not np.allclose(gs, ref_s, rtol=PARITY_RTOL, atol=PARITY_ATOL):
+            fail(f"{label} query {qi}: scores {gs} vs host {ref_s}")
+        for j, (g, d) in enumerate(zip(got, ref_d.tolist())):
+            if g[0] != d and abs(gs[j] - float(ref_s[j])) >= 1e-3:
+                fail(f"{label} query {qi} rank {j}: doc {g[0]} != {d}")
+        checked += 1
+    return checked
+
+
+def native_build(label: str, fn) -> tuple:
+    """Run fn (a CREATE INDEX, a durable database's boot) and require
+    that every field index it built took the native indexer; returns
+    fn's result and the native build seconds."""
+    from serenedb_tpu_torch.native import BUILDS
+    before = BUILDS.snapshot()
+    result = fn()
+    after = BUILDS.snapshot()
+    native = after.get("native", 0) - before.get("native", 0)
+    python = after.get("python", 0) - before.get("python", 0)
+    if native < 1 or python:
+        fail(f"{label}: {native} native and {python} Python index builds; "
+             "the native indexer must build every one")
+    return result, (after.get("native_ns", 0) -
+                    before.get("native_ns", 0)) / 1e9
+
+
 def phase_bm25_sql(device, n_docs=100_000, append=10_000) -> dict:
     """The `bm25` shape's corpus through SQL: CREATE INDEX ... USING
     inverted, the 256-query mix as @@ + bm25() statements, then an INSERT
@@ -1782,7 +1837,6 @@ def phase_bm25_sql(device, n_docs=100_000, append=10_000) -> dict:
     from serenedb_tpu_torch.engine import Database
     from serenedb_tpu_torch.exec.tables import MemTable
     from serenedb_tpu_torch.search.index import find_index
-    from serenedb_tpu_torch.search.query import parse_query
 
     docs, qs = dense_corpus(n_docs + append)
     db = Database(device=device)
@@ -1800,8 +1854,9 @@ def phase_bm25_sql(device, n_docs=100_000, append=10_000) -> dict:
     out = {}
     LAUNCHES.reset()
     t0 = time.perf_counter()
-    c.execute("CREATE INDEX db ON docs USING inverted (body) WITH "
-              "(tokenizer = 'simple')")
+    _, out["native_s"] = native_build("bm25_sql", lambda: c.execute(
+        "CREATE INDEX db ON docs USING inverted (body) WITH "
+        "(tokenizer = 'simple')"))
     out["build_s"] = time.perf_counter() - t0
     runs, checked = [], 0
     for label in ("one segment", "two segments"):
@@ -1825,22 +1880,7 @@ def phase_bm25_sql(device, n_docs=100_000, append=10_000) -> dict:
         ms = find_index(table, "body").searcher("body")
         if len(ms.segments) != len(runs):
             fail(f"bm25_sql: {len(ms.segments)} segments in the {label} run")
-        for qi in range(0, len(qs), 4):
-            ref_s, ref_d = ms.cpu_topk(parse_query(qs[qi], ms.analyzer), 10)
-            got = rows[qi]
-            if len(got) != len(ref_s):
-                fail(f"bm25_sql {label} query {qi}: {len(got)} rows, host "
-                     f"{len(ref_s)}")
-            gs = np.asarray([r[1] for r in got], np.float64)
-            if not np.allclose(gs, ref_s, rtol=PARITY_RTOL,
-                               atol=PARITY_ATOL):
-                fail(f"bm25_sql {label} query {qi}: scores {gs} vs host "
-                     f"{ref_s}")
-            for j, (g, d) in enumerate(zip(got, ref_d.tolist())):
-                if g[0] != d and abs(gs[j] - float(ref_s[j])) >= 1e-3:
-                    fail(f"bm25_sql {label} query {qi} rank {j}: doc "
-                         f"{g[0]} != {d}")
-            checked += 1
+        checked += wand_parity(f"bm25_sql {label}", ms, qs, rows)
     launches = LAUNCHES.snapshot()
     for name in ("build_dense", "topk_rows"):
         if not launches.get(name):
@@ -2403,8 +2443,9 @@ def phase_serving(device, n_docs=200_000, n_items=64) -> dict:
     gen_s = time.perf_counter() - t0
     c = db.connect()
     t0 = time.perf_counter()
-    c.execute('CREATE INDEX ON books USING inverted ("body") WITH '
-              "(tokenizer = 'simple')")
+    _, native_s = native_build("serving", lambda: c.execute(
+        'CREATE INDEX ON books USING inverted ("body") WITH '
+        "(tokenizer = 'simple')"))
     build_s = time.perf_counter() - t0
     qterms = [f"w{1 + 9 * i}" for i in range(2 * n_items)]
     items = [{"query": {"match": {"body": f"{qterms[2 * i]} "
@@ -2417,7 +2458,8 @@ def phase_serving(device, n_docs=200_000, n_items=64) -> dict:
     pg = PgServer(db, "127.0.0.1", 0)
     front = FrontDoor(db, http_port=0, pg=pg)
     front.start()
-    out = {"gen_s": gen_s, "build_s": build_s, "ms": {}, "docs": n_docs}
+    out = {"gen_s": gen_s, "build_s": build_s, "native_s": native_s,
+           "ms": {}, "docs": n_docs}
     try:
         q0 = metrics.SEARCH_BATCH_QUERIES.value
         b0 = metrics.SEARCH_BATCH_DISPATCHES.value
@@ -3201,6 +3243,230 @@ def check_k13_aggs(device, reps=10) -> dict:
     return out
 
 
+# ------------------------------------------------------------ the durable tier
+
+HITS_DDL = ("CREATE TABLE hits (UserID BIGINT, RegionID INT, "
+            "AdvEngineID INT, SearchPhrase TEXT, SearchEngineID INT, "
+            "ResolutionWidth INT)")
+#: the digest of every `hits` row the durable phase reads back
+HITS_DIGEST = ("SELECT count(*), sum(RegionID), sum(AdvEngineID), "
+               "sum(SearchEngineID), sum(ResolutionWidth), min(UserID), "
+               "max(UserID), count(DISTINCT SearchPhrase) FROM hits")
+
+
+def extra_hits_columns(n: int) -> dict:
+    """n more `hits` rows (seed 4) in hits_columns' layout, with
+    ResolutionWidth in [5000, 6000): past every generated row's, so T4's
+    ten rows after the crash are acknowledged ones."""
+    from serenedb_tpu_torch.columnar.column import Column
+    rng = np.random.default_rng(4)
+    phrases = np.asarray([f"phrase {i}" for i in range(1, 100)],
+                         dtype=object)
+    return {
+        "UserID": Column.from_numpy(rng.integers(0, 1 << 62, n,
+                                                 dtype=np.int64)),
+        "RegionID": Column.from_numpy(
+            rng.integers(0, 9000, n).astype(np.int32)),
+        "AdvEngineID": Column.from_numpy(
+            rng.integers(0, 64, n).astype(np.int32)),
+        "SearchPhrase": Column.from_numpy(phrases[rng.integers(0, 99, n)]),
+        "SearchEngineID": Column.from_numpy(
+            rng.integers(0, 100, n).astype(np.int32)),
+        "ResolutionWidth": Column.from_numpy(
+            rng.integers(5000, 6000, n).astype(np.int32)),
+    }
+
+
+def dir_bytes(path: str) -> int:
+    import os
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, files in os.walk(path) for f in files)
+
+
+def durable_check(device, db, hits, docs, qs, label: str, window) -> dict:
+    """A reopened durable database against an in-memory one built from
+    the same rows: phase 7's six queries and T4 on 'gpu' equal to 'cpu'
+    on the recovered tables and to the in-memory database's, agg_scan
+    and topn_scan launched; every row read back (the digest, the rows
+    past the generated ones); the 256-query @@ + bm25() mix bit-equal to
+    the in-memory database's and held to the host WAND (bench.py's
+    rule). `window` counts the durable database's launches only."""
+    from serenedb_tpu_torch.device import LAUNCHES
+    from serenedb_tpu_torch.engine import Database
+    from serenedb_tpu_torch.exec.tables import MemTable
+    from serenedb_tpu_torch.search.index import find_index
+
+    mem = Database(device=device)
+    mem.schemas["main"].tables["hits"] = MemTable("hits", hits)
+    mem.schemas["main"].tables["docs"] = MemTable("docs", docs)
+    mc = mem.connect()
+    _, native_s = native_build(
+        f"durable {label} (in memory)", lambda: mc.execute(
+            "CREATE INDEX db ON docs USING inverted (body) WITH "
+            "(tokenizer = 'simple')"))
+    c, cs = db.connect(), db.connect()
+    for conn in (c, mc):
+        conn.execute("SET serene_result_cache = off")
+    reads = [HITS_DIGEST,
+             "SELECT * FROM hits WHERE ResolutionWidth >= 4000",
+             "SELECT count(*), min(id), max(id) FROM docs"]
+    for q in reads:
+        got, want = c.execute(q).rows(), mc.execute(q).rows()
+        if got != want:
+            fail(f"durable {label}: {got[:3]} read back, {want[:3]} "
+                 f"acknowledged: {q!r}")
+    queries = [(q, AGG) for q in HITS_QUERIES] + \
+        [(q, TOPN) for q in HITS_TOPN]
+    c.execute("SET serene_device = 'cpu'")
+    t0 = time.perf_counter()
+    cpu = [c.execute(q).rows() for q, _k in queries]
+    cpu_s = time.perf_counter() - t0
+    c.execute("SET serene_device = 'gpu'")
+    mc.execute("SET serene_device = 'gpu'")
+    gpu_ms = []
+    for (q, kernels), want in zip(queries, cpu):
+        before = {k: LAUNCHES.get(k) for k in kernels}
+        t0 = time.perf_counter()
+        got = window(lambda: c.execute(q).rows())
+        sync(device)
+        gpu_ms.append((time.perf_counter() - t0) * 1e3)
+        for k in kernels:
+            if LAUNCHES.get(k) <= before[k]:
+                fail(f"durable {label}: {k} did not launch for {q!r}")
+        if got != want:
+            fail(f"durable {label}: 'gpu' differs from 'cpu' on {q!r}")
+        if mc.execute(q).rows() != want:
+            fail(f"durable {label}: the in-memory database differs on {q!r}")
+    stmt = ("SELECT id, bm25(body) AS s FROM docs WHERE body @@ '{q}' "
+            "ORDER BY s DESC LIMIT 10")
+    t0 = time.perf_counter()
+    rows = window(lambda: [cs.execute(stmt.format(q=q)).rows() for q in qs])
+    sync(device)
+    search_ms = (time.perf_counter() - t0) / len(qs) * 1e3
+    mrows = [mc.execute(stmt.format(q=q)).rows() for q in qs]
+    if rows != mrows:
+        bad = next(i for i, (a, b) in enumerate(zip(rows, mrows)) if a != b)
+        fail(f"durable {label}: query {bad}'s rows {rows[bad][:3]} differ "
+             f"from the in-memory database's {mrows[bad][:3]}")
+    table = db.schemas["main"].tables["docs"]
+    checked = wand_parity(f"durable {label}", find_index(
+        table, "body").searcher("body"), qs, rows)
+    mem.close()
+    return {"cpu_s": cpu_s, "gpu_ms": gpu_ms, "search_ms": search_ms,
+            "checked": checked, "mem_native_s": native_s,
+            "rows": hits.num_rows}
+
+
+def phase_durable(device, n_hits=10_000_000, n_docs=100_000,
+                  append=10_000, n_extra=1_000) -> dict:
+    """The durable tier on the card, in a fresh data directory removed at
+    the end: phase 7's `hits` table (10,000,000 rows, seed 3) and phase
+    13's corpus (100,000 docs) put into durable tables through SQL
+    (CREATE TABLE, INSERT ... SELECT from registered in-memory tables,
+    VACUUM, CREATE INDEX ... USING inverted); close(), reopen on the
+    card; INSERT 10,000 docs and 1,000 `hits` rows, acknowledged, then
+    crash() (no flush); reopen again. Each reopen is held by
+    durable_check. The native indexer builds every index."""
+    import shutil
+    import tempfile
+
+    from serenedb_tpu_torch.columnar.column import Batch, concat_batches
+    from serenedb_tpu_torch.device import LAUNCHES
+    from serenedb_tpu_torch.engine import Database
+    from serenedb_tpu_torch.exec.tables import MemTable
+    from serenedb_tpu_torch.native import BUILDS
+
+    launches = {}
+
+    def window(fn):
+        """fn() with its launches added to the phase's count."""
+        before = LAUNCHES.snapshot()
+        out = fn()
+        for k, n in LAUNCHES.snapshot().items():
+            if n - before.get(k, 0):
+                launches[k] = launches.get(k, 0) + n - before.get(k, 0)
+        return out
+
+    t0 = time.perf_counter()
+    hits = Batch.from_pydict(hits_columns(n_hits))
+    more = Batch.from_pydict(extra_hits_columns(n_extra))
+    texts, qs = dense_corpus(n_docs + append)
+    docs = Batch.from_pydict({"id": np.arange(n_docs + append,
+                                              dtype=np.int64),
+                              "body": texts})
+    out = {"gen_s": time.perf_counter() - t0, "s": {}, "bytes": {},
+           "checks": {}}
+    s = out["s"]
+    native0 = BUILDS.get("native_ns")
+    LAUNCHES.reset()
+    datadir = tempfile.mkdtemp(prefix="serenedb_durable_")
+    try:
+        db = Database(datadir, device=device)
+        c = db.connect()
+        src = db.schemas["main"].tables
+        src["hits_src"] = MemTable("hits_src", hits)
+        src["docs_src"] = MemTable("docs_src", docs.slice(0, n_docs))
+        t0 = time.perf_counter()
+        window(lambda: [c.execute(q) for q in (
+            HITS_DDL, "INSERT INTO hits SELECT * FROM hits_src",
+            "CREATE TABLE docs (id BIGINT, body TEXT)",
+            "INSERT INTO docs SELECT * FROM docs_src")])
+        s["write"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        c.execute("VACUUM hits")
+        c.execute("VACUUM docs")
+        s["checkpoint"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        native_build("durable CREATE INDEX", lambda: window(lambda: c.execute(
+            "CREATE INDEX db ON docs USING inverted (body) WITH "
+            "(tokenizer = 'simple')")))
+        s["create index"] = time.perf_counter() - t0
+        del src["hits_src"], src["docs_src"]
+        t0 = time.perf_counter()
+        db.close()
+        s["close"] = time.perf_counter() - t0
+        out["bytes"]["after close"] = dir_bytes(datadir)
+
+        t0 = time.perf_counter()
+        db, _ = native_build("durable recovery 1", lambda: window(
+            lambda: Database(datadir, device=device)))
+        s["recover 1"] = time.perf_counter() - t0
+        out["checks"]["after close"] = durable_check(
+            device, db, hits, docs.slice(0, n_docs), qs, "after close",
+            window)
+
+        c = db.connect()
+        src = db.schemas["main"].tables
+        src["hits_more"] = MemTable("hits_more", more)
+        src["docs_more"] = MemTable("docs_more", docs.slice(n_docs,
+                                                            n_docs + append))
+        t0 = time.perf_counter()
+        window(lambda: [c.execute(q) for q in (
+            "INSERT INTO docs SELECT * FROM docs_more",
+            "INSERT INTO hits SELECT * FROM hits_more")])
+        s["acknowledged writes"] = time.perf_counter() - t0
+        del src["hits_more"], src["docs_more"]
+        db.crash()
+        out["bytes"]["after crash"] = dir_bytes(datadir)
+
+        t0 = time.perf_counter()
+        db, _ = native_build("durable recovery 2", lambda: window(
+            lambda: Database(datadir, device=device)))
+        s["recover 2"] = time.perf_counter() - t0
+        out["checks"]["after crash"] = durable_check(
+            device, db, concat_batches([hits, more]), docs, qs,
+            "after crash", window)
+        db.close()
+    finally:
+        shutil.rmtree(datadir, ignore_errors=True)
+    for k in ("agg_scan", "topn_scan"):
+        if not launches.get(k):
+            fail(f"durable: {k} never launched ({launches})")
+    out["native_s"] = (BUILDS.get("native_ns") - native0) / 1e9
+    out["launches"] = launches
+    return out
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -3443,7 +3709,8 @@ def main() -> int:
           f"launches {colbert['launches']}", flush=True)
     bsql = phase_bm25_sql(device)
     print(f"[13] bm25_sql: 100,000 docs, CREATE INDEX ... USING inverted "
-          f"{bsql['build_s']:.1f} s; {bsql['n_queries']} statements, ms per "
+          f"{bsql['build_s']:.1f} s (native indexer "
+          f"{bsql['native_s']:.2f} s); {bsql['n_queries']} statements, ms per "
           f"statement one segment {bsql['ms_per_statement'][0]:.3f}, after "
           f"the INSERT of 10,000 docs ({bsql['insert_s']:.1f} s) two "
           f"segments {bsql['ms_per_statement'][1]:.3f}; {bsql['checked']} "
@@ -3516,7 +3783,8 @@ def main() -> int:
     ms = serving["ms"]
     print(f"[16] serving: {serving['docs']} docs as an ES document table "
           f"(generated {serving['gen_s']:.1f} s, CREATE INDEX "
-          f"{serving['build_s']:.1f} s) behind FrontDoor; _msearch of 64 "
+          f"{serving['build_s']:.1f} s, native indexer "
+          f"{serving['native_s']:.2f} s) behind FrontDoor; _msearch of 64 "
           f"two-term match items: cold {ms['cold']:.1f} ms, warm "
           f"{ms['warm']:.1f} / {ms['warm2']:.1f} ms, pool off "
           f"{ms['pool off']:.1f} ms, warm in process (no HTTP) "
@@ -3611,6 +3879,26 @@ def main() -> int:
           f"; index_add_ into the 16 groups {k13_lib:.4f} ms", flush=True)
     print(f"    total {time.perf_counter() - t_start:.1f} s", flush=True)
 
+    # 20. the durable tier on the card
+    dur = phase_durable(device)
+    print(f"[20] durable: hits ({dur['checks']['after crash']['rows']} rows "
+          f"after the crash) and the bm25_sql corpus in a data directory "
+          f"(generated {dur['gen_s']:.1f} s); seconds: "
+          + ", ".join(f"{k} {v:.2f}" for k, v in dur["s"].items())
+          + f"; data directory {dur['bytes']['after close']} B after the "
+          f"close, {dur['bytes']['after crash']} B after the crash; native "
+          f"indexer {dur['native_s']:.2f} s in all; launches "
+          f"{dur['launches']}", flush=True)
+    for label, r in dur["checks"].items():
+        print(f"[20] durable, reopened {label}: cpu {r['cpu_s']:.3f} s for "
+              f"the 7 queries, 'gpu' ms {[round(x, 3) for x in r['gpu_ms']]}"
+              f" (cold), equal to 'cpu' and to an in-memory database of the "
+              f"same rows; every acknowledged row read back; 256 @@ + bm25() "
+              f"statements {r['search_ms']:.3f} ms each, bit-equal to the "
+              f"in-memory database's, {r['checked']} held to the host WAND",
+              flush=True)
+    print(f"    total {time.perf_counter() - t_start:.1f} s", flush=True)
+
     # measured last (after a graph capture no profiled window runs): the
     # kernels a call of phase 10's top-N calls (and of any call whose
     # profiled windows were incomplete), and pool_score in both regimes,
@@ -3630,14 +3918,15 @@ def main() -> int:
               f"{r['call_ms']:.4f} ms", flush=True)
     print(f"    total {time.perf_counter() - t_start:.1f} s", flush=True)
 
-    # 20. result lines
+    # 21. result lines
     launches = {}
     for window in (dense["launches"], packed["launches"],
                    packed["ragged"]["launches"],
                    *(r["launches"] for r in sql.values()),
                    sift["launches"], colbert["launches"],
                    bsql["launches"], paged["launches"],
-                   serving["launches"], shards["launches"]):
+                   serving["launches"], shards["launches"],
+                   dur["launches"]):
         for kname, n in window.items():
             launches[kname] = launches.get(kname, 0) + n
     results["agg_scan"] = checks["q1 GROUP BY region"]

@@ -19,8 +19,11 @@ and the batched ragged path with the paged posting pool), SQL analytics,
 top-N, joins, and search and vector search through
 `engine.Database(device=...).connect().execute`, and serving: the ES API
 and the PG wire behind `server.frontdoor.FrontDoor`, started by
-`python -m serenedb_tpu_torch.serened`. The tiers not ported yet are
-stubs that decline or raise (ROADMAP.md).
+`python -m serenedb_tpu_torch.serened`, durable storage
+(`Database(path)`: catalog, parquet snapshots, the WAL and recovery;
+it needs pyarrow), the file sources `read_csv` / `read_parquet`, and the
+native C++ indexer (`native/`, built with g++ at first use). The tiers
+not ported yet are stubs that decline or raise (ROADMAP.md).
 """
 
 __version__ = "0.1.0"

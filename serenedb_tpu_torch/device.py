@@ -15,6 +15,8 @@ ledger (serenedb_tpu/obs/device.py).
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import threading
 from typing import Union
 
@@ -40,20 +42,42 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
     return dev
 
 
+#: the device set by `building_on` (a database's boot, its maintenance
+#: passes): index builds that run outside any statement
+_BUILDING_ON: contextvars.ContextVar = contextvars.ContextVar(
+    "serene_building_on", default=None)
+
+
 def current_device() -> torch.device:
     """The device of the database whose statement is executing (its
-    `Database(device=)`); `cuda:0` outside any statement. Index builds
-    and refreshes place their device state here, since they run inside
-    CREATE INDEX or a query's read-repair."""
+    `Database(device=)`), or the one `building_on` set; `cuda:0`
+    otherwise. Index builds and refreshes place their device state here,
+    since they run inside CREATE INDEX, a query's read-repair, a durable
+    database's boot or its maintenance thread."""
+    dev = _BUILDING_ON.get()
+    if dev is not None:
+        return dev
     from .engine import CURRENT_CONNECTION
     conn = CURRENT_CONNECTION.get()
     return conn.db.device if conn is not None else resolve_device(None)
 
 
+@contextlib.contextmanager
+def building_on(device: torch.device):
+    """Make `device` the current one for the work of this block, on this
+    thread: index builds at boot and in the maintenance thread, which
+    have no statement to take it from."""
+    token = _BUILDING_ON.set(device)
+    try:
+        with device_scope(device):
+            yield
+    finally:
+        _BUILDING_ON.reset(token)
+
+
 def device_scope(device: torch.device):
     """Make `device` the calling thread's current CUDA device (worker-pool
     tasks launch kernels from their own threads); a no-op for the CPU."""
-    import contextlib
     if device is not None and device.type == "cuda":
         return torch.cuda.device(device)
     return contextlib.nullcontext()

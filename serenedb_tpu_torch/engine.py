@@ -1,4 +1,6 @@
-"""Copied from serenedb_tpu/engine.py (Database takes a device; no durable storage yet).
+"""Copied from serenedb_tpu/engine.py (Database takes a device, which its
+boot and maintenance passes build on; catalog ASTs pickle through
+storage.store so a data directory crosses between the packages).
 
 Engine facade: Database (catalog of tables) + Connection (session).
 
@@ -142,8 +144,6 @@ class Database(TableResolver):
 
     def __init__(self, path: Optional[str] = None,
                  device: DeviceLike = None):
-        if path is not None:
-            raise NotImplementedError("durable storage is not ported yet")
         self.path = path
         #: where the device tier runs: `cuda:0` unless the caller asks for
         #: the CPU (the plain versions of the kernels); every ExecContext
@@ -190,7 +190,9 @@ class Database(TableResolver):
         if path is not None:
             from .storage.store import Store
             self.store = Store(path)
-            self._boot()
+            from .device import building_on
+            with building_on(self.device):
+                self._boot()
             from .storage.maintenance import MaintenanceManager
             self.maintenance = MaintenanceManager(self)
             self.maintenance.start()
@@ -284,13 +286,12 @@ class Database(TableResolver):
             types = [dt.type_from_name(c["type"]) for c in tdef["columns"]]
             batch = self.store.read_snapshot(tdef["id"], names, types)
             t = StoredTable(name, batch, key, tdef["id"])
-            import base64
-            import pickle
+            from .storage.store import loads_ast
             t.table_meta = {
                 "engine": tdef.get("engine", "columnar"),
                 "primary_key": tdef.get("primary_key", []),
                 "not_null": tdef.get("not_null", []),
-                "defaults": {n: pickle.loads(base64.b64decode(b))
+                "defaults": {n: loads_ast(b)
                              for n, b in
                              (tdef.get("defaults") or {}).items()},
                 "tokenizers": tdef.get("tokenizers", {}),
@@ -300,9 +301,8 @@ class Database(TableResolver):
             self.schemas[schema].tables[name.lower()] = t
         for key, vdef in meta.get("views", {}).items():
             schema, name = key.split(".", 1)
-            import base64
-            import pickle
-            q = pickle.loads(base64.b64decode(vdef["ast_b64"]))
+            from .storage.store import loads_ast
+            q = loads_ast(vdef["ast_b64"])
             self.schemas[schema].views[name.lower()] = ViewDef(name, q, "")
 
         self.types = dict(meta.get("types", {}))
@@ -1391,9 +1391,8 @@ class Connection:
                                 ViewDef(name, st.query, body),
                                 st.or_replace)
             if self.db.store is not None:
-                import base64
-                import pickle
-                blob = base64.b64encode(pickle.dumps(st.query)).decode()
+                from .storage.store import dumps_ast
+                blob = dumps_ast(st.query)
                 self.db.store.update_meta(
                     lambda m: m["views"].__setitem__(
                         f"{schema}.{name.lower()}", {"ast_b64": blob}))

@@ -129,11 +129,20 @@ def build_field_index(texts: Iterable[Optional[str]],
     """Tokenize a column of documents into a FieldIndex (host-side; analysis
     is CPU work by design — SURVEY.md §7 hard part 5).
 
-    This is the reference's Python path for every analyzer. The
-    reference's native C++ indexer for the "simple" analyzer over ASCII
-    corpora (serenedb_tpu/native) is bit-identical to it by that package's
-    own contract, and is not ported yet."""
+    The "simple" analyzer over pure-ASCII corpora takes the native C++
+    one-pass indexer (serenedb_tpu_torch/native); everything else
+    (stemming, stopwords, unicode casing) uses the Python analyzers.
+    `native.BUILDS` counts which path built each index."""
     texts = list(texts)
+    if getattr(analyzer, "name", "") == "simple" and \
+            all(t is None or t.isascii() for t in texts):
+        from ..native import build_field_index_native
+        fi = build_field_index_native(texts)
+        if fi is not None:
+            _add_block_max(fi)
+            return fi
+    from ..native import BUILDS
+    BUILDS.bump("python")
     term_postings: dict[str, list] = {}
     norms = []
     total_tokens = 0

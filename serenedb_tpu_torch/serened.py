@@ -51,8 +51,8 @@ def main(argv=None):
                          "listen_spec.h multi-spec --listen)")
     ap.add_argument("--device", default=None,
                     help="where the device tier runs: cuda (default) or "
-                         "cpu; a data directory raises, durable storage "
-                         "is not ported yet")
+                         "cpu; with a data directory, its tables and "
+                         "indexes are recovered onto this device")
     ap.add_argument("--version", action="store_true",
                     help="print version/build id and exit")
     args = ap.parse_args(argv)

@@ -1,7 +1,7 @@
-"""Stub of serenedb_tpu/storage/: the WAL, the snapshot store and the
-maintenance loops are not ported yet. `Database(path=...)` raises before
-it reaches them; what a statement can still reach raises
-FEATURE_NOT_SUPPORTED."""
+"""Copied from serenedb_tpu/storage/__init__.py.
+
+Durability layer: WAL, store (snapshots + catalog persistence), and
+background maintenance loops."""
 
 from . import maintenance, store, wal
 

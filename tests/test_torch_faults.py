@@ -119,15 +119,24 @@ def test_copy_and_index_progress_paths(tmp_path):
     _same(conns, "SELECT * FROM u ORDER BY id")
 
 
-def test_stubbed_relations_and_sources_say_not_ported():
+def test_stubbed_relations_and_sources_say_not_ported(tmp_path):
+    """sdb_device is still a stub (0A000); the file sources are ported:
+    read_csv and read_parquet give the reference's rows on a file COPY'd
+    out, and its SQLSTATE on a missing one."""
     port = Database(device="cpu").connect()
     # the posting pool is ported: its relation answers
     port.execute("SELECT * FROM sdb_posting_pool").rows()
-    for q in ("SELECT * FROM sdb_device",
-              "SELECT * FROM read_csv('x.csv')",
-              "SELECT * FROM read_parquet('x.parquet')"):
-        state, _ = _sqlstate(port, q)
-        assert state == "0A000", q
+    state, _ = _sqlstate(port, "SELECT * FROM sdb_device")
+    assert state == "0A000"
+    conns = _pair(*PK_SETUP)
+    conns[0].execute(f"COPY t TO '{tmp_path}/t.csv' (FORMAT csv, "
+                     "HEADER true)")
+    conns[0].execute(f"COPY t TO '{tmp_path}/t.parquet' (FORMAT parquet)")
+    for fn, ext in (("read_csv", "csv"), ("read_parquet", "parquet")):
+        _same(conns, f"SELECT * FROM {fn}('{tmp_path}/t.{ext}') ORDER BY id")
+        q = f"SELECT * FROM {fn}('{tmp_path}/x.{ext}')"
+        assert _sqlstate(conns[1], q) == _sqlstate(conns[0], q) == \
+            ("58P01", "SqlError")
 
 
 def _resolve(path, node):

@@ -1754,3 +1754,79 @@ def test_profiled_calls_also_count_from_a_captured_graph(cuda, which):
     kernels, copies = _graph_activity(fn)
     assert copies == 0, copies
     assert kernels == want if want else kernels >= 3, kernels
+
+
+def test_durable_reopen_on_the_card_matches_the_host_path(cuda, tmp_path):
+    """A data directory written on the card (a snapshot, a WAL tail, an
+    inverted index) and reopened on it: the device tier's rows equal the
+    host path's, agg_scan and topn_scan launch, and every acknowledged
+    row survives a crash."""
+    from serenedb_tpu_torch.engine import Database
+    d = str(tmp_path / "data")
+    rng = np.random.default_rng(4)
+    n = 50_000
+    g, v = rng.integers(0, 40, n), rng.integers(-1000, 1000, n)
+    db = Database(d, device=cuda)
+    c = db.connect()
+    c.execute("CREATE TABLE t (g INT, v BIGINT, body TEXT)")
+    c.execute("INSERT INTO t VALUES " + ", ".join(
+        f"({a}, {b}, 'w{a} w{b % 7}')" for a, b in zip(g, v)))
+    c.execute("VACUUM")
+    c.execute("INSERT INTO t VALUES (41, 5, 'w41 w5'), (42, 6, 'w42')")
+    c.execute("CREATE INDEX ON t USING inverted (body) WITH "
+              "(tokenizer = 'simple')")
+    db.close()
+    queries = ["SELECT g, count(*), sum(v), min(v) FROM t GROUP BY g "
+               "ORDER BY g",
+               "SELECT count(*), sum(v) FROM t WHERE v > 100",
+               "SELECT g, v FROM t ORDER BY v DESC LIMIT 10",
+               "SELECT count(*) FROM t WHERE body @@ 'w41 OR w3'"]
+    for reopen in ("close", "crash"):
+        db = Database(d, device=cuda)
+        c = db.connect()
+        c.execute("SET serene_result_cache = off")
+        host = [c.execute(q).rows() for q in queries]
+        c.execute("SET serene_device = 'gpu'")
+        before = LAUNCHES.snapshot()
+        dev = [c.execute(q).rows() for q in queries]
+        after = LAUNCHES.snapshot()
+        assert dev == host
+        for k in ("agg_scan", "topn_scan"):
+            assert after.get(k, 0) > before.get(k, 0), k
+        if reopen == "close":
+            assert host[0][-1] == (42, 1, 6, 6)
+            c.execute("INSERT INTO t VALUES (43, 7, 'w43')")
+            db.crash()
+        else:
+            assert host[0][-1] == (43, 1, 7, 7)
+            db.close()
+
+
+def test_native_index_build_on_the_card(cuda):
+    """CREATE INDEX with the simple analyzer over ASCII text takes the
+    native indexer on a card database, and its search equals the host
+    WAND's."""
+    from serenedb_tpu_torch.engine import Database
+    from serenedb_tpu_torch.native import BUILDS
+    rng = np.random.default_rng(6)
+    docs = [" ".join(f"w{x}" for x in rng.zipf(1.3, 12) % 500)
+            for _ in range(20_000)]
+    db = Database(device=cuda)
+    c = db.connect()
+    c.execute("CREATE TABLE d (id INT, body TEXT)")
+    c.execute("INSERT INTO d VALUES " + ", ".join(
+        f"({i}, '{t}')" for i, t in enumerate(docs)))
+    before = BUILDS.snapshot()
+    c.execute("CREATE INDEX ON d USING inverted (body) WITH "
+              "(tokenizer = 'simple')")
+    after = BUILDS.snapshot()
+    assert after.get("native", 0) > before.get("native", 0)
+    assert after.get("python", 0) == before.get("python", 0)
+    q = ("SELECT id, bm25(body) AS s FROM d WHERE body @@ 'w3 w17' "
+         "ORDER BY s DESC, id LIMIT 10")
+    dev = c.execute(q).rows()
+    c.execute("SET serene_device = 'cpu'")
+    host = c.execute(q).rows()
+    assert [r[0] for r in dev] == [r[0] for r in host]
+    np.testing.assert_allclose([r[1] for r in dev], [r[1] for r in host],
+                               rtol=2e-3, atol=1e-3)
