@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Drive the port's BM25 search, SQL analytics, top-N, fused-join, vector,
-serving, sharded and durable paths on one CUDA card and check them.
+serving, sharded, durable and mesh paths on one CUDA card and check them.
 
     python3 chip_smoke.py
 
@@ -174,16 +174,36 @@ Phases (any failure exits non-zero and prints no result line):
      recovery, the directory's bytes and the native indexer's seconds;
      the native indexer must build every index here, as in phases 13 and
      16 (pyarrow is needed: the script fails without it);
+ 21. the device mesh: a 4-wide virtual mesh over the card (the host's
+     cards where it has 4; torch.cuda.device_count() printed): phase 6's
+     q1 (100M rows; its scalar and GROUP BY queries, T1) and phase 7's
+     hits (T4) at serene_mesh = 4, rows equal to serene_mesh = 0 on the
+     card, agg_scan once a shard a chunk with mesh_combine and topn_scan
+     once a shard; the packed corpus's 64 require-free queries in batches
+     of 16 through topk_batch(mesh_n = 4), top-10 within rtol 2e-3 / atol
+     1e-3 of the single device (a shard's plane each, summed by
+     mesh_combine); phase 17's join (1x) at shards 4 with the device
+     combine over the mesh (a join_probe a mesh device) and its search
+     merge at shards 4 (a merge_topk a mesh device and one over them),
+     both equal to shards = 1; the reference's three builders
+     (sharded_agg_step on q1's 100M-row column, sharded_bm25_topk on four
+     terms' postings, sharded_query_step over all 120M postings) exact
+     or within rtol 1e-5 / atol 1e-6 of a one-device mesh; then
+     mesh_combine, mesh_agg_partials and mesh_score_blocks against their
+     plain versions bit for bit on recorded calls, with their times and
+     byte bounds; the device count and the 'auto' combine restored;
  Last of all (no profiled window runs after a graph capture): phase
      10's top-N counts, and any call of phases 5-19 whose profiled
      windows never showed its kernels complete, from captured graphs
      (the kernels and copies in a call, held to the same counts);
- 21. one JSON line per kernel, the card line, then the device line.
+ 22. one JSON line per kernel, the card line, then the device line.
 
 Launch counts are zeroed just before each main-path phase and read just
 after it (phase 20 counts its durable database's launches only, not
-the in-memory one it is held against); the comparisons of phases 5, 10,
-14, 18 and 19 run outside those windows.
+the in-memory one it is held against; phase 21 zeroes them before each
+of its mesh runs and sums what each read, so its single-device
+comparisons stay out); the comparisons of phases 5, 10, 14, 18, 19 and
+21 run outside those windows.
 The result cache is off in phases 6-9, so every statement executes, and
 the device column cache's cap is raised to 32 GiB, as a deployment on an
 80 GB card would set it. The script imports the port
@@ -229,6 +249,9 @@ REPLACES = {
     "pool_score": "serenedb_tpu/search/posting_pool.py:155",
     "merge_topk": "serenedb_tpu/search/searcher.py:1019",
     "match_bitmap": "serenedb_tpu/ops/bm25.py:1035",
+    "mesh_combine": "serenedb_tpu/parallel/mesh.py:110",
+    "mesh_agg_partials": "serenedb_tpu/parallel/mesh.py:188",
+    "mesh_score_blocks": "serenedb_tpu/parallel/mesh.py:224",
 }
 SOURCES = {"bm25_accumulate": "serenedb_tpu_torch/ops/csrc/bm25.cu",
            "build_dense": "serenedb_tpu_torch/ops/csrc/bm25.cu",
@@ -245,7 +268,10 @@ SOURCES = {"bm25_accumulate": "serenedb_tpu_torch/ops/csrc/bm25.cu",
            "contrib_flat": "serenedb_tpu_torch/ops/csrc/bm25.cu",
            "pool_score": "serenedb_tpu_torch/ops/csrc/pool.cu",
            "merge_topk": "serenedb_tpu_torch/ops/csrc/merge.cu",
-           "match_bitmap": "serenedb_tpu_torch/ops/csrc/bm25.cu"}
+           "match_bitmap": "serenedb_tpu_torch/ops/csrc/bm25.cu",
+           "mesh_combine": "serenedb_tpu_torch/ops/csrc/mesh.cu",
+           "mesh_agg_partials": "serenedb_tpu_torch/ops/csrc/mesh.cu",
+           "mesh_score_blocks": "serenedb_tpu_torch/ops/csrc/mesh.cu"}
 #: the device column cache's cap in the SQL phases (MiB)
 DEVICE_CACHE_MB = 32768
 #: the vector pool's pages in phases 11-12 (16 KiB each: 6.1 GiB, room for
@@ -734,7 +760,8 @@ def phase_packed(device, n_docs=8_000_000, vocab=200_000,
             "launches": launches, "tile_bytes": store.hbm_bytes,
             "peak_bytes": peak, "ndocs_pad": store.ndocs_pad,
             "postings": int(len(fi.post_docs)),
-            "acc_args": rec_acc.args, "topk_args": rec_tk.args}
+            "acc_args": rec_acc.args, "topk_args": rec_tk.args,
+            "searcher": searcher, "nodes": nodes}
 
 
 def sync(device) -> None:
@@ -3467,6 +3494,417 @@ def phase_durable(device, n_hits=10_000_000, n_docs=100_000,
     return out
 
 
+#: the mesh width of phase 21: a virtual mesh over cuda:0 unless the
+#: host has this many cards
+MESH_WIDTH = 4
+
+
+def _mesh_bits_equal(a, b) -> bool:
+    import torch
+    if a.dtype == torch.float32:
+        return torch.equal(a.view(torch.int32), b.view(torch.int32))
+    return torch.equal(a, b)
+
+
+def check_mesh_kernel(device, name: str, args, reps: int = 10) -> dict:
+    """One recorded call of a mesh kernel against its plain version on the
+    card: bit for bit, its time and the plain version's (CUDA events),
+    and its byte bound (each input read once, each output written once;
+    for mesh_score_blocks the valid entries' gathers)."""
+    import torch
+
+    from serenedb_tpu_torch.ops import mesh_kernels as MK
+    a, kw = args
+    kern, plain = getattr(MK, name), getattr(MK, name + "_plain")
+    got, ref = kern(*a, **kw), plain(*a, **kw)
+    sync(device)
+    got = got if isinstance(got, tuple) else (got,)
+    ref = ref if isinstance(ref, tuple) else (ref,)
+    err = 0.0
+    for g, r in zip(got, ref):
+        if not _mesh_bits_equal(g, r):
+            fail(f"{name} differs from its plain version")
+        if g.dtype.is_floating_point:
+            err = max(err, float((g - r).abs().nan_to_num().max()))
+    if name == "mesh_combine":
+        stack = a[0]
+        moved = nbytes(stack) + stack.shape[1] * stack.element_size()
+        shape = f"M={stack.shape[0]} N={stack.shape[1]} {stack.dtype} {a[1]}"
+    elif name == "mesh_agg_partials":
+        vals, mask = a[0], a[1]
+        moved = nbytes(vals, mask) + (1 + 2 * vals.shape[0]) * 4
+        shape = f"R={vals.shape[0]} x 128"
+    else:
+        gidx, nd = a[3], a[7]
+        valid = int((gidx >= 0).sum())
+        per = 12 if a[8] == "bm25" else 8
+        moved = nbytes(gidx) + valid * per + nd * 4 + \
+            (nbytes(a[4]) if a[4] is not None else 0)
+        shape = (f"entries={gidx.numel()} valid={valid} ndocs={nd} "
+                 f"mode={a[8]}")
+    return {"ms": timed_ms(lambda: kern(*a, **kw), reps, device),
+            "plain_ms": timed_ms(lambda: plain(*a, **kw), max(1, reps // 5),
+                                 device),
+            "bound_ms": bound_ms(moved), "bound_by": "bytes",
+            "library_ms": None, "max_abs_err": err, "shape": shape}
+
+
+def _mesh_window(window: dict, launches: dict) -> None:
+    for k, v in launches.items():
+        window[k] = window.get(k, 0) + v
+
+
+def mesh_sql(device, width: int, window: dict, n_q1: int = 100_000_000,
+             n_hits: int = 10_000_000) -> dict:
+    """Phase 6's q1 (100M rows: its two scalar and its GROUP BY queries,
+    T1) and phase 7's hits (T4) at serene_mesh = width against
+    serene_mesh = 0 on the card: rows equal (integers); agg_scan a
+    multiple of `width` launches a query (one a shard a chunk) with
+    mesh_combine, topn_scan `width` for T1."""
+    from serenedb_tpu_torch.columnar.column import Batch
+    from serenedb_tpu_torch.device import LAUNCHES
+    from serenedb_tpu_torch.engine import Database
+    from serenedb_tpu_torch.exec.tables import MemTable
+
+    out = {"ms": {}, "single_ms": {}}
+    t0 = time.perf_counter()
+    legs = (("q1", q1_columns(n_q1),
+             [(q, "agg") for q in Q1_QUERIES] + [(Q1_TOPN[0], "topn")]),
+            ("hits", hits_columns(n_hits), [(HITS_TOPN[0], "fused")]))
+    out["gen_s"] = time.perf_counter() - t0
+    for label, cols, queries in legs:
+        db = Database(device=device)
+        db.schemas["main"].tables["hits"] = MemTable(
+            "hits", Batch.from_pydict(cols))
+        c = db.connect()
+        c.execute("SET serene_result_cache = off")
+        c.execute("SET serene_device = 'gpu'")
+        for q, kind in queries:
+            c.execute("SET serene_mesh = 0")
+            c.execute(q).rows()                        # cold: uploads
+            t0 = time.perf_counter()
+            single = c.execute(q).rows()
+            sync(device)
+            out["single_ms"][(label, q)] = (time.perf_counter() - t0) * 1e3
+            c.execute(f"SET serene_mesh = {width}")
+            LAUNCHES.reset()
+            c.execute(q).rows()
+            t0 = time.perf_counter()
+            got = c.execute(q).rows()
+            sync(device)
+            out["ms"][(label, q)] = (time.perf_counter() - t0) * 1e3
+            d = LAUNCHES.snapshot()
+            _mesh_window(window, d)
+            if got != single:
+                fail(f"mesh {label}: serene_mesh = {width} differs from "
+                     f"serene_mesh = 0 on {q!r}")
+            if kind == "agg" and (not d.get("agg_scan") or
+                                  d["agg_scan"] % width or
+                                  not d.get("mesh_combine")):
+                fail(f"mesh {label}: {q!r} launched {d}")
+            if kind == "topn" and d.get("topn_scan") != 2 * width:
+                fail(f"mesh {label}: T1 launched {d}")
+        c.execute("SET serene_mesh = 0")
+        del db, c
+    return out
+
+
+def mesh_search(device, searcher, nodes, width: int, window: dict) -> dict:
+    """The packed corpus (phase 4's searcher) through topk_batch(mesh_n =
+    width): its require-free queries in batches of 16, top-10 within
+    rtol 2e-3 / atol 1e-3 of the single-device result, ids differing only
+    on ties; each batch width bm25_accumulate calls (a shard's plane
+    each) and one mesh_combine."""
+    from serenedb_tpu_torch.device import LAUNCHES
+    free = [n for n in nodes if not searcher._query_shape(n)[1]][:64]
+    batches = [free[i:i + 16] for i in range(0, len(free), 16)]
+    single = [searcher.topk_batch(b, 10) for b in batches]
+    out = {"queries": len(free), "batches": len(batches)}
+    LAUNCHES.reset()
+    t0 = time.perf_counter()
+    got = [searcher.topk_batch(b, 10, mesh_n=width) for b in batches]
+    sync(device)
+    out["ms"] = (time.perf_counter() - t0) * 1e3 / len(batches)
+    d = LAUNCHES.snapshot()
+    _mesh_window(window, d)
+    if d.get("mesh_combine") != len(batches) or \
+            d.get("topk_rows") != len(batches) or \
+            d.get("bm25_accumulate", 0) < width * len(batches):
+        fail(f"mesh search: launches {d}")
+    ties = 0
+    for bs, bg in zip(single, got):
+        for (s1, d1), (s2, d2) in zip(bs, bg):
+            if len(s1) != len(s2):
+                fail("mesh search: result lengths differ")
+            np.testing.assert_allclose(s2, s1, rtol=PARITY_RTOL,
+                                       atol=PARITY_ATOL)
+            for j in np.flatnonzero(d1 != d2):
+                if not np.isclose(s1, s1[j], rtol=PARITY_RTOL,
+                                  atol=PARITY_ATOL).sum() > 1:
+                    fail("mesh search: ids differ off a tie")
+                ties += 1
+    out["tie_swaps"] = ties
+    t0 = time.perf_counter()
+    for b in batches:
+        searcher.topk_batch(b, 10)
+    sync(device)
+    out["single_ms"] = (time.perf_counter() - t0) * 1e3 / len(batches)
+    return out
+
+
+def mesh_shards(device, width: int, window: dict, m: int = 1,
+                seg_docs: int = 250_000, vocab: int = 20_000,
+                postings: int = 3_000_000) -> dict:
+    """Phase 17's join (1x) at serene_shards = width with the device
+    combine, now over a mesh of `width`: rows equal to shards = 1, a warm
+    execution one join_probe a mesh device and mesh_combine; its search
+    leg (4 x 250,000 docs) at shards = width, device combine: a merge a
+    mesh device and one over their results, bit-equal to shards = 1."""
+    from serenedb_tpu_torch.columnar.column import Batch
+    from serenedb_tpu_torch.device import LAUNCHES
+    from serenedb_tpu_torch.engine import Database
+    from serenedb_tpu_torch.exec.tables import MemTable
+    from serenedb_tpu_torch.search.analysis import get_analyzer
+    from serenedb_tpu_torch.search.query import parse_query
+    from serenedb_tpu_torch.search.searcher import (MultiSearcher,
+                                                    SegmentSearcher)
+    from serenedb_tpu_torch.utils.config import REGISTRY as settings
+
+    db = Database(device=device)
+    for name, cols in shard_tables(m).items():
+        db.schemas["main"].tables[name] = MemTable(name,
+                                                   Batch.from_pydict(cols))
+    c = db.connect()
+    for s in ("SET serene_result_cache = off", "SET serene_device_fused = on",
+              "SET serene_morsel_rows = 131072", "SET serene_workers = 4",
+              "SET serene_device = 'gpu'"):
+        c.execute(s)
+    ref = c.execute(SHARD_QUERY).rows()
+    c.execute(f"SET serene_shards = {width}")
+    c.execute("SET serene_shard_combine = device")
+    LAUNCHES.reset()
+    cold = c.execute(SHARD_QUERY).rows()
+    t0 = time.perf_counter()
+    warm = c.execute(SHARD_QUERY).rows()
+    sync(device)
+    out = {"join_ms": (time.perf_counter() - t0) * 1e3}
+    d = LAUNCHES.snapshot()
+    _mesh_window(window, d)
+    if cold != ref or warm != ref:
+        fail(f"mesh join: shards {width} over the mesh differs from "
+             "shards = 1")
+    if d.get("join_probe") != 2 * width or d.get("mesh_combine", 0) < 2:
+        fail(f"mesh join: launches {d}")
+    out["groups"] = len(ref)
+
+    an = get_analyzer("simple")
+    ms = MultiSearcher(an)
+    for si in range(4):
+        fi = synth_posting_index(seg_docs, vocab, postings, 11 + si, device)
+        ms.add_segment(SegmentSearcher(fi, an, seg_docs, device=device),
+                       si * seg_docs)
+    terms = [f"w{100 + 13 * i:07d}" for i in range(32)]
+    nodes = [parse_query(f"{terms[2 * i]} | {terms[2 * i + 1]}", an)
+             for i in range(16)]
+    names = ("serene_shards", "serene_shard_combine", "serene_result_cache")
+    prior = {n: settings.get_global(n) for n in names}
+    try:
+        settings.set_global("serene_result_cache", False)
+        settings.set_global("serene_shards", 1)
+        ref = ms.topk_batch(nodes, 10)
+        settings.set_global("serene_shards", width)
+        settings.set_global("serene_shard_combine", "device")
+        ms.topk_batch(nodes, 10)
+        LAUNCHES.reset()
+        t0 = time.perf_counter()
+        got = ms.topk_batch(nodes, 10)
+        sync(device)
+        out["merge_ms"] = (time.perf_counter() - t0) * 1e3
+        d = LAUNCHES.snapshot()
+        _mesh_window(window, d)
+    finally:
+        for n, v in prior.items():
+            settings.set_global(n, v)
+    if d.get("merge_topk") != width + 1:
+        fail(f"mesh merge: launches {d}")
+    for (s, dd), (rs, rd) in zip(got, ref):
+        if not (np.array_equal(s.view(np.uint32), rs.view(np.uint32)) and
+                np.array_equal(dd, rd)):
+            fail("mesh merge: differs from shards = 1")
+    return out
+
+
+def mesh_builders(device, searcher, width: int, window: dict, recs: dict,
+                  n: int = 100_000_000) -> dict:
+    """The reference's three builders over the mesh: sharded_agg_step on
+    phase 6's 100M-row column, sharded_bm25_topk on the packed corpus's
+    postings of four of its terms, sharded_query_step over all its
+    postings with q1's columns as values and groups; each against a
+    one-device mesh and exact numpy answers."""
+    import torch
+
+    from serenedb_tpu_torch.device import LAUNCHES
+    from serenedb_tpu_torch.ops import bm25 as bm25_ops
+    from serenedb_tpu_torch.ops import mesh_kernels as MK
+    from serenedb_tpu_torch.parallel import mesh as pmesh
+
+    cols = q1_columns(n)
+    x, region = cols["x"].data, cols["region"].data
+    del cols
+    rows = -(-n // 128)
+    rows += (-rows) % width
+
+    def tiles(a, fill=0):
+        t = np.full(rows * 128, fill, dtype=a.dtype)
+        t[:n] = a
+        return torch.from_numpy(t.reshape(rows, 128)).to(device)
+    vals, codes = tiles(x), tiles(region)
+    valid = np.zeros(rows * 128, dtype=bool)
+    valid[:n] = True
+    mask = torch.from_numpy(valid.reshape(rows, 128)).to(device)
+    fi, store = searcher.index, searcher._device_store()
+    flat_docs = torch.from_numpy(fi.post_docs.astype(np.int32)).to(device)
+    flat_tfs = torch.from_numpy(fi.post_tfs.astype(np.int32)).to(device)
+    tids = [1 + 97 * i for i in range(4)]
+    g_rows, bt = [], []
+    for j, t in enumerate(tids):
+        r = np.arange(fi.offsets[t], fi.offsets[t + 1], dtype=np.int64)
+        r = np.concatenate([r, np.full((-len(r)) % 128, -1)])
+        g_rows.append(r.reshape(-1, 128))
+        bt.append(np.full(len(r) // 128, j, dtype=np.int32))
+    g = np.concatenate(g_rows).astype(np.int32)
+    bt = np.concatenate(bt)
+    pad = (-len(g)) % width
+    g = np.concatenate([g, np.full((pad, 128), -1, np.int32)])
+    bt = np.concatenate([bt, np.zeros(pad, np.int32)])
+    gidx = torch.from_numpy(g).to(device)
+    block_term = torch.from_numpy(bt).to(device)
+    idf = torch.from_numpy(bm25_ops.idf_lucene(
+        searcher.num_docs, fi.doc_freq[tids]).astype(np.float32)).to(device)
+    avgdl = float(fi.avgdl)
+    P = flat_docs.numel()
+    ga = np.arange(P + (-P) % (128 * width), dtype=np.int64)
+    ga[P:] = -1
+    gall = torch.from_numpy(ga.astype(np.int32).reshape(-1, 128)).to(device)
+    ball = torch.zeros(gall.shape[0], dtype=torch.int32, device=device)
+    lo, hi = 1000, 90_000
+
+    def run(m):
+        mesh = pmesh.make_mesh(m, base=device)
+        a = pmesh.sharded_agg_step(mesh)(vals, mask, lo, hi)
+        b = pmesh.sharded_bm25_topk(mesh, store.ndocs_pad, 10)(
+            flat_docs, flat_tfs, store.norms, gidx, block_term, idf, avgdl)
+        q = pmesh.sharded_query_step(mesh, 200)(
+            vals, mask, codes, flat_docs, flat_tfs, gall, ball)
+        sync(device)
+        return a, b, q
+
+    LAUNCHES.reset()
+    with recs["mesh_agg_partials"], recs["mesh_score_blocks"]:
+        t0 = time.perf_counter()
+        a, b, q = run(width)
+        out = {"ms": (time.perf_counter() - t0) * 1e3}
+    d = LAUNCHES.snapshot()
+    _mesh_window(window, d)
+    if d.get("mesh_agg_partials") != width or \
+            d.get("mesh_score_blocks") != 2 * width or \
+            d.get("mesh_combine") != 3:
+        fail(f"mesh builders: launches {d}")
+    t0 = time.perf_counter()
+    a1, b1, q1 = run(1)
+    out["single_ms"] = (time.perf_counter() - t0) * 1e3
+    sel = valid[:n] & (x >= lo) & (x < hi)
+    want = int(x[sel].astype(np.int64).sum())
+    got = pmesh.combine_agg_partials(a[1])
+    if int(a[0]) != int(sel.sum()) or got != want or \
+            got != pmesh.combine_agg_partials(a1[1]) or \
+            int(a1[0]) != int(a[0]):
+        fail("mesh builders: sharded_agg_step differs from the exact sum")
+    np.testing.assert_allclose(b[0].cpu().numpy(), b1[0].cpu().numpy(),
+                               rtol=RTOL, atol=ATOL)
+    s1 = b1[0].cpu().numpy()
+    for j in np.flatnonzero(b[1].cpu().numpy() != b1[1].cpu().numpy()):
+        if not np.isclose(s1, s1[j], rtol=RTOL, atol=ATOL).sum() > 1:
+            fail("mesh builders: sharded_bm25_topk ids differ off a tie")
+    sel = x >= 0
+    counts = np.bincount(region[sel], minlength=200)
+    sums = np.bincount(region[sel], weights=x[sel].astype(np.float64),
+                       minlength=200)
+    if not np.array_equal(q[0].cpu().numpy(), counts.astype(np.float32)):
+        fail("mesh builders: sharded_query_step counts differ")
+    np.testing.assert_allclose(q[1].cpu().numpy(), sums, rtol=SQL_REL)
+    np.testing.assert_allclose(q[2].cpu().numpy(), q1[2].cpu().numpy(),
+                               rtol=RTOL, atol=ATOL)
+    out["postings"] = int((gidx >= 0).sum())
+    out["all_postings"] = P
+    out["top1"] = float(s1[0])
+    return out
+
+
+def phase_mesh(device, searcher, nodes, width: int = MESH_WIDTH,
+               sizes: dict = None) -> dict:
+    """Phase 21: the mesh on the card. A `width`-wide virtual mesh over
+    the card (or the host's cards where it has `width`): the SQL, search
+    and sharded legs and the three builders, then each new kernel against
+    its plain version on a recorded call; the device count and the
+    'auto' combine restored afterwards."""
+    import contextlib
+
+    import torch
+
+    from serenedb_tpu_torch.exec import shard as pshard
+    from serenedb_tpu_torch.ops import mesh_kernels as MK
+    from serenedb_tpu_torch.parallel import mesh as pmesh
+    from serenedb_tpu_torch.utils.config import REGISTRY as settings
+
+    sizes = sizes or {}
+    real = torch.cuda.device_count() >= width
+    plane = 16 * searcher._device_store().ndocs_pad
+    before = (pmesh.device_count_if_initialized(),
+              pshard.combine_mode(None))
+    window: dict = {}
+    recs = {"mesh_combine": Recorder(
+                MK, "mesh_combine",
+                pick=lambda a, kw: tuple(a[0].shape) == (width, plane)),
+            "mesh_agg_partials": Recorder(MK, "mesh_agg_partials"),
+            "mesh_score_blocks": Recorder(
+                MK, "mesh_score_blocks", pick=lambda a, kw: a[8] == "bm25")}
+    scope = contextlib.nullcontext() if real else \
+        pmesh.virtual_devices(width)
+    out = {"placement": f"{width} cards" if real else
+           f"a virtual mesh of {width} over {device}"}
+    prior = settings.get_global("serene_shard_combine")
+    with scope:
+        if pmesh.device_count(device) < width:
+            fail(f"mesh: {pmesh.device_count(device)} devices")
+        out["sql"] = mesh_sql(device, width, window,
+                              **sizes.get("sql", {}))
+        with recs["mesh_combine"]:
+            out["search"] = mesh_search(device, searcher, nodes, width,
+                                        window)
+        out["shards"] = mesh_shards(device, width, window,
+                                    **sizes.get("shards", {}))
+        out["builders"] = mesh_builders(device, searcher, width, window,
+                                        recs, **sizes.get("builders", {}))
+    settings.set_global("serene_shard_combine", "auto")
+    after = (pmesh.device_count_if_initialized(), pshard.combine_mode(None))
+    settings.set_global("serene_shard_combine", prior)
+    before_auto = before[1] if prior == "auto" else None
+    if after[0] != before[0] or (before_auto and after[1] != before_auto):
+        fail(f"mesh: the device count or the auto combine not restored "
+             f"({before} -> {after})")
+    out["restored"] = after
+    out["launches"] = window
+    for name in ("mesh_combine", "mesh_agg_partials", "mesh_score_blocks"):
+        if not window.get(name):
+            fail(f"mesh: {name} never launched")
+        if recs[name].args is None:
+            fail(f"mesh: {name}'s inputs were not recorded")
+    out["checks"] = {name: check_mesh_kernel(device, name, recs[name].args)
+                     for name in recs}
+    return out
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -3522,8 +3960,10 @@ def main() -> int:
           f" s, parity on {dense['parity_checked']} queries ok, launches "
           f"{dense['launches']}", flush=True)
 
-    # 4. packed regime
+    # 4. packed regime (its searcher kept for phase 21)
     packed = phase_packed(device)
+    packed_searcher, packed_nodes = packed.pop("searcher"), \
+        packed.pop("nodes")
     print(f"[4] packed: {packed['n_queries']} queries over "
           f"{packed['postings']} postings, QPS {packed['qps']:.2f} (warm), "
           f"cold first call {packed['cold_s']:.2f} s, host index build "
@@ -3899,6 +4339,46 @@ def main() -> int:
               flush=True)
     print(f"    total {time.perf_counter() - t_start:.1f} s", flush=True)
 
+    # 21. the device mesh
+    mesh = phase_mesh(device, packed_searcher, packed_nodes)
+    del packed_searcher, packed_nodes
+    ms_sql, ms_s, ms_sh, ms_b = mesh["sql"], mesh["search"], \
+        mesh["shards"], mesh["builders"]
+    print(f"[21] mesh: {mesh['placement']} (torch.cuda.device_count() "
+          f"{torch.cuda.device_count()}); SQL at serene_mesh = "
+          f"{MESH_WIDTH} (tables generated {ms_sql['gen_s']:.1f} s), warm "
+          f"ms " + ", ".join(
+              f"{label} {q[:40]!r} {v:.2f} (serene_mesh = 0 "
+              f"{ms_sql['single_ms'][(label, q)]:.2f})"
+              for (label, q), v in ms_sql["ms"].items())
+          + "; rows equal to serene_mesh = 0", flush=True)
+    print(f"[21] mesh search: {ms_s['queries']} require-free queries of the "
+          f"packed corpus in {ms_s['batches']} batches of 16 through "
+          f"topk_batch(mesh_n={MESH_WIDTH}): {ms_s['ms']:.2f} ms a batch "
+          f"(single device {ms_s['single_ms']:.2f} ms), top-10 within rtol "
+          f"{PARITY_RTOL} / atol {PARITY_ATOL} of the single device, "
+          f"{ms_s['tie_swaps']} id swap(s) on ties", flush=True)
+    print(f"[21] mesh sharded tier: phase 17's join (1x) at shards "
+          f"{MESH_WIDTH}, device combine over the mesh: warm "
+          f"{ms_sh['join_ms']:.2f} ms, {ms_sh['groups']} groups equal to "
+          f"shards = 1; its search merge at shards {MESH_WIDTH}: "
+          f"{ms_sh['merge_ms']:.2f} ms for 16 queries, bit-equal to shards "
+          f"= 1", flush=True)
+    print(f"[21] mesh builders: sharded_agg_step (100,000,000 rows), "
+          f"sharded_bm25_topk ({ms_b['postings']} postings of 4 terms, top "
+          f"score {ms_b['top1']:.4f}), sharded_query_step "
+          f"({ms_b['all_postings']} postings, 200 groups) in "
+          f"{ms_b['ms']:.1f} ms over the mesh, {ms_b['single_ms']:.1f} ms "
+          f"on one device; exact counts and sums, planes and scores within "
+          f"rtol {RTOL} / atol {ATOL} of one device; device count and the "
+          f"auto combine restored {mesh['restored']}; launches "
+          f"{mesh['launches']}", flush=True)
+    for what, r in mesh["checks"].items():
+        print(f"[21] {what} ({r['shape']}): kernel {r['ms']:.4f} ms, plain "
+              f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']}), library null, bit-equal", flush=True)
+    print(f"    total {time.perf_counter() - t_start:.1f} s", flush=True)
+
     # measured last (after a graph capture no profiled window runs): the
     # kernels a call of phase 10's top-N calls (and of any call whose
     # profiled windows were incomplete), and pool_score in both regimes,
@@ -3918,7 +4398,7 @@ def main() -> int:
               f"{r['call_ms']:.4f} ms", flush=True)
     print(f"    total {time.perf_counter() - t_start:.1f} s", flush=True)
 
-    # 21. result lines
+    # 22. result lines
     launches = {}
     for window in (dense["launches"], packed["launches"],
                    packed["ragged"]["launches"],
@@ -3926,7 +4406,7 @@ def main() -> int:
                    sift["launches"], colbert["launches"],
                    bsql["launches"], paged["launches"],
                    serving["launches"], shards["launches"],
-                   dur["launches"]):
+                   dur["launches"], mesh["launches"]):
         for kname, n in window.items():
             launches[kname] = launches.get(kname, 0) + n
     results["agg_scan"] = checks["q1 GROUP BY region"]
@@ -3940,6 +4420,7 @@ def main() -> int:
     results.update(serve_checks)
     results["merge_topk"] = shard_checks["merge_topk"]
     results["match_bitmap"] = shard_checks["match_bitmap"]
+    results.update(mesh["checks"])
     kernels = []
     for kname, r in results.items():
         kernels.append({

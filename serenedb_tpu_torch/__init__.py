@@ -22,8 +22,10 @@ and the PG wire behind `server.frontdoor.FrontDoor`, started by
 `python -m serenedb_tpu_torch.serened`, durable storage
 (`Database(path)`: catalog, parquet snapshots, the WAL and recovery;
 it needs pyarrow), the file sources `read_csv` / `read_parquet`, and the
-native C++ indexer (`native/`, built with g++ at first use). The tiers
-not ported yet are stubs that decline or raise (ROADMAP.md).
+native C++ indexer (`native/`, built with g++ at first use), and the
+device mesh (`parallel/mesh.py`: the host's cards, or a virtual mesh of
+logical devices over one, with the `serene_mesh` branches and the
+reference's sharded builders on `ops/csrc/mesh.cu`).
 """
 
 __version__ = "0.1.0"

@@ -21,6 +21,7 @@ Every upload goes through `commit_host_array`, which counts its bytes in
 
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass
 from typing import Optional
 
@@ -93,8 +94,10 @@ def commit_host_array(arr: np.ndarray, device: DeviceLike = None
     from ..obs import device as _obsdev
     dev = resolve_device(device)
     host = torch.from_numpy(np.ascontiguousarray(arr))
+    t0 = time.perf_counter_ns()
     out = host.to(dev) if dev.type != "cpu" else host.clone()
-    _obsdev.note_upload(out.numel() * out.element_size())
+    _obsdev.note_upload(out.numel() * out.element_size(), dev,
+                        time.perf_counter_ns() - t0)
     return out
 
 

@@ -7,7 +7,8 @@ a slower run.
 
 `LAUNCHES` counts kernel launches per wrapper (and plain-version calls
 under `<name>.plain`), so a run can show that its main path went through
-the hand kernels. `UPLOADS` counts host→device uploads (`transfers`) and
+the hand kernels; each bump is also one dispatch of the current mesh
+device in the per-device ledger (`obs.device.LEDGER`, `on_mesh_device`). `UPLOADS` counts host→device uploads (`transfers`) and
 their `bytes`; `columnar.device.commit_host_array` is the one place that
 bumps it. Together they stand in for the reference's dispatch/upload
 ledger (serenedb_tpu/obs/device.py).
@@ -75,6 +76,35 @@ def building_on(device: torch.device):
         _BUILDING_ON.reset(token)
 
 
+#: the logical mesh device whose work runs on this thread
+#: (`on_mesh_device`); None outside a mesh shard
+_MESH_DEVICE: contextvars.ContextVar = contextvars.ContextVar(
+    "serene_mesh_device", default=None)
+
+
+def mesh_device_index(device=None) -> int:
+    """The per-device ledger's id of the work running on this thread: the
+    logical mesh device `on_mesh_device` set, else the physical index of
+    `device` (0 for the CPU or an unindexed device)."""
+    i = _MESH_DEVICE.get()
+    if i is not None:
+        return i
+    return int(getattr(device, "index", None) or 0)
+
+
+@contextlib.contextmanager
+def on_mesh_device(index: int, device: torch.device):
+    """Run this block as logical mesh device `index`, placed on the
+    physical `device`: its launches, uploads and fetches count for that
+    logical device, and `device` is the thread's current CUDA device."""
+    token = _MESH_DEVICE.set(int(index))
+    try:
+        with device_scope(device):
+            yield
+    finally:
+        _MESH_DEVICE.reset(token)
+
+
 def device_scope(device: torch.device):
     """Make `device` the calling thread's current CUDA device (worker-pool
     tasks launch kernels from their own threads); a no-op for the CPU."""
@@ -84,15 +114,21 @@ def device_scope(device: torch.device):
 
 
 class LaunchLedger:
-    """Integer launch counters keyed by kernel name (thread-safe)."""
+    """Integer launch counters keyed by kernel name (thread-safe). With
+    `dispatches`, each bump also counts as dispatches of the current mesh
+    device in the per-device ledger."""
 
-    def __init__(self) -> None:
+    def __init__(self, dispatches: bool = False) -> None:
         self._lock = threading.Lock()
         self._counts: dict[str, int] = {}
+        self._dispatches = dispatches
 
     def bump(self, name: str, n: int = 1) -> None:
         with self._lock:
             self._counts[name] = self._counts.get(name, 0) + n
+        if self._dispatches:
+            from .obs.device import note_dispatch
+            note_dispatch(mesh_device_index(), n)
 
     def get(self, name: str) -> int:
         with self._lock:
@@ -107,5 +143,5 @@ class LaunchLedger:
             return dict(self._counts)
 
 
-LAUNCHES = LaunchLedger()
+LAUNCHES = LaunchLedger(dispatches=True)
 UPLOADS = LaunchLedger()

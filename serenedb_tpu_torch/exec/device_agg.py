@@ -13,13 +13,18 @@ then `agg_fold` for the float sums, and the host builds the result batch
 exactly as the reference does. Queries the device tier cannot run exactly
 decline to the host path (plan.AggregateNode) where the reference declines
 them: `NotCompilable` and `DeviceNarrowingError`, and nothing else.
-The reference's multi-device mesh branch is not ported: the port has one
-card, so `serene_mesh > 1` takes the single-device program, as the
-reference does when it has fewer devices than the mesh names.
+With `serene_mesh = M > 1` and at least M mesh devices (parallel/mesh.py;
+the reference's `_mesh_wrap`), each chunk's tiles split into M contiguous
+shards, one `agg_scan` launch a shard on its mesh device, and the shards'
+outputs combine on the first device by the chunk combine kinds through
+`mesh_combine` (sums fused into one launch a dtype); the float MIN's NaN
+rule applies once, after shards and chunks. With fewer devices than M the
+single-device program runs, as in the reference.
 """
 
 from __future__ import annotations
 
+import functools
 import threading as _threading
 from typing import Optional
 
@@ -236,13 +241,21 @@ def _run(node, scan, provider: TableProvider, preds: list[BoundExpr],
     if len(needed) > K.MAX_COLS:
         raise NotCompilable(f"{len(needed)} input columns (device limit "
                             f"{K.MAX_COLS})")
-    if zrange is None:
-        by_name = provider.device_columns([col_names[i] for i in needed],
-                                          pin, device)
-    else:
-        by_name = _range_device_columns(
-            provider, [col_names[i] for i in needed], pin, zrange, device)
-    env_cols = {i: by_name[col_names[i]] for i in needed}
+    from ..parallel import mesh as mesh_mod
+    mesh_n = int(ctx.settings.get("serene_mesh") or 0)
+    if mesh_n > 1 and mesh_mod.device_count(device) < mesh_n:
+        mesh_n = 0
+
+    def columns_on(dev) -> dict:
+        names = [col_names[i] for i in needed]
+        if zrange is None:
+            by_name = provider.device_columns(names, pin, dev)
+        else:
+            by_name = _range_device_columns(provider, names, pin, zrange,
+                                            dev)
+        return {i: by_name[col_names[i]] for i in needed}
+
+    env_cols = columns_on(device)
     metrics.DEVICE_OFFLOADS.add()
 
     group_mode = bool(node.group_exprs)
@@ -271,34 +284,57 @@ def _run(node, scan, provider: TableProvider, preds: list[BoundExpr],
 
     spec = obs_device.compiled("device_agg", key, build)
 
-    cols = [(env_cols[i].data, env_cols[i].mask) for i in needed]
-    codes2d = fact["codes2d"] if fact is not None else None
     # A column's device mask excludes padding but ALSO that column's NULLs —
     # wrong as a row mask for count(*). Use a pure row-validity mask built
     # from the logical length of the SAME publication as the columns
-    # (cached per version on the provider).
+    # (cached per version and device on the provider).
     mask_rows = nrows if zrange is None else zrange[1] - zrange[0]
     prows = pad_len(mask_rows)
-    rm_entry = getattr(provider, "_device_rowmask", None)
-    if rm_entry is None or rm_entry[0] != (dev_ver, zrange) or \
-            rm_entry[1].shape != (prows // 128, 128) or \
-            rm_entry[1].device != device:
-        rm = np.zeros(prows, dtype=bool)
-        rm[:mask_rows] = True
-        rowmask_arr = commit_host_array(rm.reshape(-1, 128), device)
-        provider._device_rowmask = ((dev_ver, zrange), rowmask_arr)
-    else:
-        rowmask_arr = rm_entry[1]
+
+    def rowmask_on(dev) -> torch.Tensor:
+        masks = getattr(provider, "_device_rowmask", None)
+        if masks is None:
+            masks = provider._device_rowmask = {}
+        rm_entry = masks.get(str(dev))
+        if rm_entry is None or rm_entry[0] != (dev_ver, zrange) or \
+                rm_entry[1].shape != (prows // 128, 128):
+            rm = np.zeros(prows, dtype=bool)
+            rm[:mask_rows] = True
+            rm_entry = ((dev_ver, zrange),
+                        commit_host_array(rm.reshape(-1, 128), dev))
+            masks[str(dev)] = rm_entry
+        return rm_entry[1]
+
+    def inputs_on(dev) -> tuple:
+        """(cols, rowmask, codes) of the scan on one physical device."""
+        env = env_cols if dev == device else columns_on(dev)
+        codes = None
+        if fact is not None:
+            codes = fact["codes2d"] if dev == device else \
+                _factorize_group_keys(node, scan, provider, pin_batch,
+                                      dev_ver, dev)["codes2d"]
+        return ([(env[i].data, env[i].mask) for i in needed],
+                rowmask_on(dev), codes)
+
+    cols, rowmask_arr, codes2d = inputs_on(device)
 
     def run_chunk(start: int, end: int) -> list:
         raw = K.agg_scan(spec, cols, rowmask_arr, codes2d, start, end)
-        return _chunk_outputs(spec, agg_plans, distinct_plans, raw,
-                              group_mode)
+        return _host_outputs(spec, _device_outputs(spec, raw), group_mode)
+
+    if mesh_n > 1:
+        mesh = mesh_mod.make_mesh(mesh_n, base=device)
+        placed = {dev: (cols, rowmask_arr, codes2d) if dev == device
+                  else inputs_on(dev) for dev in set(mesh.devices)}
+        run_chunk = functools.partial(_run_mesh_chunk, spec, mesh, placed,
+                                      group_mode)
 
     chunk_rows = int(ctx.settings.get("serene_device_chunk_rows") or 0)
     # clamp to one tile: tiny values must mean "maximum responsiveness",
     # never silently disable chunking
     chunk_tiles = max(1, chunk_rows // 128) if chunk_rows > 0 else 0
+    if mesh_n > 1 and chunk_tiles:
+        chunk_tiles += (-chunk_tiles) % mesh_n
     n_tiles = int(rowmask_arr.shape[0])
     if chunk_tiles and n_tiles > chunk_tiles:
         # chunked dispatch: cancel/statement_timeout can fire between
@@ -365,48 +401,88 @@ def pred_program(ce, slot_of: dict) -> tuple:
                                           ((K.OP_TOBOOL_I, 0, 0),))
 
 
-def _chunk_outputs(spec: K.ScanSpec, agg_plans, distinct_plans, raw,
-                   group_mode: bool) -> list:
-    """One launch's raw outputs as numpy, in the reference program's
-    order (device_agg.py `program`: the row count, then per aggregate
-    [presence] | [count] | [sum, count] | [min/max, count]), with one
-    extra output after a float MIN's count: its non-NaN count, which
-    `_min_nan_rule` spends once the chunks are combined. The float sums
-    fold on the device first (agg_fold; a plane of one row is already
-    the sums), and float min/max images decode there."""
-    from ..obs import device as obs_device
+def _device_outputs(spec: K.ScanSpec, raw) -> list:
+    """One launch's raw outputs as a flat list of device tensors, in the
+    reference program's order (device_agg.py `program`: the row count,
+    then per aggregate [presence] | [count] | [sum, count] | [min/max,
+    count]), with one extra output after a float MIN's count: its non-NaN
+    count, which `_min_nan_rule` spends once the chunks are combined. The
+    float sums fold on the device (agg_fold; a plane of one row is
+    already the sums); float min/max stay u32 images."""
     rowcount, outs = raw
-    G = spec.G
     flat = [rowcount]
     for a, out in zip(spec.aggs, outs):
-        if a.kind == K.AGG_SUM_F and out[0].numel() > G:
-            out = (K.agg_fold(out[0], G),) + tuple(out[1:])
-        elif a.kind in (K.AGG_MIN_F, K.AGG_MAX_F):
-            out = (K.image_decode(out[0]),) + tuple(out[1:])
+        if a.kind == K.AGG_SUM_F and out[0].numel() > spec.G:
+            out = (K.agg_fold(out[0], spec.G),) + tuple(out[1:])
         flat.extend(out)
-    host = iter(obs_device.fetch_all(flat))
+    return flat
+
+
+def _host_outputs(spec: K.ScanSpec, flat: list, group_mode: bool) -> list:
+    """`_device_outputs` fetched as numpy, float min/max images decoded
+    on the device first, shaped as the host combine takes them."""
+    from ..obs import device as obs_device
+    G = spec.G
+    dec = list(flat)
+    at = 1
+    for a in spec.aggs:
+        if a.kind in (K.AGG_MIN_F, K.AGG_MAX_F):
+            dec[at] = K.image_decode(dec[at])
+        at += len(_KINDS[a.kind])
+    host = iter(obs_device.fetch_all(dec))
     first = next(host)
     res = [first if group_mode else first.reshape(())]
-    for a, out in zip(spec.aggs, outs):
+    for a in spec.aggs:
         if a.kind == K.AGG_PRESENCE:
             res.append(next(host).reshape(G, a.pvsize))
             continue
-        vals = [next(host) for _ in out]
+        vals = [next(host) for _ in _KINDS[a.kind]]
         if not group_mode:
             vals = [x.reshape(()) for x in vals]
         res.extend(vals)
     return res
 
 
+def _run_mesh_chunk(spec: K.ScanSpec, mesh, placed: dict, group_mode: bool,
+                    start: int, end: int) -> list:
+    """Tiles [start, end) over the mesh: M contiguous shards, one
+    `agg_scan` a shard on its device (`placed`: the scan's inputs on each
+    physical device), the outputs combined on the first device by kind
+    (`mesh_combine`, sums fused; the float images as u32)."""
+    M = mesh.size
+    w = -(-(end - start) // M)
+    shard_outs = []
+    for s in range(M):
+        a, b = start + s * w, min(start + (s + 1) * w, end)
+        if a >= b:
+            continue
+        cols, rowmask, codes = placed[mesh.devices[s]]
+        with mesh.shard(s):
+            shard_outs.append(_device_outputs(
+                spec, K.agg_scan(spec, cols, rowmask, codes, a, b)))
+    kinds = _out_combines(spec)
+    uns = [False]
+    for a in spec.aggs:
+        uns.extend([a.kind in (K.AGG_MIN_F, K.AGG_MAX_F)] +
+                   [False] * (len(_KINDS[a.kind]) - 1))
+    from ..parallel.mesh import apply_axis_combines
+    flat = apply_axis_combines(shard_outs, kinds, mesh.first,
+                               fuse_sums=True, unsigned=uns)
+    return _host_outputs(spec, flat, group_mode)
+
+
+#: per aggregate kind, its outputs' chunk (and mesh) combine kinds
+_KINDS = {K.AGG_PRESENCE: ["max"], K.AGG_COUNT: ["sum"],
+          K.AGG_SUM_I: ["sum", "sum"], K.AGG_SUM_F: ["sum", "sum"],
+          K.AGG_MIN_I: ["min", "sum"], K.AGG_MAX_I: ["max", "sum"],
+          K.AGG_MIN_F: ["min", "sum", "sum"], K.AGG_MAX_F: ["max", "sum"]}
+
+
 def _out_combines(spec: K.ScanSpec) -> list:
-    """Per-output chunk combine kinds, in the order of `_chunk_outputs`:
+    """Per-output chunk combine kinds, in the order of `_device_outputs`:
     'sum' adds (counts, int64 and float sums), 'min'/'max' fold, 'max'
     also unions the DISTINCT presence grids."""
-    kinds = {K.AGG_PRESENCE: ["max"], K.AGG_COUNT: ["sum"],
-             K.AGG_SUM_I: ["sum", "sum"], K.AGG_SUM_F: ["sum", "sum"],
-             K.AGG_MIN_I: ["min", "sum"], K.AGG_MAX_I: ["max", "sum"],
-             K.AGG_MIN_F: ["min", "sum", "sum"], K.AGG_MAX_F: ["max", "sum"]}
-    return ["sum"] + [c for a in spec.aggs for c in kinds[a.kind]]
+    return ["sum"] + [c for a in spec.aggs for c in _KINDS[a.kind]]
 
 
 def _min_nan_rule(spec: K.ScanSpec, results) -> list:

@@ -40,9 +40,11 @@ bound what uploads at all (each side's surviving block envelope).
 
 Sharded tier (`serene_shards > 1`, the reference's gate): the probe
 phase runs per round-robin probe shard after one publication-cached build
-launch — N `join_probe` launches and an exact host combine under
-`serene_shard_combine = host`, one launch over the concatenated shard
-spans under `device` (the reference's collective on its one-card mesh).
+launch — N `join_probe` launches (shard s on mesh device s % n) and an
+exact host combine under `serene_shard_combine = host`; under `device`
+(the reference's collective over `data_mesh(S)`) one launch over the
+concatenated shard spans on a one-device mesh, or one launch a mesh
+device over an even slice of them, combined by `mesh_combine`.
 `serene_mesh` is never read here, as in the reference.
 """
 
@@ -61,11 +63,12 @@ from ..columnar import dtypes as dt
 from ..columnar.column import Batch, Column
 from ..columnar.device import (LANES, DeviceNarrowingError,
                                commit_host_array, pad_len, to_device_column)
-from ..device import device_scope
+from ..device import device_scope, on_mesh_device
 from ..obs import device as obs_device
 from ..ops import agg_kernels as K
 from ..ops import join_kernels as J
 from ..ops import topn_kernels as TK
+from ..parallel import mesh as mesh_mod
 from ..sql.binder import _expr_key
 from ..sql.expr import AggSpec, BoundColumn, BoundExpr, BoundFunc
 from ..utils import log, metrics
@@ -149,7 +152,7 @@ class DeviceColumnCache:
     vector pools' live pages, as the reference's does."""
 
     def __init__(self):
-        #: key -> [value, nbytes, last-touch epoch s]
+        #: key -> [value, nbytes, last-touch epoch s, hits, device index]
         self._entries: OrderedDict[tuple, list] = OrderedDict()
         self._bytes = 0
         self._lock = threading.Lock()
@@ -191,6 +194,7 @@ class DeviceColumnCache:
                 return None
             self._entries.move_to_end(key)
             entry[2] = time.time()
+            entry[3] += 1
             metrics.DEVICE_CACHE_HITS.add()
             return entry[0]
 
@@ -211,7 +215,8 @@ class DeviceColumnCache:
             for k in stale:
                 self._bytes -= self._entries.pop(k)[1]
                 metrics.DEVICE_CACHE_EVICTIONS.add()
-            self._entries[key] = [value, nbytes, time.time()]
+            self._entries[key] = [value, nbytes, time.time(), 0,
+                                  _holding_device(value)]
             self._bytes += nbytes
             over = self._bytes - cap
             tail_idle_s = None
@@ -259,6 +264,28 @@ class DeviceColumnCache:
         with self._lock:
             return {"entries": len(self._entries), "bytes": self._bytes,
                     "cap_bytes": cap}
+
+    def device_bytes(self) -> dict[int, int]:
+        """Bytes per holding device (the physical index; the shards of a
+        virtual mesh share their one copy, which counts for device 0)."""
+        out: dict[int, int] = {}
+        with self._lock:
+            for e in self._entries.values():
+                out[e[4]] = out.get(e[4], 0) + e[1]
+        return out
+
+    def snapshot(self) -> list[dict]:
+        """One row per live entry (the sdb_device_cache body): which
+        publication and column, how big, on which device, how recently
+        touched."""
+        now = time.time()
+        with self._lock:
+            return [{"token": pub[0], "data_version": pub[1],
+                     "mutation_epoch": pub[2], "column": name,
+                     "kind": kind, "tag": repr(tag)[:120], "bytes": e[1],
+                     "devices": str(e[4]), "hits": e[3],
+                     "idle_ms": round((now - e[2]) * 1e3, 1)}
+                    for (pub, name, kind, tag), e in self._entries.items()]
 
     def column(self, pub: tuple, name: str, host_col_fn,
                zrange: Optional[tuple], device, spans=None):
@@ -320,6 +347,22 @@ class DeviceColumnCache:
 
 
 DEVICE_CACHE = DeviceColumnCache()
+
+
+def _holding_device(value) -> int:
+    """The physical index of the first tensor in a cached value (a
+    DeviceColumn, a tensor or nested tuples of them); 0 for the CPU."""
+    if isinstance(value, torch.Tensor):
+        return int(value.device.index or 0)
+    data = getattr(value, "data", None)
+    if isinstance(data, torch.Tensor):
+        return int(data.device.index or 0)
+    if isinstance(value, (tuple, list)):
+        for v in value:
+            if isinstance(v, (torch.Tensor, tuple, list)) or \
+                    hasattr(v, "data"):
+                return _holding_device(v)
+    return 0
 
 #: host-side factorized join-code cache: (pub_l, pub_r, key exprs) →
 #: (codes_l, codes_r, g, worst-case pairs). Count- and byte-bounded;
@@ -994,11 +1037,12 @@ def _build_phase(bspec, bcols, brow, bc_dev, g: int):
 # - host: one `join_probe` launch per shard over that shard's spans, as
 #   concurrent worker-pool tasks, then the exact host combine (int64
 #   adds, elementwise min/max);
-# - device (the reference's shard_map collective): one `join_probe`
-#   launch over the concatenated surviving spans of every shard — the
-#   reference's `data_mesh` has width min(S, devices) = 1 on one card,
-#   so its psum/pmin/pmax combine is that one launch's own accumulation —
-#   and the accumulators stay on the card until the one fetch.
+# - device (the reference's shard_map collective): the concatenated
+#   surviving spans of every shard split evenly over `data_mesh(S)`'s
+#   width M = min(S, devices): one `join_probe` launch at M = 1 (its own
+#   accumulation is the psum/pmin/pmax), else one a mesh device combined
+#   by `mesh_combine` on the first; the accumulators stay on the device
+#   until the one fetch.
 # Both run after one build `agg_scan`, whose outputs cache per
 # publication pair, so a warm query launches only its probes. Every
 # accumulator is an integer add or a min/max selection over disjoint row
@@ -1168,7 +1212,21 @@ def _run_fused_sharded(node, join, probe: _Side, build: _Side, pscan,
     dev_tag = str(device)
     build_mu = threading.Lock()
 
-    def build_outs(bspec):
+    def build_outs(bspec, dev=device):
+        if dev != device:
+            # a shard on another card: the build outputs copied there,
+            # cached per card as the reference pins them per device
+            def copy():
+                b_rc, b_outs = build_outs(bspec)
+                return b_rc.to(dev), tuple(tuple(t.to(dev) for t in o)
+                                           for o in b_outs)
+            tag = str(dev)
+            return DEVICE_CACHE.outputs(
+                build.pub, "__bacc__",
+                (probe.pub, keyset, (build.zrange, shape_sig), tag), copy,
+                sweep=_partner_stale_pred(build.pub, probe.pub, tag,
+                                          keyset, name="__bacc__"))
+
         def launch():
             tb = clock()
             bcols = [(env_b[ji].data, env_b[ji].mask) for ji in b_need]
@@ -1190,26 +1248,27 @@ def _run_fused_sharded(node, join, probe: _Side, build: _Side, pscan,
                 sweep=_partner_stale_pred(build.pub, probe.pub, dev_tag,
                                           keyset, name="__bacc__"))
 
-    def probe_inputs(spans: list, tag) -> tuple:
+    def probe_inputs(spans: list, tag, dev=device) -> tuple:
         """(pspec with the build partials, probe cols, row mask, codes,
-        build match counts) over a span set: the probe tiles through the
-        publication-keyed cache, the build outputs through theirs."""
-        env_p = _device_env(probe, p_names, device, spans)
-        side_tag = f"ps{tag}@{dev_tag}"
+        build match counts) over a span set on device `dev`: the probe
+        tiles through the publication-keyed cache, the build outputs
+        through theirs."""
+        env_p = _device_env(probe, p_names, dev, spans)
+        side_tag = f"ps{tag}@{dev}"
         pc_dev = DEVICE_CACHE.array(
             probe.pub, "__codes__", (build.pub, keyset, tuple(spans),
                                      side_tag),
             lambda: _code_tiles(
                 np.concatenate([cl[a - plo:e - plo] for a, e in spans]),
-                g + 1, device),
+                g + 1, dev),
             sweep=_partner_stale_pred(probe.pub, build.pub, side_tag,
                                       keyset))
         n_live_s = sum(e - a for a, e in spans)
         prow = DEVICE_CACHE.array(
-            probe.pub, "__rowmask__", (tuple(spans), tag, dev_tag),
-            lambda: _rowmask_tiles(n_live_s, device))
+            probe.pub, "__rowmask__", (tuple(spans), tag, str(dev)),
+            lambda: _rowmask_tiles(n_live_s, dev))
         bspec, pspec, _uspec, build_slots = specs_for(env_p)
-        b_rc, b_outs = build_outs(bspec)
+        b_rc, b_outs = build_outs(bspec, dev)
         pspec = _with_partials(pspec, build_slots, b_outs)
         pcols = [(env_p[ji].data, env_p[ji].mask) for ji in p_need]
         return pspec, pcols, prow, pc_dev, b_rc
@@ -1218,14 +1277,21 @@ def _run_fused_sharded(node, join, probe: _Side, build: _Side, pscan,
         return _run_fused_collective(
             node, agg_plans, key_plans, group_space, group_mode,
             dictionaries, per_shard, shard_ids, pruned, probe_inputs,
-            tspan, ctx, prof, clock, t0)
+            tspan, ctx, prof, clock, t0, device)
+
+    # shard s's probe on its mesh device (`shard_devices`: logical device
+    # s % n), else every shard on the query's device
+    placed = mesh_mod.shard_devices(n_shards, base=device)
 
     def run_shard(s: int) -> list[np.ndarray]:
         check_cancel()
-        with device_scope(device):
+        idx, dev = placed[s] if placed is not None else (None, device)
+        scope = on_mesh_device(idx, dev) if idx is not None else \
+            device_scope(dev)
+        with scope:
             t_up = time.perf_counter_ns()
             pspec, pcols, prow, pc_dev, b_rc = probe_inputs(
-                per_shard[s], (n_shards, s))
+                per_shard[s], (n_shards, s), dev)
             metrics.DEVICE_OFFLOADS.add()
             tspan("device_upload", t_up, shard=s)
             t_d = time.perf_counter_ns()
@@ -1251,21 +1317,23 @@ def _run_fused_sharded(node, join, probe: _Side, build: _Side, pscan,
 def _run_fused_collective(node, agg_plans, key_plans, group_space: int,
                           group_mode: bool, dictionaries, per_shard: dict,
                           shard_ids: list, pruned: int, probe_inputs,
-                          tspan, ctx, prof, clock, t0) -> Batch:
-    """The device combine: ONE `join_probe` launch over the surviving
-    shard spans, concatenated in ascending shard, then ascending span
-    order. The reference splits that row set evenly over its mesh axis
-    (width min(S, devices) = 1 here, so one slice) and psums the slices'
-    accumulators: integer adds and min/max selections are exact over any
-    row partition, so one launch over the whole set gives the same
-    accumulators."""
+                          tspan, ctx, prof, clock, t0, device) -> Batch:
+    """The device combine over the surviving shard spans, concatenated in
+    ascending shard, then ascending span order. The reference splits that
+    row set evenly over its mesh axis (width min(S, devices)) and psums
+    the slices' accumulators: at width 1 that is one `join_probe` launch
+    over the whole set; at width M, one launch a mesh device over its
+    slice of the tiles, the accumulators combined on the first device by
+    `_collective_out_kinds` through `mesh_combine` (sums fused). Integer
+    adds and min/max selections are exact over any row partition, so
+    every width gives the same accumulators."""
     from ..obs.resources import wait_scope
-    from ..parallel import mesh as mesh_mod
     from . import shard as shard_mod
     from .plan import check_cancel
 
     S = len(shard_ids)
-    M = mesh_mod.data_mesh_width(S)
+    mesh = mesh_mod.data_mesh(S, base=device)
+    M = mesh.size
     all_spans = [sp for s in shard_ids for sp in per_shard[s]]
     pspec, pcols, prow, pc_dev, b_rc = probe_inputs(
         all_spans, ("coll", tuple(shard_ids), M))
@@ -1277,12 +1345,34 @@ def _run_fused_collective(node, agg_plans, key_plans, group_space: int,
     t_d = time.perf_counter_ns()
     metrics.DEVICE_OFFLOADS.add()
     metrics.COLLECTIVE_DISPATCHES.add()
-    # the shard workloads still execute — as row slices of one launch
+    # the shard workloads still execute — as row slices of the launches
     metrics.SHARD_PIPELINES.add(S)
     with wait_scope("Device", "CollectiveCombine"):
-        rowcount, p_outs = J.join_probe(pspec, pcols, prow, pc_dev, b_rc)
-        results = obs_device.fetch_all(
-            [rowcount] + [t for out in p_outs for t in out])
+        if M == 1:
+            rowcount, p_outs = J.join_probe(pspec, pcols, prow, pc_dev,
+                                            b_rc)
+            results = obs_device.fetch_all(
+                [rowcount] + [t for out in p_outs for t in out])
+        else:
+            tiles = prow.shape[0]
+            sizes = [len(c) for c in np.array_split(np.arange(tiles),
+                                                    min(M, tiles))]
+            shard_outs, a = [], 0
+            for j, n in enumerate(sizes):
+                b, dev = a + n, mesh.devices[j]
+                with mesh.shard(j):
+                    rowcount, p_outs = J.join_probe(
+                        _spec_on(pspec, dev),
+                        [(d[a:b].to(dev), m[a:b].to(dev))
+                         for d, m in pcols],
+                        prow[a:b].to(dev), pc_dev[a:b].to(dev),
+                        b_rc.to(dev))
+                shard_outs.append([rowcount] +
+                                  [t for out in p_outs for t in out])
+                a = b
+            results = obs_device.fetch_all(mesh_mod.apply_axis_combines(
+                shard_outs, _collective_out_kinds(agg_plans), mesh.first,
+                fuse_sums=True))
     dt_ns = time.perf_counter_ns() - t_d
     metrics.COLLECTIVE_COMBINE_NS.add(dt_ns)
     metrics.DEVICE_DISPATCH_HIST.observe_ns(dt_ns)
@@ -1293,6 +1383,18 @@ def _run_fused_collective(node, agg_plans, key_plans, group_space: int,
     if prof is not None:
         prof.add_device_ns(id(node), time.perf_counter_ns() - t_d)
     return out
+
+
+def _spec_on(pspec: J.ProbeSpec, dev) -> J.ProbeSpec:
+    """The probe spec with its build partials on `dev` (a mesh slice on
+    another card)."""
+    aggs = [J.ProbeAgg(a.kind, a.ops,
+                       tuple(None if t is None else t.to(dev)
+                             for t in a.src), a.ub_ops)
+            for a in pspec.aggs]
+    return J.ProbeSpec(pspec.col_kinds, pspec.col_offsets, pspec.G,
+                       pspec.g, pspec.outer_left, pspec.preds, pspec.keys,
+                       aggs)
 
 
 def _launch_specs(agg_plans, agg_filters, star_filter, distinct_plans,

@@ -11,11 +11,15 @@ Supported shape: Limit(Sort(Scan | Project(Scan))) with a single sort
 key that is a plain numeric column (int / date / float32) with no NULLs
 and no filter. Anything else falls back to the exact CPU lexsort
 (plan.SortNode). The asc direction uses the bitwise-NOT transform
-(~k = -k-1) so int32 min does not overflow under negation. The
-reference's mesh branch (the key tiles sharded across devices) is not
-ported: the port has one card, so `serene_mesh > 1` takes the
-single-device path, as the reference does with fewer devices than the
-mesh names.
+(~k = -k-1) so int32 min does not overflow under negation.
+
+With `serene_mesh = M > 1` and at least M mesh devices (the reference's
+mesh branch), the key tiles pad to a multiple of M and split into M
+contiguous shards; `topn_scan` runs once a shard on its mesh device and
+each shard's rows shift by its base; the N x k candidates merge on the
+host by (key desc, row asc), the padded and under-filled shards' rows
+dropped, which is the single-device selection. With fewer devices than M
+the single-device path runs, as in the reference.
 """
 
 from __future__ import annotations
@@ -27,6 +31,7 @@ import torch
 
 from ..columnar import dtypes as dt
 from ..columnar.column import Batch
+from ..columnar.device import LANES
 from ..ops import agg_kernels as K
 from ..ops import topn_kernels as TK
 from ..utils import log, metrics
@@ -166,14 +171,58 @@ def _topn_indices(provider: TableProvider, scan, col_name: str,
         return TK.TopnSpec([kind], [off], 0, desc, is_float)
 
     from ..obs import device as obs_device
+    from ..parallel import mesh as mesh_mod
     spec = obs_device.compiled("device_topn", cache_key, build)
-    if dc.data.numel() < k:
-        # k exceeds the padded domain — tiny table, CPU wins
+    mesh_n = int(ctx.settings.get("serene_mesh") or 0)
+    if mesh_n > 1 and mesh_mod.device_count(device) < mesh_n:
+        mesh_n = 0
+    tiles = dc.data.shape[0]
+    if (tiles + (-tiles) % max(mesh_n, 1)) * LANES < k * max(mesh_n, 1):
+        # k exceeds the (per-shard) padded domain — tiny table, CPU wins
         raise NotCompilable("k exceeds per-shard rows")
-    ii, _nsurv = TK.topn_scan(spec, [(dc.data, dc.mask)], dc.mask, k)
-    ii = obs_device.fetch_all([ii])[0].astype(np.int64)
+    if mesh_n > 1:
+        ii = _mesh_topn(spec, dc, k, mesh_mod.make_mesh(mesh_n, base=device),
+                        host, zrange, desc, is_float)
+    else:
+        ii, _nsurv = TK.topn_scan(spec, [(dc.data, dc.mask)], dc.mask, k)
+        ii = obs_device.fetch_all([ii])[0].astype(np.int64)
     if zrange is not None:
         ii = ii + zrange[0]     # slice-relative → table row ids
     metrics.DEVICE_OFFLOADS.add()
     k_eff = min(k, n)
     return ii[:k_eff]
+
+
+def _mesh_topn(spec: TK.TopnSpec, dc, k: int, mesh, host, zrange,
+               desc: bool, is_float: bool) -> np.ndarray:
+    """The mesh branch: one `topn_scan` a shard of the key tiles (padded
+    to a multiple of the mesh size with masked-out tiles), the shard's
+    base added to its rows, then the host merge of the N x k candidates
+    by (key desc, row asc) — the reference's stable sort of the shards'
+    lists in shard order — keeping real rows only (the padding and an
+    under-filled shard's masked rows are the reference's sentinels)."""
+    from ..obs import device as obs_device
+    from ..parallel.mesh import pad_to_multiple, shard_slices
+    M = mesh.size
+    data = pad_to_multiple(dc.data, M)
+    mask = pad_to_multiple(dc.mask, M, False)
+    cands = []
+    for s, (a, b) in enumerate(shard_slices(data.shape[0], M)):
+        dev = mesh.devices[s]
+        d, m = data[a:b], mask[a:b]
+        if d.device != dev:
+            d, m = d.to(dev), m.to(dev)
+        with mesh.shard(s):
+            ii, _nsurv = TK.topn_scan(spec, [(d, m)], m, k)
+            cands.append(ii.to(torch.int64) + a * LANES)
+    rows = obs_device.fetch_all([torch.cat([c.to(mesh.first)
+                                            for c in cands])])[0]
+    lo = zrange[0] if zrange is not None else 0
+    n_live = (zrange[1] - zrange[0]) if zrange is not None else len(host)
+    rows = rows[(rows >= 0) & (rows < n_live)]
+    vals = host.data[lo:lo + n_live][rows]
+    # the keys as the card compares them (a DOUBLE column narrows to f32)
+    key = vals.astype(np.float32).astype(np.float64) if is_float \
+        else vals.astype(np.int64)
+    order = np.lexsort((rows, -key if desc else key))
+    return rows[order][:k]

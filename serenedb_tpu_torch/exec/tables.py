@@ -70,7 +70,9 @@ class TableProvider:
 
     def __init_device_cache(self):
         if not hasattr(self, "_device_cache"):
-            self._device_cache: dict[str, tuple[int, DeviceColumn]] = {}
+            #: (column, physical device) -> (version, DeviceColumn): the
+            #: shards of a virtual mesh share their device's one copy
+            self._device_cache: dict[tuple, tuple[int, DeviceColumn]] = {}
             self._device_lock = threading.Lock()
 
     def device_columns(self, names, pin=None, device=None) -> dict:
@@ -93,15 +95,14 @@ class TableProvider:
                 batch, ver = None, self.data_version
             out = {}
             for name in names:
-                entry = self._device_cache.get(name)
-                if entry is None or entry[0] != ver or \
-                        entry[1].data.device != dev:
+                entry = self._device_cache.get((name, str(dev)))
+                if entry is None or entry[0] != ver:
                     col = (batch.column(name) if batch is not None
                            else self.full_batch([name]).column(name))
                     dc = to_device_column(col, device=dev)
                     metrics.DEVICE_BYTES.add(
                         int(dc.data.numel() * dc.data.element_size()))
-                    self._device_cache[name] = (ver, dc)
+                    self._device_cache[(name, str(dev))] = (ver, dc)
                     out[name] = dc
                 else:
                     out[name] = entry[1]

@@ -16,21 +16,26 @@ part of serenedb_tpu/obs/device.py the analytics path uses).
   arrays.
 - `note_upload(nbytes)`: one host→device upload, counted in
   `device.UPLOADS`.
+- `LEDGER`: the per-device ledger (dispatches, transfer bytes and times
+  up and down), by mesh device: a logical device of a virtual mesh has
+  its own row (`device.on_mesh_device`); kept while
+  `serene_device_telemetry` is on, as the reference keeps its own.
+- `device_rows` / `device_cache_rows`: the sdb_device and
+  sdb_device_cache relations.
 - `note_provider` / `provider_name`: publication token → table name, for
-  the pools' rows. `device_rows` and `device_cache_rows` (the
-  sdb_device and sdb_device_cache relations) raise: not ported yet.
+  the pools' rows.
 """
 
 from __future__ import annotations
 
 import threading
+import time
 from collections import OrderedDict
 from typing import Callable
 
 import numpy as np
 
-from .. import errors
-from ..device import UPLOADS
+from ..device import UPLOADS, mesh_device_index
 from ..utils import metrics
 from ..utils.config import REGISTRY as _settings
 
@@ -148,15 +153,117 @@ def stats_section() -> dict:
 
 
 def device_rows() -> list[dict]:
-    """sdb_device's rows: the per-device transfer ledger is not ported
-    (`device.UPLOADS` counts uploads for the whole process)."""
-    raise errors.unsupported("sdb_device is not ported yet")
+    """One row per mesh device (serenedb_tpu/obs/device.py
+    `device_rows`): dispatches, transfer bytes and times up and down, and
+    the live-bytes estimate (the device column cache, the posting pool
+    and the vector pool, split by holding device). Lists every device of
+    the mesh once a device is initialised (a passive probe, never
+    initialising CUDA), else only those the ledger has seen."""
+    from ..exec.device_pipeline import DEVICE_CACHE
+    from ..parallel import mesh as mesh_mod
+    from ..search.posting_pool import POOL
+    from ..search.vector_store import VPOOL
+    live = DEVICE_CACHE.device_bytes()
+    for pool in (POOL, VPOOL):
+        for i, n in pool.device_bytes().items():
+            live[i] = live.get(i, 0) + n
+    snap = LEDGER.snapshot()
+    n_init = mesh_mod.device_count_if_initialized()
+    placed = mesh_mod.devices() if n_init else []
+    ids = sorted(set(snap) | set(live) | set(range(len(placed))))
+    zeros = {f: 0 for f in _DEV_FIELDS}
+    rows = []
+    for i in ids:
+        s = snap.get(i, zeros)
+        dev = placed[i] if i < len(placed) else None
+        rows.append({
+            "device": i,
+            "platform": dev.type if dev is not None else "",
+            "kind": _device_kind(dev),
+            "dispatches": s["dispatches"],
+            "bytes_up": s["bytes_up"],
+            "transfers_up": s["transfers_up"],
+            "up_ms": round(s["up_ns"] / 1e6, 3),
+            "bytes_down": s["bytes_down"],
+            "transfers_down": s["transfers_down"],
+            "down_ms": round(s["down_ns"] / 1e6, 3),
+            "hbm_bytes_est": live.get(i, 0)})
+    return rows
+
+
+def _device_kind(dev) -> str:
+    if dev is None:
+        return ""
+    if dev.type == "cuda":
+        import torch
+        return torch.cuda.get_device_name(dev)
+    return dev.type
 
 
 def device_cache_rows() -> list[dict]:
-    """sdb_device_cache's rows: the per-entry view of the device column
-    cache is not ported (its summary is in `stats_section`)."""
-    raise errors.unsupported("sdb_device_cache is not ported yet")
+    """One row per DEVICE_CACHE entry with the provider token resolved
+    to its table name: the per-publication/column occupancy view."""
+    from ..exec.device_pipeline import DEVICE_CACHE
+    rows = DEVICE_CACHE.snapshot()
+    for r in rows:
+        r["table"] = provider_name(r["token"])
+    return rows
+
+
+# -- the per-device ledger (copied from serenedb_tpu/obs/device.py) -----------
+
+_DEV_FIELDS = ("dispatches", "bytes_up", "transfers_up", "up_ns",
+               "bytes_down", "transfers_down", "down_ns")
+
+
+class DeviceLedger:
+    """Per-mesh-device counters: dispatches executed, bytes and time
+    moved host→device and device→host."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._dev: dict[int, dict] = {}
+
+    def _slot(self, did: int) -> dict:
+        d = self._dev.get(did)
+        if d is None:
+            d = self._dev[did] = {f: 0 for f in _DEV_FIELDS}
+        return d
+
+    def note_dispatch(self, did: int, n: int = 1) -> None:
+        with self._lock:
+            self._slot(int(did))["dispatches"] += int(n)
+
+    def note_upload(self, nbytes: int, did: int, ns: int = 0) -> None:
+        with self._lock:
+            s = self._slot(int(did))
+            s["bytes_up"] += int(nbytes)
+            s["transfers_up"] += 1
+            s["up_ns"] += int(ns)
+
+    def note_fetch(self, nbytes: int, did: int, ns: int = 0) -> None:
+        with self._lock:
+            s = self._slot(int(did))
+            s["bytes_down"] += int(nbytes)
+            s["transfers_down"] += 1
+            s["down_ns"] += int(ns)
+
+    def snapshot(self) -> dict[int, dict]:
+        with self._lock:
+            return {i: dict(v) for i, v in self._dev.items()}
+
+    def reset(self) -> None:
+        with self._lock:
+            self._dev.clear()
+
+
+LEDGER = DeviceLedger()
+
+
+def note_dispatch(did: int, n: int = 1) -> None:
+    """`n` launches (kernels or plain versions) on mesh device `did`."""
+    if enabled():
+        LEDGER.note_dispatch(did, n)
 
 
 # -- provider-token naming (copied from serenedb_tpu/obs/device.py) -----------
@@ -182,11 +289,21 @@ def provider_name(token: int) -> str:
 
 def fetch_all(outs) -> list:
     """Device→host readback: each output (tensor or number) as a numpy
-    array."""
-    return [o.cpu().numpy() if hasattr(o, "cpu") else np.asarray(o)
+    array, its bytes and time counted for the current mesh device."""
+    t0 = time.perf_counter_ns()
+    host = [o.cpu().numpy() if hasattr(o, "cpu") else np.asarray(o)
             for o in outs]
+    if enabled():
+        dev = next((o.device for o in outs if hasattr(o, "device")), None)
+        LEDGER.note_fetch(sum(h.nbytes for h in host),
+                          mesh_device_index(dev),
+                          time.perf_counter_ns() - t0)
+    return host
 
 
-def note_upload(nbytes: int) -> None:
+def note_upload(nbytes: int, device=None, ns: int = 0) -> None:
+    """One host→device upload of `nbytes` to `device` (taking `ns`)."""
     UPLOADS.bump("transfers")
     UPLOADS.bump("bytes", int(nbytes))
+    if enabled():
+        LEDGER.note_upload(nbytes, mesh_device_index(device), ns)

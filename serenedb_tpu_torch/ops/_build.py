@@ -24,7 +24,7 @@ BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 SOURCES = {"bm25": CSRC / "bm25.cu", "agg": CSRC / "agg.cu",
            "topn": CSRC / "topn.cu", "join": CSRC / "join.cu",
            "vector": CSRC / "vector.cu", "pool": CSRC / "pool.cu",
-           "merge": CSRC / "merge.cu"}
+           "merge": CSRC / "merge.cu", "mesh": CSRC / "mesh.cu"}
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
@@ -84,12 +84,19 @@ SIGNATURES = {
     "merge": {
         "merge_topk": [_P, _P, _L, _L, _L, _I, _P, _L, _P, _L, _P, _P, _P],
     },
+    "mesh": {
+        "mesh_combine": [_P, _L, _L, _I, _I, _I, _P, _P],
+        "mesh_agg_partials": [_P, _P, _L, _L, _L, _P, _P],
+        "score_bytes": [_L, _L],
+        "mesh_score_blocks": [_P] * 6 + [_L, _I, _L, _I, _F, _F, _F] +
+                             [_P, _P, _P],
+    },
 }
 
 #: entries that return a size (bytes, or keys for select_cap), not a CUDA
 #: error
 SIZE_ENTRIES = {"topn_bytes", "chain_bytes", "kmeans_bytes", "topk_bytes",
-                "select_cap", "probe_bytes"}
+                "select_cap", "probe_bytes", "score_bytes"}
 #: the entry each library runs once, right after it loads (kernel
 #: attributes), by library
 LOAD_HOOKS = {"topn": "topn_load"}

@@ -657,6 +657,56 @@ def _score_topk(block_base, block_gaps, block_tfs8, raw_docs, raw_tfs,
                                   require=require if any_require else None)
 
 
+def score_topk_mesh(store: BlockStore, qb: QueryBatch, ndocs_pad: int,
+                    k: int, mesh_n: int, k1: float, b: float, avgdl: float,
+                    scorer: str = "bm25") -> tuple[torch.Tensor, torch.Tensor]:
+    """Score a require-free query batch over an M-device mesh (the
+    reference's `score_topk_mesh` / `_mesh_score_fn`): the posting-row
+    sections pad to a multiple of M with the packer's no-op fills (w = 0
+    rows, -1 tail docs: they add nothing), shard s takes the s-th slice
+    of each section and runs `bm25_accumulate` into its own score plane
+    on its device, the planes sum in shard order (`mesh_combine`) on the
+    first device, and one `topk_rows` selects."""
+    from ..columnar.device import commit_host_array
+    from ..ops.mesh_kernels import mesh_combine
+    from ..parallel.mesh import make_mesh, pad_to_multiple, shard_slices
+    mesh = make_mesh(mesh_n, base=store.norms.device)
+    M = mesh.size
+    fills = {"row_idx": store.n_packed, "row_w": np.float32(0.0),
+             "row_qid": 0, "row_rank": 0, "raw_idx": store.n_raw,
+             "raw_w": np.float32(0.0), "raw_qid": 0, "raw_rank": 0,
+             "tail_docs": -1, "tail_tfs": 0, "tail_w": np.float32(0.0),
+             "tail_qid": 0, "tail_rank": 0}
+    # the packer leaves an empty weight section int32: each section in the
+    # kernel's type (pack_query_batch casts the same way)
+    secs = {n: pad_to_multiple(np.asarray(
+        getattr(qb, n), dtype=np.float32 if n.endswith("_w") else np.int32),
+        M, f) for n, f in fills.items()}
+    stack = torch.empty((M, qb.n_queries * ndocs_pad), dtype=torch.float32,
+                        device=mesh.first)
+    for s in range(M):
+        dev = mesh.devices[s]
+
+        def part(name: str) -> torch.Tensor:
+            a = secs[name]
+            lo, hi = shard_slices(len(a), M)[s]
+            return commit_host_array(a[lo:hi], dev)
+
+        tiles = (store.block_base, store.block_gaps, store.block_tfs8,
+                 store.raw_docs, store.raw_tfs, store.norms)
+        if dev != store.norms.device:
+            tiles = tuple(t.to(dev) for t in tiles)
+        with mesh.shard(s):
+            scores, _ = bm25_kernels.bm25_accumulate(
+                *tiles, *[part(n) for n in fills], ndocs_pad, qb.n_queries,
+                False, k1, b, avgdl, scorer)
+        stack[s].copy_(scores.reshape(-1))
+        del scores
+    plane = mesh_combine(stack, "sum").view(qb.n_queries, ndocs_pad)
+    del stack
+    return bm25_kernels.topk_rows(plane, k)
+
+
 # ------------------------------------------------------------ dense path
 #
 # Small-corpus regime: when the dense (ndocs_pad, V_pad) saturation matrix

@@ -1,0 +1,244 @@
+"""Wrappers of the device-mesh kernels (`csrc/mesh.cu`) and their plain
+PyTorch versions.
+
+- `mesh_combine` ← the psum / pmin / pmax of serenedb_tpu/parallel/mesh.py
+  `apply_axis_combines` (and the psums inside `sharded_agg_step`,
+  `sharded_bm25_topk`, `sharded_query_step`, `ops/bm25.py`
+  `_mesh_score_fn` and `exec/device_agg.py` `_mesh_wrap`): the M shards'
+  partials, stacked (M, N) on the mesh's first device, reduced over the
+  shard axis. Sums add in shard order 0..M-1 from shard 0's value (f32
+  too, so the result does not depend on a launch's schedule); min and max
+  take a NaN from any shard (f32), and compare int32 data as unsigned
+  where the caller says (the u32 images of `agg_scan`'s float min/max).
+- `mesh_agg_partials` ← the body of `sharded_agg_step` for one shard:
+  the `lo <= v < hi` and mask filter of a (R, 128) int32 block, the
+  selected count (one int32) and the (R, 2) int32 [hi16, lo16] row sums.
+- `mesh_score_blocks` ← the scoring body of `sharded_bm25_topk` (BM25
+  mode) and `sharded_query_step` (saturation mode, tf / (tf + 1.2)) for
+  one shard: gather each posting by `gidx` (entries < 0 are padding),
+  its contribution, and the shard's f32 plane of per-doc sums, each
+  doc's contributions added in `gidx` order from +0.0.
+
+On CUDA tensors each wrapper launches its kernel and counts the call in
+`device.LAUNCHES` under its name; on CPU tensors it calls the plain
+version (counted under `<name>.plain`). There is no other path. Every
+output is exact (integers) or follows one add order that the plain
+version writes out, so kernel and plain version agree bit for bit.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..device import LAUNCHES
+from . import _build
+from .agg_kernels import _is_cuda, _stream
+from .bm25_kernels import contrib_plain
+
+#: reduction codes of `mesh_combine` (csrc/mesh.cu MC_*)
+COMBINE_OPS = {"sum": 0, "min": 1, "max": 2}
+#: element types of `mesh_combine` (csrc/mesh.cu MT_*)
+COMBINE_TYPES = {torch.int32: 0, torch.int64: 1, torch.float32: 2}
+#: scoring modes of `mesh_score_blocks` (csrc/mesh.cu MS_*)
+SCORE_MODES = {"bm25": 0, "saturation": 1}
+#: the saturation constant of `sharded_query_step` (tf / (tf + 1.2))
+SAT_K = 1.2
+
+
+# -- mesh_combine -------------------------------------------------------------
+
+def _check_combine(stack: torch.Tensor, op: str, unsigned: bool) -> None:
+    if op not in COMBINE_OPS:
+        raise ValueError(f"mesh_combine: op {op!r}")
+    if stack.dtype not in COMBINE_TYPES:
+        raise TypeError(f"mesh_combine: dtype {stack.dtype}")
+    if stack.dim() != 2 or stack.shape[0] < 1:
+        raise ValueError("mesh_combine: a (M, N) stack with M >= 1")
+    if unsigned and (stack.dtype != torch.int32 or op == "sum"):
+        raise ValueError("mesh_combine: unsigned is for int32 min/max")
+
+
+def mesh_combine_plain(stack: torch.Tensor, op: str,
+                       unsigned: bool = False) -> torch.Tensor:
+    """Plain version of `mesh_combine`: an explicit loop over the shards,
+    shard 0 first."""
+    LAUNCHES.bump("mesh_combine.plain")
+    _check_combine(stack, op, unsigned)
+    flip = torch.tensor(-(1 << 31), dtype=torch.int32, device=stack.device)
+    rows = [r ^ flip for r in stack] if unsigned else list(stack)
+    acc = rows[0].clone()
+    for r in rows[1:]:
+        if op == "sum":
+            acc = acc + r
+        elif stack.dtype.is_floating_point:
+            nan = torch.full_like(acc, float("nan"))   # 0x7FC00000
+            pick = (r < acc) if op == "min" else (r > acc)
+            acc = torch.where(torch.isnan(acc) | torch.isnan(r), nan,
+                              torch.where(pick, r, acc))
+        else:
+            acc = torch.minimum(acc, r) if op == "min" else \
+                torch.maximum(acc, r)
+    return acc ^ flip if unsigned else acc
+
+
+def mesh_combine(stack: torch.Tensor, op: str,
+                 unsigned: bool = False) -> torch.Tensor:
+    """(N,) reduction of a (M, N) stack of shard partials over its shard
+    axis: 'sum' (shard order), 'min' or 'max'."""
+    if not _is_cuda(stack):
+        return mesh_combine_plain(stack, op, unsigned)
+    _check_combine(stack, op, unsigned)
+    if not stack.is_contiguous():
+        raise ValueError("mesh_combine: the stack must be contiguous")
+    M, N = stack.shape
+    out = torch.empty(N, dtype=stack.dtype, device=stack.device)
+    if N:
+        _build.check(_build.load("mesh").mesh_combine(
+            stack.data_ptr(), M, N, COMBINE_TYPES[stack.dtype],
+            COMBINE_OPS[op], int(unsigned), out.data_ptr(), _stream(stack)),
+            "mesh_combine")
+    LAUNCHES.bump("mesh_combine")
+    return out
+
+
+# -- mesh_agg_partials --------------------------------------------------------
+
+def _check_agg(vals: torch.Tensor, mask: torch.Tensor) -> None:
+    if vals.dtype != torch.int32 or vals.dim() != 2 or vals.shape[1] != 128:
+        raise ValueError("mesh_agg_partials: vals (R, 128) int32")
+    if mask.dtype != torch.bool or mask.shape != vals.shape:
+        raise ValueError("mesh_agg_partials: mask (R, 128) bool")
+
+
+def mesh_agg_partials_plain(vals: torch.Tensor, mask: torch.Tensor,
+                            lo: int, hi: int
+                            ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of `mesh_agg_partials` (the reference's step body)."""
+    LAUNCHES.bump("mesh_agg_partials.plain")
+    _check_agg(vals, mask)
+    sel = mask & (vals >= int(lo)) & (vals < int(hi))
+    cnt = sel.sum(dtype=torch.int64).to(torch.int32).reshape(1)
+    v = torch.where(sel, vals, torch.zeros_like(vals))
+    parts = torch.stack([(v >> 16).sum(1, dtype=torch.int64),
+                         (v & 0xFFFF).sum(1, dtype=torch.int64)], dim=1)
+    return cnt, parts.to(torch.int32)
+
+
+def mesh_agg_partials(vals: torch.Tensor, mask: torch.Tensor, lo: int,
+                      hi: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """(count (1,) int32, partials (R, 2) int32 [hi16, lo16]) of the rows
+    of one shard's (R, 128) block where mask and lo <= v < hi."""
+    if not _is_cuda(vals, mask):
+        return mesh_agg_partials_plain(vals, mask, lo, hi)
+    _check_agg(vals, mask)
+    if not (vals.is_contiguous() and mask.is_contiguous()) or \
+            vals.data_ptr() % 16 or mask.data_ptr() % 4:
+        raise ValueError("mesh_agg_partials: tensors must be contiguous "
+                         "and aligned (16 bytes vals, 4 bytes mask)")
+    R = vals.shape[0]
+    out = torch.empty(1 + 2 * R, dtype=torch.int32, device=vals.device)
+    _build.check(_build.load("mesh").mesh_agg_partials(
+        vals.data_ptr(), mask.data_ptr(), R, int(lo), int(hi),
+        out.data_ptr(), _stream(vals)), "mesh_agg_partials")
+    LAUNCHES.bump("mesh_agg_partials")
+    return out[:1], out[1:].view(R, 2)
+
+
+# -- mesh_score_blocks --------------------------------------------------------
+
+def _check_score(flat_docs, flat_tfs, norms, gidx, block_term, idf,
+                 mode: str) -> None:
+    if mode not in SCORE_MODES:
+        raise ValueError(f"mesh_score_blocks: mode {mode!r}")
+    if gidx.dtype != torch.int32 or gidx.dim() != 2:
+        raise ValueError("mesh_score_blocks: gidx (Rb, W) int32")
+    if flat_docs.dtype != torch.int32 or flat_tfs.dtype != torch.int32:
+        raise TypeError("mesh_score_blocks: flat_docs and flat_tfs int32")
+    if mode == "bm25":
+        if norms is None or norms.dtype != torch.int32 or \
+                idf is None or idf.dtype != torch.float32 or \
+                block_term is None or block_term.dtype != torch.int32 or \
+                block_term.shape != gidx.shape[:1]:
+            raise TypeError("mesh_score_blocks: bm25 takes norms int32, "
+                            "block_term (Rb,) int32 and idf f32")
+
+
+def _entries(flat_docs, flat_tfs, gidx):
+    """The valid entries in gidx order: (position, doc, tf f32)."""
+    g = gidx.reshape(-1).to(torch.int64)
+    pos = torch.nonzero(g >= 0).squeeze(1)
+    src = g[pos]
+    return pos, flat_docs[src].to(torch.int64), flat_tfs[src].float()
+
+
+def mesh_score_blocks_plain(flat_docs, flat_tfs, norms, gidx, block_term,
+                            idf, avgdl: float, ndocs_pad: int, mode: str,
+                            k1: float = 1.2, b: float = 0.75
+                            ) -> torch.Tensor:
+    """Plain version of `mesh_score_blocks`: a stable sort of the valid
+    entries by doc, then per doc its contributions added in gidx order
+    from +0.0, one rank at a time."""
+    LAUNCHES.bump("mesh_score_blocks.plain")
+    _check_score(flat_docs, flat_tfs, norms, gidx, block_term, idf, mode)
+    dev = gidx.device
+    pos, docs, tfs = _entries(flat_docs, flat_tfs, gidx)
+    f32 = torch.float32
+    if mode == "bm25":
+        from .bm25_kernels import _avg
+        dl = norms[docs].float()
+        w = idf[block_term.to(torch.int64)[pos // gidx.shape[1]]]
+        c = contrib_plain("bm25", tfs, dl, w, k1, b, _avg(avgdl))
+    else:
+        c = tfs / (tfs + torch.tensor(SAT_K, dtype=f32, device=dev))
+    plane = torch.zeros(ndocs_pad, dtype=f32, device=dev)
+    if not pos.numel():
+        return plane
+    order = torch.sort(docs, stable=True).indices
+    d, c = docs[order], c[order]
+    cnt = torch.bincount(d, minlength=ndocs_pad)
+    start = torch.cumsum(cnt, 0) - cnt
+    rank = torch.arange(d.numel(), device=dev) - start[d]
+    for j in range(int(cnt.max())):
+        at = rank == j
+        plane[d[at]] = plane[d[at]] + c[at]
+    return plane
+
+
+def mesh_score_blocks(flat_docs, flat_tfs, norms, gidx, block_term, idf,
+                      avgdl: float, ndocs_pad: int, mode: str,
+                      k1: float = 1.2, b: float = 0.75) -> torch.Tensor:
+    """(ndocs_pad,) f32 plane of one shard's gathered postings: BM25
+    contributions (`mode='bm25'`, `contrib()` with the max(., 1e-9)
+    guards) or tf / (tf + 1.2) (`'saturation'`; norms, block_term and
+    idf unused), each doc's added in gidx order."""
+    ts = [flat_docs, flat_tfs, gidx] + \
+        ([norms, block_term, idf] if mode == "bm25" else [])
+    if not _is_cuda(*ts):
+        return mesh_score_blocks_plain(flat_docs, flat_tfs, norms, gidx,
+                                       block_term, idf, avgdl, ndocs_pad,
+                                       mode, k1, b)
+    _check_score(flat_docs, flat_tfs, norms, gidx, block_term, idf, mode)
+    for t in ts:
+        if not t.is_contiguous():
+            raise ValueError("mesh_score_blocks: tensors must be "
+                             "contiguous")
+    from .bm25_kernels import _avg
+    E = gidx.numel()
+    if E >= 2**31 or ndocs_pad >= 2**31:
+        raise ValueError("mesh_score_blocks: 2^31 entries or docs")
+    dev = gidx.device
+    lib = _build.load("mesh")
+    buf = torch.empty(lib.score_bytes(E, ndocs_pad), dtype=torch.uint8,
+                      device=dev)
+    plane = torch.empty(ndocs_pad, dtype=torch.float32, device=dev)
+    bm25 = mode == "bm25"
+    _build.check(lib.mesh_score_blocks(
+        flat_docs.data_ptr(), flat_tfs.data_ptr(),
+        norms.data_ptr() if bm25 else None,
+        gidx.data_ptr(), block_term.data_ptr() if bm25 else None,
+        idf.data_ptr() if bm25 else None, E, gidx.shape[1], ndocs_pad,
+        SCORE_MODES[mode], float(k1), float(b), _avg(avgdl),
+        buf.data_ptr(), plane.data_ptr(), _stream(gidx)),
+        "mesh_score_blocks")
+    LAUNCHES.bump("mesh_score_blocks")
+    return plane

@@ -1323,11 +1323,12 @@ def system_table(db, parts: list[str]) -> Optional[TableProvider]:
 
 
 def device_table() -> TableProvider:
-    """sdb_device: one row per physical jax device — dispatches
-    executed, transfer bytes/time host→device and device→host, and the
-    HBM live-bytes estimate (device column cache occupancy split per
-    holding device). The device telemetry ledger (obs/device.py,
-    serene_device_telemetry); empty counters when telemetry is off."""
+    """sdb_device: one row per mesh device (a logical device of a virtual
+    mesh included) — kernel launches, transfer bytes/time host→device
+    and device→host, and the live-bytes estimate (the device column
+    cache and the posting and vector pools, split per holding device).
+    The device telemetry ledger (obs/device.py, serene_device_telemetry);
+    empty counters when telemetry is off."""
     from .obs.device import device_rows
     rows = device_rows()
     return _typed("sdb_device", [

@@ -25,9 +25,15 @@ bit for bit those of the plane kernel, by the reference's contract
 With `serene_shards > 1` and `serene_shard_combine = device`, the
 cross-shard merge of a multi-segment searcher is one `merge_topk` launch
 (ops/merge_kernels.py) on the searcher's device, after the card's top-k
-or the host WAND alike. The mesh branch of `topk_batch` needs more than
-one device: with `mesh_n > 1` the port's one card runs the single-device
-kernels, as the reference does with fewer devices than asked for.
+or the host WAND alike; on a mesh wider than one device each mesh
+device merges its shards' stack, and the first merges their results.
+
+`topk_batch(mesh_n=M)` takes the mesh branch where the reference does: M
+> 1, at least M mesh devices (parallel/mesh.py) and require-free queries.
+The posting-row sections shard over the mesh, `bm25_accumulate` runs once
+a shard into its own plane, and the planes sum in shard order
+(`mesh_combine`) before one `topk_rows`. With fewer devices the
+single-device kernels run, as the reference's do.
 """
 
 from __future__ import annotations
@@ -487,6 +493,28 @@ class SegmentSearcher:
         avgdl = (avgdl_override if avgdl_override is not None
                  else self.index.avgdl)
         k_true = min(max(k, 1), max(self.num_docs, 1))
+        from ..parallel import mesh as mesh_mod
+        if mesh_n > 1 and mesh_mod.device_count(store.norms.device) >= \
+                mesh_n and not any(req for _, req in queries):
+            # mesh-sharded scoring: the posting-row sections shard across
+            # the mesh devices, the score planes sum on the first
+            # (require-free shapes only; _finish_batch applies
+            # exact-match masks as usual)
+            qb = bm25_ops.assemble_query_batch(
+                store, self.num_docs, queries, self.index.doc_freq,
+                scorer, idf_of=idf_of)
+            kk = min(bm25_ops.pad_k(k_true), nd_pad)
+            if any(len(q[0]) > 0 for q in queries):
+                vals, docs = bm25_ops.score_topk_mesh(
+                    store, qb, nd_pad, kk, mesh_n,
+                    bm25_ops.scorer_param(scorer, K1), B, avgdl, scorer)
+                vals, docs = vals.cpu().numpy(), docs.cpu().numpy()
+            else:
+                vals = np.zeros((qb.n_queries, kk), dtype=np.float32)
+                docs = np.zeros((qb.n_queries, kk), dtype=np.int32)
+            return self._finish_batch(nodes, shapes, vals, docs, {}, k,
+                                      scorer, idf_of, avgdl_override,
+                                      nd_pad)
         plans: list = [None] * len(queries)
         host_results: dict[int, tuple[np.ndarray, np.ndarray]] = {}
         use_dense = (scorer not in bm25_ops.LM_SCORERS and
@@ -1037,8 +1065,9 @@ def _device_merge_topk(seg_outs: list, bases: list[int], n_queries: int,
     """The sharded top-k merge — the WHOLE query batch in one
     `merge_topk` launch over the (shard, query, lane) candidates, sized
     exactly (the reference pads L, k and Q to powers of two for XLA's
-    compile cache). On one card the reference's `data_mesh` has width 1
-    and every shard stacks on its leading axis, as here. None → the
+    compile cache), where the reference's `data_mesh(S)` has width 1;
+    at width M > 1 one launch a mesh device over its S/M shards and one
+    over the M results on the first. None → the
     caller takes the host heap, under the reference's admission: doc ids
     at or past the int32 padding sentinel, NaN scores, a single shard
     group, no candidates at all. Nothing else takes the heap: a kernel
@@ -1053,6 +1082,7 @@ def _device_merge_topk(seg_outs: list, bases: list[int], n_queries: int,
     from ..obs.resources import wait_scope
     from ..obs.trace import current_trace
     from ..ops.merge_kernels import merge_topk
+    from ..parallel import mesh as mesh_mod
     from ..utils import metrics
 
     groups = shard_mod.group_round_robin(
@@ -1094,15 +1124,40 @@ def _device_merge_topk(seg_outs: list, bases: list[int], n_queries: int,
             scores[i, qi, :len(sc)] = sc
             docs[i, qi, :len(dd)] = dd.astype(np.int32)
     dev = resolve_device(device) if device is not None else current_device()
+    mesh = mesh_mod.data_mesh(S, base=dev)
+    M = mesh.size
     t_d = time.perf_counter_ns()
     metrics.DEVICE_OFFLOADS.add()
     metrics.COLLECTIVE_DISPATCHES.add()
     with wait_scope("Device", "CollectiveCombine"):
         # the candidate planes bypass DEVICE_CACHE (per-dispatch data):
         # commit_host_array keeps their transfer bytes in the ledger
-        ss, dd2 = obs_device.fetch_all(merge_topk(
-            commit_host_array(scores, dev), commit_host_array(docs, dev),
-            k))
+        if M == 1:
+            vals, out_docs = merge_topk(commit_host_array(scores, dev),
+                                        commit_host_array(docs, dev), k)
+        else:
+            # each mesh device merges its shards' (S/M, Q, L) stack (pad
+            # shards are all (-inf, PAD_DOC)), the first merges the M
+            # results: the reference's per-shard top-k, all_gather and
+            # final selection
+            spd = -(-S // M)
+            scores = np.concatenate([scores, np.full(
+                (spd * M - S, n_queries, lmax), -np.inf, np.float32)])
+            docs = np.concatenate([docs, np.full(
+                (spd * M - S, n_queries, lmax), _PAD_DOC, np.int32)])
+            parts = []
+            for j in range(M):
+                with mesh.shard(j):
+                    v, d = merge_topk(
+                        commit_host_array(scores[j * spd:(j + 1) * spd],
+                                          mesh.devices[j]),
+                        commit_host_array(docs[j * spd:(j + 1) * spd],
+                                          mesh.devices[j]), k)
+                parts.append((v.to(mesh.first), d.to(mesh.first)))
+            vals, out_docs = merge_topk(
+                torch.stack([v for v, _ in parts]),
+                torch.stack([d for _, d in parts]), k)
+        ss, dd2 = obs_device.fetch_all([vals, out_docs])
     dt = time.perf_counter_ns() - t_d
     metrics.COLLECTIVE_COMBINE_NS.add(dt)
     metrics.DEVICE_DISPATCH_HIST.observe_ns(dt)

@@ -120,14 +120,18 @@ def test_copy_and_index_progress_paths(tmp_path):
 
 
 def test_stubbed_relations_and_sources_say_not_ported(tmp_path):
-    """sdb_device is still a stub (0A000); the file sources are ported:
-    read_csv and read_parquet give the reference's rows on a file COPY'd
-    out, and its SQLSTATE on a missing one."""
+    """The stubs are gone: sdb_device and sdb_device_cache answer with the
+    reference's columns; the file sources are ported: read_csv and
+    read_parquet give the reference's rows on a file COPY'd out, and its
+    SQLSTATE on a missing one."""
     port = Database(device="cpu").connect()
     # the posting pool is ported: its relation answers
     port.execute("SELECT * FROM sdb_posting_pool").rows()
-    state, _ = _sqlstate(port, "SELECT * FROM sdb_device")
-    assert state == "0A000"
+    ref = RefDatabase().connect()
+    for rel in ("sdb_device", "sdb_device_cache"):
+        q = f"SELECT * FROM {rel}"
+        assert port.execute(q).names == ref.execute(q).names, rel
+        port.execute(q).rows()
     conns = _pair(*PK_SETUP)
     conns[0].execute(f"COPY t TO '{tmp_path}/t.csv' (FORMAT csv, "
                      "HEADER true)")

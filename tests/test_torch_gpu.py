@@ -1830,3 +1830,116 @@ def test_native_index_build_on_the_card(cuda):
     assert [r[0] for r in dev] == [r[0] for r in host]
     np.testing.assert_allclose([r[1] for r in dev], [r[1] for r in host],
                                rtol=2e-3, atol=1e-3)
+
+
+# -- the device mesh (ops/mesh_kernels.py) -------------------------------------
+
+
+def _bits_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
+    if a.dtype == torch.float32:
+        return torch.equal(a.view(torch.int32), b.view(torch.int32))
+    return torch.equal(a, b)
+
+
+@pytest.mark.parametrize("M", [1, 2, 4, 8])
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64, torch.float32])
+def test_mesh_combine_matches_plain_bit_for_bit(cuda, M, dtype):
+    from serenedb_tpu_torch.ops import mesh_kernels as mk
+    rng = np.random.default_rng(M)
+    n = 100_003
+    if dtype.is_floating_point:
+        x = rng.standard_normal((M, n)) * 10.0 ** rng.integers(-3, 8, (M, n))
+        x[rng.random((M, n)) < 0.001] = np.nan
+    else:
+        x = rng.integers(-2**31, 2**31 - 1, (M, n))
+    st = torch.from_numpy(x).to(dtype).to(cuda)
+    for op in ("sum", "min", "max"):
+        unsigned_opts = (False, True) if dtype == torch.int32 and \
+            op != "sum" else (False,)
+        for uns in unsigned_opts:
+            before = LAUNCHES.get("mesh_combine")
+            got = mk.mesh_combine(st, op, uns)
+            torch.cuda.synchronize()
+            assert LAUNCHES.get("mesh_combine") == before + 1
+            assert _bits_equal(got, mk.mesh_combine_plain(st, op, uns)), \
+                (op, uns)
+
+
+@pytest.mark.parametrize("R", [1, 8, 1000])
+@pytest.mark.parametrize("fill", [0.0, 0.2, 1.0])
+def test_mesh_agg_partials_matches_plain(cuda, R, fill):
+    from serenedb_tpu_torch.ops import mesh_kernels as mk
+    rng = np.random.default_rng(R)
+    vals = torch.from_numpy(rng.integers(-2**31, 2**31 - 1, (R, 128))
+                            .astype(np.int32)).to(cuda)
+    mask = torch.from_numpy(rng.random((R, 128)) >= fill).to(cuda)
+    for lo, hi in ((-2**31, 2**31 - 1), (1000, 2**29), (0, 0)):
+        c, p = mk.mesh_agg_partials(vals, mask, lo, hi)
+        rc, rp = mk.mesh_agg_partials_plain(vals, mask, lo, hi)
+        torch.cuda.synchronize()
+        assert torch.equal(c, rc) and torch.equal(p, rp)
+
+
+@pytest.mark.parametrize("M", [1, 2, 4, 8])
+@pytest.mark.parametrize("mode", ["bm25", "saturation"])
+def test_mesh_score_blocks_match_plain_bit_for_bit(cuda, M, mode):
+    """Each shard's plane bit-equal to the plain version's, padded and
+    under-filled shards included (a shard of all-padding rows), docs met
+    out of order and many entries a doc."""
+    from serenedb_tpu_torch.ops import mesh_kernels as mk
+    from serenedb_tpu_torch.parallel import mesh as pmesh
+    rng = np.random.default_rng(M)
+    p, nd = 200_000, 50_000
+    docs = torch.from_numpy(rng.integers(0, nd, p).astype(np.int32)).to(cuda)
+    tfs = torch.from_numpy(rng.integers(1, 30, p).astype(np.int32)).to(cuda)
+    norms = torch.from_numpy(rng.integers(1, 400, nd).astype(np.int32)
+                             ).to(cuda)
+    rows = 8 * M
+    g = rng.integers(0, p, (rows, 128)).astype(np.int32)
+    g[rng.random((rows, 128)) < 0.1] = -1
+    g[-(rows // M):] = -1                       # the last shard: padding
+    gidx = torch.from_numpy(g).to(cuda)
+    bt = torch.from_numpy(rng.integers(0, 5, rows).astype(np.int32)).to(cuda)
+    idf = torch.from_numpy(rng.random(5).astype(np.float32) * 3).to(cuda)
+    for a, b in pmesh.shard_slices(rows, M):
+        before = LAUNCHES.get("mesh_score_blocks")
+        got = mk.mesh_score_blocks(docs, tfs, norms, gidx[a:b], bt[a:b],
+                                   idf, 37.5, nd, mode)
+        again = mk.mesh_score_blocks(docs, tfs, norms, gidx[a:b], bt[a:b],
+                                     idf, 37.5, nd, mode)
+        ref = mk.mesh_score_blocks_plain(docs, tfs, norms, gidx[a:b],
+                                         bt[a:b], idf, 37.5, nd, mode)
+        torch.cuda.synchronize()
+        assert LAUNCHES.get("mesh_score_blocks") == before + 2
+        assert _bits_equal(got, ref) and _bits_equal(again, got)
+
+
+def test_mesh_builders_on_a_virtual_card_mesh(cuda):
+    """The three builders over a 4-wide virtual mesh on the card equal
+    the same builders' plain run on the CPU, bit for bit."""
+    from serenedb_tpu_torch.parallel import mesh as pmesh
+    rng = np.random.default_rng(3)
+    vals = rng.integers(0, 2**30, (64, 128)).astype(np.int32)
+    mask = rng.random((64, 128)) > 0.2
+    p = 8 * 128
+    fd = np.sort(rng.integers(0, p, p)).astype(np.int32)
+    ft = rng.integers(1, 5, p).astype(np.int32)
+    nm = rng.integers(5, 50, p).astype(np.int32)
+    gidx = np.arange(p, dtype=np.int32).reshape(-1, 128)
+    bt = np.zeros(p // 128, np.int32)
+    idf = np.asarray([1.7], np.float32)
+    codes = rng.integers(0, 16, (64, 128)).astype(np.int32)
+    outs = {}
+    with pmesh.virtual_devices(4):
+        for dev in (cuda, torch.device("cpu")):
+            T = lambda a: torch.from_numpy(a).to(dev)   # noqa: E731
+            m = pmesh.make_mesh(4, base=dev)
+            a = pmesh.sharded_agg_step(m)(T(vals), T(mask), 1000, 2**29)
+            b = pmesh.sharded_bm25_topk(m, p, 10)(
+                T(fd), T(ft), T(nm), T(gidx), T(bt), T(idf), 20.0)
+            c = pmesh.sharded_query_step(m, 16)(
+                T(vals % 100), T(mask), T(codes), T(fd), T(ft), T(gidx),
+                T(bt))
+            outs[dev.type] = [t.cpu() for t in (*a, *b, *c)]
+    for x, y in zip(outs["cuda"], outs["cpu"]):
+        assert _bits_equal(x, y)

@@ -1,0 +1,508 @@
+"""The port's device mesh against the JAX package's, on the CPU.
+
+The reference's tests run its mesh on 8 virtual CPU devices (conftest's
+`xla_force_host_platform_device_count=8`); the port's counterpart is
+`parallel.mesh.virtual_devices(8)`: 8 logical devices over the CPU, each
+shard's work a launch of the plain versions, the combine
+`mesh_combine_plain`. Held against the reference on the same inputs:
+
+- the three builders (`sharded_agg_step`, `sharded_bm25_topk`,
+  `sharded_query_step`) on tests/test_parallel.py's inputs; integers
+  exactly, f32 planes and scores within RTOL / ATOL (the reference adds
+  its psum in XLA's order, the port in shard order 0..M-1), top-k ids
+  equal up to ties within that tolerance;
+- `TestShardedSql`'s statements (tests/test_parallel.py), the mesh top-N
+  and its under-filled shards (tests/test_device_agg.py), the collective
+  join and the search merge, at mesh widths 2, 4 and 8;
+- `mesh_combine`'s and `mesh_score_blocks`' plain versions against loops
+  written out here;
+- `sdb_device` / `sdb_device_cache` (`device_rows`, `device_cache_rows`)
+  against the reference's under 8 devices.
+"""
+
+import random
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from serenedb_tpu import parallel as rpar
+from serenedb_tpu.engine import Database as RDatabase
+from serenedb_tpu.obs import device as robs
+from serenedb_tpu.utils.config import REGISTRY as RSETTINGS
+from serenedb_tpu_torch.device import LAUNCHES
+from serenedb_tpu_torch.engine import Database
+from serenedb_tpu_torch.exec import shard as pshard
+from serenedb_tpu_torch.obs import device as pobs
+from serenedb_tpu_torch.ops import mesh_kernels as MK
+from serenedb_tpu_torch.parallel import mesh as pmesh
+from serenedb_tpu_torch.utils.config import REGISTRY as PSETTINGS
+
+#: f32 tolerance against the reference: its psum adds in XLA's order,
+#: the port's `mesh_combine` in shard order
+RTOL, ATOL = 1e-5, 1e-6
+#: SQL float aggregates (tests/test_parallel.py's own bound)
+SQL_REL = 1e-4
+CPU = torch.device("cpu")
+WIDTHS = [2, 4, 8]
+
+
+@pytest.fixture
+def mesh8():
+    """The port's 8-device virtual mesh over the CPU (restored after)."""
+    with pmesh.virtual_devices(8):
+        yield pmesh.make_mesh(8, base=CPU)
+
+
+@pytest.fixture(scope="module")
+def rmesh():
+    assert len(jax.devices()) == 8
+    return rpar.make_mesh(8)
+
+
+def _delta(before: dict) -> dict:
+    return {k: v - before.get(k, 0) for k, v in LAUNCHES.snapshot().items()
+            if v != before.get(k, 0)}
+
+
+def _t(*arrays):
+    return [torch.from_numpy(np.ascontiguousarray(a)) for a in arrays]
+
+
+# -- the three builders --------------------------------------------------------
+
+
+@pytest.mark.parametrize("case", ["mixed", "no_int32_wrap"])
+def test_sharded_agg_step_exact(mesh8, rmesh, case):
+    rng = np.random.default_rng(0)
+    if case == "mixed":
+        vals = rng.integers(0, 2**30, (64, 128)).astype(np.int32)
+        mask = rng.random((64, 128)) > 0.2
+        lo, hi = 1000, 2**29
+    else:
+        vals = np.full((512, 128), 65535, dtype=np.int32)
+        mask = np.ones((512, 128), dtype=bool)
+        lo, hi = 0, 2**30
+    rc, rp = rpar.sharded_agg_step(rmesh)(
+        jnp.asarray(vals), jnp.asarray(mask), jnp.int32(lo), jnp.int32(hi))
+    before = LAUNCHES.snapshot()
+    pc, pp = pmesh.sharded_agg_step(mesh8)(*_t(vals, mask), lo, hi)
+    assert int(pc) == int(rc)
+    assert np.array_equal(pp.numpy(), np.asarray(rp))
+    assert pmesh.combine_agg_partials(pp) == \
+        rpar.combine_agg_partials(rp)
+    assert _delta(before) == {"mesh_agg_partials.plain": 8,
+                              "mesh_combine.plain": 1}
+
+
+def _postings(seed: int, pad_row: int = -1):
+    rng = np.random.default_rng(seed)
+    p = 8 * 128
+    flat_docs = np.sort(rng.integers(0, p, p)).astype(np.int32)
+    flat_tfs = rng.integers(1, 5, p).astype(np.int32)
+    norms = rng.integers(5, 50, p).astype(np.int32)
+    gidx = np.arange(p, dtype=np.int32).reshape(-1, 128)
+    if pad_row >= 0:
+        gidx[pad_row, 40:] = -1
+    block_term = (np.arange(p // 128) % 2).astype(np.int32)
+    idf = np.asarray([1.7, 0.4], dtype=np.float32)
+    return p, flat_docs, flat_tfs, norms, gidx, block_term, idf
+
+
+@pytest.mark.parametrize("pad_row", [-1, 3])
+@pytest.mark.parametrize("k", [1, 10, 100])
+def test_sharded_bm25_topk_matches_reference(mesh8, rmesh, k, pad_row):
+    p, *arrays = _postings(1, pad_row)
+    rs, rd = rpar.sharded_bm25_topk(rmesh, p, k)(
+        *[jnp.asarray(a) for a in arrays], jnp.float32(20.0))
+    before = LAUNCHES.snapshot()
+    ps, pd = pmesh.sharded_bm25_topk(mesh8, p, k)(*_t(*arrays), 20.0)
+    rs, rd = np.asarray(rs), np.asarray(rd)
+    np.testing.assert_allclose(ps.numpy(), rs, rtol=RTOL, atol=ATOL)
+    for j in np.flatnonzero(pd.numpy() != rd):
+        # ids may differ only where scores tie within the tolerance
+        assert np.isclose(rs, rs[j], rtol=RTOL, atol=ATOL).sum() > 1
+    assert _delta(before) == {"mesh_score_blocks.plain": 8,
+                              "mesh_combine.plain": 1,
+                              "topk_rows.plain": 1}
+
+
+def test_sharded_query_step_matches_reference(mesh8, rmesh):
+    rng = np.random.default_rng(2)
+    g = 16
+    vals = rng.integers(-20, 100, (16, 128)).astype(np.int32)
+    mask = rng.random((16, 128)) > 0.1
+    codes = rng.integers(0, g, (16, 128)).astype(np.int32)
+    p, flat_docs, flat_tfs, _n, gidx, block_term, _i = _postings(2, 5)
+    args = (vals, mask, codes, flat_docs, flat_tfs, gidx, block_term)
+    ref = rpar.sharded_query_step(rmesh, g)(*[jnp.asarray(a) for a in args])
+    before = LAUNCHES.snapshot()
+    got = pmesh.sharded_query_step(mesh8, g)(*_t(*args))
+    counts, sums, scores = (np.asarray(r) for r in ref)
+    assert np.array_equal(got[0].numpy(), counts)      # exact counts
+    np.testing.assert_allclose(got[1].numpy(), sums, rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(got[2].numpy(), scores, rtol=RTOL,
+                               atol=ATOL)
+    assert got[2].shape == (p,)
+    d = _delta(before)
+    assert d["mesh_score_blocks.plain"] == 8
+    assert d["mesh_combine.plain"] == 1             # one fused f32 launch
+
+
+def test_shard_rows_pads(mesh8):
+    out = pmesh.shard_rows(np.ones((13, 4)), mesh8)
+    assert out.shape[0] % 8 == 0
+    t = pmesh.shard_rows(torch.ones((13, 128), dtype=torch.bool), mesh8)
+    assert t.shape == (16, 128) and not t[13:].any()
+
+
+# -- mesh_combine / mesh_score_blocks plain versions ---------------------------
+
+
+def test_mesh_combine_sums_in_shard_order():
+    """f32 sums add shard 0, then 1, then 2...: (1e8 + 1) - 1e8 keeps the
+    order's rounding."""
+    stack = torch.tensor([[1e8], [1.0], [-1e8], [1.0]], dtype=torch.float32)
+    want = np.float32(1e8)
+    for x in (1.0, -1e8, 1.0):
+        want = np.float32(want + np.float32(x))
+    got = MK.mesh_combine(stack, "sum")
+    assert got.numpy().view(np.int32)[0] == \
+        np.asarray([want]).view(np.int32)[0]
+
+
+def test_mesh_combine_int64_exact_and_minmax():
+    rng = np.random.default_rng(4)
+    big = rng.integers(-2**62, 2**62, (8, 33)) // 8
+    got = MK.mesh_combine(torch.from_numpy(big), "sum").numpy()
+    assert np.array_equal(got, big.sum(0))
+    ints = rng.integers(-2**31, 2**31 - 1, (5, 40)).astype(np.int32)
+    t = torch.from_numpy(ints)
+    assert np.array_equal(MK.mesh_combine(t, "min").numpy(), ints.min(0))
+    assert np.array_equal(MK.mesh_combine(t, "max").numpy(), ints.max(0))
+    u = ints.view(np.uint32)
+    assert np.array_equal(MK.mesh_combine(t, "min", True).numpy(),
+                          u.min(0).view(np.int32))
+    assert np.array_equal(MK.mesh_combine(t, "max", True).numpy(),
+                          u.max(0).view(np.int32))
+    f = torch.tensor([[1.0, np.nan, 2.0], [0.5, 1.0, -3.0]],
+                     dtype=torch.float32)
+    lo = MK.mesh_combine(f, "min").numpy()
+    assert lo[0] == 0.5 and np.isnan(lo[1]) and lo[2] == -3.0
+
+
+def test_fused_sums_are_one_launch_per_dtype():
+    outs = [[torch.tensor([s, 2 * s], dtype=torch.int64),
+             torch.tensor([[s]], dtype=torch.int64),
+             torch.tensor([0.5 * s], dtype=torch.float32),
+             torch.tensor([s], dtype=torch.int32)] for s in range(1, 5)]
+    before = LAUNCHES.snapshot()
+    got = pmesh.apply_axis_combines(outs, ["sum", "sum", "sum", "max"],
+                                    CPU, fuse_sums=True)
+    assert _delta(before) == {"mesh_combine.plain": 3}
+    assert got[0].tolist() == [10, 20] and got[1].tolist() == [[10]]
+    assert got[2].tolist() == [5.0] and got[3].tolist() == [4]
+    rows = pmesh.apply_axis_combines(outs, ["rows"] * 4, CPU)
+    assert rows[0].tolist() == [1, 2, 2, 4, 3, 6, 4, 8]
+
+
+def test_mesh_score_blocks_adds_in_gidx_order():
+    """Each doc's contributions added in gidx order from +0.0, padding
+    skipped: a loop over the entries written out."""
+    p, flat_docs, flat_tfs, norms, gidx, block_term, idf = _postings(7, 2)
+    gidx = gidx[::-1].copy()                      # docs met out of order
+    block_term = block_term[::-1].copy()
+    for mode in ("bm25", "saturation"):
+        plane = MK.mesh_score_blocks(*_t(flat_docs, flat_tfs, norms, gidx,
+                                         block_term, idf), 20.0, p, mode)
+        want = np.zeros(p, dtype=np.float32)
+        f32 = np.float32
+        for e, gi in enumerate(gidx.reshape(-1)):
+            if gi < 0:
+                continue
+            d, tf = flat_docs[gi], f32(flat_tfs[gi])
+            if mode == "saturation":
+                c = tf / (tf + f32(1.2))
+            else:
+                w = idf[block_term[e // 128]]
+                denom = tf + f32(1.2) * (f32(1.0) - f32(0.75) + f32(0.75) *
+                                         f32(norms[d]) / f32(20.0))
+                c = w * (f32(1.2) + f32(1.0)) * tf / max(denom, f32(1e-9))
+            want[d] = f32(want[d] + f32(c))
+        assert np.array_equal(plane.numpy().view(np.int32),
+                              want.view(np.int32)), mode
+
+
+# -- SQL over the mesh (tests/test_parallel.py TestShardedSql) -----------------
+
+
+def _sql_db(db):
+    c = db.connect()
+    c.execute("CREATE TABLE st (k INT, v INT, f DOUBLE, body TEXT)")
+    rng = random.Random(5)
+    words = ["alpha", "beta", "gamma", "delta", "epsilon", "common"]
+    c.execute("INSERT INTO st VALUES " + ", ".join(
+        f"({rng.randint(0, 9)}, {rng.randint(-500, 500)}, "
+        f"{rng.random() * 10:.4f}, "
+        f"'{' '.join(rng.choices(words, k=6))}')" for _ in range(20000)))
+    c.execute("SET serene_result_cache = off")
+    return c
+
+
+@pytest.fixture(scope="module")
+def sql_pair():
+    rc = _sql_db(RDatabase(None))
+    rc.execute("SET serene_device = 'tpu'")
+    pc = _sql_db(Database(device="cpu"))
+    pc.execute("SET serene_device = 'gpu'")
+    return rc, pc
+
+
+def _close(got, want) -> bool:
+    if len(got) != len(want):
+        return False
+    for g, w in zip(got, want):
+        for a, b in zip(g, w):
+            if isinstance(a, float) or isinstance(b, float):
+                if abs(a - b) > SQL_REL * max(abs(b), 1e-9):
+                    return False
+            elif a != b:
+                return False
+    return True
+
+
+SQL_QUERIES = [
+    ("SELECT k, count(*), sum(v), min(v), max(v) FROM st "
+     "WHERE v > -300 GROUP BY k ORDER BY k", True),
+    ("SELECT count(*), sum(v), min(v), max(v) FROM st WHERE k < 7", True),
+    ("SELECT k, avg(f), min(f), max(f) FROM st GROUP BY k ORDER BY k",
+     False),
+    ("SELECT k, count(DISTINCT v) FROM st GROUP BY k ORDER BY k", True),
+]
+
+
+@pytest.mark.parametrize("width", WIDTHS)
+@pytest.mark.parametrize("qi", range(len(SQL_QUERIES)))
+def test_sql_aggregates_over_the_mesh(sql_pair, width, qi):
+    """serene_mesh = width: the port's `agg_scan` once a shard, combined
+    by `mesh_combine`; integer aggregates equal to the reference's mesh,
+    float ones within its test's bound."""
+    rc, pc = sql_pair
+    q, exact = SQL_QUERIES[qi]
+    try:
+        with pmesh.virtual_devices(8):
+            for c in (rc, pc):
+                c.execute(f"SET serene_mesh = {width}")
+            before = LAUNCHES.snapshot()
+            got = pc.execute(q).rows()
+            d = _delta(before)
+            want = rc.execute(q).rows()
+    finally:
+        for c in (rc, pc):
+            c.execute("SET serene_mesh = 0")
+    assert got == want if exact else _close(got, want)
+    assert d["agg_scan.plain"] == width
+    assert d["mesh_combine.plain"] >= 1
+
+
+def test_mesh_larger_than_devices_takes_one_device(sql_pair):
+    rc, pc = sql_pair
+    q = "SELECT count(*), sum(v) FROM st WHERE v > 0"
+    try:
+        with pmesh.virtual_devices(8):
+            for c in (rc, pc):
+                c.execute("SET serene_mesh = 4096")
+            before = LAUNCHES.snapshot()
+            assert pc.execute(q).rows() == rc.execute(q).rows()
+            d = _delta(before)
+    finally:
+        for c in (rc, pc):
+            c.execute("SET serene_mesh = 0")
+    assert d.get("agg_scan.plain") == 1 and "mesh_combine.plain" not in d
+
+
+def test_bm25_sql_over_the_mesh(sql_pair):
+    rc, pc = sql_pair
+    for c in (rc, pc):
+        c.execute("CREATE INDEX ON st USING inverted (body)")
+    q = ("SELECT k, bm25(body, 'common alpha') AS s FROM st "
+         "WHERE body @@ 'common alpha' ORDER BY s DESC, k LIMIT 10")
+    try:
+        single = rc.execute(q).rows()
+        with pmesh.virtual_devices(8):
+            for c in (rc, pc):
+                c.execute("SET serene_mesh = 8")
+            got = pc.execute(q).rows()
+    finally:
+        for c in (rc, pc):
+            c.execute("SET serene_mesh = 0")
+    assert [r[0] for r in got] == [r[0] for r in single]
+    for g, s in zip(got, single):
+        assert abs(g[1] - s[1]) < 1e-3
+
+
+# -- the mesh top-N (tests/test_device_agg.py) ---------------------------------
+
+
+@pytest.fixture(scope="module")
+def topn_pair():
+    out = []
+    for db, dev in ((RDatabase(None), "tpu"), (Database(device="cpu"),
+                                                "gpu")):
+        c = db.connect()
+        c.execute("CREATE TABLE h (k INT, v INT, d DATE)")
+        rng = random.Random(9)
+        c.execute("INSERT INTO h VALUES " + ", ".join(
+            f"({rng.randint(0, 9)}, {rng.randint(-500, 500)}, "
+            f"DATE '2020-01-{rng.randint(1, 28):02d}')"
+            for _ in range(20000)))
+        c.execute("CREATE TABLE small (v INT)")
+        c.execute("INSERT INTO small VALUES " + ", ".join(
+            f"({i * 3 - 50})" for i in range(100)))
+        c.execute("SET serene_result_cache = off")
+        c.execute(f"SET serene_device = '{dev}'")
+        out.append(c)
+    return out
+
+
+TOPN_QUERIES = ["SELECT * FROM h ORDER BY v DESC LIMIT 10",
+                "SELECT * FROM h ORDER BY v LIMIT 25",
+                "SELECT k, d FROM h ORDER BY d LIMIT 12",
+                # under-filled shards: 100 rows over 8 shards of 128
+                "SELECT v FROM small ORDER BY v DESC LIMIT 10",
+                "SELECT v FROM small ORDER BY v LIMIT 10"]
+
+
+@pytest.mark.parametrize("width", WIDTHS)
+@pytest.mark.parametrize("q", TOPN_QUERIES)
+def test_topn_over_the_mesh(topn_pair, width, q):
+    rc, pc = topn_pair
+    try:
+        with pmesh.virtual_devices(8):
+            for c in (rc, pc):
+                c.execute(f"SET serene_mesh = {width}")
+            before = LAUNCHES.snapshot()
+            got = pc.execute(q).rows()
+            d = _delta(before)
+            want = rc.execute(q).rows()
+    finally:
+        for c in (rc, pc):
+            c.execute("SET serene_mesh = 0")
+    assert got == want
+    assert d == {"topn_scan.plain": width}
+
+
+# -- the sharded tier: the collective join and the search merge ----------------
+
+
+@pytest.fixture(scope="module")
+def shard_pair():
+    from test_torch_shard import _pair
+    return _pair()
+
+
+@pytest.mark.parametrize("shards", WIDTHS)
+def test_collective_join_over_the_mesh(shard_pair, shards):
+    """serene_shards = width, the device combine: `data_mesh(S)` spans
+    min(S, 8) devices, one `join_probe` a mesh device, the accumulators
+    combined by `mesh_combine`; rows equal the reference's collective."""
+    from test_multichip import JOIN_Q, QUERIES
+    rc, pc = shard_pair
+    try:
+        with pmesh.virtual_devices(8):
+            for c in (rc, pc):
+                c.execute(f"SET serene_shards = {shards}")
+                c.execute("SET serene_shard_combine = device")
+            for q in QUERIES + [JOIN_Q]:
+                pc.execute(q)
+                before = LAUNCHES.snapshot()
+                got = repr(pc.execute(q).rows())
+                d = _delta(before)
+                assert got == repr(rc.execute(q).rows()), (q, shards)
+                if "join_probe.plain" in d:
+                    assert d["join_probe.plain"] > 1
+                    assert d["mesh_combine.plain"] >= 1
+    finally:
+        for c in (rc, pc):
+            c.execute("SET serene_shards = 1")
+            c.execute("SET serene_shard_combine = auto")
+
+
+@pytest.mark.parametrize("n_shards", [2, 3, 4, 8])
+@pytest.mark.parametrize("k", [1, 7, 60])
+def test_search_merge_over_the_mesh(n_shards, k):
+    """The sharded search merge at mesh width min(S, 8): one `merge_topk`
+    a mesh device and one over their results, bit for bit the
+    reference's merge (ties and -0.0 included)."""
+    from serenedb_tpu.search.searcher import _device_merge_topk as rmerge
+    from serenedb_tpu_torch.search.searcher import _device_merge_topk
+    from test_torch_shard import _bits, _crafted
+    seg_outs, bases = _crafted()
+    ref = rmerge(seg_outs, bases, 1, k, n_shards)
+    with pmesh.virtual_devices(8):
+        before = LAUNCHES.snapshot()
+        got = _device_merge_topk(seg_outs, bases, 1, k, n_shards,
+                                 device="cpu")
+        d = _delta(before)
+    assert np.array_equal(got[0][1], ref[0][1])
+    assert np.array_equal(_bits(got[0][0]), _bits(ref[0][0]))
+    m = min(n_shards, len(seg_outs), 8)
+    assert d == {"merge_topk.plain": m + 1}
+
+
+def test_auto_combine_follows_the_mesh():
+    """'auto' resolves to device while more than one device is in use,
+    and back to host once the virtual mesh is gone."""
+    prior = PSETTINGS.get_global("serene_shard_combine")
+    try:
+        PSETTINGS.set_global("serene_shard_combine", "auto")
+        with pmesh.virtual_devices(8):
+            assert pshard.combine_mode(None) == "device"
+            assert pmesh.shard_devices(4, base=CPU) == \
+                [(s, CPU) for s in range(4)]
+            assert pmesh.data_mesh_width(4) == 4
+        assert pshard.combine_mode(None) == "host"
+        assert pmesh.shard_devices(4, base=CPU) is None
+    finally:
+        PSETTINGS.set_global("serene_shard_combine", prior)
+
+
+# -- the per-device relations --------------------------------------------------
+
+
+def test_device_rows_match_the_reference_under_8_devices(sql_pair):
+    rc, pc = sql_pair
+    prior = (PSETTINGS.get_global("serene_device_telemetry"),
+             RSETTINGS.get_global("serene_device_telemetry"))
+    try:
+        PSETTINGS.set_global("serene_device_telemetry", True)
+        RSETTINGS.set_global("serene_device_telemetry", True)
+        with pmesh.virtual_devices(8):
+            pc.execute("SET serene_mesh = 8")
+            pobs.LEDGER.reset()
+            pc.execute("SELECT k, count(*) FROM st GROUP BY k").rows()
+            prow = pobs.device_rows()
+            pcache = pobs.device_cache_rows()
+            q = pc.execute("SELECT * FROM sdb_device")
+            names = q.names
+            nrel = len(q.rows())
+        rc.execute("SELECT k, count(*) FROM st GROUP BY k").rows()
+        rrow, rcache = robs.device_rows(), robs.device_cache_rows()
+        rq = rc.execute("SELECT * FROM sdb_device")
+        assert names == rq.names
+        assert len(prow) == len(rrow) == nrel == 8
+        assert set(prow[0]) == set(rrow[0])
+        assert [r["device"] for r in prow] == list(range(8))
+        # each logical device ran its shard: one launch a device
+        assert all(r["dispatches"] >= 1 for r in prow)
+        assert {"table", "column", "bytes", "devices", "hits"} <= \
+            set(pcache[0]) if pcache else True
+        assert rcache is not None and \
+            pc.execute("SELECT * FROM sdb_device_cache").names == \
+            rc.execute("SELECT * FROM sdb_device_cache").names
+    finally:
+        pc.execute("SET serene_mesh = 0")
+        PSETTINGS.set_global("serene_device_telemetry", prior[0])
+        RSETTINGS.set_global("serene_device_telemetry", prior[1])

@@ -26,6 +26,7 @@ from serenedb_tpu_torch.engine import Database
 from serenedb_tpu_torch.exec import device_pipeline as dp
 from serenedb_tpu_torch.obs import device as pobs
 from serenedb_tpu_torch.ops import join_kernels as J
+from serenedb_tpu_torch.parallel import virtual_devices
 from serenedb_tpu_torch.utils.config import REGISTRY as PSETTINGS
 
 from test_device_pipeline import FUSED_QUERIES, _mk_conn
@@ -311,20 +312,36 @@ def test_shards_run_the_single_dispatch(conns):
             c.execute("SET serene_shard_combine = auto")
 
 
-def test_mesh_is_not_ported(conns):
-    """serene_mesh = 2: neither package's fused pipeline reads it — the
-    same rows as at serene_mesh = 0, on the same single dispatch."""
+def test_collective_join_runs_per_mesh_device(conns):
+    """Over a virtual mesh of 8 devices: serene_mesh = 2 is read by
+    neither package's fused pipeline (one `join_probe`, the rows of
+    serene_mesh = 0); at serene_shards = 2 with the device combine the
+    collective spans a mesh of 2, so the port launches one `join_probe` a
+    mesh device and combines them with `mesh_combine`: the rows equal the
+    reference's collective at the same settings."""
     rconn, pconn = conns["lr"]
     q = FUSED_QUERIES[0]
-    for c in (rconn, pconn):
-        c.execute("SET serene_mesh = 2")
     try:
-        LAUNCHES.reset()
-        assert _rows(pconn, q, "gpu") == _rows(rconn, q, "tpu")
-        assert LAUNCHES.get("join_probe.plain") == 1
+        with virtual_devices(8):
+            for c in (rconn, pconn):
+                c.execute("SET serene_mesh = 2")
+            LAUNCHES.reset()
+            assert _rows(pconn, q, "gpu") == _rows(rconn, q, "tpu")
+            assert LAUNCHES.get("join_probe.plain") == 1
+            for c in (rconn, pconn):
+                c.execute("SET serene_mesh = 0")
+                c.execute("SET serene_shards = 2")
+                c.execute("SET serene_shard_combine = device")
+            _rows(pconn, q, "gpu")
+            LAUNCHES.reset()
+            assert _rows(pconn, q, "gpu") == _rows(rconn, q, "tpu")
+            assert LAUNCHES.get("join_probe.plain") == 2
+            assert LAUNCHES.get("mesh_combine.plain") >= 1
     finally:
         for c in (rconn, pconn):
             c.execute("SET serene_mesh = 0")
+            c.execute("SET serene_shards = 1")
+            c.execute("SET serene_shard_combine = auto")
 
 
 def test_program_ledger_counts_fused_lookups(conns):

@@ -23,6 +23,7 @@ from serenedb_tpu.search.segment import build_field_index as ref_build
 from serenedb_tpu_torch.carry import field_index_from_reference
 from serenedb_tpu_torch.device import LAUNCHES, resolve_device
 from serenedb_tpu_torch.ops import bm25 as port_bm25
+from serenedb_tpu_torch.parallel import virtual_devices
 from serenedb_tpu_torch.search.analysis import get_analyzer
 from serenedb_tpu_torch.search.query import parse_query
 from serenedb_tpu_torch.search.searcher import SegmentSearcher
@@ -278,13 +279,33 @@ def test_embedding_analyzers_say_they_are_not_ported():
     assert pe.value.sqlstate == re_.value.sqlstate == "22023"
 
 
-def test_mesh_branch_is_not_ported(searchers):
-    """mesh_n = 2: the reference (8 virtual devices) takes its
-    mesh-sharded branch, the port's one card its single-device kernels —
-    the same top-k within the search tolerance."""
+#: require-free queries: the shapes that take the mesh branch
+MESH_QUERIES = ["t0", "t1 | t2", "t5 | t30 | t0", "t9", "t1*", "t50",
+                "t33 | t44", "nosuchterm"]
+
+
+def test_mesh_branch_runs_per_shard(searchers):
+    """mesh_n = 2 over a virtual mesh of 8 devices. With a conjunction in
+    the batch neither package takes its mesh branch (the reference's
+    condition), and the two agree. With require-free queries the port
+    runs `bm25_accumulate` once a shard and sums the planes with one
+    `mesh_combine`; its top-k is held against the reference's
+    single-device top-k, since the reference's own mesh branch
+    (`score_topk_mesh`) fails under the installed JAX (shard_map's
+    out_specs tuple against `lax.top_k`'s list)."""
     rs, ps, ran, pan = searchers
-    ref_out = rs.topk_batch([ref_parse(q, ran) for q in QUERIES], 10,
-                            mesh_n=2)
-    port_out = ps.topk_batch([parse_query(q, pan) for q in QUERIES], 10,
-                             mesh_n=2)
-    _compare(ref_out, port_out, QUERIES)
+    with virtual_devices(8):
+        ref_out = rs.topk_batch([ref_parse(q, ran) for q in QUERIES], 10,
+                                mesh_n=2)
+        port_out = ps.topk_batch([parse_query(q, pan) for q in QUERIES],
+                                 10, mesh_n=2)
+        _compare(ref_out, port_out, QUERIES)
+        before = LAUNCHES.snapshot()
+        port_out = ps.topk_batch([parse_query(q, pan)
+                                  for q in MESH_QUERIES], 10, mesh_n=2)
+        after = LAUNCHES.snapshot()
+    ref_out = rs.topk_batch([ref_parse(q, ran) for q in MESH_QUERIES], 10)
+    _compare(ref_out, port_out, MESH_QUERIES)
+    delta = {k: v - before.get(k, 0) for k, v in after.items()}
+    assert delta.get("bm25_accumulate.plain") == 2
+    assert delta.get("mesh_combine.plain") == 1

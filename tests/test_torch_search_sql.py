@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 
 from serenedb_tpu.engine import Database as RefDatabase
+from serenedb_tpu.exec.shard import combine_mode as rcombine_mode
 from serenedb_tpu_torch.device import LAUNCHES
 from serenedb_tpu_torch.engine import Database
 
@@ -159,8 +160,10 @@ def test_device_shard_combine_is_refused_not_served_by_the_host():
 
 
 def test_auto_shard_combine_is_host_on_a_host_with_many_cards(monkeypatch):
-    """The port runs on one card however many the host has, so 'auto'
-    never resolves to the (unported) device combine."""
+    """A host with 4 initialised cards: the port's mesh spans them, so
+    'auto' resolves to the device combine, as the reference's does with
+    more than one device (before the mesh was ported it stayed on the
+    host combine, hence the name); the rows equal the reference's."""
     import torch
 
     from serenedb_tpu_torch.exec.shard import combine_mode
@@ -168,7 +171,7 @@ def test_auto_shard_combine_is_host_on_a_host_with_many_cards(monkeypatch):
     assert device_count_if_initialized() == 0 or torch.cuda.is_available()
     monkeypatch.setattr(torch.cuda, "is_initialized", lambda: True)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
-    assert device_count_if_initialized() == 1
+    assert device_count_if_initialized() == 4
     conns = _pair(["CREATE TABLE docs (id INT, body TEXT)",
                    "INSERT INTO docs VALUES " + ", ".join(
                        f"({i}, '{d}')" for i, d in enumerate(_docs(80))),
@@ -176,7 +179,8 @@ def test_auto_shard_combine_is_host_on_a_host_with_many_cards(monkeypatch):
                    "INSERT INTO docs VALUES (500, 'apple apple')",
                    "SET serene_shards = 2",
                    "SET serene_shard_combine = 'auto'"])
-    assert combine_mode(conns[1].settings) == "host"
+    assert combine_mode(conns[1].settings) == "device" == \
+        rcombine_mode(conns[0].settings)
     _check(conns, "SELECT id, bm25(body) AS s FROM docs WHERE body @@ "
                   "'apple' ORDER BY s DESC LIMIT 3", scored=True)
 

@@ -26,6 +26,7 @@ from serenedb_tpu.utils import metrics as rmetrics
 from serenedb_tpu_torch.carry import memtable_from_reference
 from serenedb_tpu_torch.device import LAUNCHES
 from serenedb_tpu_torch.engine import Database
+from serenedb_tpu_torch.parallel import virtual_devices
 
 from test_device_agg import QUERIES, WIDE_QUERIES
 
@@ -259,7 +260,7 @@ def test_database_needs_a_card_or_an_explicit_cpu(monkeypatch):
     assert Database(device="cpu").device == torch.device("cpu")
 
 
-def test_durable_storage_is_not_ported(tmp_path):
+def test_durable_storage_matches_reference(tmp_path):
     """Durable storage is ported: the same statements on a reference data
     directory and a port one give equal rows after a restart, on the
     host path and on the device tier (the port's plain versions)."""
@@ -291,18 +292,29 @@ def test_durable_storage_is_not_ported(tmp_path):
     assert out[1][1] == out[1][0]
 
 
-def test_mesh_is_not_ported(dbs):
-    """serene_mesh = 2: the reference (8 virtual devices) runs its mesh
-    program, the port's one card the single-device `agg_scan` — the same
-    rows."""
+def test_mesh_runs_agg_scan_per_shard(dbs):
+    """serene_mesh = 2 over a virtual mesh of 8 devices (the reference's 8
+    virtual CPU devices): both packages take their mesh branch. The port
+    launches `agg_scan` once a shard a chunk and combines with
+    `mesh_combine`; the rows equal the reference's (integers exactly,
+    floats within the module's tolerance)."""
     rconn, pconn = dbs["h"]
     q = "SELECT k, count(*), sum(v), min(v) FROM h GROUP BY k ORDER BY k"
     for c in (rconn, pconn):
         c.execute("SET serene_mesh = 2")
     try:
-        before = LAUNCHES.get("agg_scan.plain")
-        assert _rows(pconn, q, "gpu") == _rows(rconn, q, "tpu")
-        assert LAUNCHES.get("agg_scan.plain") > before
+        with virtual_devices(8):
+            before = LAUNCHES.snapshot()
+            got, want = _rows(pconn, q, "gpu"), _rows(rconn, q, "tpu")
+            after = LAUNCHES.snapshot()
+        assert len(got) == len(want)
+        for g, w in zip(got, want):
+            assert all(_same(a, b) for a, b in zip(g, w)), (g, w)
+        scans = after.get("agg_scan.plain", 0) - \
+            before.get("agg_scan.plain", 0)
+        assert scans >= 2 and scans % 2 == 0
+        assert after.get("mesh_combine.plain", 0) > \
+            before.get("mesh_combine.plain", 0)
     finally:
         for c in (rconn, pconn):
             c.execute("SET serene_mesh = 0")
@@ -313,7 +325,7 @@ def test_mesh_is_not_ported(dbs):
     "SELECT count(*) FROM h WHERE ts_match(g, 'alpha')",
     "SELECT bm25(g) FROM h",
 ])
-def test_search_through_sql_is_not_ported(dbs, q):
+def test_search_through_sql_matches_reference(dbs, q):
     """Search predicates on a table without a search index: the port
     answers them as the reference does (a brute scan through the search
     functions), where it once raised FEATURE_NOT_SUPPORTED."""

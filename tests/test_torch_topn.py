@@ -28,6 +28,7 @@ from serenedb_tpu_torch.device import LAUNCHES
 from serenedb_tpu_torch.engine import Database
 from serenedb_tpu_torch.exec import device_topn as ptopn
 from serenedb_tpu_torch.obs import device as pobs
+from serenedb_tpu_torch.parallel import virtual_devices
 
 from test_device_pipeline import TOPN_QUERIES, _mk_conn
 
@@ -258,18 +259,20 @@ def test_projection_expression_falls_back():
             before + (mode == "on")
 
 
-def test_mesh_is_not_ported(keys):
-    """serene_mesh = 2: the reference (8 virtual devices) shards its key
-    tiles over a mesh, the port's one card runs `topn_scan` alone — the
-    same rows."""
+def test_mesh_runs_topn_scan_per_shard(keys):
+    """serene_mesh = 2 over a virtual mesh of 8 devices: both packages
+    shard the key tiles; the port runs `topn_scan` once a shard and merges
+    the 2 x k candidates on the host — the same rows as the reference's
+    mesh branch."""
     rconn, pconn = keys
     q = "SELECT * FROM t ORDER BY i LIMIT 5"
     for c in (rconn, pconn):
         c.execute("SET serene_mesh = 2")
     try:
-        before = LAUNCHES.get("topn_scan.plain")
-        assert _rows(pconn, q, "gpu") == _rows(rconn, q, "tpu")
-        assert LAUNCHES.get("topn_scan.plain") > before
+        with virtual_devices(8):
+            before = LAUNCHES.get("topn_scan.plain")
+            assert _rows(pconn, q, "gpu") == _rows(rconn, q, "tpu")
+            assert LAUNCHES.get("topn_scan.plain") == before + 2
     finally:
         for c in (rconn, pconn):
             c.execute("SET serene_mesh = 0")
