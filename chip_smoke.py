@@ -189,13 +189,17 @@ Phases (any failure exits non-zero and prints no result line):
      (sharded_agg_step on q1's 100M-row column, sharded_bm25_topk on four
      terms' postings, sharded_query_step over all 120M postings) exact
      or within rtol 1e-5 / atol 1e-6 of a one-device mesh; then
-     mesh_combine, mesh_agg_partials and mesh_score_blocks against their
-     plain versions bit for bit on recorded calls, with their times and
-     byte bounds; the device count and the 'auto' combine restored;
+     mesh_combine, mesh_agg_partials and mesh_score_blocks (its BM25 and
+     its saturation call) against their plain versions bit for bit on
+     recorded calls, with their times and byte bounds; the device count
+     and the 'auto' combine restored;
  Last of all (no profiled window runs after a graph capture): phase
      10's top-N counts, and any call of phases 5-19 whose profiled
      windows never showed its kernels complete, from captured graphs
-     (the kernels and copies in a call, held to the same counts);
+     (the kernels and copies in a call, held to the same counts); the
+     recorded mesh calls' kernels, memsets and device ms from graphs
+     (mesh_agg_partials one kernel, mesh_score_blocks at most three,
+     neither a memset), with their scratch bytes;
  22. one JSON line per kernel, the card line, then the device line.
 
 Launch counts are zeroed just before each main-path phase and read just
@@ -3541,7 +3545,8 @@ def check_mesh_kernel(device, name: str, args, reps: int = 10) -> dict:
         moved = nbytes(gidx) + valid * per + nd * 4 + \
             (nbytes(a[4]) if a[4] is not None else 0)
         shape = (f"entries={gidx.numel()} valid={valid} ndocs={nd} "
-                 f"mode={a[8]}")
+                 f"mode={a[8]}, scratch "
+                 f"{MK.score_plan(gidx.numel(), nd).bytes} bytes a call")
     return {"ms": timed_ms(lambda: kern(*a, **kw), reps, device),
             "plain_ms": timed_ms(lambda: plain(*a, **kw), max(1, reps // 5),
                                  device),
@@ -3800,7 +3805,8 @@ def mesh_builders(device, searcher, width: int, window: dict, recs: dict,
         return a, b, q
 
     LAUNCHES.reset()
-    with recs["mesh_agg_partials"], recs["mesh_score_blocks"]:
+    with recs["mesh_agg_partials"], recs["mesh_score_blocks"], \
+            recs["mesh_score_blocks saturation"]:
         t0 = time.perf_counter()
         a, b, q = run(width)
         out = {"ms": (time.perf_counter() - t0) * 1e3}
@@ -3868,7 +3874,10 @@ def phase_mesh(device, searcher, nodes, width: int = MESH_WIDTH,
                 pick=lambda a, kw: tuple(a[0].shape) == (width, plane)),
             "mesh_agg_partials": Recorder(MK, "mesh_agg_partials"),
             "mesh_score_blocks": Recorder(
-                MK, "mesh_score_blocks", pick=lambda a, kw: a[8] == "bm25")}
+                MK, "mesh_score_blocks", pick=lambda a, kw: a[8] == "bm25"),
+            "mesh_score_blocks saturation": Recorder(
+                MK, "mesh_score_blocks",
+                pick=lambda a, kw: a[8] == "saturation")}
     scope = contextlib.nullcontext() if real else \
         pmesh.virtual_devices(width)
     out = {"placement": f"{width} cards" if real else
@@ -3898,10 +3907,55 @@ def phase_mesh(device, searcher, nodes, width: int = MESH_WIDTH,
     for name in ("mesh_combine", "mesh_agg_partials", "mesh_score_blocks"):
         if not window.get(name):
             fail(f"mesh: {name} never launched")
-        if recs[name].args is None:
+    for name, rec in recs.items():
+        if rec.args is None:
             fail(f"mesh: {name}'s inputs were not recorded")
+    # the kernels line takes the BM25 call; the saturation call, the
+    # builders' other mesh_score_blocks shape, is checked and timed beside
+    # it (and read from a graph at the end, with the others)
     out["checks"] = {name: check_mesh_kernel(device, name, recs[name].args)
-                     for name in recs}
+                     for name in ("mesh_combine", "mesh_agg_partials",
+                                  "mesh_score_blocks")}
+    out["sat_check"] = check_mesh_kernel(
+        device, "mesh_score_blocks",
+        recs["mesh_score_blocks saturation"].args)
+    out["recorded"] = {name: recs[name].args for name in (
+        "mesh_agg_partials", "mesh_score_blocks",
+        "mesh_score_blocks saturation")}
+    return out
+
+
+#: kernels a call at most, by mesh wrapper: mesh_agg_partials is one
+#: kernel, mesh_score_blocks two (three allowed); neither sets memory
+MESH_GRAPH_KERNELS = {"mesh_agg_partials": 1, "mesh_score_blocks": 3}
+
+
+def mesh_graphs(device, recorded: dict) -> dict:
+    """Each recorded mesh call from a captured CUDA graph: its kernels,
+    copies in and memsets (graph nodes), its device ms (graph replays) and
+    the wrapper's whole call (CUDA events). Fails on a memset or a copy
+    in, or past MESH_GRAPH_KERNELS. Run last: no profiled window runs
+    after a graph capture."""
+    from serenedb_tpu_torch.ops import mesh_kernels as MK
+    out = {}
+    for what, (a, kw) in recorded.items():
+        name = what.split()[0]
+        fn = getattr(MK, name)
+
+        def call():
+            return fn(*a, **kw)
+        (kern_n, copies, memsets), g = graph_nodes(call)
+        if kern_n > MESH_GRAPH_KERNELS[name] or copies or memsets:
+            fail(f"a {what} call issued {kern_n} kernels, {copies} copies "
+                 f"in, {memsets} memsets (want at most "
+                 f"{MESH_GRAPH_KERNELS[name]}, 0, 0)")
+        scratch = 0 if name == "mesh_agg_partials" else \
+            MK.score_plan(a[3].numel(), a[7]).bytes
+        out[what] = {"kernels": kern_n, "copies": copies, "memsets": memsets,
+                     "device_ms": graph_ms(g),
+                     "call_ms": timed_ms(call, 20, device),
+                     "scratch": scratch}
+        del g
     return out
 
 
@@ -4373,7 +4427,8 @@ def main() -> int:
           f"rtol {RTOL} / atol {ATOL} of one device; device count and the "
           f"auto combine restored {mesh['restored']}; launches "
           f"{mesh['launches']}", flush=True)
-    for what, r in mesh["checks"].items():
+    for what, r in [*mesh["checks"].items(),
+                    ("mesh_score_blocks saturation", mesh["sat_check"])]:
         print(f"[21] {what} ({r['shape']}): kernel {r['ms']:.4f} ms, plain "
               f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms "
               f"({r['bound_by']}), library null, bit-equal", flush=True)
@@ -4387,6 +4442,12 @@ def main() -> int:
         print(f"[graph] {what}: a call {kernels} kernels, {copies} copies "
               f"in (graph nodes); device {dev_ms:.4f} ms a call (graph "
               f"replays)", flush=True)
+    for what, r in mesh_graphs(device, mesh.pop("recorded")).items():
+        print(f"[21] {what}: a call {r['kernels']} kernels, {r['copies']} "
+              f"copies in, {r['memsets']} memsets (graph nodes); device "
+              f"{r['device_ms']:.4f} ms a call (graph replays); the "
+              f"wrapper's call {r['call_ms']:.4f} ms; scratch "
+              f"{r['scratch']} bytes a call", flush=True)
     for what, r in pool_graphs(device, pool_calls).items():
         by = ", ".join(f"{k} {v:.4f}" for k, v in r["by_kernel"].items()) \
             or "not measured (no complete profiled window)"

@@ -12,12 +12,16 @@ PyTorch versions.
   where the caller says (the u32 images of `agg_scan`'s float min/max).
 - `mesh_agg_partials` ← the body of `sharded_agg_step` for one shard:
   the `lo <= v < hi` and mask filter of a (R, 128) int32 block, the
-  selected count (one int32) and the (R, 2) int32 [hi16, lo16] row sums.
+  selected count (one int32, so R * 128 < 2^31) and the (R, 2) int32
+  [hi16, lo16] row sums. One kernel a call, no memset.
 - `mesh_score_blocks` ← the scoring body of `sharded_bm25_topk` (BM25
   mode) and `sharded_query_step` (saturation mode, tf / (tf + 1.2)) for
   one shard: gather each posting by `gidx` (entries < 0 are padding),
   its contribution, and the shard's f32 plane of per-doc sums, each
-  doc's contributions added in `gidx` order from +0.0.
+  doc's contributions added in `gidx` order from +0.0. Two kernels a
+  call, no memset: the entries bucketed by bin of docs a slice at a
+  time, then a block a bin (csrc/mesh.cu's note); `score_plan` mirrors
+  the kernel's slices, bins and scratch.
 
 On CUDA tensors each wrapper launches its kernel and counts the call in
 `device.LAUNCHES` under its name; on CPU tensors it calls the plain
@@ -27,6 +31,8 @@ version writes out, so kernel and plain version agree bit for bit.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -108,6 +114,9 @@ def _check_agg(vals: torch.Tensor, mask: torch.Tensor) -> None:
         raise ValueError("mesh_agg_partials: vals (R, 128) int32")
     if mask.dtype != torch.bool or mask.shape != vals.shape:
         raise ValueError("mesh_agg_partials: mask (R, 128) bool")
+    if vals.shape[0] * 128 >= 2**31:
+        raise ValueError("mesh_agg_partials: R * 128 lanes past an int32 "
+                         "count")
 
 
 def mesh_agg_partials_plain(vals: torch.Tensor, mask: torch.Tensor,
@@ -145,6 +154,55 @@ def mesh_agg_partials(vals: torch.Tensor, mask: torch.Tensor, lo: int,
 
 
 # -- mesh_score_blocks --------------------------------------------------------
+
+#: csrc/mesh.cu's plan constants: slices at most (a tile block reads a
+#: slice's run a thread) and entries a slice at least (one ms_bin_kernel
+#: round), bins at most (a slice's histogram in shared memory), the bins
+#: a small plane still splits into, the fewest docs a bin (2^2) and the
+#: most a tile block (2^13, also a bin's size on a plane past 2M docs)
+SLICES_MAX = 256
+SLICE_MIN = 2048
+BINS_MAX = 16384
+BINS_FEW = 512
+BIN_SHIFT_MIN = 2
+ACC_SHIFT = 13
+
+
+class ScorePlan(NamedTuple):
+    """`mesh_score_blocks`' launch and scratch at (E, ndocs), as
+    csrc/mesh.cu `score_plan` computes them: `slices` bin blocks of
+    `slice_len` entries; bins of 2^shift docs; `bins * subs` tile blocks
+    of 2^acc_shift docs; the stage (8 bytes an entry) and `ends` (bins,
+    slices) int32 in one buffer of `bytes`."""
+    slices: int
+    slice_len: int
+    shift: int
+    bins: int
+    acc_shift: int
+    subs: int
+    ends_off: int
+    bytes: int
+
+
+def _align16(n: int) -> int:
+    return (n + 15) & ~15
+
+
+def score_plan(E: int, ndocs: int) -> ScorePlan:
+    slices = min(max(-(-E // SLICE_MIN), 1), SLICES_MAX)
+    slice_len = -(-E // slices) if E > 0 else 1
+    shift = ACC_SHIFT
+    while shift > BIN_SHIFT_MIN and -(-ndocs >> (shift - 1)) <= BINS_FEW:
+        shift -= 1
+    while -(-ndocs >> shift) > BINS_MAX:
+        shift += 1
+    bins = -(-ndocs >> shift)
+    acc_shift = min(shift, ACC_SHIFT)
+    ends_off = _align16(8 * E)
+    return ScorePlan(slices, slice_len, shift, bins, acc_shift,
+                     1 << (shift - acc_shift), ends_off,
+                     ends_off + _align16(4 * slices * bins))
+
 
 def _check_score(flat_docs, flat_tfs, norms, gidx, block_term, idf,
                  mode: str) -> None:
@@ -228,7 +286,7 @@ def mesh_score_blocks(flat_docs, flat_tfs, norms, gidx, block_term, idf,
         raise ValueError("mesh_score_blocks: 2^31 entries or docs")
     dev = gidx.device
     lib = _build.load("mesh")
-    buf = torch.empty(lib.score_bytes(E, ndocs_pad), dtype=torch.uint8,
+    buf = torch.empty(score_plan(E, ndocs_pad).bytes, dtype=torch.uint8,
                       device=dev)
     plane = torch.empty(ndocs_pad, dtype=torch.float32, device=dev)
     bm25 = mode == "bm25"

@@ -1914,6 +1914,151 @@ def test_mesh_score_blocks_match_plain_bit_for_bit(cuda, M, mode):
         assert _bits_equal(got, ref) and _bits_equal(again, got)
 
 
+def _score_shape(shape: str, mode: str, dev):
+    """Inputs of mesh_score_blocks (args, kwargs) at one shape the card
+    must take: 'sparse' (8,000,512 docs, ~600,000 entries, a BM25
+    shard's), 'heavy' (E far above ndocs, one doc with 100,000+ entries),
+    'edges' (docs on bin edges, ndocs not a multiple of a bin),
+    'unsorted' rows, an all-'padding' shard, 'empty' (E = 0), 'sorted'
+    (one posting list, no padding: every slice read in place) and
+    'lists' (posting lists padded to rows of 128: slices in place and
+    slices bucketed in one call)."""
+    rng = np.random.default_rng(len(shape))
+    nd = {"sparse": 8_000_512, "sorted": 8_000_512, "lists": 117_440_512,
+          "heavy": 3_001, "edges": 3 * 2048 + 5}.get(shape, 50_000)
+    P = {"sparse": 2_400_000, "sorted": 2_400_000, "lists": 4_000_000,
+         "heavy": 300_000}.get(shape, 200_000)
+    docs = rng.integers(0, nd, P).astype(np.int32)
+    if shape in ("sparse", "sorted"):     # doc-sorted posting lists
+        docs = np.sort(docs.reshape(4, -1), axis=1).reshape(-1)
+    if shape == "lists":
+        cuts = np.sort(rng.choice(P, 40, replace=False))
+        docs = np.concatenate([np.sort(x) for x in np.split(docs, cuts)])
+    if shape == "heavy":
+        docs[rng.permutation(P)[:100_500]] = 1234
+    if shape == "edges":
+        docs = rng.choice(np.asarray([0, 2047, 2048, 4095, 4096, 6143, 6144,
+                                      nd - 1], np.int32), P)
+    tfs = rng.integers(1, 60, P).astype(np.int32)
+    norms = rng.integers(1, 500, nd).astype(np.int32)
+    rows = {"sparse": 4_671, "sorted": 4_671, "heavy": P // 128,
+            "empty": 0}.get(shape, 1_000)
+    if shape in ("sparse", "sorted"):
+        g = np.arange(600_000, 600_000 + rows * 128).reshape(rows, 128)
+    elif shape == "heavy":
+        g = np.arange(rows * 128).reshape(rows, 128)
+    elif shape == "lists":
+        bounds = np.r_[0, cuts, P]
+        g = np.concatenate([np.r_[np.arange(x, y), np.full(-(y - x) % 128,
+                                                            -1)]
+                            for x, y in zip(bounds[:-1], bounds[1:])])
+        g = g.reshape(-1, 128)
+        rows = g.shape[0]
+    else:
+        g = rng.integers(0, P, (rows, 128))
+        if shape != "unsorted":
+            g = np.sort(g, axis=None).reshape(rows, 128)
+    g = g.astype(np.int32)
+    if shape not in ("sorted", "lists"):
+        g[rng.random(g.shape) < 0.05] = -1
+    if shape == "padding":
+        g[:] = -1
+    bt = rng.integers(0, 4, rows).astype(np.int32)
+    idf = (rng.random(4) * 3).astype(np.float32)
+    T = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+    return ((T(docs), T(tfs), T(norms), T(g), T(bt), T(idf), 41.25, nd,
+             mode), {})
+
+
+@pytest.mark.parametrize("shape", ["sparse", "heavy", "edges", "unsorted",
+                                   "padding", "empty", "sorted", "lists"])
+@pytest.mark.parametrize("mode", ["bm25", "saturation"])
+def test_mesh_score_blocks_shapes_bit_for_bit(cuda, shape, mode):
+    """Bit-equal to the plain version and to a second call at every shape
+    the design must take (ndocs far above E and far below it, bin edges,
+    unsorted rows, an all-padding shard, no entries, slices read in
+    place and bucketed)."""
+    from serenedb_tpu_torch.ops import mesh_kernels as mk
+    a, kw = _score_shape(shape, mode, cuda)
+    before = LAUNCHES.get("mesh_score_blocks")
+    got = mk.mesh_score_blocks(*a, **kw)
+    again = mk.mesh_score_blocks(*a, **kw)
+    ref = mk.mesh_score_blocks_plain(*a, **kw)
+    torch.cuda.synchronize()
+    assert LAUNCHES.get("mesh_score_blocks") == before + 2
+    assert _bits_equal(got, ref) and _bits_equal(again, got)
+
+
+@pytest.mark.parametrize("R", [195_313, 4_225])
+@pytest.mark.parametrize("fill", [0.0, 0.2, 1.0])
+def test_mesh_agg_partials_card_grid_bit_for_bit(cuda, R, fill):
+    """A card-sized grid at one shard of q1's 100M rows and at R not a
+    multiple of a block's rows: equal to the plain version, the same on
+    a second call, and at fill 0 over the full range the count is R * 128
+    exactly."""
+    from serenedb_tpu_torch.ops import mesh_kernels as mk
+    rng = np.random.default_rng(R)
+    vals = torch.from_numpy(rng.integers(-2**31, 2**31 - 1, (R, 128))
+                            .astype(np.int32)).to(cuda)
+    mask = torch.from_numpy(rng.random((R, 128)) >= fill).to(cuda)
+    for lo, hi in ((-2**31, 2**31 - 1), (1000, 2**29), (0, 0)):
+        c, p = mk.mesh_agg_partials(vals, mask, lo, hi)
+        c2, p2 = mk.mesh_agg_partials(vals, mask, lo, hi)
+        rc, rp = mk.mesh_agg_partials_plain(vals, mask, lo, hi)
+        torch.cuda.synchronize()
+        assert torch.equal(c, rc) and torch.equal(p, rp)
+        assert torch.equal(c2, c) and torch.equal(p2, p)
+        if fill == 0.0 and lo == -2**31:
+            assert int(c) == R * 128
+
+
+@pytest.mark.parametrize("shape", ["sparse", "heavy", "empty", "sorted"])
+@pytest.mark.parametrize("mode", ["bm25", "saturation"])
+def test_mesh_score_blocks_is_two_kernels_and_no_memset(cuda, shape, mode):
+    """A mesh_score_blocks call from a captured graph: two kernels (at
+    most three allowed), no memset, no copy in."""
+    from serenedb_tpu_torch.ops import mesh_kernels as mk
+    a, kw = _score_shape(shape, mode, cuda)
+    assert _graph_activity(lambda: mk.mesh_score_blocks(*a, **kw),
+                           memsets=True) == (2, 0, 0)
+
+
+@pytest.mark.parametrize("R", [195_313, 1, 0])
+def test_mesh_agg_partials_is_one_kernel_and_no_memset(cuda, R):
+    """A mesh_agg_partials call from a captured graph: one kernel, no
+    memset (the count's counter resets itself), no copy in; the count
+    right on every replay."""
+    from serenedb_tpu_torch.ops import mesh_kernels as mk
+    rng = np.random.default_rng(7)
+    vals = torch.from_numpy(rng.integers(0, 2**20, (R, 128))
+                            .astype(np.int32)).to(cuda)
+    mask = torch.from_numpy(rng.random((R, 128)) > 0.3).to(cuda)
+    call = lambda: mk.mesh_agg_partials(vals, mask, 10, 2**19)  # noqa
+    assert _graph_activity(call, memsets=True) == (1, 0, 0)
+    rc, rp = mk.mesh_agg_partials_plain(vals, mask, 10, 2**19)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        c, p = call()
+    for _ in range(3):
+        g.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(c, rc) and torch.equal(p, rp)
+    c, p = call()
+    torch.cuda.synchronize()
+    assert torch.equal(c, rc) and torch.equal(p, rp)
+
+
+def test_score_plan_matches_the_kernel_sizes(cuda):
+    """ops/mesh_kernels.score_plan's bytes are the library's
+    `score_bytes`."""
+    from serenedb_tpu_torch.ops import _build
+    from serenedb_tpu_torch.ops import mesh_kernels as mk
+    lib = _build.load("mesh")
+    for E in (0, 1, 2047, 2049, 597_888, 29_360_128, 2**31 - 1):
+        for nd in (1, 2048, 6_149, 8_000_512, 117_440_512, 2**31 - 1):
+            assert lib.score_bytes(E, nd) == mk.score_plan(E, nd).bytes
+
+
 def test_mesh_builders_on_a_virtual_card_mesh(cuda):
     """The three builders over a 4-wide virtual mesh on the card equal
     the same builders' plain run on the CPU, bit for bit."""

@@ -235,6 +235,212 @@ def test_mesh_score_blocks_adds_in_gidx_order():
                               want.view(np.int32)), mode
 
 
+# -- mesh_score_blocks' kernel order (csrc/mesh.cu), modelled in numpy ---------
+
+_SORT_NONE = 0xFFFF
+
+
+def _contribs(flat_docs, flat_tfs, norms, g, block_term, idf, W, avgdl,
+              mode):
+    """Each entry's contribution in f32, as the kernel computes it (-1.0
+    for padding)."""
+    f32 = np.float32
+    valid = g >= 0
+    gv = np.where(valid, g, 0)
+    tf = flat_tfs[gv].astype(f32)
+    if mode == "saturation":
+        c = tf / (tf + f32(1.2))
+    else:
+        dl = norms[flat_docs[gv]].astype(f32)
+        w = idf[block_term[np.arange(g.size) // W]]
+        avg = f32(max(float(f32(avgdl)), 1e-9))
+        denom = tf + f32(1.2) * (f32(1.0) - f32(0.75) + f32(0.75) * dl / avg)
+        c = w * (f32(1.2) + f32(1.0)) * tf / np.maximum(denom, f32(1e-9))
+    return np.where(valid, c, f32(-1.0)).astype(f32)
+
+
+def _model_score_blocks(flat_docs, flat_tfs, norms, gidx, block_term, idf,
+                        avgdl, ndocs, mode, plan=None):
+    """mesh_score_blocks as its two kernels order the work: ms_bin_kernel
+    (a slice at a time, rounds of 2,048 entries sorted stably by bin, each
+    entry to its bin's cursor plus its rank, each bin's slice end to
+    `ends`; the first pass writes every entry's record in entry order, so
+    a slice already in bin order with no padding is bucketed by it and
+    takes no round) and ms_tile_kernel (a
+    (bin, docs range) at a time: the bin's runs slice by slice, each doc's
+    entries added in that order from +0.0 by the thread that owns the
+    doc's low 8 bits). Returns the plane, the buffer sizes the model used
+    and each slice's kind (1: in place)."""
+    g = np.ascontiguousarray(gidx).reshape(-1).astype(np.int64)
+    E = g.size
+    p = plan or MK.score_plan(E, ndocs)
+    c = _contribs(flat_docs, flat_tfs, norms, g, block_term, idf,
+                  max(gidx.shape[1], 1), avgdl, mode)
+    doc = np.where(g >= 0, flat_docs[np.where(g >= 0, g, 0)], -1)
+    doc = np.where((doc >= 0) & (doc < ndocs), doc, -1)
+    stage_doc = np.full(E, -1, np.int64)
+    stage_val = np.zeros(E, np.float32)
+    ends = np.zeros((p.bins, p.slices), np.int64)
+    kind = np.zeros(p.slices, np.int64)
+    used = 0
+    for b in range(p.slices):
+        lo, hi = b * p.slice_len, min(E, (b + 1) * p.slice_len)
+        d = doc[lo:hi]
+        kind[b] = d.size > 0 and bool((d >= 0).all()) and \
+            bool((np.diff(d >> p.shift) >= 0).all())
+        hist = np.bincount(d[d >= 0] >> p.shift, minlength=p.bins)
+        assert hist.size == p.bins <= MK.BINS_MAX
+        cursor = np.cumsum(hist) - hist
+        for r in range(lo, hi, MK.SLICE_MIN):
+            rd = doc[r:min(hi, r + MK.SLICE_MIN)]
+            key = np.where(rd >= 0, rd >> p.shift, _SORT_NONE)
+            order = np.argsort(key, kind="stable")
+            sk = key[order]
+            first = np.searchsorted(sk, sk, side="left")
+            for pos, (k, src) in enumerate(zip(sk, order)):
+                if k == _SORT_NONE:
+                    continue
+                at = lo + cursor[k] + pos - first[pos]
+                assert lo <= at < hi and stage_doc[at] == -1
+                assert not kind[b] or at == r + src      # in place
+                stage_doc[at], stage_val[at] = rd[src], c[r + src]
+                used = max(used, at + 1)
+            cursor += np.bincount(sk[sk != _SORT_NONE], minlength=p.bins)
+        ends[:, b] = cursor
+    plane = np.full(ndocs, np.nan, np.float32)
+    for item in range(p.bins * p.subs):
+        t, sub = divmod(item, p.subs)
+        d0 = (t << p.shift) + (sub << p.acc_shift)
+        if d0 >= ndocs:
+            continue
+        nd = min(1 << p.acc_shift, ndocs - d0)
+        beg = ends[t - 1] if t else np.zeros(p.slices, np.int64)
+        seq = np.concatenate([np.arange(j * p.slice_len + beg[j],
+                                        j * p.slice_len + ends[t, j])
+                              for j in range(p.slices)]).astype(np.int64)
+        acc = np.zeros(nd, np.float32)
+        dl = stage_doc[seq] - d0
+        for q in np.flatnonzero((dl >= 0) & (dl < nd)):   # in gidx order
+            acc[dl[q]] = np.float32(acc[dl[q]] + stage_val[seq[q]])
+        plane[d0:d0 + nd] = acc
+    return plane, {"stage": 8 * used, "ends": 4 * ends.size}, kind
+
+
+def _score_case(case: str):
+    """(flat_docs, flat_tfs, norms, gidx, block_term, idf, ndocs) of one
+    shape the kernel must take."""
+    rng = np.random.default_rng(len(case))
+    nd = {"skewed": 3_000, "unsorted": 7_000, "edges": 2 * 2048 + 5,
+          "sparse": 300_000, "padding": 5_000, "empty": 5_000,
+          "inplace": 200_000}[case]
+    P = 40_000
+    flat_docs = rng.integers(0, nd, P).astype(np.int32)
+    if case == "skewed":
+        flat_docs[rng.random(P) < 0.3] = 17          # ~12,000 in one doc
+    if case == "edges":
+        flat_docs = rng.choice(np.asarray([0, 2047, 2048, 4095, 4096,
+                                           nd - 1], np.int32), P)
+    flat_tfs = rng.integers(1, 40, P).astype(np.int32)
+    norms = rng.integers(1, 300, nd).astype(np.int32)
+    rows = {"empty": 0, "sparse": 20}.get(case, 200)
+    g = rng.integers(0, P, (rows, 128)).astype(np.int32)
+    if case == "inplace":                        # one posting list
+        flat_docs = np.sort(flat_docs)
+        g = (np.arange(rows * 128) % P).reshape(rows, 128).astype(np.int32)
+    elif case != "unsorted":
+        g = np.sort(g, axis=None).reshape(rows, 128)
+    if case != "inplace":
+        g[rng.random(g.shape) < 0.1] = -1
+    if case == "padding":
+        g[:] = -1
+    block_term = rng.integers(0, 3, rows).astype(np.int32)
+    idf = (rng.random(3) * 3).astype(np.float32)
+    return flat_docs, flat_tfs, norms, g, block_term, idf, nd
+
+
+def _plans(E: int, nd: int) -> dict:
+    """The wrapper's plan, and two that reach what small inputs do not:
+    several rounds a slice, and a bin split over tile blocks."""
+    p = MK.score_plan(E, nd)
+    rounds = p._replace(slices=3, slice_len=max(1, -(-E // 3)),
+                        ends_off=0, bytes=0)
+    shift = 11 + (-(-nd >> 11) > 8)       # several bins, as large planes
+    split = p._replace(shift=shift, bins=-(-nd >> shift),
+                       acc_shift=shift - 2, subs=4, ends_off=0, bytes=0)
+    return {"wrapper": p, "rounds": rounds, "split": split}
+
+
+@pytest.mark.parametrize("case", ["skewed", "unsorted", "edges", "sparse",
+                                  "padding", "empty", "inplace"])
+@pytest.mark.parametrize("mode", ["bm25", "saturation"])
+@pytest.mark.parametrize("plan", ["wrapper", "rounds", "split"])
+def test_mesh_score_blocks_kernel_order_matches_plain(case, mode, plan):
+    """The kernel's order, modelled in numpy (entries bucketed stably by
+    bin a slice at a time, each bin read slice by slice, each round's
+    same-doc entries added in order), gives the plain version's plane bit
+    for bit: skewed, unsorted, bin-edge, sparse, all-padding and empty
+    inputs, under the wrapper's plan and two that split slices into
+    rounds and bins over blocks."""
+    fd, ft, nm, g, bt, idf, nd = _score_case(case)
+    want = MK.mesh_score_blocks(*_t(fd, ft, nm, g, bt, idf), 31.5, nd,
+                                mode).numpy()
+    p = _plans(g.size, nd)[plan]
+    got, used, kind = _model_score_blocks(fd, ft, nm, g, bt, idf, 31.5, nd,
+                                          mode, p)
+    assert np.array_equal(got.view(np.int32), want.view(np.int32))
+    if plan == "wrapper":
+        assert used["stage"] <= p.ends_off
+        assert p.ends_off + used["ends"] <= p.bytes
+    if case in ("edges", "padding", "empty"):
+        assert not kind.any()                    # unsorted or padding
+    if case == "inplace":
+        assert kind.all()
+
+
+@pytest.mark.parametrize("E,ndocs,slices,shift,subs", [
+    (0, 1, 1, 2, 1),
+    (1, 5, 1, 2, 1),
+    (2048, 2048, 1, 2, 1),
+    (2049, 2049, 2, 3, 1),
+    (300_000, 3_001, 147, 3, 1),                 # E far above ndocs
+    (597_888, 8_000_512, 256, 13, 1),            # a BM25 shard, phase 21
+    (29_360_128, 117_440_512, 256, 13, 1),       # a saturation shard
+    (10_000, 2**31 - 1, 5, 17, 16),
+])
+def test_score_plan_sizes(E, ndocs, slices, shift, subs):
+    """score_plan: at most SLICES_MAX slices of at least SLICE_MIN
+    entries; bins of 2^13 docs, smaller on a plane that would make fewer
+    than BINS_FEW of them (down to 4 docs), larger past BINS_MAX, covering
+    the plane; tile blocks of at most 2^13 docs; scratch of 8 bytes an
+    entry and 4 a (bin, slice), not O(ndocs): under 0.4 GB at the
+    saturation shard."""
+    p = MK.score_plan(E, ndocs)
+    assert (p.slices, p.shift, p.subs) == (slices, shift, subs)
+    assert p.slices * p.slice_len >= E
+    assert p.bins <= MK.BINS_MAX and p.bins << p.shift >= ndocs
+    assert (p.bins - 1) << p.shift < ndocs
+    assert p.subs << p.acc_shift == 1 << p.shift
+    assert p.acc_shift <= MK.ACC_SHIFT
+    assert p.bins > MK.BINS_FEW // 2 or p.shift in (MK.BIN_SHIFT_MIN,
+                                                     MK.ACC_SHIFT)
+    assert p.bytes == -(-8 * E // 16) * 16 + \
+        -(-4 * p.slices * p.bins // 16) * 16
+    if E == 29_360_128:
+        assert p.bytes < 0.4e9
+
+
+def test_mesh_agg_partials_refuses_past_an_int32_count():
+    """R * 128 lanes must fit the int32 count: refused past it, on any
+    device (a stride-0 view, no memory)."""
+    R = 2**31 // 128
+    vals = torch.zeros(1, 128, dtype=torch.int32).expand(R, 128)
+    mask = torch.ones(1, 128, dtype=torch.bool).expand(R, 128)
+    with pytest.raises(ValueError, match="int32"):
+        MK.mesh_agg_partials(vals, mask, 0, 1)
+    c, p = MK.mesh_agg_partials(vals[:1000], mask[:1000], 0, 1)
+    assert int(c) == 128_000 and p.shape == (1000, 2)
+
+
 # -- SQL over the mesh (tests/test_parallel.py TestShardedSql) -----------------
 
 
