@@ -191,8 +191,24 @@ Phases (any failure exits non-zero and prints no result line):
      or within rtol 1e-5 / atol 1e-6 of a one-device mesh; then
      mesh_combine, mesh_agg_partials and mesh_score_blocks (its BM25 and
      its saturation call) against their plain versions bit for bit on
-     recorded calls, with their times and byte bounds; the device count
+     recorded calls, with their times and byte bounds, and mesh_combine
+     beside the library's stack.sum(0), amin(0) and amax(0) on the same
+     stack (a yardstick: they promise no shard order); the device count
      and the 'auto' combine restored;
+ 22. SQL over the PG wire: the port's PgServer (behind FrontDoor)
+     serves card databases of phase 6, 7 and 9's tables, rebuilt from
+     their seeds; q1's three queries and T1-T3, hits' six queries and T4
+     and J1-J5 run in simple, extended text and extended binary mode
+     (portal chunks of 65,536 rows), each statement's decoded rows equal
+     to Connection.execute's on the same database and its kernels
+     launched as often as in process; q1's GROUP BY region once as a
+     prepared statement with a $1 predicate bound at Bind (whether the
+     device tier took it printed); T3 and 1,000,000 streamed hits rows
+     over extended binary in chunks; a CancelRequest during a chunked
+     device aggregate on q1's table (57014, its latency, the next
+     statement correct); COPY FROM STDIN in text and binary of 1,000,000
+     hits rows (a cut for the run's time), hits' six queries over the
+     wire on each equal to an in-process table of those rows;
  Last of all (no profiled window runs after a graph capture): phase
      10's top-N counts, and any call of phases 5-19 whose profiled
      windows never showed its kernels complete, from captured graphs
@@ -200,7 +216,7 @@ Phases (any failure exits non-zero and prints no result line):
      recorded mesh calls' kernels, memsets and device ms from graphs
      (mesh_agg_partials one kernel, mesh_score_blocks at most three,
      neither a memset), with their scratch bytes;
- 22. one JSON line per kernel, the card line, then the device line.
+ 23. one JSON line per kernel, the card line, then the device line.
 
 Launch counts are zeroed just before each main-path phase and read just
 after it (phase 20 counts its durable database's launches only, not
@@ -208,9 +224,9 @@ the in-memory one it is held against; phase 21 zeroes them before each
 of its mesh runs and sums what each read, so its single-device
 comparisons stay out); the comparisons of phases 5, 10, 14, 18, 19 and
 21 run outside those windows.
-The result cache is off in phases 6-9, so every statement executes, and
-the device column cache's cap is raised to 32 GiB, as a deployment on an
-80 GB card would set it. The script imports the port
+The result cache is off in phases 6-9 and 22, so every statement
+executes, and the device column cache's cap is raised to 32 GiB, as a
+deployment on an 80 GB card would set it. The script imports the port
 (`serenedb_tpu_torch`) and neither JAX nor the JAX package; corpora and
 tables are rebuilt here from seeds, as bench.py builds them.
 """
@@ -3547,11 +3563,20 @@ def check_mesh_kernel(device, name: str, args, reps: int = 10) -> dict:
         shape = (f"entries={gidx.numel()} valid={valid} ndocs={nd} "
                  f"mode={a[8]}, scratch "
                  f"{MK.score_plan(gidx.numel(), nd).bytes} bytes a call")
-    return {"ms": timed_ms(lambda: kern(*a, **kw), reps, device),
-            "plain_ms": timed_ms(lambda: plain(*a, **kw), max(1, reps // 5),
-                                 device),
-            "bound_ms": bound_ms(moved), "bound_by": "bytes",
-            "library_ms": None, "max_abs_err": err, "shape": shape}
+    out = {"ms": timed_ms(lambda: kern(*a, **kw), reps, device),
+           "plain_ms": timed_ms(lambda: plain(*a, **kw), max(1, reps // 5),
+                                device),
+           "bound_ms": bound_ms(moved), "bound_by": "bytes",
+           "library_ms": None, "max_abs_err": err, "shape": shape}
+    if name == "mesh_combine":
+        # the library's reductions over the same stack: a yardstick
+        # that promises no shard order (the kernel folds in shard order)
+        lib = {"sum": lambda: a[0].sum(0), "min": lambda: a[0].amin(0),
+               "max": lambda: a[0].amax(0)}
+        out["library_all"] = {op: timed_ms(f, reps, device)
+                              for op, f in lib.items()}
+        out["library_ms"] = out["library_all"][a[1]]
+    return out
 
 
 def _mesh_window(window: dict, launches: dict) -> None:
@@ -3957,6 +3982,412 @@ def mesh_graphs(device, recorded: dict) -> dict:
                      "scratch": scratch}
         del g
     return out
+
+
+#: the wire modes of phase 22 (tests/test_sqllogic_wire.py's three)
+WIRE_MODES = ("simple", "extended", "extended-binary")
+#: the rows an Execute asks for in phase 22's extended modes
+WIRE_CHUNK = 65_536
+
+
+def _py(rows) -> list:
+    """Rows with numpy scalars as Python values, floats as bit patterns."""
+    out = []
+    for r in rows:
+        vals = []
+        for v in r:
+            if isinstance(v, np.generic):
+                v = v.item()
+            vals.append(struct.pack("<d", v) if isinstance(v, float) else v)
+        out.append(tuple(vals))
+    return out
+
+
+class _Served:
+    """A port `PgServer` on 127.0.0.1 behind `FrontDoor`, serving `db`
+    for the block: `port` is its PG port."""
+
+    def __init__(self, db):
+        from serenedb_tpu_torch.server.frontdoor import FrontDoor
+        from serenedb_tpu_torch.server.pgwire import PgServer
+        self.pg = PgServer(db, "127.0.0.1", 0)
+        self.front = FrontDoor(db, http_port=0, pg=self.pg)
+
+    def __enter__(self):
+        self.front.start()
+        self.port = self.pg.port
+        return self
+
+    def __exit__(self, *exc):
+        self.front.stop()
+
+
+def _wire_client(port):
+    from serenedb_tpu_torch.server.client import PgClient
+    cl = PgClient(port, timeout=600)
+    cl.rows("SET serene_device = 'gpu'")
+    return cl
+
+
+def wire_run(cl, mode: str, sql: str, params=(), chunk: int = WIRE_CHUNK):
+    """One statement over the wire in `mode`: (rows, Execute messages)."""
+    if mode == "simple":
+        return cl.typed_rows(sql), 1
+    return cl.extended(sql, params, binary=mode == "extended-binary",
+                       chunk=chunk)
+
+
+#: the runs of each statement in each mode in phase 22 (its ms the median)
+WIRE_REPS = 5
+#: a result of fewer rows is small: the wire's cost on it is summarised
+WIRE_SMALL = 1_000
+
+
+def wire_statements(device, label: str, db, queries: list) -> dict:
+    """`queries` ((sql, kernels)) on `db` through `Connection.execute` and
+    over the wire in each mode, WIRE_REPS runs each, the modes taking
+    turns: every run's rows equal to execute's and its kernels launched
+    as often as in process; ms per statement per mode the median run."""
+    from serenedb_tpu_torch.device import LAUNCHES
+    c = db.connect()
+    c.execute("SET serene_device = 'gpu'")
+    out = {"ms": {}, "launches": {}, "rows": {}}
+    with _Served(db) as srv:
+        clients = {m: _wire_client(srv.port) for m in WIRE_MODES}
+        try:
+            for q, kernels in queries:
+                want = _py(c.execute(q).rows())        # cold: caches fill
+                runs = {r: [] for r in ("execute",) + WIRE_MODES}
+                for _rep in range(WIRE_REPS):
+                    for run in runs:
+                        before = LAUNCHES.snapshot()
+                        t0 = time.perf_counter()
+                        if run == "execute":
+                            rows = c.execute(q).rows()
+                            sync(device)
+                        else:
+                            rows, _n = wire_run(clients[run], run, q)
+                        ms = (time.perf_counter() - t0) * 1e3
+                        after = LAUNCHES.snapshot()
+                        d = {k: after.get(k, 0) - before.get(k, 0)
+                             for k in kernels}
+                        if _py(rows) != want:
+                            fail(f"wire {label} ({run}): rows differ from "
+                                 f"execute's on {q!r}")
+                        if not all(d.values()):
+                            fail(f"wire {label} ({run}): {d} launched for "
+                                 f"{q!r}")
+                        runs[run].append((ms, d))
+                first = runs["execute"][0][1]
+                if any(d != first for rs in runs.values() for _ms, d in rs):
+                    fail(f"wire {label}: launches differ from execute's on "
+                         f"{q!r}: {runs}")
+                out["ms"][q] = {r: float(np.median([ms for ms, _d in rs]))
+                                for r, rs in runs.items()}
+                out["launches"][q] = first
+                out["rows"][q] = len(want)
+        finally:
+            for cl in clients.values():
+                cl.close()
+    return out
+
+
+def wire_prepared(device, db, sql: str, literal: str, value) -> dict:
+    """`sql` with a `$1` predicate prepared and bound at Bind (extended
+    binary) against `literal` through execute: rows equal; whether
+    agg_scan launched, and the fused declines the statement added."""
+    from serenedb_tpu_torch.device import LAUNCHES
+    from serenedb_tpu_torch.obs import device as obs_device
+    c = db.connect()
+    c.execute("SET serene_device = 'gpu'")
+    want = _py(c.execute(literal).rows())
+    with _Served(db) as srv:
+        cl = _wire_client(srv.port)
+        try:
+            declines0 = obs_device.fused_declines()
+            n0 = LAUNCHES.get("agg_scan")
+            t0 = time.perf_counter()
+            rows, _n = cl.extended(sql, (value,), binary=True)
+            ms = (time.perf_counter() - t0) * 1e3
+            took = LAUNCHES.get("agg_scan") - n0
+            declines = {k: v - declines0.get(k, 0) for k, v in
+                        obs_device.fused_declines().items()
+                        if v != declines0.get(k, 0)}
+        finally:
+            cl.close()
+    if _py(rows) != want:
+        fail(f"wire prepared: rows differ from execute's on {literal!r}")
+    return {"ms": ms, "agg_scan": took, "declines": declines}
+
+
+def wire_stream(device, db, sql: str, n: int = None) -> dict:
+    """`sql` (n rows, where given) over extended binary in portal chunks
+    of WIRE_CHUNK rows: equal to execute, one Execute a chunk."""
+    c = db.connect()
+    c.execute("SET serene_device = 'gpu'")
+    want = _py(c.execute(sql).rows())
+    n = len(want) if n is None else n
+    with _Served(db) as srv:
+        cl = _wire_client(srv.port)
+        try:
+            t0 = time.perf_counter()
+            rows, executes = cl.extended(sql, binary=True, chunk=WIRE_CHUNK)
+            ms = (time.perf_counter() - t0) * 1e3
+        finally:
+            cl.close()
+    if len(rows) != n or _py(rows) != want:
+        fail(f"wire stream: {len(rows)} rows, {n} wanted, or rows differ "
+             f"from execute's on {sql!r}")
+    if executes != -(-n // WIRE_CHUNK):
+        fail(f"wire stream: {executes} Executes for {n} rows")
+    return {"ms": ms, "rows": n, "executes": executes}
+
+
+def wire_cancel(device, db, sql: str, min_s: float = 1.5) -> dict:
+    """A CancelRequest while `sql`, a chunked device aggregate, runs: the
+    chunk is halved from 2^18 rows until the statement takes at least
+    `min_s` in process, the cancel is sent a third of the way in; the
+    client gets 57014, and the next statement answers as execute."""
+    from serenedb_tpu_torch.server.client import PgError
+    c = db.connect()
+    c.execute("SET serene_device = 'gpu'")
+    want = _py(c.execute(sql).rows())
+    chunk = 1 << 18
+    while True:
+        c.execute(f"SET serene_device_chunk_rows = {chunk}")
+        t0 = time.perf_counter()
+        c.execute(sql)
+        run_s = time.perf_counter() - t0
+        if run_s >= min_s or chunk <= 1 << 12:
+            break
+        chunk //= 2
+    with _Served(db) as srv:
+        cl = _wire_client(srv.port)
+        try:
+            cl.rows(f"SET serene_device_chunk_rows = {chunk}")
+            cl.send_query(sql)
+            time.sleep(run_s / 3)
+            t_cancel = time.perf_counter()
+            cl.cancel()
+            state, latency = None, None
+            while True:
+                kind, payload = cl.read()
+                if kind == b"E" and state is None:
+                    latency = (time.perf_counter() - t_cancel) * 1e3
+                    state = PgError(payload).sqlstate
+                if kind == b"Z":
+                    break
+            if state != "57014":
+                fail(f"wire cancel: SQLSTATE {state}, 57014 wanted "
+                     f"(statement {run_s:.2f} s at chunk {chunk})")
+            cl.rows("SET serene_device_chunk_rows = DEFAULT")
+            after = _py(cl.typed_rows(sql))
+        finally:
+            cl.close()
+    if after != want:
+        fail("wire cancel: the statement after the cancel differs from "
+             "execute's")
+    return {"latency_ms": latency, "run_s": run_s, "chunk": chunk}
+
+
+def copy_text(cols: dict, names: list) -> bytes:
+    """PG text COPY of the columns (no tab, newline or backslash in
+    them): tab-separated, \\N for NULL."""
+    lists = [cols[n].to_pylist() for n in names]
+    return "".join("\t".join("\\N" if v is None else str(v) for v in row)
+                   + "\n" for row in zip(*lists)).encode()
+
+
+def copy_binary(cols: dict, names: list) -> bytes:
+    """PG binary COPY of the columns: int64 and int32 as 8 and 4 bytes,
+    strings as UTF-8."""
+    from serenedb_tpu_torch.columnar import dtypes as dt
+    lists = [cols[n].to_pylist() for n in names]
+    packers = []
+    for n in names:
+        tid = cols[n].type.id
+        packers.append(
+            (lambda v: struct.pack("!iq", 8, v)) if tid is dt.TypeId.BIGINT
+            else (lambda v: struct.pack("!ii", 4, v))
+            if tid is dt.TypeId.INT else
+            (lambda v: struct.pack("!i", len(b := v.encode())) + b))
+    null = struct.pack("!i", -1)
+    head = struct.pack("!h", len(names))
+    body = b"".join(head + b"".join(
+        null if v is None else p(v) for p, v in zip(packers, row))
+        for row in zip(*lists))
+    return b"PGCOPY\n\xff\r\n\x00" + struct.pack("!ii", 0, 0) + body + \
+        struct.pack("!h", -1)
+
+
+HITS_DDL = ("CREATE TABLE hits (UserID BIGINT, RegionID INT, AdvEngineID "
+            "INT, SearchPhrase VARCHAR, SearchEngineID INT, "
+            "ResolutionWidth INT)")
+
+
+def wire_copy(device, cols: dict) -> dict:
+    """The `hits` rows in `cols` loaded by COPY FROM STDIN in text and in
+    binary into card databases over the wire; hits' six queries over
+    the wire (extended binary) on each equal to the same queries on an
+    in-process table of those rows."""
+    from serenedb_tpu_torch.columnar.column import Batch
+    from serenedb_tpu_torch.device import LAUNCHES
+    from serenedb_tpu_torch.engine import Database
+    from serenedb_tpu_torch.exec.tables import MemTable
+    names = list(cols)
+    n = len(cols[names[0]])
+    mem = Database(device=device)
+    mem.schemas["main"].tables["hits"] = MemTable(
+        "hits", Batch.from_pydict(cols))
+    mc = mem.connect()
+    mc.execute("SET serene_device = 'gpu'")
+    want = [_py(mc.execute(q).rows()) for q in HITS_QUERIES]
+    out = {"rows": n, "rows_per_s": {}, "encode_s": {}}
+    for fmt, encode in (("text", copy_text), ("binary", copy_binary)):
+        t0 = time.perf_counter()
+        data = encode(cols, names)
+        out["encode_s"][fmt] = time.perf_counter() - t0
+        db = Database(device=device)
+        with _Served(db) as srv:
+            cl = _wire_client(srv.port)
+            try:
+                cl.rows(HITS_DDL)
+                t0 = time.perf_counter()
+                tag = cl.copy_in(
+                    "COPY hits FROM STDIN" +
+                    (" WITH (FORMAT binary)" if fmt == "binary" else ""),
+                    data)
+                out["rows_per_s"][fmt] = n / (time.perf_counter() - t0)
+                if tag != f"COPY {n}":
+                    fail(f"wire COPY ({fmt}): tag {tag!r}")
+                for q, w in zip(HITS_QUERIES, want):
+                    a0 = LAUNCHES.get("agg_scan")
+                    rows, _n = cl.extended(q, binary=True)
+                    if _py(rows) != w:
+                        fail(f"wire COPY ({fmt}): {q!r} differs from the "
+                             "in-process table's")
+                    if LAUNCHES.get("agg_scan") == a0:
+                        fail(f"wire COPY ({fmt}): agg_scan did not launch "
+                             f"for {q!r}")
+            finally:
+                cl.close()
+        del data, db
+    return out
+
+
+def phase_wire(device, sizes: dict = None) -> dict:
+    """Phase 22: SQL over the port's PG wire on the card, at phase 6, 7
+    and 9's sizes, with the result cache off (every statement runs)."""
+    from serenedb_tpu_torch.bench.tpch import tpch_tables
+    from serenedb_tpu_torch.columnar.column import Batch
+    from serenedb_tpu_torch.device import LAUNCHES
+    from serenedb_tpu_torch.engine import Database
+    from serenedb_tpu_torch.exec.tables import MemTable
+    from serenedb_tpu_torch.utils.config import REGISTRY as settings
+    sizes = {"q1": 100_000_000, "hits": 10_000_000, "orders": 1_500_000,
+             "copy": 1_000_000, "stream": 1_000_000, **(sizes or {})}
+    t_phase = time.perf_counter()
+    out = {"statements": {}, "gen_s": 0.0}
+
+    def card_db(tables: dict):
+        db = Database(device=device)
+        for name, columns in tables.items():
+            db.schemas["main"].tables[name] = MemTable(
+                name, Batch.from_pydict(columns))
+        return db
+
+    def generated(make):
+        t0 = time.perf_counter()
+        tables = make()
+        out["gen_s"] += time.perf_counter() - t0
+        return tables
+
+    settings.set_global("serene_result_cache", False)
+    LAUNCHES.reset()
+    try:
+        db = card_db(generated(lambda: {"hits": q1_columns(sizes["q1"])}))
+        out["statements"]["q1"] = wire_statements(
+            device, "q1", db,
+            [(q, AGG) for q in Q1_QUERIES] + [(q, TOPN) for q in Q1_TOPN])
+        out["prepared"] = wire_prepared(
+            device, db,
+            "SELECT region, count(*), sum(x) FROM hits WHERE x < $1 "
+            "GROUP BY region",
+            "SELECT region, count(*), sum(x) FROM hits WHERE x < 90000 "
+            "GROUP BY region", 90000)
+        out["t3"] = wire_stream(device, db, Q1_TOPN[2],
+                                8192 if sizes["q1"] >= 10_000_000 else None)
+        out["cancel"] = wire_cancel(device, db, Q1_QUERIES[2])
+        del db
+        hits = generated(lambda: hits_columns(sizes["hits"]))
+        db = card_db({"hits": hits})
+        out["statements"]["hits"] = wire_statements(
+            device, "hits", db,
+            [(q, AGG) for q in HITS_QUERIES] + [(q, TOPN) for q in HITS_TOPN])
+        out["stream"] = wire_stream(
+            device, db, f"SELECT * FROM hits LIMIT {sizes['stream']}",
+            sizes["stream"])
+        del db
+        cut = {k: v.slice(0, sizes["copy"]) for k, v in hits.items()}
+        del hits
+        out["copy"] = wire_copy(device, cut)
+        del cut
+        db = card_db(generated(lambda: tpch_tables(sizes["orders"])))
+        out["statements"]["tpch"] = wire_statements(
+            device, "tpch", db,
+            [(q, {1: CHAIN, 4: OUTER_RIGHT}.get(qi, JOIN))
+             for qi, q in enumerate(TPCH_QUERIES)])
+        del db
+    finally:
+        settings.set_global("serene_result_cache", True)
+    out["launches"] = LAUNCHES.snapshot()
+    out["s"] = time.perf_counter() - t_phase
+    return out
+
+
+def print_wire(wire: dict) -> None:
+    """Phase 22's lines."""
+    for label, r in wire["statements"].items():
+        for q, ms in r["ms"].items():
+            print(f"[22] wire {label} {q[:60]!r}: median ms of "
+                  f"{WIRE_REPS} runs " + ", ".join(
+                f"{run} {v:.2f}" for run, v in ms.items()) +
+                f"; rows equal to execute in every mode; launches a run "
+                f"{r['launches'][q]} in each", flush=True)
+    small = [ms[m] - ms["execute"] for r in wire["statements"].values()
+             for q, ms in r["ms"].items() if r["rows"][q] < WIRE_SMALL
+             for m in WIRE_MODES]
+    q = np.percentile(small, [0, 25, 50, 75, 100])
+    print(f"[22] wire: the wire's cost on the statements of fewer than "
+          f"{WIRE_SMALL} rows ({len(small) // len(WIRE_MODES)} statements x "
+          f"{len(WIRE_MODES)} modes; a mode's median ms less execute's): "
+          f"median {q[2]:.2f} ms, quartiles {q[1]:.2f} and {q[3]:.2f}, "
+          f"range {q[0]:.2f} to {q[4]:.2f}", flush=True)
+    pr, cn, st, t3, cp = wire["prepared"], wire["cancel"], \
+        wire["stream"], wire["t3"], wire["copy"]
+    took = "took it" if pr["agg_scan"] else \
+        f"declined it (fused declines {pr['declines']})"
+    print(f"[22] wire: q1's GROUP BY region prepared with a $1 predicate "
+          f"bound at Bind (extended binary): {pr['ms']:.2f} ms, equal to "
+          f"execute; the device tier {took} (agg_scan launches "
+          f"{pr['agg_scan']}); T3 over extended binary {t3['ms']:.2f} ms "
+          f"({t3['rows']} rows, {t3['executes']} Execute); {st['rows']} "
+          f"hits rows streamed over extended binary in chunks of "
+          f"{WIRE_CHUNK}: {st['ms']:.1f} ms ({st['executes']} Executes, "
+          f"{st['rows'] / st['ms'] * 1e3:.0f} rows/s), equal to execute; "
+          f"a CancelRequest during q1's GROUP BY at serene_device_chunk_rows"
+          f" = {cn['chunk']} ({cn['run_s']:.2f} s in process): 57014 after "
+          f"{cn['latency_ms']:.1f} ms, the next statement equal to execute",
+          flush=True)
+    print(f"[22] wire COPY FROM STDIN: {cp['rows']} hits rows (a cut of the "
+          f"10,000,000 made for the run's time): text "
+          f"{cp['rows_per_s']['text']:.0f} rows/s, binary "
+          f"{cp['rows_per_s']['binary']:.0f} rows/s (client encoding "
+          f"{cp['encode_s']['text']:.1f} / {cp['encode_s']['binary']:.1f} "
+          f"s); hits' six queries over the wire on each equal to an "
+          f"in-process table of those rows; phase {wire['s']:.1f} s "
+          f"(tables generated {wire['gen_s']:.1f} s); launches "
+          f"{wire['launches']}", flush=True)
 
 
 def card_line() -> str:
@@ -4429,9 +4860,19 @@ def main() -> int:
           f"{mesh['launches']}", flush=True)
     for what, r in [*mesh["checks"].items(),
                     ("mesh_score_blocks saturation", mesh["sat_check"])]:
+        lib = "null" if r["library_ms"] is None else (
+            f"{r['library_ms']:.4f} ms (" + ", ".join(
+                f"stack.{'sum' if op == 'sum' else 'a' + op}(0) {v:.4f}"
+                for op, v in r["library_all"].items()) +
+            "; no shard order promised)")
         print(f"[21] {what} ({r['shape']}): kernel {r['ms']:.4f} ms, plain "
               f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms "
-              f"({r['bound_by']}), library null, bit-equal", flush=True)
+              f"({r['bound_by']}), library {lib}, bit-equal", flush=True)
+    print(f"    total {time.perf_counter() - t_start:.1f} s", flush=True)
+
+    # 22. SQL over the PG wire
+    wire = phase_wire(device)
+    print_wire(wire)
     print(f"    total {time.perf_counter() - t_start:.1f} s", flush=True)
 
     # measured last (after a graph capture no profiled window runs): the
@@ -4459,7 +4900,7 @@ def main() -> int:
               f"{r['call_ms']:.4f} ms", flush=True)
     print(f"    total {time.perf_counter() - t_start:.1f} s", flush=True)
 
-    # 22. result lines
+    # 23. result lines
     launches = {}
     for window in (dense["launches"], packed["launches"],
                    packed["ragged"]["launches"],
@@ -4467,7 +4908,7 @@ def main() -> int:
                    sift["launches"], colbert["launches"],
                    bsql["launches"], paged["launches"],
                    serving["launches"], shards["launches"],
-                   dur["launches"], mesh["launches"]):
+                   dur["launches"], mesh["launches"], wire["launches"]):
         for kname, n in window.items():
             launches[kname] = launches.get(kname, 0) + n
     results["agg_scan"] = checks["q1 GROUP BY region"]

@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import contextlib
 import contextvars
+import functools
 import os
 import threading
 import time
@@ -40,6 +41,22 @@ from .utils.config import SessionSettings
 # the reference threads ClientContext through DuckDB function binding)
 CURRENT_CONNECTION: contextvars.ContextVar = contextvars.ContextVar(
     "serene_current_connection", default=None)
+
+
+def _as_current(method):
+    """Run a `Connection` method with that connection as
+    `CURRENT_CONNECTION`: work the wire starts outside
+    `execute_statement` (a Describe's planning, COPY's data phase) then
+    reads its database's device, roles and sequences, as a statement
+    does."""
+    @functools.wraps(method)
+    def run(self, *args, **kwargs):
+        token = CURRENT_CONNECTION.set(self)
+        try:
+            return method(self, *args, **kwargs)
+        finally:
+            CURRENT_CONNECTION.reset(token)
+    return run
 
 
 @dataclass
@@ -1668,6 +1685,13 @@ class Connection:
 
     # -- SELECT ------------------------------------------------------------
 
+    @_as_current
+    def describe_plan(self, sel: ast.Select, n_params: int) -> PlanNode:
+        """The plan of `sel` for the wire's Describe, made outside any
+        statement, as this connection: planning may read-repair an
+        index, which builds on this database's device."""
+        return self._plan(sel, [None] * n_params)
+
     def _plan(self, sel: ast.Select, params: list) -> PlanNode:
         from .sql.search_rewrite import rewrite_search
         planner = Planner(_ResolverShim(self.db, params, self), params)
@@ -2951,6 +2975,7 @@ class Connection:
                 _write_csv(st.target, _records_as_text(full), st.options)
         return QueryResult(Batch([], []), f"COPY {full.num_rows}")
 
+    @_as_current
     def copy_in_data(self, st: ast.CopyStmt, data: bytes) -> QueryResult:
         """COPY ... FROM STDIN: parse the wire-fed payload (PG text format
         by default: tab-delimited, \\N nulls, backslash escapes; or csv)."""
@@ -3024,6 +3049,7 @@ class Connection:
         self._insert_batch(table, incoming)
         return QueryResult(Batch([], []), f"COPY {incoming.num_rows}")
 
+    @_as_current
     def copy_out_data(self, st: ast.CopyStmt,
                       ) -> tuple[list[bytes], int, int]:
         """COPY ... TO STDOUT → (encoded rows, row count, column count):

@@ -282,7 +282,9 @@ def _run(node, scan, provider: TableProvider, preds: list[BoundExpr],
                           group_space if group_mode else 1, agg_plans,
                           distinct_plans, slot_of, decode_specs)
 
-    spec = obs_device.compiled("device_agg", key, build)
+    spec = obs_device.compiled("device_agg", key, build,
+                               profile=getattr(ctx, "profile", None),
+                               node_key=id(node))
 
     # A column's device mask excludes padding but ALSO that column's NULLs —
     # wrong as a row mask for count(*). Use a pure row-validity mask built

@@ -520,6 +520,7 @@ def _device_env(side: _Side, names: dict, device, spans=None) -> dict:
     """{join index: DeviceColumn} of one side's needed columns, through
     the publication-keyed cache, each checked against its SQL type: the
     side's surviving range, or with `spans` a shard's row spans."""
+    obs_device.note_provider(side.pub[0], side.provider.name)
     out = {}
     for ji, (name, t) in names.items():
         dc = DEVICE_CACHE.column(
@@ -943,7 +944,8 @@ def _run_fused(node, join, probe_side, build_side,
                 key_plans, preds_probe, preds_build, slot_p, slot_b, dec_p,
                 dec_b, g, group_space, group_mode, outer_left, outer_right)
         return obs_device.compiled(
-            "fused", ("fused", tuple(dec_p)) + shape_sig, build_specs)
+            "fused", ("fused", tuple(dec_p)) + shape_sig, build_specs,
+            profile=prof, node_key=id(node))
 
     # sharded tier: the probe phase runs once per probe shard
     # (round-robin block partitions) after one publication-cached build
@@ -1981,7 +1983,9 @@ def _run_fused_topn(limit_node, scan, preds, ki: int, desc: bool, k: int,
                                 "descriptor", "device_descriptor")
         return spec
 
-    spec = obs_device.compiled("fused_topn", cache_key, build)
+    spec = obs_device.compiled("fused_topn", cache_key, build,
+                               profile=getattr(ctx, "profile", None),
+                               node_key=id(limit_node))
     cols = [(env_cols[i].data, env_cols[i].mask) for i in needed]
     check_cancel()
     metrics.DEVICE_OFFLOADS.add()

@@ -172,7 +172,9 @@ def _topn_indices(provider: TableProvider, scan, col_name: str,
 
     from ..obs import device as obs_device
     from ..parallel import mesh as mesh_mod
-    spec = obs_device.compiled("device_topn", cache_key, build)
+    spec = obs_device.compiled("device_topn", cache_key, build,
+                               profile=getattr(ctx, "profile", None),
+                               node_key=prof_key)
     mesh_n = int(ctx.settings.get("serene_mesh") or 0)
     if mesh_n > 1 and mesh_mod.device_count(device) < mesh_n:
         mesh_n = 0

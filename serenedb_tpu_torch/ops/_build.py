@@ -142,6 +142,8 @@ def _compile(name: str) -> Path:
                            f"(exit {proc.returncode}):\n{proc.stderr}")
     os.replace(tmp, out)
     BUILD_LOG[name] = {"seconds": secs, "log": proc.stdout + proc.stderr}
+    from ..obs.device import note_kernel_build
+    note_kernel_build(secs * 1e9)
     return out
 
 

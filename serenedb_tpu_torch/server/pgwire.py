@@ -927,6 +927,11 @@ class PgSession:
             self._note_error()
             self.w.error(e)
             self.ignore_till_sync = True
+        except Exception as e:  # engine bug: answer it, keep the session
+            log.error("pg", f"internal error: {e!r}")
+            self._note_error()
+            self.w.error(errors.SqlError("XX000", f"internal error: {e}"))
+            self.ignore_till_sync = True
         await self.w.flush()
 
     def _describe_statement(self, prep: Prepared, fmts: tuple = ()):
@@ -935,7 +940,7 @@ class PgSession:
                            ast.Explain)):
             try:
                 if isinstance(st, (ast.Select, ast.SetOp)):
-                    plan = self.conn._plan(st, [None] * prep.n_params)
+                    plan = self.conn.describe_plan(st, prep.n_params)
                     self.w.row_description(plan.names, plan.types, fmts)
                     return
             except errors.SqlError:
