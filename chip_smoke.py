@@ -151,7 +151,9 @@ Phases (any failure exits non-zero and prints no result line):
  19. merge_topk (on phase 17's recorded 16-query merge and a crafted
      batch of ties, -0.0, pads and k past any shard's candidates; a call
      one kernel and no copy in, device ms; torch.topk over the same plane
-     as its yardstick) and match_bitmap (on a recorded phase 17 launch)
+     as its yardstick) and match_bitmap (on a recorded phase 17 launch,
+     and on a disjunction of the packed corpus, an 8,000,512-doc bitmap;
+     one launch a call, its kernel's device ms from torch.profiler)
      against their plain versions bit for bit, with their times and
      bounds; K12's one-card
      form: join_probe at phase 17's collective shape (4 shards, device
@@ -178,11 +180,13 @@ Phases (any failure exits non-zero and prints no result line):
      cards where it has 4; torch.cuda.device_count() printed): phase 6's
      q1 (100M rows; its scalar and GROUP BY queries, T1) and phase 7's
      hits (T4) at serene_mesh = 4, rows equal to serene_mesh = 0 on the
-     card, agg_scan once a shard a chunk with mesh_combine and topn_scan
-     once a shard; the packed corpus's 64 require-free queries in batches
-     of 16 through topk_batch(mesh_n = 4), top-10 within rtol 2e-3 / atol
-     1e-3 of the single device (a shard's plane each, summed by
-     mesh_combine); phase 17's join (1x) at shards 4 with the device
+     card, agg_scan once a shard a chunk with one mesh_combine launch a
+     chunk and topn_scan once a shard; the packed corpus's 64
+     require-free queries in batches of 16 through topk_batch(mesh_n =
+     4), top-10 within rtol 2e-3 / atol 1e-3 of the single device (a
+     shard's plane each, read where it lies by one mesh_combine: the
+     combine step's ms and the batches' peak device memory printed);
+     phase 17's join (1x) at shards 4 with the device
      combine over the mesh (a join_probe a mesh device) and its search
      merge at shards 4 (a merge_topk a mesh device and one over them),
      both equal to shards = 1; the reference's three builders
@@ -191,9 +195,11 @@ Phases (any failure exits non-zero and prints no result line):
      or within rtol 1e-5 / atol 1e-6 of a one-device mesh; then
      mesh_combine, mesh_agg_partials and mesh_score_blocks (its BM25 and
      its saturation call) against their plain versions bit for bit on
-     recorded calls, with their times and byte bounds, and mesh_combine
+     recorded calls, with their times and byte bounds (mesh_combine's:
+     every part read once, the output written once), and mesh_combine
      beside the library's stack.sum(0), amin(0) and amax(0) on the same
-     stack (a yardstick: they promise no shard order); the device count
+     parts stacked (a yardstick: they promise no shard order); the device
+     count
      and the 'auto' combine restored;
  22. SQL over the PG wire: the port's PgServer (behind FrontDoor)
      serves card databases of phase 6, 7 and 9's tables, rebuilt from
@@ -481,6 +487,35 @@ def timed_ms(fn, reps: int, device) -> float:
     b.record()
     torch.cuda.synchronize(device)
     return a.elapsed_time(b) / reps
+
+
+def queued_ms(fn, calls: int, device) -> float:
+    """Device ms a call with the host's time kept out: a spin kernel holds
+    the stream while the host queues `calls` calls between two CUDA
+    events, so the events time the calls' kernels back to back (the
+    wrapper must not synchronise). The spin is lengthened until it
+    outlasts the host's queueing."""
+    import torch
+    fn()
+    torch.cuda.synchronize(device)
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    cycles = 1 << 21
+    for _ in range(12):
+        s0 = torch.cuda.Event(enable_timing=True)
+        s0.record()
+        t0 = time.perf_counter()
+        torch.cuda._sleep(cycles)
+        a.record()
+        for _ in range(calls):
+            fn()
+        b.record()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize(device)
+        if s0.elapsed_time(a) > 1.5 * host_ms:
+            return a.elapsed_time(b) / calls
+        cycles *= 2
+    fail("queued_ms: the spin never outlasted the host's queueing")
 
 
 def nbytes(*ts) -> int:
@@ -3179,18 +3214,47 @@ def check_merge_topk(device, args, reps=20) -> dict:
             "shape": f"(S, Q, L)={tuple(scores.shape)} k={a[2]}"}
 
 
-def check_match_bitmap(device, args, reps=20) -> dict:
-    """match_bitmap against its plain version bit for bit."""
+def packed_bitmap_args(device, searcher, nodes):
+    """match_bitmap's arguments for the first `a | b` item of phase 4's
+    mix over the packed corpus (8,000,512 docs), as phase 17 builds its
+    calls."""
     import torch
 
+    from serenedb_tpu_torch.ops import bm25 as bm25_ops
+    node = nodes[len(packed_queries()) // 2]      # the first disjunction
+    store = searcher._device_store()
+    tids = searcher._query_shape(node)[0]
+    qb = bm25_ops.assemble_query_batch(
+        store, searcher.num_docs, [(np.asarray(tids, dtype=np.int64), 0)],
+        searcher.index.doc_freq)
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(
+            a, dtype=np.int32)).to(device)
+    return ((store.block_base, store.block_gaps, store.block_tfs8,
+             t(qb.row_idx), store.raw_docs, t(qb.raw_idx), t(qb.tail_docs),
+             store.ndocs_pad), {})
+
+
+def check_match_bitmap(device, args, reps=20) -> dict:
+    """match_bitmap against its plain version bit for bit; one launch a
+    call; its kernel's device ms (`queued_ms`: the calls queued behind a
+    spin, so no host time) beside the wrapper's whole call."""
+    import torch
+
+    from serenedb_tpu_torch.device import LAUNCHES
     from serenedb_tpu_torch.ops import bm25_kernels as kern
     a, kw = args
+    before = LAUNCHES.get("match_bitmap")
     got = kern.match_bitmap(*a, **kw)
+    if LAUNCHES.get("match_bitmap") != before + 1:
+        fail("a match_bitmap call is not one launch")
     ref = kern.match_bitmap_plain(*a, **kw)
     sync(device)
     if not torch.equal(got, ref):
         fail("match_bitmap differs from its plain version")
     ms = timed_ms(lambda: kern.match_bitmap(*a, **kw), reps, device)
+    dev_ms = queued_ms(lambda: kern.match_bitmap(*a, **kw), reps, device)
     plain_ms = timed_ms(lambda: kern.match_bitmap_plain(*a, **kw), reps,
                         device)
     _b, _g, _t, row_idx, _raw, raw_idx, tail, ndocs_pad = a
@@ -3200,7 +3264,7 @@ def check_match_bitmap(device, args, reps=20) -> dict:
         raw_idx.numel() * (128 * 4 + 4) + tail.numel() * 4 + ndocs_pad
     return {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms(moved), "bound_by": "bytes",
-            "library_ms": None,
+            "library_ms": None, "device_ms": dev_ms,
             "shape": f"packed rows={row_idx.numel()} raw rows="
                      f"{raw_idx.numel()} tails={tail.numel()} "
                      f"ndocs_pad={ndocs_pad}"}
@@ -3538,18 +3602,35 @@ def check_mesh_kernel(device, name: str, args, reps: int = 10) -> dict:
     kern, plain = getattr(MK, name), getattr(MK, name + "_plain")
     got, ref = kern(*a, **kw), plain(*a, **kw)
     sync(device)
-    got = got if isinstance(got, tuple) else (got,)
-    ref = ref if isinstance(ref, tuple) else (ref,)
+    got = tuple(got) if isinstance(got, (tuple, list)) else (got,)
+    ref = tuple(ref) if isinstance(ref, (tuple, list)) else (ref,)
+    if len(got) != len(ref):
+        fail(f"{name}: {len(got)} outputs, the plain version {len(ref)}")
     err = 0.0
     for g, r in zip(got, ref):
-        if not _mesh_bits_equal(g, r):
+        if g.shape != r.shape or not _mesh_bits_equal(g, r):
             fail(f"{name} differs from its plain version")
         if g.dtype.is_floating_point:
             err = max(err, float((g - r).abs().nan_to_num().max()))
     if name == "mesh_combine":
-        stack = a[0]
-        moved = nbytes(stack) + stack.shape[1] * stack.element_size()
-        shape = f"M={stack.shape[0]} N={stack.shape[1]} {stack.dtype} {a[1]}"
+        parts = list(a[0])
+        moved = nbytes(*parts) + nbytes(parts[0])
+        shape = (f"M={len(parts)} parts of N={parts[0].numel()} "
+                 f"{parts[0].dtype} {a[1]}, read where they lie")
+    elif name == "mesh_combine_many":
+        segs = MK._segments(a[0])
+        moved = sum(nbytes(*parts) + nbytes(parts[0])
+                    for parts, _op, _u in segs)
+        kinds: dict = {}
+        for parts, op, u in segs:
+            k = (f"{str(parts[0].dtype).split('.')[-1]} "
+                 f"{op}{' as u32' if u else ''}")
+            kinds[k] = kinds.get(k, 0) + 1
+        shape = (f"{len(segs)} segments of M={len(segs[0][0])} parts, N "
+                 f"{min(p[0].numel() for p, _o, _u in segs)}-"
+                 f"{max(p[0].numel() for p, _o, _u in segs)}: " +
+                 ", ".join(f"{n} x {k}" for k, n in kinds.items()) +
+                 f"; {len(MK.combine_launches(segs))} launch(es)")
     elif name == "mesh_agg_partials":
         vals, mask = a[0], a[1]
         moved = nbytes(vals, mask) + (1 + 2 * vals.shape[0]) * 4
@@ -3569,14 +3650,38 @@ def check_mesh_kernel(device, name: str, args, reps: int = 10) -> dict:
            "bound_ms": bound_ms(moved), "bound_by": "bytes",
            "library_ms": None, "max_abs_err": err, "shape": shape}
     if name == "mesh_combine":
-        # the library's reductions over the same stack: a yardstick
-        # that promises no shard order (the kernel folds in shard order)
-        lib = {"sum": lambda: a[0].sum(0), "min": lambda: a[0].amin(0),
-               "max": lambda: a[0].amax(0)}
+        # the library's reductions over the same values stacked (M, N): a
+        # yardstick that promises no shard order (the kernel folds in
+        # shard order). The two are a few µs apart on a ~0.8 ms call, and
+        # a window of back-to-back calls also holds its first call's host
+        # time (the wrapper's ~0.1 ms is ~1 % of a 10-call window), so
+        # the kernel and the library's reduction of its op take turns in
+        # MESH_ROUNDS rounds, each timed as whole calls (timed_ms) and on
+        # the card alone (queued_ms), and each reports its median round
+        stack = torch.stack([p.reshape(-1) for p in parts])
+        lib = {"sum": lambda: stack.sum(0), "min": lambda: stack.amin(0),
+               "max": lambda: stack.amax(0)}
+        rounds = {"kernel": [], "library": [], "kernel device": [],
+                  "library device": []}
+        for _ in range(MESH_ROUNDS):
+            for what, f in (("kernel", lambda: kern(*a, **kw)),
+                            ("library", lib[a[1]])):
+                rounds[what].append(timed_ms(f, reps, device))
+                rounds[what + " device"].append(queued_ms(f, reps, device))
+        out["rounds"] = rounds
+        med = {k: float(np.median(v)) for k, v in rounds.items()}
+        out["ms"], out["device_ms"] = med["kernel"], med["kernel device"]
+        out["library_device_ms"] = med["library device"]
         out["library_all"] = {op: timed_ms(f, reps, device)
-                              for op, f in lib.items()}
+                              for op, f in lib.items() if op != a[1]}
+        out["library_all"][a[1]] = med["library"]
         out["library_ms"] = out["library_all"][a[1]]
+        del stack
     return out
+
+
+#: rounds of mesh_combine's kernel and library timings, taken in turn
+MESH_ROUNDS = 7
 
 
 def _mesh_window(window: dict, launches: dict) -> None:
@@ -3585,12 +3690,15 @@ def _mesh_window(window: dict, launches: dict) -> None:
 
 
 def mesh_sql(device, width: int, window: dict, n_q1: int = 100_000_000,
-             n_hits: int = 10_000_000) -> dict:
+             n_hits: int = 10_000_000, rec=None) -> dict:
     """Phase 6's q1 (100M rows: its two scalar and its GROUP BY queries,
     T1) and phase 7's hits (T4) at serene_mesh = width against
     serene_mesh = 0 on the card: rows equal (integers); agg_scan a
     multiple of `width` launches a query (one a shard a chunk) with
-    mesh_combine, topn_scan `width` for T1."""
+    mesh_combine, topn_scan `width` for T1. `rec` (a Recorder) is
+    entered around the first mesh run of q1's GROUP BY query."""
+    import contextlib
+
     from serenedb_tpu_torch.columnar.column import Batch
     from serenedb_tpu_torch.device import LAUNCHES
     from serenedb_tpu_torch.engine import Database
@@ -3618,7 +3726,9 @@ def mesh_sql(device, width: int, window: dict, n_q1: int = 100_000_000,
             out["single_ms"][(label, q)] = (time.perf_counter() - t0) * 1e3
             c.execute(f"SET serene_mesh = {width}")
             LAUNCHES.reset()
-            c.execute(q).rows()
+            with (rec if rec is not None and (label, q) ==
+                  ("q1", Q1_QUERIES[2]) else contextlib.nullcontext()):
+                c.execute(q).rows()
             t0 = time.perf_counter()
             got = c.execute(q).rows()
             sync(device)
@@ -3628,9 +3738,11 @@ def mesh_sql(device, width: int, window: dict, n_q1: int = 100_000_000,
             if got != single:
                 fail(f"mesh {label}: serene_mesh = {width} differs from "
                      f"serene_mesh = 0 on {q!r}")
+            # a chunk: an agg_scan a shard and one mesh_combine launch
             if kind == "agg" and (not d.get("agg_scan") or
                                   d["agg_scan"] % width or
-                                  not d.get("mesh_combine")):
+                                  d.get("mesh_combine", 0) * width !=
+                                  d["agg_scan"]):
                 fail(f"mesh {label}: {q!r} launched {d}")
             if kind == "topn" and d.get("topn_scan") != 2 * width:
                 fail(f"mesh {label}: T1 launched {d}")
@@ -3644,17 +3756,32 @@ def mesh_search(device, searcher, nodes, width: int, window: dict) -> dict:
     width): its require-free queries in batches of 16, top-10 within
     rtol 2e-3 / atol 1e-3 of the single-device result, ids differing only
     on ties; each batch width bm25_accumulate calls (a shard's plane
-    each) and one mesh_combine."""
+    each) and one mesh_combine; the batches' peak device memory, and the
+    most one batch took above what was allocated before it (the
+    recorder around this leg holds the first batch's planes, so a peak
+    over all the batches above one base would count them twice)."""
+    import torch
+
     from serenedb_tpu_torch.device import LAUNCHES
     free = [n for n in nodes if not searcher._query_shape(n)[1]][:64]
     batches = [free[i:i + 16] for i in range(0, len(free), 16)]
     single = [searcher.topk_batch(b, 10) for b in batches]
     out = {"queries": len(free), "batches": len(batches)}
     LAUNCHES.reset()
-    t0 = time.perf_counter()
-    got = [searcher.topk_batch(b, 10, mesh_n=width) for b in batches]
     sync(device)
-    out["ms"] = (time.perf_counter() - t0) * 1e3 / len(batches)
+    got, ms, peaks = [], 0.0, []
+    for b in batches:
+        torch.cuda.reset_peak_memory_stats(device)
+        base = torch.cuda.memory_allocated(device)
+        t0 = time.perf_counter()
+        got.append(searcher.topk_batch(b, 10, mesh_n=width))
+        sync(device)
+        ms += time.perf_counter() - t0
+        top = torch.cuda.max_memory_allocated(device)
+        peaks.append((top, top - base))
+    out["ms"] = ms * 1e3 / len(batches)
+    out["peak_bytes"] = max(p[0] for p in peaks)
+    out["peak_over_base"] = max(p[1] for p in peaks)
     d = LAUNCHES.snapshot()
     _mesh_window(window, d)
     if d.get("mesh_combine") != len(batches) or \
@@ -3684,12 +3811,14 @@ def mesh_search(device, searcher, nodes, width: int, window: dict) -> dict:
 
 def mesh_shards(device, width: int, window: dict, m: int = 1,
                 seg_docs: int = 250_000, vocab: int = 20_000,
-                postings: int = 3_000_000) -> dict:
+                postings: int = 3_000_000, rec=None) -> dict:
     """Phase 17's join (1x) at serene_shards = width with the device
     combine, now over a mesh of `width`: rows equal to shards = 1, a warm
     execution one join_probe a mesh device and mesh_combine; its search
     leg (4 x 250,000 docs) at shards = width, device combine: a merge a
-    mesh device and one over their results, bit-equal to shards = 1."""
+    mesh device and one over their results, bit-equal to shards = 1.
+    `rec` (a Recorder) is entered around the join's cold execution."""
+    import contextlib
     from serenedb_tpu_torch.columnar.column import Batch
     from serenedb_tpu_torch.device import LAUNCHES
     from serenedb_tpu_torch.engine import Database
@@ -3713,7 +3842,8 @@ def mesh_shards(device, width: int, window: dict, m: int = 1,
     c.execute(f"SET serene_shards = {width}")
     c.execute("SET serene_shard_combine = device")
     LAUNCHES.reset()
-    cold = c.execute(SHARD_QUERY).rows()
+    with rec if rec is not None else contextlib.nullcontext():
+        cold = c.execute(SHARD_QUERY).rows()
     t0 = time.perf_counter()
     warm = c.execute(SHARD_QUERY).rows()
     sync(device)
@@ -3723,7 +3853,8 @@ def mesh_shards(device, width: int, window: dict, m: int = 1,
     if cold != ref or warm != ref:
         fail(f"mesh join: shards {width} over the mesh differs from "
              "shards = 1")
-    if d.get("join_probe") != 2 * width or d.get("mesh_combine", 0) < 2:
+    # cold and warm: a join_probe a mesh device and one combine launch
+    if d.get("join_probe") != 2 * width or d.get("mesh_combine") != 2:
         fail(f"mesh join: launches {d}")
     out["groups"] = len(ref)
 
@@ -3896,13 +4027,20 @@ def phase_mesh(device, searcher, nodes, width: int = MESH_WIDTH,
     window: dict = {}
     recs = {"mesh_combine": Recorder(
                 MK, "mesh_combine",
-                pick=lambda a, kw: tuple(a[0].shape) == (width, plane)),
+                pick=lambda a, kw: len(a[0]) == width and
+                a[0][0].numel() == plane),
             "mesh_agg_partials": Recorder(MK, "mesh_agg_partials"),
             "mesh_score_blocks": Recorder(
                 MK, "mesh_score_blocks", pick=lambda a, kw: a[8] == "bm25"),
             "mesh_score_blocks saturation": Recorder(
                 MK, "mesh_score_blocks",
-                pick=lambda a, kw: a[8] == "saturation")}
+                pick=lambda a, kw: a[8] == "saturation"),
+            # apply_axis_combines' calls of more than one output: a q1
+            # GROUP BY chunk's and the collective join's
+            "mesh_combine_many q1 GROUP BY chunk": Recorder(
+                MK, "mesh_combine_many", pick=lambda a, kw: len(a[0]) > 1),
+            "mesh_combine_many join": Recorder(
+                MK, "mesh_combine_many", pick=lambda a, kw: len(a[0]) > 1)}
     scope = contextlib.nullcontext() if real else \
         pmesh.virtual_devices(width)
     out = {"placement": f"{width} cards" if real else
@@ -3912,11 +4050,13 @@ def phase_mesh(device, searcher, nodes, width: int = MESH_WIDTH,
         if pmesh.device_count(device) < width:
             fail(f"mesh: {pmesh.device_count(device)} devices")
         out["sql"] = mesh_sql(device, width, window,
-                              **sizes.get("sql", {}))
+                              rec=recs["mesh_combine_many q1 GROUP BY "
+                                       "chunk"], **sizes.get("sql", {}))
         with recs["mesh_combine"]:
             out["search"] = mesh_search(device, searcher, nodes, width,
                                         window)
         out["shards"] = mesh_shards(device, width, window,
+                                    rec=recs["mesh_combine_many join"],
                                     **sizes.get("shards", {}))
         out["builders"] = mesh_builders(device, searcher, width, window,
                                         recs, **sizes.get("builders", {}))
@@ -3944,15 +4084,24 @@ def phase_mesh(device, searcher, nodes, width: int = MESH_WIDTH,
     out["sat_check"] = check_mesh_kernel(
         device, "mesh_score_blocks",
         recs["mesh_score_blocks saturation"].args)
+    # mesh_combine's many-output calls of the main path, beside the search
+    # leg's one-output call of the kernels line
+    out["many_checks"] = {
+        what: check_mesh_kernel(device, "mesh_combine_many", recs[what].args)
+        for what in ("mesh_combine_many q1 GROUP BY chunk",
+                     "mesh_combine_many join")}
     out["recorded"] = {name: recs[name].args for name in (
         "mesh_agg_partials", "mesh_score_blocks",
-        "mesh_score_blocks saturation")}
+        "mesh_score_blocks saturation", "mesh_combine_many q1 GROUP BY chunk",
+        "mesh_combine_many join")}
     return out
 
 
 #: kernels a call at most, by mesh wrapper: mesh_agg_partials is one
-#: kernel, mesh_score_blocks two (three allowed); neither sets memory
-MESH_GRAPH_KERNELS = {"mesh_agg_partials": 1, "mesh_score_blocks": 3}
+#: kernel, mesh_score_blocks two (three allowed), mesh_combine_many one
+#: under its caps (phase 21's calls are); none sets memory
+MESH_GRAPH_KERNELS = {"mesh_agg_partials": 1, "mesh_score_blocks": 3,
+                      "mesh_combine_many": 1}
 
 
 def mesh_graphs(device, recorded: dict) -> dict:
@@ -3974,8 +4123,8 @@ def mesh_graphs(device, recorded: dict) -> dict:
             fail(f"a {what} call issued {kern_n} kernels, {copies} copies "
                  f"in, {memsets} memsets (want at most "
                  f"{MESH_GRAPH_KERNELS[name]}, 0, 0)")
-        scratch = 0 if name == "mesh_agg_partials" else \
-            MK.score_plan(a[3].numel(), a[7]).bytes
+        scratch = MK.score_plan(a[3].numel(), a[7]).bytes \
+            if name == "mesh_score_blocks" else 0
         out[what] = {"kernels": kern_n, "copies": copies, "memsets": memsets,
                      "device_ms": graph_ms(g),
                      "call_ms": timed_ms(call, 20, device),
@@ -4776,11 +4925,17 @@ def main() -> int:
                     "merge_topk crafted": check_merge_topk(
                         device, crafted_merge(device)),
                     "match_bitmap": check_match_bitmap(
-                        device, sr.pop("bitmap_args"))}
+                        device, sr.pop("bitmap_args")),
+                    "match_bitmap packed": check_match_bitmap(
+                        device, packed_bitmap_args(device, packed_searcher,
+                                                   packed_nodes))}
     for what, r in shard_checks.items():
         lib = "null" if r["library_ms"] is None else \
             f"{r['library_ms']:.4f} ms (torch.topk)"
         note = f"; {r['note']}" if "note" in r else ""
+        if "device_ms" in r:
+            note += (f"; one launch a call; device {r['device_ms']:.5f} ms "
+                     f"a call (calls queued behind a spin)")
         print(f"[19] {what} ({r['shape']}): kernel {r['ms']:.4f} ms, plain "
               f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms "
               f"({r['bound_by']}), library {lib}, bit-equal{note}",
@@ -4842,7 +4997,12 @@ def main() -> int:
           f"topk_batch(mesh_n={MESH_WIDTH}): {ms_s['ms']:.2f} ms a batch "
           f"(single device {ms_s['single_ms']:.2f} ms), top-10 within rtol "
           f"{PARITY_RTOL} / atol {PARITY_ATOL} of the single device, "
-          f"{ms_s['tie_swaps']} id swap(s) on ties", flush=True)
+          f"{ms_s['tie_swaps']} id swap(s) on ties; the combine step (one "
+          f"mesh_combine call on the four planes where they lie, no "
+          f"staging copy) {mesh['checks']['mesh_combine']['ms']:.4f} ms; "
+          f"peak device memory over the batches {ms_s['peak_bytes']} B; a "
+          f"batch's peak at most {ms_s['peak_over_base']} B above what was "
+          f"allocated before it", flush=True)
     print(f"[21] mesh sharded tier: phase 17's join (1x) at shards "
           f"{MESH_WIDTH}, device combine over the mesh: warm "
           f"{ms_sh['join_ms']:.2f} ms, {ms_sh['groups']} groups equal to "
@@ -4859,15 +5019,23 @@ def main() -> int:
           f"auto combine restored {mesh['restored']}; launches "
           f"{mesh['launches']}", flush=True)
     for what, r in [*mesh["checks"].items(),
-                    ("mesh_score_blocks saturation", mesh["sat_check"])]:
+                    ("mesh_score_blocks saturation", mesh["sat_check"]),
+                    *mesh["many_checks"].items()]:
         lib = "null" if r["library_ms"] is None else (
             f"{r['library_ms']:.4f} ms (" + ", ".join(
                 f"stack.{'sum' if op == 'sum' else 'a' + op}(0) {v:.4f}"
                 for op, v in r["library_all"].items()) +
             "; no shard order promised)")
+        turns = "" if "rounds" not in r else (
+            f"; on the card alone (calls queued behind a spin) kernel "
+            f"{r['device_ms']:.4f} ms, library {r['library_device_ms']:.4f}"
+            f" ms; medians of {MESH_ROUNDS} rounds in turn: " + "; ".join(
+                f"{k} " + ", ".join(f"{t:.4f}" for t in v)
+                for k, v in r["rounds"].items()))
         print(f"[21] {what} ({r['shape']}): kernel {r['ms']:.4f} ms, plain "
               f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms "
-              f"({r['bound_by']}), library {lib}, bit-equal", flush=True)
+              f"({r['bound_by']}), library {lib}, bit-equal{turns}",
+              flush=True)
     print(f"    total {time.perf_counter() - t_start:.1f} s", flush=True)
 
     # 22. SQL over the PG wire

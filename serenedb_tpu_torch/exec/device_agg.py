@@ -17,9 +17,9 @@ With `serene_mesh = M > 1` and at least M mesh devices (parallel/mesh.py;
 the reference's `_mesh_wrap`), each chunk's tiles split into M contiguous
 shards, one `agg_scan` launch a shard on its mesh device, and the shards'
 outputs combine on the first device by the chunk combine kinds through
-`mesh_combine` (sums fused into one launch a dtype); the float MIN's NaN
-rule applies once, after shards and chunks. With fewer devices than M the
-single-device program runs, as in the reference.
+`mesh_combine` (every output of a chunk in one launch); the float MIN's
+NaN rule applies once, after shards and chunks. With fewer devices than M
+the single-device program runs, as in the reference.
 """
 
 from __future__ import annotations
@@ -450,7 +450,8 @@ def _run_mesh_chunk(spec: K.ScanSpec, mesh, placed: dict, group_mode: bool,
     """Tiles [start, end) over the mesh: M contiguous shards, one
     `agg_scan` a shard on its device (`placed`: the scan's inputs on each
     physical device), the outputs combined on the first device by kind
-    (`mesh_combine`, sums fused; the float images as u32)."""
+    (`mesh_combine`, one launch for every output; the float images as
+    u32)."""
     M = mesh.size
     w = -(-(end - start) // M)
     shard_outs = []

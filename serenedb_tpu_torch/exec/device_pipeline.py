@@ -1326,7 +1326,7 @@ def _run_fused_collective(node, agg_plans, key_plans, group_space: int,
     the slices' accumulators: at width 1 that is one `join_probe` launch
     over the whole set; at width M, one launch a mesh device over its
     slice of the tiles, the accumulators combined on the first device by
-    `_collective_out_kinds` through `mesh_combine` (sums fused). Integer
+    `_collective_out_kinds` through `mesh_combine` (one launch). Integer
     adds and min/max selections are exact over any row partition, so
     every width gives the same accumulators."""
     from ..obs.resources import wait_scope

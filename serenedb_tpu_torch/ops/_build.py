@@ -85,7 +85,7 @@ SIGNATURES = {
         "merge_topk": [_P, _P, _L, _L, _L, _I, _P, _L, _P, _L, _P, _P, _P],
     },
     "mesh": {
-        "mesh_combine": [_P, _L, _L, _I, _I, _I, _P, _P],
+        "mesh_combine": [_P, _P],
         "mesh_agg_partials": [_P, _P, _L, _L, _L, _P, _P],
         "score_bytes": [_L, _L],
         "mesh_score_blocks": [_P] * 6 + [_L, _I, _L, _I, _F, _F, _F] +

@@ -665,8 +665,9 @@ def score_topk_mesh(store: BlockStore, qb: QueryBatch, ndocs_pad: int,
     sections pad to a multiple of M with the packer's no-op fills (w = 0
     rows, -1 tail docs: they add nothing), shard s takes the s-th slice
     of each section and runs `bm25_accumulate` into its own score plane
-    on its device, the planes sum in shard order (`mesh_combine`) on the
-    first device, and one `topk_rows` selects."""
+    on its device, the planes sum in shard order (`mesh_combine`, which
+    reads each where it lies on the first device: no stack, no copy of a
+    plane already there), and one `topk_rows` selects."""
     from ..columnar.device import commit_host_array
     from ..ops.mesh_kernels import mesh_combine
     from ..parallel.mesh import make_mesh, pad_to_multiple, shard_slices
@@ -682,8 +683,7 @@ def score_topk_mesh(store: BlockStore, qb: QueryBatch, ndocs_pad: int,
     secs = {n: pad_to_multiple(np.asarray(
         getattr(qb, n), dtype=np.float32 if n.endswith("_w") else np.int32),
         M, f) for n, f in fills.items()}
-    stack = torch.empty((M, qb.n_queries * ndocs_pad), dtype=torch.float32,
-                        device=mesh.first)
+    planes = []
     for s in range(M):
         dev = mesh.devices[s]
 
@@ -700,10 +700,11 @@ def score_topk_mesh(store: BlockStore, qb: QueryBatch, ndocs_pad: int,
             scores, _ = bm25_kernels.bm25_accumulate(
                 *tiles, *[part(n) for n in fills], ndocs_pad, qb.n_queries,
                 False, k1, b, avgdl, scorer)
-        stack[s].copy_(scores.reshape(-1))
+        planes.append(scores if dev == mesh.first else
+                      scores.to(mesh.first))
         del scores
-    plane = mesh_combine(stack, "sum").view(qb.n_queries, ndocs_pad)
-    del stack
+    plane = mesh_combine(planes, "sum")
+    del planes
     return bm25_kernels.topk_rows(plane, k)
 
 

@@ -20,7 +20,8 @@ tests hold them against the JAX package and
   per-posting contributions of the host ragged path; its plain version is
   `contrib_plain`, the formula every plain version here shares.
 - `match_bitmap` ← `match_bitmap`: the disjunctive match bitmap of the
-  packed rows, raw rows and tails of an unscored filter.
+  packed rows, raw rows and tails of an unscored filter; one launch a
+  call, which zeroes the bitmap itself.
 """
 
 from __future__ import annotations
@@ -336,11 +337,12 @@ def match_bitmap(block_base: torch.Tensor, block_gaps: torch.Tensor,
     _require(block_base, torch.int32, "block_base")
     _require(block_gaps, torch.uint16, "block_gaps", 16)
     _require(block_tfs8, torch.uint8, "block_tfs8", 16)
-    _require(raw_docs, torch.int32, "raw_docs")
+    _require(raw_docs, torch.int32, "raw_docs", 16)
     for name, t in (("row_idx", row_idx), ("raw_idx", raw_idx),
                     ("tail_docs", tail_docs)):
         _require(t, torch.int32, name)
-    out = torch.zeros(ndocs_pad, dtype=torch.bool, device=raw_docs.device)
+    # the kernel zeroes it
+    out = torch.empty(ndocs_pad, dtype=torch.bool, device=raw_docs.device)
     _build.check(_build.load("bm25").match_bitmap(
         _ptr(block_base), _ptr(block_gaps), _ptr(block_tfs8), _ptr(row_idx),
         row_idx.numel(), _ptr(raw_docs), _ptr(raw_idx), raw_idx.numel(),

@@ -8,19 +8,62 @@
 // The reference (serenedb_tpu/parallel/mesh.py and its callers) runs its
 // multi-device programs as shard_map bodies with psum / pmin / pmax over
 // the mesh axis. The port runs each shard's body as launches on that
-// shard's device and combines the partials, copied to the mesh's first
-// device, with `mesh_combine`. Three kernels:
+// shard's device and combines the partials on the mesh's first device
+// (a partial on another card is brought there by a peer copy first) with
+// `mesh_combine`. Three kernels:
 //
 // mesh_combine replaces the psum / pmin / pmax of `apply_axis_combines`
 // (and the psums of `sharded_agg_step`, `sharded_bm25_topk`,
 // `sharded_query_step`, ops/bm25.py `_mesh_score_fn`, exec/device_agg.py
-// `_mesh_wrap`): x (M, N) -> out (N,). A thread owns its output
-// elements and walks the M shards in order, so an f32 sum is added in
-// shard order 0..M-1 (no atomics, the same bits every run); min and max
-// give NaN (0x7FC00000, torch's NaN) if any shard holds one, and an
-// unsigned flag compares int32 words as u32 (agg_scan's float images).
-// Bound: bytes (M * N read, N written). A fused group of same-dtype
-// outputs is one stack, so one launch.
+// `_mesh_wrap`): for each output of a call, out[i] = x_0[i] op ... op
+// x_{M-1}[i] over the M shards' partials, read where they lie on the
+// first device (no stack, no staging copy). Sums add in shard order
+// 0..M-1 from shard 0's value (no atomics, the same bits every run); min
+// and max give NaN (0x7FC00000, torch's NaN) if any shard holds one, and
+// an unsigned flag compares int32 words as u32 (agg_scan's float images).
+// Bound: bytes (each part read once, the output written once: 2.56 GB,
+// 0.76 ms, for the search leg's four 16 x 8,000,512 f32 planes). The
+// first design (a thread an element, 4-byte loads with default caching,
+// 64-bit index arithmetic, over an (M, N) stack the callers had to copy
+// the partials into) lost to torch's `stack.sum(0)` and cost its callers
+// a copy of every partial. Now:
+//  - one launch a call takes every output (segment) of it, of any dtype
+//    and op: a descriptor by value lists each segment's kind, length,
+//    output and M input pointers; tiles are numbered segment after
+//    segment, and a block finds its tile's segment from their first
+//    tiles, so the type/op branch is uniform in a block;
+//  - a segment whose pointers are all 16-byte aligned moves 16-byte
+//    vectors, a tile of MC_TILE (8 KB a shard) a block. Thread 0 asks
+//    for the tile of MC_BULK_M shards at a time by one bulk copy each
+//    (cp.async.bulk, the Tensor Memory Accelerator) into the block's
+//    shared stage behind an mbarrier, so each shard's 8 KB arrives as one
+//    contiguous request; each thread combines its MC_VEC vectors from
+//    shared memory in shard order into registers, and after the last
+//    group stores them with st.global.cs. The tail past the last whole
+//    vector, and any segment with a pointer off 16 bytes (views at odd
+//    offsets), take a scalar path;
+//  - indices are 32-bit within a segment (the wrapper cuts an output past
+//    2^30 elements into several segments); the grid is a block a tile up
+//    to MC_BLOCKS_SM blocks an SM, past which blocks walk the tiles with
+//    the grid's stride.
+// On the search leg's sum (NVIDIA H100 80GB HBM3, 700 W;
+// scripts/mesh_variants.py, each line one call beside `stack.sum(0)`):
+// the bulk copies 0.816-0.824 ms against the library's 0.821-0.833;
+// 16-byte ld.global.nc.L1::no_allocate loads straight to registers
+// (four shards' loads out before their combines) 0.816-0.893, from one
+// build and card to the next (a persistent grid of 4-16 blocks an SM
+// 0.829-0.834; .cs loads 0.875, default loads and ones with an L2
+// prefetch hint as no_allocate's; default stores with no_allocate loads
+// 0.879); the first design 0.903. 40 registers a thread (the register
+// loads took 124); 0.818 ms at 4 shards against the library's
+// 0.821-0.825, 0.741 at 8 shards of half the length (bound 0.687);
+// staging 2 shards at a time took the same at both, and so did 16 KB
+// copies (MC_VEC 4, 2 shards staged); an L2 evict_first hint on the
+// copies took 0.861 against 0.827.
+// The cap: a descriptor holds MC_SEGS (48) segments and MC_PTRS (256)
+// shard pointers, 3,592 bytes of the 4 KB of kernel parameters; a call
+// past either is split by the wrapper into the fewest launches that fit
+// (`mesh_kernels.combine_launches`).
 //
 // mesh_agg_partials replaces the body of `sharded_agg_step` for one shard:
 // vals (R, 128) int32, mask (R, 128) bool, lo, hi -> count (one int32) and
@@ -102,17 +145,30 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <string.h>
+
+#include <type_traits>
 
 #include "contrib.cuh"
 
 #define FULL 0xFFFFFFFFu
 
 enum { MC_SUM = 0, MC_MIN = 1, MC_MAX = 2 };
-enum { MT_I32 = 0, MT_I64 = 1, MT_F32 = 2 };
+enum { MT_I32 = 0, MT_I64 = 1, MT_F32 = 2, MT_U32 = 3 };  // U32: int32 as u32
 enum { MS_BM25 = 0, MS_SAT = 1 };
 
 constexpr int MC_THREADS = 256;
-constexpr int MC_MAX_BLOCKS = 132 * 16;
+constexpr int MC_VEC = 2;            // 16-byte vectors a thread a shard
+// blocks an SM at most: 512 is a block a tile up to a 67,584-tile call
+// (a persistent grid of 4, 8 or 16 an SM took 0.829-0.834 ms on the
+// search leg's sum, a block a tile 0.816-0.827)
+constexpr int MC_BLOCKS_SM = 512;
+constexpr int MC_TILE = MC_THREADS * MC_VEC;   // vectors a tile
+// shards a vector tile stages at a time, by one bulk copy a shard
+// (cp.async.bulk behind an mbarrier) before their combines
+constexpr int MC_BULK_M = 4;
+constexpr int MC_SEGS = 48;          // segments a launch
+constexpr int MC_PTRS = 256;         // shard pointers a launch
 
 constexpr int AGG_THREADS = 256;
 constexpr int AGG_WARPS = AGG_THREADS / 32;
@@ -145,12 +201,37 @@ __host__ __device__ inline long long ceil_div(long long a, long long b) {
 
 // ------------------------------------------------------------ mesh_combine
 
-template <typename T, int OP, bool FLOAT>
+// One segment of a launch: out[i] = x_0[i] op x_1[i] op ... op x_{m-1}[i]
+// for i < n, the shards' pointers at ptr[ptr0 .. ptr0 + m). The C entry
+// sets nvec, vec and tile0 from the pointers.
+struct McSeg {
+  void* out;
+  int n;          // elements (< 2^31: indices are 32-bit)
+  int nvec;       // whole 16-byte vectors (0 when !vec)
+  int tile0;      // the segment's first tile in the launch
+  int ptr0;       // shard 0's pointer in McDesc::ptr
+  short m;        // shards
+  unsigned char kind;   // MC_KIND(op, type)
+  unsigned char vec;    // every pointer 16-byte aligned
+};
+
+struct McDesc {
+  int n_seg;
+  int tiles;
+  McSeg seg[MC_SEGS];
+  const void* ptr[MC_PTRS];
+};
+static_assert(sizeof(McDesc) <= 4000,
+              "the descriptor fits the 4 KB of kernel parameters");
+
+#define MC_KIND(op, type) ((op) * 4 + (type))
+
+template <typename T, int OP>
 __device__ __forceinline__ T combine2(T acc, T v) {
   if constexpr (OP == MC_SUM) {
     return acc + v;
   } else {
-    if constexpr (FLOAT) {
+    if constexpr (std::is_same<T, float>::value) {
       if (acc != acc || v != v) return __int_as_float(0x7FC00000);
     }
     if constexpr (OP == MC_MIN) return v < acc ? v : acc;
@@ -158,59 +239,221 @@ __device__ __forceinline__ T combine2(T acc, T v) {
   }
 }
 
-template <typename T, int OP, bool FLOAT>
-__global__ void mesh_combine_kernel(const T* __restrict__ x, long long M,
-                                    long long N, T* __restrict__ out) {
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-       i < N; i += (long long)gridDim.x * blockDim.x) {
-    T acc = x[i];
-    for (long long s = 1; s < M; ++s) acc = combine2<T, OP, FLOAT>(
-        acc, x[s * N + i]);
-    out[i] = acc;
+// Two 16-byte words combined element by element.
+template <typename T, int OP>
+__device__ __forceinline__ uint4 combine16(uint4 a, uint4 b) {
+  constexpr int K = 16 / sizeof(T);
+  T x[K], y[K];
+  memcpy(x, &a, 16);
+  memcpy(y, &b, 16);
+#pragma unroll
+  for (int k = 0; k < K; ++k) x[k] = combine2<T, OP>(x[k], y[k]);
+  memcpy(&a, x, 16);
+  return a;
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// Waits for the mbarrier's phase `phase` to complete; traps (a launch
+// error, not a hang) if it never does.
+__device__ __forceinline__ void bar_wait(uint32_t bar, uint32_t phase) {
+  uint32_t done = 0;
+  for (long long spins = 0; !done; ++spins) {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}"
+        : "=r"(done) : "r"(bar), "r"(phase) : "memory");
+    if (spins > (1ll << 22)) __trap();
   }
 }
 
-template <typename T, bool FLOAT>
-static void launch_combine(const void* x, long long M, long long N, int op,
-                           void* out, cudaStream_t st) {
-  const long long blocks = ceil_div(N, MC_THREADS);
-  const unsigned g = (unsigned)(blocks < MC_MAX_BLOCKS ? blocks
-                                                       : MC_MAX_BLOCKS);
-  const T* xs = static_cast<const T*>(x);
-  T* o = static_cast<T*>(out);
-  if (op == MC_SUM)
-    mesh_combine_kernel<T, MC_SUM, FLOAT><<<g, MC_THREADS, 0, st>>>(xs, M,
-                                                                    N, o);
-  else if (op == MC_MIN)
-    mesh_combine_kernel<T, MC_MIN, FLOAT><<<g, MC_THREADS, 0, st>>>(xs, M,
-                                                                    N, o);
-  else
-    mesh_combine_kernel<T, MC_MAX, FLOAT><<<g, MC_THREADS, 0, st>>>(xs, M,
-                                                                    N, o);
+// Element i over the segment's shards, shard 0 first.
+template <typename T, int OP>
+__device__ __forceinline__ void combine_one(const void* const* P, int m,
+                                            T* out, int i) {
+  T acc = __ldcs(static_cast<const T*>(P[0]) + i);
+  for (int s = 1; s < m; ++s)
+    acc = combine2<T, OP>(acc, __ldcs(static_cast<const T*>(P[s]) + i));
+  out[i] = acc;
 }
 
-extern "C" int mesh_combine(const void* x, long long M, long long N,
-                            int type, int op, int uns, void* out,
-                            void* stream) {
+// Tile lt of a segment. A vector segment's tile is MC_TILE vectors, a
+// thread's MC_VEC of them strided by the block: the shards come through
+// the shared stage MC_BULK_M at a time, a bulk copy a shard, and each
+// thread keeps its running results in registers; its tile 0 also takes
+// the tail past the last whole vector. A scalar segment's tile is
+// MC_TILE * 4 elements.
+template <typename T, int OP>
+__device__ void combine_tile(const McDesc& d, const McSeg& g, int lt,
+                             uint4* stage, uint32_t bar, uint32_t& phase) {
+  const void* const* P = d.ptr + g.ptr0;
+  const int m = g.m;
+  T* out = static_cast<T*>(g.out);
+  if (!g.vec) {
+#pragma unroll
+    for (int r = 0; r < MC_VEC * 4; ++r) {
+      const int i = (lt * MC_VEC * 4 + r) * MC_THREADS + threadIdx.x;
+      if (i < g.n) combine_one<T, OP>(P, m, out, i);
+    }
+    return;
+  }
+  const int nv = min(MC_TILE, g.nvec - lt * MC_TILE);  // block-uniform
+  if (nv > 0) {
+    const uint32_t bytes = (uint32_t)nv * 16;
+    uint4 acc[MC_VEC];
+    for (int c = 0; c < m; c += MC_BULK_M) {
+      const int k = min(MC_BULK_M, m - c);
+      __syncthreads();                // the stage's last readers are done
+      if (threadIdx.x == 0) {
+        asm volatile(
+            "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+            :: "r"(bar), "r"(bytes * k) : "memory");
+        for (int j = 0; j < k; ++j)
+          asm volatile(
+              "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::"
+              "bytes [%0], [%1], %2, [%3];"
+              :: "r"(smem_u32(stage + j * MC_TILE)),
+                 "l"(static_cast<const uint4*>(P[c + j]) + lt * MC_TILE),
+                 "r"(bytes), "r"(bar) : "memory");
+      }
+      bar_wait(bar, phase);
+      phase ^= 1;
+#pragma unroll
+      for (int v = 0; v < MC_VEC; ++v) {
+        const int i = threadIdx.x + v * MC_THREADS;
+        if (i < nv) {
+          for (int j = 0; j < k; ++j)
+            acc[v] = c + j == 0 ? stage[i]
+                                : combine16<T, OP>(acc[v], stage[j * MC_TILE + i]);
+        }
+      }
+    }
+    uint4* o = reinterpret_cast<uint4*>(out) + lt * MC_TILE;
+#pragma unroll
+    for (int v = 0; v < MC_VEC; ++v) {
+      const int i = threadIdx.x + v * MC_THREADS;
+      if (i < nv) __stcs(o + i, acc[v]);
+    }
+  }
+  // the tail past the last whole vector: under 16 / sizeof(T) elements
+  const int tail0 = g.nvec * (int)(16 / sizeof(T));
+  if (lt == 0 && threadIdx.x < g.n - tail0)
+    combine_one<T, OP>(P, m, out, tail0 + threadIdx.x);
+}
+
+__global__ void __launch_bounds__(MC_THREADS)
+    mesh_combine_kernel(const __grid_constant__ McDesc d) {
+  __shared__ alignas(128) uint4 stage[MC_BULK_M * MC_TILE];
+  __shared__ alignas(8) unsigned long long bar_word;
+  const uint32_t bar = smem_u32(&bar_word);
+  uint32_t phase = 0;
+  if (threadIdx.x == 0) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" :: "r"(bar)
+                 : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  for (int t = blockIdx.x; t < d.tiles; t += gridDim.x) {
+    int s = 0;   // the tile's segment, the same for the whole block
+    while (s + 1 < d.n_seg && d.seg[s + 1].tile0 <= t) ++s;
+    const McSeg& g = d.seg[s];
+    const int lt = t - g.tile0;
+    switch (g.kind) {
+      // integer sums add as unsigned: the same bits, a defined wrap
+      case MC_KIND(MC_SUM, MT_I32):
+        combine_tile<unsigned, MC_SUM>(d, g, lt, stage, bar, phase);
+        break;
+      case MC_KIND(MC_SUM, MT_I64):
+        combine_tile<unsigned long long, MC_SUM>(d, g, lt, stage, bar, phase);
+        break;
+      case MC_KIND(MC_SUM, MT_F32):
+        combine_tile<float, MC_SUM>(d, g, lt, stage, bar, phase);
+        break;
+      case MC_KIND(MC_MIN, MT_I32):
+        combine_tile<int, MC_MIN>(d, g, lt, stage, bar, phase);
+        break;
+      case MC_KIND(MC_MIN, MT_U32):
+        combine_tile<unsigned, MC_MIN>(d, g, lt, stage, bar, phase);
+        break;
+      case MC_KIND(MC_MIN, MT_I64):
+        combine_tile<long long, MC_MIN>(d, g, lt, stage, bar, phase);
+        break;
+      case MC_KIND(MC_MIN, MT_F32):
+        combine_tile<float, MC_MIN>(d, g, lt, stage, bar, phase);
+        break;
+      case MC_KIND(MC_MAX, MT_I32):
+        combine_tile<int, MC_MAX>(d, g, lt, stage, bar, phase);
+        break;
+      case MC_KIND(MC_MAX, MT_U32):
+        combine_tile<unsigned, MC_MAX>(d, g, lt, stage, bar, phase);
+        break;
+      case MC_KIND(MC_MAX, MT_I64):
+        combine_tile<long long, MC_MAX>(d, g, lt, stage, bar, phase);
+        break;
+      case MC_KIND(MC_MAX, MT_F32):
+        combine_tile<float, MC_MAX>(d, g, lt, stage, bar, phase);
+        break;
+    }
+  }
+}
+
+static int sm_count() {
+  static int sms[16] = {0};
+  int dev = 0;
+  cudaGetDevice(&dev);
+  int& n = sms[dev & 15];
+  if (!n) cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+  return n > 0 ? n : 1;
+}
+
+// One launch over the segments that `host` lists (int64 words): their
+// count, then six words a segment (out, n, m, ptr0, type MT_*, op MC_*),
+// then the shards' pointers, segment after segment. Refuses more than
+// MC_SEGS segments or MC_PTRS pointers (the wrapper splits a call into
+// launches that fit), an empty segment, and a sum of MT_U32.
+extern "C" int mesh_combine(const long long* host, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (M < 1 || N < 1 || op < MC_SUM || op > MC_MAX)
-    return (int)cudaErrorInvalidValue;
-  switch (type) {
-    case MT_I32:
-      if (uns && op != MC_SUM)
-        launch_combine<unsigned, false>(x, M, N, op, out, st);
-      else
-        launch_combine<int, false>(x, M, N, op, out, st);
-      break;
-    case MT_I64:
-      launch_combine<long long, false>(x, M, N, op, out, st);
-      break;
-    case MT_F32:
-      launch_combine<float, true>(x, M, N, op, out, st);
-      break;
-    default:
+  McDesc d;
+  memset(&d, 0, sizeof d);
+  const long long n_seg = host[0];
+  if (n_seg < 1 || n_seg > MC_SEGS) return (int)cudaErrorInvalidValue;
+  const long long* ptrs = host + 1 + 6 * n_seg;
+  long long n_ptr = 0, tiles = 0;
+  for (long long s = 0; s < n_seg; ++s) {
+    const long long* w = host + 1 + 6 * s;
+    const long long n = w[1], m = w[2], p0 = w[3], type = w[4], op = w[5];
+    if (n < 1 || n > 0x7FFFFFFFll || m < 1 || p0 != n_ptr ||
+        p0 + m > MC_PTRS || type < MT_I32 || type > MT_U32 ||
+        op < MC_SUM || op > MC_MAX || (type == MT_U32 && op == MC_SUM))
       return (int)cudaErrorInvalidValue;
+    n_ptr += m;
+    McSeg& g = d.seg[s];
+    g.out = reinterpret_cast<void*>(w[0]);
+    g.n = (int)n;
+    g.m = (short)m;
+    g.ptr0 = (int)p0;
+    g.kind = (unsigned char)MC_KIND(op, type);
+    const long long esize = type == MT_I64 ? 8 : 4;
+    bool vec = (w[0] & 15) == 0;
+    for (long long j = 0; j < m; ++j) {
+      d.ptr[p0 + j] = reinterpret_cast<const void*>(ptrs[p0 + j]);
+      vec = vec && (ptrs[p0 + j] & 15) == 0;
+    }
+    g.vec = vec;
+    g.nvec = vec ? (int)(n * esize / 16) : 0;
+    g.tile0 = (int)tiles;
+    tiles += vec ? (g.nvec > 0 ? ceil_div(g.nvec, MC_TILE) : 1)
+                 : ceil_div(n, (long long)MC_TILE * 4);
+    if (tiles > 0x7FFFFFFFll) return (int)cudaErrorInvalidValue;
   }
+  d.n_seg = (int)n_seg;
+  d.tiles = (int)tiles;
+  const long long cap = (long long)MC_BLOCKS_SM * sm_count();
+  mesh_combine_kernel<<<(unsigned)(tiles < cap ? tiles : cap), MC_THREADS,
+                        0, st>>>(d);
   return (int)cudaGetLastError();
 }
 
@@ -433,15 +676,6 @@ __global__ void __launch_bounds__(AGG_THREADS)
       atomicExch(&g_agg_ticket, 0u);
     }
   }
-}
-
-static int sm_count() {
-  static int sms[16] = {0};
-  int dev = 0;
-  cudaGetDevice(&dev);
-  int& n = sms[dev & 15];
-  if (!n) cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
-  return n > 0 ? n : 1;
 }
 
 // out: [count, (hi16, lo16) x R] int32

@@ -1,15 +1,18 @@
 """Wrappers of the device-mesh kernels (`csrc/mesh.cu`) and their plain
 PyTorch versions.
 
-- `mesh_combine` ← the psum / pmin / pmax of serenedb_tpu/parallel/mesh.py
-  `apply_axis_combines` (and the psums inside `sharded_agg_step`,
-  `sharded_bm25_topk`, `sharded_query_step`, `ops/bm25.py`
-  `_mesh_score_fn` and `exec/device_agg.py` `_mesh_wrap`): the M shards'
-  partials, stacked (M, N) on the mesh's first device, reduced over the
-  shard axis. Sums add in shard order 0..M-1 from shard 0's value (f32
-  too, so the result does not depend on a launch's schedule); min and max
-  take a NaN from any shard (f32), and compare int32 data as unsigned
-  where the caller says (the u32 images of `agg_scan`'s float min/max).
+- `mesh_combine` / `mesh_combine_many` ← the psum / pmin / pmax of
+  serenedb_tpu/parallel/mesh.py `apply_axis_combines` (and the psums
+  inside `sharded_agg_step`, `sharded_bm25_topk`, `sharded_query_step`,
+  `ops/bm25.py` `_mesh_score_fn` and `exec/device_agg.py` `_mesh_wrap`):
+  the M shards' partials of each output, read where they lie on the
+  mesh's first device (no stack), reduced over the shard axis; every
+  output of a call in one launch, more only past the descriptor's caps
+  (`combine_launches`). Sums add in shard order 0..M-1 from shard 0's
+  value (f32 too, so the result does not depend on a launch's schedule);
+  min and max take a NaN from any shard (f32), and compare int32 data as
+  unsigned where the caller says (the u32 images of `agg_scan`'s float
+  min/max).
 - `mesh_agg_partials` ← the body of `sharded_agg_step` for one shard:
   the `lo <= v < hi` and mask filter of a (R, 128) int32 block, the
   selected count (one int32, so R * 128 < 2^31) and the (R, 2) int32
@@ -34,6 +37,7 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from ..device import LAUNCHES
@@ -53,30 +57,86 @@ SAT_K = 1.2
 
 # -- mesh_combine -------------------------------------------------------------
 
-def _check_combine(stack: torch.Tensor, op: str, unsigned: bool) -> None:
-    if op not in COMBINE_OPS:
-        raise ValueError(f"mesh_combine: op {op!r}")
-    if stack.dtype not in COMBINE_TYPES:
-        raise TypeError(f"mesh_combine: dtype {stack.dtype}")
-    if stack.dim() != 2 or stack.shape[0] < 1:
-        raise ValueError("mesh_combine: a (M, N) stack with M >= 1")
-    if unsigned and (stack.dtype != torch.int32 or op == "sum"):
-        raise ValueError("mesh_combine: unsigned is for int32 min/max")
+#: csrc/mesh.cu's caps of one launch (its descriptor goes by value in the
+#: 4 KB of kernel parameters): segments (MC_SEGS) and shard pointers
+#: (MC_PTRS); a call past either is split into the fewest launches that fit
+COMBINE_SEGS = 48
+COMBINE_PTRS = 256
+#: elements a descriptor segment at most (the kernel's indices are 32-bit):
+#: a longer output is cut into several
+SEG_MAX = 1 << 30
+#: the kernel's code of int32 min/max compared as u32 (csrc/mesh.cu MT_U32)
+_U32 = 3
 
 
-def mesh_combine_plain(stack: torch.Tensor, op: str,
-                       unsigned: bool = False) -> torch.Tensor:
-    """Plain version of `mesh_combine`: an explicit loop over the shards,
-    shard 0 first."""
-    LAUNCHES.bump("mesh_combine.plain")
-    _check_combine(stack, op, unsigned)
-    flip = torch.tensor(-(1 << 31), dtype=torch.int32, device=stack.device)
-    rows = [r ^ flip for r in stack] if unsigned else list(stack)
+def _parts(parts) -> list:
+    """The shards' partials of one output: the rows of an (M, N) stack, or
+    a sequence of M tensors."""
+    if isinstance(parts, torch.Tensor):
+        if parts.dim() != 2 or parts.shape[0] < 1:
+            raise ValueError("mesh_combine: a (M, N) stack with M >= 1")
+        return list(parts.unbind(0))
+    parts = list(parts)
+    if not parts:
+        raise ValueError("mesh_combine: no parts")
+    return parts
+
+
+def _segments(segments) -> list:
+    """(parts list, op, unsigned) a segment, checked."""
+    out = []
+    for seg in segments:
+        parts, op = _parts(seg[0]), seg[1]
+        unsigned = bool(seg[2]) if len(seg) > 2 else False
+        p0 = parts[0]
+        if op not in COMBINE_OPS:
+            raise ValueError(f"mesh_combine: op {op!r}")
+        if p0.dtype not in COMBINE_TYPES:
+            raise TypeError(f"mesh_combine: dtype {p0.dtype}")
+        if unsigned and (p0.dtype != torch.int32 or op == "sum"):
+            raise ValueError("mesh_combine: unsigned is for int32 min/max")
+        if len(parts) > COMBINE_PTRS:
+            raise ValueError(f"mesh_combine: {len(parts)} parts, past "
+                             f"{COMBINE_PTRS} a launch")
+        for p in parts[1:]:
+            if p.dtype != p0.dtype or p.numel() != p0.numel() or \
+                    p.device != p0.device:
+                raise ValueError("mesh_combine: parts differ in dtype, "
+                                 "size or device")
+        out.append((parts, op, unsigned))
+    return out
+
+
+def combine_launches(segments) -> list:
+    """The launches of one call: lists of (segment, start, length) pieces,
+    each launch within COMBINE_SEGS pieces and COMBINE_PTRS pointers, in
+    order, greedily. Empty outputs take no piece."""
+    launches, cur, ptrs = [], [], 0
+    for si, (parts, _op, _u) in enumerate(segments):
+        n = parts[0].numel()
+        for a in range(0, n, SEG_MAX):
+            if len(cur) == COMBINE_SEGS or ptrs + len(parts) > COMBINE_PTRS:
+                launches.append(cur)
+                cur, ptrs = [], 0
+            cur.append((si, a, min(SEG_MAX, n - a)))
+            ptrs += len(parts)
+    if cur:
+        launches.append(cur)
+    return launches
+
+
+def _combine_loop(parts: list, op: str, unsigned: bool) -> torch.Tensor:
+    """One output as the kernel defines it: an explicit loop over the
+    shards, shard 0 first."""
+    p0 = parts[0]
+    flip = torch.tensor(-(1 << 31), dtype=torch.int32, device=p0.device)
+    rows = [r ^ flip for r in parts] if unsigned else list(parts)
     acc = rows[0].clone()
     for r in rows[1:]:
+        r = r.reshape(acc.shape)
         if op == "sum":
             acc = acc + r
-        elif stack.dtype.is_floating_point:
+        elif p0.dtype.is_floating_point:
             nan = torch.full_like(acc, float("nan"))   # 0x7FC00000
             pick = (r < acc) if op == "min" else (r > acc)
             acc = torch.where(torch.isnan(acc) | torch.isnan(r), nan,
@@ -87,24 +147,80 @@ def mesh_combine_plain(stack: torch.Tensor, op: str,
     return acc ^ flip if unsigned else acc
 
 
-def mesh_combine(stack: torch.Tensor, op: str,
-                 unsigned: bool = False) -> torch.Tensor:
-    """(N,) reduction of a (M, N) stack of shard partials over its shard
-    axis: 'sum' (shard order), 'min' or 'max'."""
-    if not _is_cuda(stack):
-        return mesh_combine_plain(stack, op, unsigned)
-    _check_combine(stack, op, unsigned)
-    if not stack.is_contiguous():
-        raise ValueError("mesh_combine: the stack must be contiguous")
-    M, N = stack.shape
-    out = torch.empty(N, dtype=stack.dtype, device=stack.device)
-    if N:
-        _build.check(_build.load("mesh").mesh_combine(
-            stack.data_ptr(), M, N, COMBINE_TYPES[stack.dtype],
-            COMBINE_OPS[op], int(unsigned), out.data_ptr(), _stream(stack)),
-            "mesh_combine")
-    LAUNCHES.bump("mesh_combine")
-    return out
+def mesh_combine_many_plain(segments) -> list:
+    """Plain version of `mesh_combine_many`: each output by
+    `_combine_loop`; counted once a launch the kernel would make."""
+    segs = _segments(segments)
+    for _ in combine_launches(segs):
+        LAUNCHES.bump("mesh_combine.plain")
+    return [_combine_loop(*s) for s in segs]
+
+
+def mesh_combine_plain(parts, op: str,
+                       unsigned: bool = False) -> torch.Tensor:
+    """Plain version of `mesh_combine`."""
+    return mesh_combine_many_plain([(parts, op, unsigned)])[0]
+
+
+def mesh_combine_many(segments) -> list:
+    """The cross-shard reduction of several outputs in one launch (more
+    only past the descriptor's caps): `segments` holds (parts, op) or
+    (parts, op, unsigned) a output, parts the M shards' partials of it (an
+    (M, N) stack or a sequence of M tensors of one numel and dtype) read
+    where they lie, op 'sum' (shard order), 'min' or 'max'. Returns each
+    output shaped as its first part."""
+    segs = _segments(segments)
+    ts = [t for parts, _op, _u in segs for t in parts]
+    if not _is_cuda(*ts):
+        return mesh_combine_many_plain(segs)
+    dev = ts[0].device
+    for t in ts:
+        if t.device != dev or not t.is_contiguous():
+            raise ValueError("mesh_combine: the parts must be contiguous, "
+                             "on one card")
+    outs = [torch.empty(parts[0].shape, dtype=parts[0].dtype, device=dev)
+            for parts, _op, _u in segs]
+    descs = combine_descriptors(segs, outs)
+    lib = _build.load("mesh") if descs else None
+    for desc in descs:
+        # the descriptor goes by value: the host array only has to live
+        # through the call
+        _build.check(lib.mesh_combine(desc.ctypes.data, _stream(outs[0])),
+                     "mesh_combine")
+        LAUNCHES.bump("mesh_combine")
+    return outs
+
+
+def combine_descriptors(segs: list, outs: list) -> list:
+    """The host words of each launch of `combine_launches(segs)` into
+    `outs`, as csrc/mesh.cu's `mesh_combine` reads them: the piece count,
+    six words a piece (out, n, m, ptr0, type, op), then the pointers."""
+    descs = []
+    for launch in combine_launches(segs):
+        head = 1 + 6 * len(launch)
+        n_ptr = sum(len(segs[si][0]) for si, _a, _n in launch)
+        desc = np.zeros(head + n_ptr, dtype=np.int64)
+        desc[0] = len(launch)
+        at = head
+        for j, (si, a, n) in enumerate(launch):
+            parts, op, unsigned = segs[si]
+            es = parts[0].element_size()
+            code = _U32 if unsigned else COMBINE_TYPES[parts[0].dtype]
+            desc[1 + 6 * j:7 + 6 * j] = (outs[si].data_ptr() + a * es, n,
+                                         len(parts), at - head, code,
+                                         COMBINE_OPS[op])
+            desc[at:at + len(parts)] = [p.data_ptr() + a * es for p in parts]
+            at += len(parts)
+        descs.append(desc)
+    return descs
+
+
+def mesh_combine(parts, op: str, unsigned: bool = False) -> torch.Tensor:
+    """The reduction of the M shards' partials of one output (an (M, N)
+    stack, whose rows are the parts, or a sequence of M tensors) over the
+    shard axis: 'sum' (shard order), 'min' or 'max'; `unsigned` compares
+    int32 words as u32. One launch; shaped as the first part."""
+    return mesh_combine_many([(parts, op, unsigned)])[0]
 
 
 # -- mesh_agg_partials --------------------------------------------------------

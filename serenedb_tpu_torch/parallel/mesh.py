@@ -205,47 +205,29 @@ def apply_axis_combines(shard_outs: list, kinds: list, dest: torch.device,
                         unsigned: Optional[list] = None) -> list:
     """The cross-shard reduction of per-shard outputs (one list of
     tensors a shard, in `kinds`' order), on `dest` (the mesh's first
-    device), by kind: 'sum', 'min' and 'max' through `mesh_combine`,
-    'rows' concatenated over the shards (per-row outputs). `fuse_sums`
-    stacks every 'sum' output of one dtype into one (M, N) buffer and
-    reduces it in one launch; `unsigned[i]` compares output i's int32
-    words as u32. Integer adds and min/max are exact in any order, so the
-    combine equals a single-device run; f32 sums add in shard order."""
-    from ..ops.mesh_kernels import mesh_combine
-    M = len(shard_outs)
-    n = len(kinds)
-    combined: list = [None] * n
-    if fuse_sums:
-        groups: dict = {}
-        for i, kind in enumerate(kinds):
-            if kind == "sum":
-                groups.setdefault(shard_outs[0][i].dtype, []).append(i)
-        for dtype, idx in groups.items():
-            if len(idx) < 2:
-                continue
-            sizes = [shard_outs[0][i].numel() for i in idx]
-            stack = torch.empty((M, sum(sizes)), dtype=dtype, device=dest)
-            for s, outs in enumerate(shard_outs):
-                at = 0
-                for i, sz in zip(idx, sizes):
-                    stack[s, at:at + sz].copy_(outs[i].reshape(-1))
-                    at += sz
-            red = mesh_combine(stack, "sum")
-            at = 0
-            for i, sz in zip(idx, sizes):
-                combined[i] = red[at:at + sz].view(shard_outs[0][i].shape)
-                at += sz
+    device), by kind: 'sum', 'min' and 'max' through `mesh_combine_many`,
+    which reads each shard's partial where it lies, 'rows' concatenated
+    over the shards (per-row outputs). `fuse_sums` reduces every 'sum',
+    'min' and 'max' output in one launch (more only past the descriptor's
+    caps); without it each output is a launch of its own, as each psum of
+    the reference is a collective of its own. `unsigned[i]` compares
+    output i's int32 words as u32. Integer adds and min/max are exact in
+    any order, so the combine equals a single-device run; f32 sums add in
+    shard order."""
+    from ..ops.mesh_kernels import mesh_combine_many
+    combined: list = [None] * len(kinds)
+    segs, at = [], []
     for i, kind in enumerate(kinds):
-        if combined[i] is not None:
-            continue
         parts = [_to(outs[i], dest) for outs in shard_outs]
         if kind == "rows":
             combined[i] = torch.cat(parts)
-            continue
-        shape = parts[0].shape
-        stack = torch.stack([p.reshape(-1) for p in parts])
-        combined[i] = mesh_combine(
-            stack, kind, bool(unsigned and unsigned[i])).view(shape)
+        else:
+            segs.append((parts, kind, bool(unsigned and unsigned[i])))
+            at.append(i)
+    calls = [segs] if fuse_sums else [[s] for s in segs]
+    reduced = [r for call in calls if call for r in mesh_combine_many(call)]
+    for i, r in zip(at, reduced):
+        combined[i] = r
     return combined
 
 

@@ -354,6 +354,41 @@ def test_match_bitmap_matches_reference(packed_stores, seed):
     assert want.sum() > 50
 
 
+@pytest.mark.parametrize("empty", ["all", "packed", "raw", "tails",
+                                   "packed+raw"])
+def test_match_bitmap_empty_sections_match_reference(packed_stores, empty):
+    """Any of the three sections empty (all three too), a tail of docs
+    past the bitmap only: bit for bit the reference's, one call."""
+    ref, port, _df, _norms, _avg = packed_stores
+    rng = np.random.default_rng(7)
+    n_packed = int(np.asarray(ref.block_base).shape[0])
+    n_raw = int(np.asarray(ref.raw_docs).shape[0])
+    row_idx = rng.choice(n_packed, min(n_packed, 30), replace=False)
+    raw_idx = rng.choice(n_raw, min(n_raw, 2), replace=False)
+    tail = np.concatenate([rng.choice(np.asarray(ref.flat_docs), 20),
+                           [ref.ndocs_pad, ref.ndocs_pad + 9, -1]])
+    if empty in ("all", "packed", "packed+raw"):
+        row_idx = row_idx[:0]
+    if empty in ("all", "raw", "packed+raw"):
+        raw_idx = raw_idx[:0]
+    if empty in ("all", "tails"):
+        tail = tail[:0]
+    row_idx, raw_idx, tail = (a.astype(np.int32)
+                              for a in (row_idx, raw_idx, tail))
+    want = np.asarray(ref_bm25.match_bitmap(
+        ref.block_base, ref.block_gaps, ref.block_tfs8, jnp.asarray(row_idx),
+        ref.raw_docs, jnp.asarray(raw_idx), jnp.asarray(tail),
+        ref.ndocs_pad))
+    LAUNCHES.reset()
+    got = port_bm25.match_bitmap(
+        port.block_base, port.block_gaps, port.block_tfs8,
+        torch.from_numpy(row_idx), port.raw_docs, torch.from_numpy(raw_idx),
+        torch.from_numpy(tail), port.ndocs_pad)
+    assert LAUNCHES.get("match_bitmap.plain") == 1
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert (want.sum() == 0) == (empty == "all")
+
+
 @pytest.mark.parametrize("scorer", ["bm25", "tfidf"])
 @pytest.mark.parametrize("n", [1, 1500, 4096])
 def test_ragged_contribs_uploads_exactly_its_postings(n, scorer):

@@ -1865,6 +1865,126 @@ def test_mesh_combine_matches_plain_bit_for_bit(cuda, M, dtype):
                 (op, uns)
 
 
+def _combine_base(rng, dtype, M: int, n: int) -> np.ndarray:
+    shape = (M, n + 8)
+    if dtype == torch.int64:
+        return rng.integers(-2**40, 2**40, shape)           # sums past 2^31
+    if dtype == torch.float32:
+        x = (rng.standard_normal(shape) * 1e3).astype(np.float32)
+        x[rng.random(shape) < 0.01] = np.nan
+        return x
+    return rng.integers(-2**31, 2**31 - 1, shape).astype(np.int32)
+
+
+@pytest.mark.parametrize("M", [1, 2, 3, 5, 8])
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64, torch.float32])
+def test_mesh_combine_parts_and_many_match_plain(cuda, M, dtype):
+    """The parts form and the many-segment form against the plain version
+    bit for bit: parts each in its own buffer (16-byte vectors), views at
+    odd offsets (the scalar path), N = 0 and N not a multiple of 4, NaN
+    in min/max, int32 as unsigned; one launch a call, none for N = 0."""
+    from serenedb_tpu_torch.ops import mesh_kernels as mk
+    rng = np.random.default_rng(10 + M)
+    ops = [("sum", False), ("min", False), ("max", False)]
+    if dtype == torch.int32:
+        ops += [("min", True), ("max", True)]
+    for n in (0, 1, 7, 100_003):
+        b = torch.from_numpy(_combine_base(rng, dtype, M, n)).to(cuda)
+        for form in ("own", "odd", "rows"):
+            if form == "own":
+                parts = [b[s, :n].clone() for s in range(M)]
+            elif form == "odd":
+                parts = [b[s, 1 + s % 3:1 + s % 3 + n] for s in range(M)]
+            else:
+                parts = b[:, :n].contiguous()
+            before = LAUNCHES.get("mesh_combine")
+            many = mk.mesh_combine_many([(parts, op, u) for op, u in ops])
+            torch.cuda.synchronize()
+            assert LAUNCHES.get("mesh_combine") == before + (1 if n else 0)
+            for (op, u), m in zip(ops, many):
+                want = mk.mesh_combine_plain(parts, op, u)
+                got = mk.mesh_combine(parts, op, u)
+                torch.cuda.synchronize()
+                assert got.shape == want.shape == (n,)
+                assert _bits_equal(m, want) and _bits_equal(got, want), \
+                    (n, form, op, u)
+
+
+def test_mesh_combine_past_the_cap_is_the_fewest_launches(cuda):
+    from serenedb_tpu_torch.ops import mesh_kernels as mk
+    rng = np.random.default_rng(3)
+    for M, segs, want in ((4, mk.COMBINE_SEGS + 12, 2), (8, 40, 2),
+                          (2, mk.COMBINE_SEGS, 1)):
+        outs = [[torch.from_numpy(rng.standard_normal(1000 + i)
+                                  .astype(np.float32)).to(cuda)
+                 for _ in range(M)] for i in range(segs)]
+        ops = ["sum", "min", "max"]
+        call = [(p, ops[i % 3]) for i, p in enumerate(outs)]
+        before = LAUNCHES.get("mesh_combine")
+        got = mk.mesh_combine_many(call)
+        torch.cuda.synchronize()
+        assert LAUNCHES.get("mesh_combine") == before + want
+        ref = mk.mesh_combine_many_plain(call)
+        assert all(_bits_equal(g, r) for g, r in zip(got, ref))
+
+
+def _synth_match(cuda, ndocs_pad: int, rows: int, raw_rows: int,
+                 tails: int, seed: int):
+    """A block store's planes for match_bitmap: packed rows whose docs run
+    past the bitmap near its end, tf 0 pads, raw rows with -1 pads and
+    docs past the bitmap, and tails likewise."""
+    rng = np.random.default_rng(seed)
+    base = rng.integers(0, ndocs_pad, rows).astype(np.int32)
+    base[: max(1, rows // 50)] = ndocs_pad - 1000
+    gaps = rng.integers(0, 40, (rows, 128)).astype(np.uint16)
+    tfs = rng.integers(0, 4, (rows, 128)).astype(np.uint8)
+    raw = rng.integers(0, ndocs_pad, (raw_rows, 128)).astype(np.int32)
+    raw[rng.random(raw.shape) < 0.1] = -1
+    raw[rng.random(raw.shape) < 0.05] = ndocs_pad + 7
+    tail = rng.integers(-1, ndocs_pad + 3, tails).astype(np.int32)
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(cuda)
+    return t(base), t(gaps), t(tfs), t(raw), t(tail)
+
+
+def test_match_bitmap_one_launch_every_section_shape(cuda):
+    """Each section empty or not (all empty too), docs past the bitmap
+    dropped, a tail starting off a 16-byte boundary: bit for bit the
+    plain version, one launch a call."""
+    nd = 100_003                          # the zero fill's ragged end
+    base, gaps, tfs, raw, tail = _synth_match(cuda, nd, 300, 6, 1001, 4)
+    e = torch.empty(0, dtype=torch.int32, device=cuda)
+    rows = torch.arange(300, dtype=torch.int32, device=cuda)
+    raws = torch.tensor([0, 5, 2], dtype=torch.int32, device=cuda)
+    for r, w, tl in ((e, e, e), (rows, e, e), (e, raws, e), (e, e, tail),
+                     (rows, raws, tail), (rows.flip(0), raws, tail[1:])):
+        args = (base, gaps, tfs, r, raw, w, tl, nd)
+        before = LAUNCHES.get("match_bitmap")
+        got = kern.match_bitmap(*args)
+        torch.cuda.synchronize()
+        assert LAUNCHES.get("match_bitmap") == before + 1
+        assert torch.equal(got, kern.match_bitmap_plain(*args))
+
+
+def test_match_bitmap_at_the_packed_corpus_size(cuda):
+    """An 8,000,512-doc bitmap (the packed corpus's) over 4,000 packed
+    rows, 2 raw rows and 3,000 tails: twice, equal to the plain version
+    (the second call finds the first's bits in the cache's memory)."""
+    nd = 8_000_512
+    base, gaps, tfs, raw, tail = _synth_match(cuda, nd, 4000, 2, 3000, 5)
+    rows = torch.arange(4000, dtype=torch.int32, device=cuda)
+    raws = torch.tensor([1, 0], dtype=torch.int32, device=cuda)
+    args = (base, gaps, tfs, rows, raw, raws, tail, nd)
+    want = kern.match_bitmap_plain(*args)
+    for _ in range(2):
+        before = LAUNCHES.get("match_bitmap")
+        got = kern.match_bitmap(*args)
+        torch.cuda.synchronize()
+        assert LAUNCHES.get("match_bitmap") == before + 1
+        assert torch.equal(got, want) and int(got.sum()) > 100_000
+
+
 @pytest.mark.parametrize("R", [1, 8, 1000])
 @pytest.mark.parametrize("fill", [0.0, 0.2, 1.0])
 def test_mesh_agg_partials_matches_plain(cuda, R, fill):

@@ -193,19 +193,181 @@ def test_mesh_combine_int64_exact_and_minmax():
     assert lo[0] == 0.5 and np.isnan(lo[1]) and lo[2] == -3.0
 
 
-def test_fused_sums_are_one_launch_per_dtype():
+def test_axis_combines_are_one_launch_a_call():
+    """Fused, every 'sum', 'min' and 'max' output of a call (int64, f32,
+    int32) is one launch; unfused, one launch an output."""
     outs = [[torch.tensor([s, 2 * s], dtype=torch.int64),
              torch.tensor([[s]], dtype=torch.int64),
              torch.tensor([0.5 * s], dtype=torch.float32),
              torch.tensor([s], dtype=torch.int32)] for s in range(1, 5)]
+    kinds = ["sum", "sum", "sum", "max"]
     before = LAUNCHES.snapshot()
-    got = pmesh.apply_axis_combines(outs, ["sum", "sum", "sum", "max"],
-                                    CPU, fuse_sums=True)
-    assert _delta(before) == {"mesh_combine.plain": 3}
+    got = pmesh.apply_axis_combines(outs, kinds, CPU, fuse_sums=True)
+    assert _delta(before) == {"mesh_combine.plain": 1}
     assert got[0].tolist() == [10, 20] and got[1].tolist() == [[10]]
     assert got[2].tolist() == [5.0] and got[3].tolist() == [4]
+    before = LAUNCHES.snapshot()
+    again = pmesh.apply_axis_combines(outs, kinds, CPU)
+    assert _delta(before) == {"mesh_combine.plain": 4}
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
     rows = pmesh.apply_axis_combines(outs, ["rows"] * 4, CPU)
     assert rows[0].tolist() == [1, 2, 2, 4, 3, 6, 4, 8]
+
+
+def _loop(arrs, op: str, unsigned: bool = False) -> np.ndarray:
+    """The combine written out: shard 0's value, then each shard in turn
+    (NaN from any shard for f32 min/max; u32 order where unsigned)."""
+    xs = [a.view(np.uint32) if unsigned else a for a in arrs]
+    acc = xs[0].copy()
+    for x in xs[1:]:
+        if op == "sum":
+            acc = acc + x
+        else:
+            f = np.minimum if op == "min" else np.maximum
+            acc = f(acc, x)                  # NaN from either side
+    if acc.dtype == np.float32 and op != "sum":
+        acc[np.isnan(acc)] = np.float32(np.nan)
+    return acc.view(arrs[0].dtype)
+
+
+def _combine_data(rng, dtype: str, M: int, n: int) -> np.ndarray:
+    """(M, n + 3): int64 past 2^31 in sum, f32 with NaN, int32 over the
+    whole range (its u32 order differs from its signed one)."""
+    shape = (M, n + 3)
+    if dtype == "int64":
+        return rng.integers(-2**40, 2**40, shape)
+    if dtype == "float32":
+        x = (rng.standard_normal(shape) * 1e3).astype(np.float32)
+        x[rng.random(shape) < 0.05] = np.nan
+        return x
+    return rng.integers(-2**31, 2**31 - 1, shape).astype(np.int32)
+
+
+def _bits(t) -> np.ndarray:
+    a = t.numpy() if isinstance(t, torch.Tensor) else t
+    return a.view(np.int32) if a.dtype == np.float32 else a
+
+
+@pytest.mark.parametrize("M", [1, 2, 3, 5, 8])
+@pytest.mark.parametrize("dtype", ["int32", "int64", "float32"])
+@pytest.mark.parametrize("n", [0, 1, 7, 4097])
+def test_mesh_combine_parts_and_many_match_the_stack(M, dtype, n):
+    """The parts form (views at odd offsets) and the many-segment form
+    give the stack form's bits, which are the shard-order loop's; each
+    form a launch a call, none for N = 0."""
+    rng = np.random.default_rng(M * 100 + n)
+    base = _combine_data(rng, dtype, M, n)
+    views = [torch.from_numpy(base[s])[1 + s % 3:1 + s % 3 + n]
+             for s in range(M)]
+    stack = torch.stack(views)
+    arrs = [v.numpy() for v in views]
+    ops = [("sum", False), ("min", False), ("max", False)]
+    if dtype == "int32":
+        ops += [("min", True), ("max", True)]
+    before = LAUNCHES.snapshot()
+    many = MK.mesh_combine_many([(views, op, u) for op, u in ops])
+    assert _delta(before) == ({"mesh_combine.plain": 1} if n else {})
+    for (op, u), m in zip(ops, many):
+        before = LAUNCHES.snapshot()
+        st = MK.mesh_combine(stack, op, u)
+        parts = MK.mesh_combine(views, op, u)
+        assert _delta(before) == ({"mesh_combine.plain": 2} if n else {})
+        want = _loop(arrs, op, u)
+        for got in (st, parts, m):
+            assert got.shape == (n,)
+            assert np.array_equal(_bits(got), _bits(want)), (op, u)
+    if dtype == "int64" and n > 1 and M > 1:
+        assert np.abs(many[0].numpy()).max() > 2**31
+
+
+def test_mesh_combine_launches_split_past_the_caps():
+    """A call past COMBINE_SEGS segments or COMBINE_PTRS pointers is the
+    fewest launches that fit, in order; an output past SEG_MAX elements
+    is cut into pieces; the results are the one-launch results."""
+    parts = [[torch.full((3,), float(s + i), dtype=torch.float32)
+              for s in range(4)] for i in range(MK.COMBINE_SEGS + 12)]
+    before = LAUNCHES.snapshot()
+    got = MK.mesh_combine_many([(p, "sum") for p in parts])
+    assert _delta(before) == {"mesh_combine.plain": 2}
+    assert [g.tolist() for g in got] == \
+        [[4.0 * i + 6.0] * 3 for i in range(len(parts))]
+    segs = MK._segments([(p, "max") for p in parts])
+    assert [len(x) for x in MK.combine_launches(segs)] == \
+        [MK.COMBINE_SEGS, 12]
+    wide = [([torch.zeros(1)] * 8, "sum", False)] * 40   # 320 pointers
+    assert [len(x) for x in MK.combine_launches(wide)] == \
+        [MK.COMBINE_PTRS // 8, 40 - MK.COMBINE_PTRS // 8]
+    big = torch.zeros(1).expand(2 * MK.SEG_MAX + 5)      # no storage
+    assert MK.combine_launches([([big, big], "sum", False)]) == \
+        [[(0, 0, MK.SEG_MAX), (0, MK.SEG_MAX, MK.SEG_MAX),
+          (0, 2 * MK.SEG_MAX, 5)]]
+    with pytest.raises(ValueError):
+        MK.mesh_combine([torch.zeros(1)] * (MK.COMBINE_PTRS + 1), "sum")
+    with pytest.raises(ValueError):
+        MK.mesh_combine([torch.zeros(2), torch.zeros(3)], "sum")
+
+
+def test_combine_descriptor_words():
+    """The host words csrc/mesh.cu's `mesh_combine` reads: the piece
+    count, six words a piece (out, n, m, ptr0, type, op), then the
+    shards' pointers in order; int32 min as u32 takes the U32 code."""
+    a = [torch.zeros(5, dtype=torch.int32) for _ in range(3)]
+    b = [torch.zeros(2, dtype=torch.int64) for _ in range(2)]
+    segs = MK._segments([(a, "min", True), (b, "sum")])
+    outs = [torch.empty(5, dtype=torch.int32),
+            torch.empty(2, dtype=torch.int64)]
+    (d,) = MK.combine_descriptors(segs, outs)
+    assert d.tolist() == [2, outs[0].data_ptr(), 5, 3, 0, 3, 1,
+                          outs[1].data_ptr(), 2, 2, 3, 1, 0] + \
+        [p.data_ptr() for p in a + b]
+
+
+def test_apply_axis_combines_matches_reference(mesh8, rmesh):
+    """Mixed kinds and dtypes in one fused call against the reference's
+    `apply_axis_combines` inside shard_map over its 8 CPU devices, on
+    the same numpy inputs: integers, min/max (u32 included) and rows
+    exactly, f32 sums within RTOL / ATOL (the reference adds in XLA's
+    order, the port in shard order). No NaN here: XLA's CPU pmin / pmax
+    drop one, where the port's combine (as `jnp.minimum`) returns NaN;
+    the parts test holds the port's NaN rule."""
+    from jax.experimental.shard_map import shard_map
+    from jax.sharding import PartitionSpec as P
+
+    from serenedb_tpu.parallel import mesh as rmesh_mod
+    rng = np.random.default_rng(17)
+    f = (rng.standard_normal((8, 37)) * 100).astype(np.float32)
+    u = rng.integers(0, 2**32 - 1, (8, 19), dtype=np.uint64) \
+        .astype(np.uint32)
+    specs = [("sum", rng.integers(-2**20, 2**20, (8, 33)).astype(np.int32)),
+             ("sum", f), ("min", f), ("max", f),
+             ("max", rng.integers(-50, 50, (8, 1)).astype(np.int32)),
+             ("min", u), ("max", u),
+             ("rows", rng.integers(0, 9, (8, 5)).astype(np.int32)),
+             ("sum", rng.integers(0, 2, (8, 130)).astype(np.int32))]
+    kinds = [k for k, _ in specs]
+
+    def core(*xs):
+        return rmesh_mod.apply_axis_combines(xs, kinds, fuse_sums=True)
+    prog = shard_map(core, mesh=rmesh,
+                     in_specs=tuple(P(rmesh_mod.AXIS, None) for _ in specs),
+                     out_specs=tuple(P() if k != "rows" else
+                                     P(rmesh_mod.AXIS, None) for k in kinds))
+    want = [np.asarray(r) for r in prog(*[jnp.asarray(a) for _, a in specs])]
+    outs = [[torch.from_numpy(np.ascontiguousarray(
+        a[s].view(np.int32) if a.dtype == np.uint32 else a[s]))
+        for _, a in specs] for s in range(8)]
+    uns = [a.dtype == np.uint32 for _, a in specs]
+    before = LAUNCHES.snapshot()
+    got = pmesh.apply_axis_combines(outs, kinds, CPU, fuse_sums=True,
+                                    unsigned=uns)
+    assert _delta(before) == {"mesh_combine.plain": 1}
+    for (kind, a), g, w in zip(specs, got, want):
+        g = g.numpy().view(np.uint32) if a.dtype == np.uint32 else g.numpy()
+        w = w.reshape(-1) if kind == "rows" else w.reshape(g.shape)
+        if kind == "sum" and a.dtype == np.float32:
+            np.testing.assert_allclose(g, w, rtol=RTOL, atol=ATOL)
+        else:
+            np.testing.assert_array_equal(g, w)
 
 
 def test_mesh_score_blocks_adds_in_gidx_order():
