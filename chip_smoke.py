@@ -31,11 +31,19 @@ Phases (any failure exits non-zero and prints no result line):
      then 'gpu' cold and warm; the three must agree tuple for tuple and
      agg_scan must launch for every query; then three ORDER BY ... LIMIT
      queries on the same table (T1 unfiltered, T2 filtered with a
-     projection and OFFSET, T3 at k = 8192) through topn_scan;
+     projection and OFFSET, T3 at k = 8192) through topn_scan; then W1,
+     a top-N whose filter is 12 deep (past the scan kernels' stack of 8:
+     a scan_eval derived tile, then topn_scan). In phases 6-9 every
+     device run of every statement launches exactly `SQL_LAUNCHES`
+     (those that fit one launch as before statements split), and no
+     `.plain` version;
   7. `hits` (bench.py's generator and six queries, seed 3, 10,000,000
      rows): the same checks, over direct-coded, dictionary and
      host-factorized group keys, and T4 (ClickBench Q25's shape: a
-     dictionary-string predicate, ORDER BY ... DESC LIMIT 10);
+     dictionary-string predicate, ORDER BY ... DESC LIMIT 10); then W2,
+     ClickBench's queries.sql line 30 (90 sums: six agg_scan a chunk),
+     and W3, a WHERE 12 deep under 17 sums (a derived tile, a mask pass
+     and two agg_scan a chunk), each with its cpu, cold and warm ms;
   8. float aggregates (10,000,000 rows, DOUBLE columns with NULLs and
      NaNs, 200 and ~1,000,000 groups, and no GROUP BY): 'gpu' within rel
      1e-4 / abs 1e-4 of 'cpu', NaN meeting NaN, two runs bit-identical,
@@ -50,7 +58,9 @@ Phases (any failure exits non-zero and prints no result line):
      join_unmatched); rows equal to the host path's
      cold and warm, agg_scan + join_probe (+ chain_topn for J2,
      join_unmatched for J5) launched,
-     no fused decline, and J2's warm repeat uploads 0 bytes;
+     no fused decline, and J2's warm repeat uploads 0 bytes; then J6, a
+     probe side of 18 aggregates under a probe predicate 12 deep (a
+     derived tile, a mask pass, two join_probe);
  10. agg_scan, agg_fold, topn_scan (T1-T4), chain_topn (J2) and
      join_probe against their plain versions on inputs recorded from
      phases 6-9 (integer outputs and selected indices equal, agg_scan's
@@ -63,8 +73,10 @@ Phases (any failure exits non-zero and prints no result line):
      its init + probe (+ unmatched) kernels with no copy in (device ms by
      kernel), and returning at once behind ~25 ms of queued device work
      (no stream sync);
-     agg_fold also on a seeded (8,192 x 201) plane; and the two f32
-     GEMMs of dense_topk timed against their FLOP bound;
+     agg_fold also on a seeded (8,192 x 201) plane; scan_eval on W3's
+     derived tile and mask pass and J6's derived tile, bit for bit (its
+     library time null: no one call runs an expression program); and
+     the two f32 GEMMs of dense_topk timed against their FLOP bound;
  11. `sift`: IVF through SQL at sift-128-euclidean's shape (1,000,000 x
      128 integers in [0, 255] around a 16-dimensional subspace, from a
      seed, JSON text in a
@@ -278,6 +290,9 @@ REPLACES = {
     "mesh_combine": "serenedb_tpu/parallel/mesh.py:110",
     "mesh_agg_partials": "serenedb_tpu/parallel/mesh.py:188",
     "mesh_score_blocks": "serenedb_tpu/parallel/mesh.py:224",
+    # no kernel of its own in the reference: XLA traces any expression
+    # into K5/K6/K8's one program (compile_expr)
+    "scan_eval": "serenedb_tpu/exec/device.py:60",
 }
 SOURCES = {"bm25_accumulate": "serenedb_tpu_torch/ops/csrc/bm25.cu",
            "build_dense": "serenedb_tpu_torch/ops/csrc/bm25.cu",
@@ -297,7 +312,8 @@ SOURCES = {"bm25_accumulate": "serenedb_tpu_torch/ops/csrc/bm25.cu",
            "match_bitmap": "serenedb_tpu_torch/ops/csrc/bm25.cu",
            "mesh_combine": "serenedb_tpu_torch/ops/csrc/mesh.cu",
            "mesh_agg_partials": "serenedb_tpu_torch/ops/csrc/mesh.cu",
-           "mesh_score_blocks": "serenedb_tpu_torch/ops/csrc/mesh.cu"}
+           "mesh_score_blocks": "serenedb_tpu_torch/ops/csrc/mesh.cu",
+           "scan_eval": "serenedb_tpu_torch/ops/csrc/scan.cu"}
 #: the device column cache's cap in the SQL phases (MiB)
 DEVICE_CACHE_MB = 32768
 #: the vector pool's pages in phases 11-12 (16 KiB each: 6.1 GiB, room for
@@ -308,6 +324,15 @@ AGG, TOPN = ("agg_scan",), ("topn_scan",)
 JOIN, CHAIN = ("agg_scan", "join_probe"), \
     ("agg_scan", "join_probe", "chain_topn")
 OUTER_RIGHT = ("agg_scan", "join_probe", "join_unmatched")
+SPLIT = "scan_eval"
+
+
+def rnest(terms, op: str = "+") -> str:
+    """t0 op (t1 op (t2 ...)): a stack entry deeper a level."""
+    out = terms[-1]
+    for t in reversed(terms[:-1]):
+        out = f"{t} {op} ({out})"
+    return out
 
 Q1_QUERIES = [
     "SELECT count(*) FROM hits WHERE adv <> 0",
@@ -383,6 +408,57 @@ HITS_QUERIES = [
     "GROUP BY UserID, SearchPhrase ORDER BY c DESC, UserID, "
     "SearchPhrase LIMIT 10",
 ]
+# statements past one scan launch, split across launches
+# (exec/device_split.py), with the kernels each launches a chunk
+Q1_WIDE = [
+    # W1: a fused top-N whose filter is 12 deep (a derived tile, then
+    # topn_scan)
+    ("SELECT region, x FROM hits WHERE " +
+     rnest(["x", "region", "adv"] * 4) + " > 399000 ORDER BY x DESC "
+     "LIMIT 100", ("topn_scan", SPLIT)),
+]
+HITS_WIDE = [
+    # W2: ClickBench's queries.sql line 30: 90 sums, six agg_scan a chunk
+    ("SELECT " + ", ".join(["SUM(ResolutionWidth)"] + [
+        f"SUM(ResolutionWidth + {i})" for i in range(1, 90)]) +
+     " FROM hits;", AGG),
+    # W3: a WHERE 12 deep under 17 sums (a derived tile, a mask pass, two
+    # agg_scan a chunk)
+    ("SELECT count(*), " + ", ".join(
+        f"sum(ResolutionWidth + RegionID * {i})" for i in range(17)) +
+     " FROM hits WHERE " + rnest(["RegionID", "AdvEngineID",
+                                  "ResolutionWidth", "SearchEngineID"] * 3) +
+     " > 3000", ("agg_scan", SPLIT)),
+]
+TPCH_WIDE = [
+    # J6: a probe side of 18 aggregates and a probe predicate 12 deep (a
+    # derived tile, a mask pass, two join_probe)
+    ("SELECT l_returnflag, count(*), " + ", ".join(
+        f"sum(l_quantity * {i + 1} + l_suppkey)" for i in range(9)) + ", " +
+     ", ".join(f"max(l_extendedprice - l_quantity * {i})"
+               for i in range(9)) +
+     " FROM lineitem JOIN orders ON l_orderkey = o_orderkey WHERE " +
+     rnest(["l_quantity", "l_suppkey", "l_extendedprice"] * 4) +
+     " > 30000000 GROUP BY l_returnflag ORDER BY l_returnflag",
+     ("agg_scan", "join_probe", SPLIT)),
+]
+#: per phase and query (each list, then its statements past one launch),
+#: the launches of each device run by kernel: what the port launched
+#: for the lists before statements split across launches (on an H100,
+#: cold and warm alike), and for W1-W3 and J6 their split's launches a
+#: chunk times the chunks (q1 48, hits and float 5, a join 1)
+_AGG48, _AGG5, _TOPN = {"agg_scan": 48}, {"agg_scan": 5}, {"topn_scan": 1}
+_JOIN = {"agg_scan": 1, "join_probe": 1}
+SQL_LAUNCHES = {
+    "q1": [_AGG48] * 3 + [_TOPN] * 3 + [{"topn_scan": 1, "scan_eval": 1}],
+    "hits": [_AGG5] * 6 + [_TOPN] + [{"agg_scan": 30},
+                                     {"agg_scan": 10, "scan_eval": 10}],
+    "float": [{"agg_scan": 5, "agg_fold": 10}, _AGG5,
+              {"agg_scan": 5, "agg_fold": 10}],
+    "tpch": [_JOIN, dict(_JOIN, chain_topn=1), _JOIN, _JOIN,
+             dict(_JOIN, join_unmatched=1),
+             {"agg_scan": 1, "scan_eval": 2, "join_probe": 2}],
+}
 FLOAT_QUERIES = [
     "SELECT k, sum(f), avg(f), min(g), max(g) FROM fl GROUP BY k",
     "SELECT k2, sum(f), avg(f), min(g), max(g) FROM fl GROUP BY k2",
@@ -1010,18 +1086,22 @@ def float_columns(n: int) -> dict:
 
 class FirstCalls:
     """Wraps a kernel wrapper and keeps the first call made under each
-    value of `current` (set by the caller), for replay in phase 10."""
+    value of `current` (set by the caller), for replay in phase 10; with
+    `kind`, the first call of each kind(args) under it."""
 
-    def __init__(self, module, name: str):
-        self.module, self.name = module, name
+    def __init__(self, module, name: str, kind=None):
+        self.module, self.name, self.kind = module, name, kind
         self.orig = getattr(module, name)
         self.current = None
         self.calls: dict = {}
 
     def __enter__(self):
         def wrapper(*args, **kw):
-            if self.current is not None and self.current not in self.calls:
-                self.calls[self.current] = (args, kw)
+            key = self.current
+            if key is not None and self.kind is not None:
+                key = key + (self.kind(args),)
+            if key is not None and key not in self.calls:
+                self.calls[key] = (args, kw)
             return self.orig(*args, **kw)
         setattr(self.module, self.name, wrapper)
         return self
@@ -1045,18 +1125,26 @@ def _bits(rows) -> list:
 
 
 #: the kernel wrappers whose first main-path call per query is recorded
+#: (scan_eval's first of each mode)
 RECORDED = (("agg", "agg_scan"), ("agg", "agg_fold"), ("topn", "topn_scan"),
-            ("topn", "chain_topn"), ("join", "join_probe"))
+            ("topn", "chain_topn"), ("join", "join_probe"),
+            ("scan", "scan_eval"))
+
+
+def _eval_mode(args) -> str:
+    return "mask" if args[0].prog is None else "derive"
 
 
 def phase_sql(device, label: str, tables: dict, queries: list,
-              exact: bool, runs: int = 2) -> dict:
+              exact: bool, runs: int = 2, expect=None) -> dict:
     """Tables through Database.execute: the host oracle
     (serene_device='cpu'), then `runs` device runs ('gpu'; the first is
     cold). queries: (sql, kernels that must launch for it). exact: cpu ==
     every device run tuple for tuple (bench.py's rule); else floats within
     SQL_REL/SQL_ABS of cpu and the device runs bit-identical to each
-    other. No fused-tier decline may be counted during the device runs."""
+    other. No fused-tier decline may be counted during the device runs.
+    expect: per query the launches of each device run by kernel, which
+    must be exactly these (no .plain launch is allowed in any case)."""
     import torch
 
     from serenedb_tpu_torch.columnar.column import Batch
@@ -1065,9 +1153,9 @@ def phase_sql(device, label: str, tables: dict, queries: list,
     from serenedb_tpu_torch.exec.tables import MemTable
     from serenedb_tpu_torch.obs import device as obs_device
     from serenedb_tpu_torch.ops import agg_kernels, join_kernels, \
-        topn_kernels
+        scan_kernels, topn_kernels
     modules = {"agg": agg_kernels, "topn": topn_kernels,
-               "join": join_kernels}
+               "join": join_kernels, "scan": scan_kernels}
 
     db = Database(device=device)
     c = db.connect()
@@ -1091,30 +1179,42 @@ def phase_sql(device, label: str, tables: dict, queries: list,
     declines0 = obs_device.fused_declines()
     LAUNCHES.reset()
     dev_runs, run_s, per_query_ms, up_bytes = [], [], [], []
-    recs = [FirstCalls(modules[m], n) for m, n in RECORDED]
+    per_query_launches = []
+    recs = [FirstCalls(modules[m], n,
+                       _eval_mode if n == "scan_eval" else None)
+            for m, n in RECORDED]
     for rec in recs:
         rec.__enter__()
     try:
         for r in range(runs):
-            out, ms, ups = [], [], []
+            out, ms, ups, nl = [], [], [], []
             t0 = time.perf_counter()
             for qi, (q, kernels) in enumerate(queries):
                 for rec in recs:
                     rec.current = (label, qi) if r == 0 else None
-                before = {k: LAUNCHES.get(k) for k in kernels}
+                before = LAUNCHES.snapshot()
                 up0 = UPLOADS.get("bytes")
                 tq = time.perf_counter()
                 out.append(c.execute(q).rows())
                 sync(device)
                 ms.append((time.perf_counter() - tq) * 1e3)
                 ups.append(UPLOADS.get("bytes") - up0)
+                after = LAUNCHES.snapshot()
+                delta = {k: v - before.get(k, 0) for k, v in after.items()
+                         if v != before.get(k, 0)}
+                nl.append(delta)
                 for k in kernels:
-                    if LAUNCHES.get(k) <= before[k]:
+                    if not delta.get(k):
                         fail(f"{label}: {k} did not launch for {q!r}")
+                if any(k.endswith(".plain") for k in delta) or (
+                        expect is not None and delta != expect[qi]):
+                    fail(f"{label}: run {r} launched {delta} for {q!r}, "
+                         f"not {None if expect is None else expect[qi]}")
             run_s.append(time.perf_counter() - t0)
             dev_runs.append(out)
             per_query_ms.append(ms)
             up_bytes.append(ups)
+            per_query_launches.append(nl)
     finally:
         for rec in recs:
             rec.__exit__()
@@ -1158,6 +1258,7 @@ def phase_sql(device, label: str, tables: dict, queries: list,
             "cold_ms": per_query_ms[0], "warm_upload_bytes": up_bytes[-1],
             "cold_upload_bytes": up_bytes[0],
             "launches": launches, "peak_bytes": peak,
+            "query_launches": per_query_launches,
             "tile_bytes": comp, "tile_bytes_raw_int32": raw,
             "mask_bytes": masks,
             "fused_cache_bytes": DEVICE_CACHE.stats()["bytes"],
@@ -1454,6 +1555,39 @@ def check_join_probe(device, args, reps=10) -> dict:
                      f"right={right is not None} regime "
                      f"{('SMALL', 'LARGE')[regime]}; {note}; host "
                      f"{busy_ms:.3f} ms behind queued work (no sync)"}
+
+
+def check_scan_eval(device, args, reps=10) -> dict:
+    """scan_eval against its plain version on one recorded launch: the
+    mask tile, or the derived tile (f32 bit for bit) and its validity,
+    equal; two launches equal. No one PyTorch call computes it (it runs
+    an expression program), so library_ms is null."""
+    import torch
+
+    from serenedb_tpu_torch.ops import scan_kernels as S
+    a, kw = args
+    spec, cols, rowmask = a
+    outs = [S.scan_eval(*a, **kw), S.scan_eval(*a, **kw),
+            S.scan_eval_plain(*a, **kw)]
+    sync(device)
+    got, again, ref = [list(o) if isinstance(o, tuple) else [o]
+                       for o in outs]
+    for g, g2, r in zip(got, again, ref):
+        same = same_f32 if g.dtype == torch.float32 else torch.equal
+        if not (same(g, r) and same(g, g2)):
+            fail(f"scan_eval differs from its plain version ({g.dtype}, "
+                 f"{tuple(g.shape)})")
+    ms = timed_ms(lambda: S.scan_eval(*a, **kw), reps, device)
+    plain_ms = timed_ms(lambda: S.scan_eval_plain(*a, **kw), 2, device)
+    moved = nbytes(*[t for pair in cols for t in pair],
+                   rowmask if spec.prog is None else None, *got)
+    mode = "mask" if spec.prog is None else "derive"
+    return {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms(moved), "bound_by": "bytes",
+            "library_ms": None,
+            "shape": f"{mode} rows={rowmask.numel()} cols={len(cols)} "
+                     f"programs={len(spec.preds) or 1} ops="
+                     f"{len(spec.prog or ()) + sum(map(len, spec.preds))}"}
 
 
 def time_dense_gemms(device, args, reps=5) -> dict:
@@ -4643,24 +4777,26 @@ def main() -> int:
           flush=True)
     print(f"    total {time.perf_counter() - t_start:.1f} s", flush=True)
 
-    # 6-9. the SQL paths through Database.execute
+    # 6-9. the SQL paths through Database.execute; the statements past one
+    # launch (Q1_WIDE, HITS_WIDE, TPCH_WIDE) after the others
     sql = {}
     for label, tables, queries, exact in (
             ("q1", lambda: {"hits": q1_columns(100_000_000)},
-             [(q, AGG) for q in Q1_QUERIES] + [(q, TOPN) for q in Q1_TOPN],
-             True),
+             [(q, AGG) for q in Q1_QUERIES] + [(q, TOPN) for q in Q1_TOPN] +
+             Q1_WIDE, True),
             ("hits", lambda: {"hits": hits_columns(10_000_000)},
              [(q, AGG) for q in HITS_QUERIES] +
-             [(q, TOPN) for q in HITS_TOPN], True),
+             [(q, TOPN) for q in HITS_TOPN] + HITS_WIDE, True),
             ("float", lambda: {"fl": float_columns(10_000_000)},
              [(q, AGG) for q in FLOAT_QUERIES], False),
             ("tpch", tpch_tables,
              [(q, {1: CHAIN, 4: OUTER_RIGHT}.get(qi, JOIN))
-              for qi, q in enumerate(TPCH_QUERIES)], True)):
+              for qi, q in enumerate(TPCH_QUERIES)] + TPCH_WIDE, True)):
         t0 = time.perf_counter()
         cols = tables()
         gen_s = time.perf_counter() - t0
-        r = phase_sql(device, label, cols, queries, exact)
+        r = phase_sql(device, label, cols, queries, exact,
+                      expect=SQL_LAUNCHES[label])
         del cols
         r["gen_s"] = gen_s
         sql[label] = r
@@ -4678,8 +4814,17 @@ def main() -> int:
               f"{r['tile_bytes_raw_int32']} B, masks {r['mask_bytes']} B), "
               f"fused-tier cache {r['fused_cache_bytes']} B; peak device "
               f"memory {r['peak_bytes']} B; {rule}; every query's kernels "
-              f"launched, no fused decline; launches {r['launches']}",
-              flush=True)
+              f"launched, as many times as SQL_LAUNCHES holds, no fused "
+              f"decline; launches {r['launches']}", flush=True)
+        names = {"q1": ["W1"], "hits": ["W2", "W3"],
+                 "tpch": ["J6"]}.get(label, [])
+        for name, qi in zip(names, range(len(queries) - len(names),
+                                         len(queries))):
+            print(f"[{phase}] {label} {name}: {queries[qi][0][:70]!r}... "
+                  f"cpu {r['cpu_ms'][qi]:.3f} ms, cold "
+                  f"{r['cold_ms'][qi]:.3f} ms, warm {r['warm_ms'][qi]:.3f} "
+                  f"ms, launches a run {r['query_launches'][0][qi]}; rows "
+                  f"equal to cpu", flush=True)
     if not sql["float"]["launches"].get("agg_fold"):
         fail("float phase: agg_fold never launched")
     if sql["tpch"]["warm_upload_bytes"][1] != 0:
@@ -4727,6 +4872,14 @@ def main() -> int:
     if (j5[0][5] if len(j5[0]) > 5 else j5[1].get("right")) is None:
         fail("J5 (RIGHT JOIN) did not reach join_unmatched")
     checks["J5 join_probe + join_unmatched"] = check_join_probe(device, j5)
+    n_hits = len(HITS_QUERIES) + len(HITS_TOPN)
+    checks["scan_eval derive (W3)"] = check_scan_eval(device, recorded(
+        "scan_eval", ("hits", n_hits + 1, "derive"), "W3's derived tile"))
+    checks["scan_eval mask (W3)"] = check_scan_eval(device, recorded(
+        "scan_eval", ("hits", n_hits + 1, "mask"), "W3's mask pass"))
+    checks["scan_eval derive (J6)"] = check_scan_eval(device, recorded(
+        "scan_eval", ("tpch", len(TPCH_QUERIES), "derive"),
+        "J6's derived tile"))
     for what, r in checks.items():
         lib = "null" if r["library_ms"] is None else \
             f"{r['library_ms']:.4f} ms"
@@ -5084,6 +5237,7 @@ def main() -> int:
     results["topn_scan"] = checks["T1 topn_scan"]
     results["chain_topn"] = checks["J2 chain_topn"]
     results["join_probe"] = checks["J1 join_probe"]
+    results["scan_eval"] = checks["scan_eval derive (W3)"]
     results["ivf_probe"] = vchecks["ivf_probe nprobe 16"]
     for name in ("maxsim", "kmeans_assign", "kmeans_update"):
         results[name] = vchecks[name]

@@ -16,9 +16,11 @@ of numeric or dictionary-string type, `= <> != < <= > >=`, `+ - *`
 `cast` to float or int (PG rounding), and string-vs-literal comparison on
 sorted-dictionary code thresholds. `NotCompilable` is raised where the
 reference raises it: int64 literals, string literals outside a
-comparison, division, string-string comparison, other functions — and,
-narrower than the reference, for a program deeper than the kernel's
-stack (`agg_kernels.MAX_STACK`) and for arithmetic on two booleans.
+comparison, division, string-string comparison, other functions, and for
+arithmetic on two booleans, which no statement reaches (the binder
+refuses `bool + bool` in both packages). A program of any depth lowers:
+one that needs a deeper stack than the kernels' (`agg_kernels.MAX_STACK`)
+is split across launches by exec/device_split.py.
 """
 
 from __future__ import annotations
@@ -57,12 +59,11 @@ class DeviceExpr:
     drops the publication must include."""
 
     def __init__(self, ops: tuple, inputs: list[int], type_: str,
-                 consts: tuple = (), depth: int = 1):
+                 consts: tuple = ()):
         self.ops = ops
         self.inputs = inputs
         self.type = type_
         self.consts = consts
-        self.depth = depth      # stack entries the program needs
 
     def remap(self, slot_of: dict[int, int]) -> tuple:
         """The program with its input slots renumbered to a scan's slots
@@ -99,36 +100,36 @@ def compile_expr(expr: BoundExpr, col_types: list[dt.SqlType],
             inputs.append(col_index)
         return index_of[col_index]
 
-    # rec(e) -> (ops, type, stack depth); operands are lowered left to
-    # right, so input slots number in the reference's order
+    # rec(e) -> (ops, type); operands are lowered left to right, so input
+    # slots number in the reference's order
     def rec(e: BoundExpr):
         if isinstance(e, BoundLiteral):
             if e.value is None:
-                return [(K.OP_NULL, 0, 0)], "i", 1
+                return [(K.OP_NULL, 0, 0)], "i"
             if isinstance(e.value, bool):
-                return [(K.OP_I32, 0, 1 if e.value else 0)], "i", 1
+                return [(K.OP_I32, 0, 1 if e.value else 0)], "i"
             if isinstance(e.value, int):
                 if not (-2**31 <= e.value < 2**31):
                     raise NotCompilable("int64 literal")
-                return [(K.OP_I32, 0, e.value)], "i", 1
+                return [(K.OP_I32, 0, e.value)], "i"
             if isinstance(e.value, float):
-                return [(K.OP_F32, 0, K.f32_bits(e.value))], "f", 1
+                return [(K.OP_F32, 0, K.f32_bits(e.value))], "f"
             raise NotCompilable("string literal outside comparison")
         if isinstance(e, BoundColumn):
             if e.type.id not in _NUMERIC_IDS and not e.type.is_string:
                 raise NotCompilable(f"column type {e.type}")
-            return [(K.OP_COL, slot(e.index), 0)], column_type(e.type), 1
+            return [(K.OP_COL, slot(e.index), 0)], column_type(e.type)
         if isinstance(e, BoundFunc):
             return rec_func(e)
         raise NotCompilable(type(e).__name__)
 
     def as_bool(sub):
-        ops, t, d = sub
+        ops, t = sub
         if t == "f":
             ops = ops + [(K.OP_TOBOOL_F, 0, 0)]
         elif t != "b":
             ops = ops + [(K.OP_TOBOOL_I, 0, 0)]
-        return ops, d
+        return ops
 
     def rec_func(e: BoundFunc):
         name = e.name
@@ -138,40 +139,35 @@ def compile_expr(expr: BoundExpr, col_types: list[dt.SqlType],
             return compile_arith(e)
         if name in ("and", "or"):
             op = K.OP_AND if name == "and" else K.OP_OR
-            ops, depth = as_bool(rec(e.args[0]))
+            ops = as_bool(rec(e.args[0]))
             for a in e.args[1:]:
-                sub, d = as_bool(rec(a))
-                ops = ops + sub + [(op, 0, 0)]
-                depth = max(depth, 1 + d)
-            return ops, "b", depth
+                ops = ops + as_bool(rec(a)) + [(op, 0, 0)]
+            return ops, "b"
         if name == "not":
-            ops, d = as_bool(rec(e.args[0]))
-            return ops + [(K.OP_NOT, 0, 0)], "b", d
+            return as_bool(rec(e.args[0])) + [(K.OP_NOT, 0, 0)], "b"
         if name in ("is_null", "is_not_null"):
-            ops, _t, d = rec(e.args[0])
+            ops, _t = rec(e.args[0])
             op = K.OP_IS_NOT_NULL if name == "is_not_null" else K.OP_IS_NULL
-            return ops + [(op, 0, 0)], "b", d
+            return ops + [(op, 0, 0)], "b"
         if name == "cast":
-            ops, t, d = rec(e.args[0])
+            ops, t = rec(e.args[0])
             if e.type.is_float:
-                return (ops + [(K.OP_I2F, 0, 0)] if t != "f" else ops), \
-                    "f", d
+                return (ops + [(K.OP_I2F, 0, 0)] if t != "f" else ops), "f"
             if e.type.is_integer:
-                return (ops + [(K.OP_F2I, 0, 0)] if t == "f" else ops), \
-                    "i", d
+                return (ops + [(K.OP_F2I, 0, 0)] if t == "f" else ops), "i"
             raise NotCompilable("cast target")
         raise NotCompilable(f"function {name}")
 
     def binary(a: BoundExpr, b: BoundExpr):
         """Both operands' programs, an int one promoted to f32 when the
         other is f32 (the reference's `_unify`)."""
-        oa, ta, da = rec(a)
-        ob, tb, db = rec(b)
+        oa, ta = rec(a)
+        ob, tb = rec(b)
         if tb == "f" and ta != "f":
             oa = oa + [(K.OP_I2F, 0, 0)]
         if ta == "f" and tb != "f":
             ob = ob + [(K.OP_I2F, 0, 0)]
-        return oa + ob, ta, tb, max(da, 1 + db)
+        return oa + ob, ta, tb
 
     def compile_compare(e: BoundFunc):
         a, b = e.args
@@ -187,9 +183,9 @@ def compile_expr(expr: BoundExpr, col_types: list[dt.SqlType],
         if (isinstance(a, BoundColumn) and a.type.is_string) or \
                 (isinstance(b, BoundColumn) and b.type.is_string):
             raise NotCompilable("string-string comparison on device")
-        ops, ta, tb, depth = binary(a, b)
+        ops, ta, tb = binary(a, b)
         op = K.OP_CMP_F if "f" in (ta, tb) else K.OP_CMP_I
-        return ops + [(op, K.CMP_CODES[name[2:]], 0)], "b", depth
+        return ops + [(op, K.CMP_CODES[name[2:]], 0)], "b"
 
     def compile_str_cmp(col: BoundColumn, s: str, name: str, flip: bool,
                         d: np.ndarray):
@@ -208,30 +204,27 @@ def compile_expr(expr: BoundExpr, col_types: list[dt.SqlType],
             # no such string: constant false (=) or true (<>), valid
             # where the column is
             return [(K.OP_COL, sl, 0),
-                    (K.OP_SETV, 0, 0 if op == "=" else 1)], "b", 1
+                    (K.OP_SETV, 0, 0 if op == "=" else 1)], "b"
         code, thr = {"=": ("=", lo), "<>": ("<>", lo), "!=": ("<>", lo),
                      "<": ("<", lo), "<=": ("<", hi), ">": (">=", hi),
                      ">=": (">=", lo)}[op]
         return [(K.OP_COL, sl, 0), (K.OP_I32, 0, thr),
-                (K.OP_CMP_I, K.CMP_CODES[code], 0)], "b", 2
+                (K.OP_CMP_I, K.CMP_CODES[code], 0)], "b"
 
     def compile_arith(e: BoundFunc):
         op = e.name[2:]
         if op not in _ARITH_OPS:
             raise NotCompilable("device division")  # PG trunc: host
-        ops, ta, tb, depth = binary(e.args[0], e.args[1])
+        ops, ta, tb = binary(e.args[0], e.args[1])
         iop, fop = _ARITH_OPS[op]
         if "f" in (ta, tb):
-            return ops + [(fop, 0, 0)], "f", depth
+            return ops + [(fop, 0, 0)], "f"
         if ta == "b" and tb == "b":
             raise NotCompilable("arithmetic on two booleans")
         if ta == "i8" and tb == "i8":
             # int8 op int8 wraps at 8 bits, as the reference's int8 tiles do
-            return ops + [(iop, 0, 0), (K.OP_WRAP8, 0, 0)], "i8", depth
-        return ops + [(iop, 0, 0)], "i", depth
+            return ops + [(iop, 0, 0), (K.OP_WRAP8, 0, 0)], "i8"
+        return ops + [(iop, 0, 0)], "i"
 
-    ops, top, depth = rec(expr)
-    if depth > K.MAX_STACK:
-        raise NotCompilable(f"expression needs a stack of {depth} "
-                            f"(device limit {K.MAX_STACK})", "device_stack")
-    return DeviceExpr(tuple(ops), inputs, top, tuple(consts), depth)
+    ops, top = rec(expr)
+    return DeviceExpr(tuple(ops), inputs, top, tuple(consts))

@@ -10,7 +10,10 @@ HBM columns. The port runs the same work as one launch of the hand-written
     counts, exact int64 sums, f32 partial sums, min/max, DISTINCT grids
 
 then `agg_fold` for the float sums, and the host builds the result batch
-exactly as the reference does. Queries the device tier cannot run exactly
+exactly as the reference does. A query past one launch's descriptor runs
+as several launches a chunk (exec/device_split.py: derived tiles and
+mask passes by `scan_eval`, the aggregates over as many `agg_scan`
+launches as they need). Queries the device tier cannot run exactly
 decline to the host path (plan.AggregateNode) where the reference declines
 them: `NotCompilable` and `DeviceNarrowingError`, and nothing else.
 With `serene_mesh = M > 1` and at least M mesh devices (parallel/mesh.py;
@@ -39,6 +42,7 @@ from ..ops import agg_kernels as K
 from ..sql.binder import _expr_key
 from ..sql.expr import AggSpec, BoundColumn, BoundExpr
 from ..utils import log, metrics
+from . import device_split
 from .device import NotCompilable, column_type, compile_expr
 from .tables import TableProvider
 
@@ -238,9 +242,6 @@ def _run(node, scan, provider: TableProvider, preds: list[BoundExpr],
         elif ce is not None:
             needed.update(ce.inputs)
     needed = sorted(needed)
-    if len(needed) > K.MAX_COLS:
-        raise NotCompilable(f"{len(needed)} input columns (device limit "
-                            f"{K.MAX_COLS})")
     from ..parallel import mesh as mesh_mod
     mesh_n = int(ctx.settings.get("serene_mesh") or 0)
     if mesh_n > 1 and mesh_mod.device_count(device) < mesh_n:
@@ -321,7 +322,8 @@ def _run(node, scan, provider: TableProvider, preds: list[BoundExpr],
     cols, rowmask_arr, codes2d = inputs_on(device)
 
     def run_chunk(start: int, end: int) -> list:
-        raw = K.agg_scan(spec, cols, rowmask_arr, codes2d, start, end)
+        raw = device_split.agg_scan(spec, cols, rowmask_arr, codes2d,
+                                    start, end)
         return _host_outputs(spec, _device_outputs(spec, raw), group_mode)
 
     if mesh_n > 1:
@@ -355,10 +357,10 @@ def _run(node, scan, provider: TableProvider, preds: list[BoundExpr],
 
 
 def _scan_spec(compiled_preds, key_plans, factorized: bool, G: int,
-               agg_plans, distinct_plans, slot_of, decode_specs
-               ) -> K.ScanSpec:
+               agg_plans, distinct_plans, slot_of, decode_specs):
     """The kernel's description of this query: the reference's `program`
-    (device_agg.py:251-301) as data."""
+    (device_agg.py:251-301) as data; a `device_split.Split` where one
+    launch cannot take it."""
     aggs = []
     for si, (spec, ce) in enumerate(agg_plans):
         if si in distinct_plans:
@@ -385,14 +387,9 @@ def _scan_spec(compiled_preds, key_plans, factorized: bool, G: int,
     keys = [(K.KEY_DICT if kind == "dict" else K.KEY_INT, slot_of[idx], lo,
              size) for kind, idx, lo, size in key_plans]
     preds = [pred_program(ce, slot_of) for ce in compiled_preds]
-    if len(keys) > K.MAX_KEYS or len(preds) > K.MAX_PREDS or \
-            len(aggs) > K.MAX_AGGS or \
-            sum(map(len, preds)) + sum(len(a.ops or ()) for a in aggs) > \
-            K.MAX_OPS:
-        raise NotCompilable("query exceeds the device scan's descriptor")
-    return K.ScanSpec([k for k, _ in decode_specs],
-                      [o for _, o in decode_specs], preds, keys, factorized,
-                      G, aggs)
+    return device_split.plan_scan(K.ScanSpec(
+        [k for k, _ in decode_specs], [o for _, o in decode_specs], preds,
+        keys, factorized, G, aggs))
 
 
 def pred_program(ce, slot_of: dict) -> tuple:
@@ -462,7 +459,8 @@ def _run_mesh_chunk(spec: K.ScanSpec, mesh, placed: dict, group_mode: bool,
         cols, rowmask, codes = placed[mesh.devices[s]]
         with mesh.shard(s):
             shard_outs.append(_device_outputs(
-                spec, K.agg_scan(spec, cols, rowmask, codes, a, b)))
+                spec, device_split.agg_scan(spec, cols, rowmask, codes, a,
+                                            b)))
     kinds = _out_combines(spec)
     uns = [False]
     for a in spec.aggs:

@@ -20,6 +20,8 @@ upload as int32 tiles and the probe happens on the card as gathers:
 
 A filtered top-N (Sort+Limit over Filter→Scan) is one `topn_scan` launch:
 the predicates mask rows to the sort sentinel before the selection. A
+side or a top-N past one launch's descriptor splits across launches
+(exec/device_split.py), RIGHT/FULL's unmatched pass included. A
 chained Limit(Sort(Aggregate over a join)) keeps the stage-1 outputs on
 the card and runs `chain_topn` over them: only the k picked rows come
 back.
@@ -50,6 +52,7 @@ device over an even slice of them, combined by `mesh_combine`.
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 import threading
 import time
@@ -73,6 +76,7 @@ from ..sql.binder import _expr_key
 from ..sql.expr import AggSpec, BoundColumn, BoundExpr, BoundFunc
 from ..utils import log, metrics
 from ..utils.config import REGISTRY as _settings_registry
+from . import device_split
 from .device import DeviceExpr, NotCompilable, column_type, compile_expr
 from .device_agg import (MAX_GROUP_PRODUCT, MAX_INT_KEY_RANGE, _ctx_device,
                          pred_program)
@@ -642,9 +646,6 @@ def _gated(ce: Optional[DeviceExpr], fe: Optional[DeviceExpr],
     ops = ce.remap(slot_of) if ce is not None else ((K.OP_I32, 0, 1),)
     if fe is None:
         return ops
-    if max(ce.depth if ce is not None else 1, 1 + fe.depth) > K.MAX_STACK:
-        raise NotCompilable("FILTER needs a deeper stack than the device's",
-                            "device_stack")
     return ops + pred_program(fe, slot_of) + ((K.OP_GATE, 0, 0),)
 
 
@@ -887,9 +888,6 @@ def _run_fused(node, join, probe_side, build_side,
         needed.add(d_ji)
     p_need = sorted(i for i in needed if i < nl)
     b_need = sorted(i for i in needed if i >= nl)
-    if max(len(p_need), len(b_need)) > K.MAX_COLS:
-        raise NotCompilable(f"a join side reads more than {K.MAX_COLS} "
-                            "columns (device limit)", "device_cols")
     p_names = {ji: (pscan.columns[ji], join_types[ji]) for ji in p_need}
     t0 = clock()
     env_b = _device_env(build, {ji: (bscan.columns[ji - nl], join_types[ji])
@@ -994,7 +992,8 @@ def _run_fused(node, join, probe_side, build_side,
     # probe phase
     pcols = [(env_p[ji].data, env_p[ji].mask) for ji in p_need]
     right = (uspec, bcols, brow, bc_dev) if outer_right else None
-    rowcount, p_outs = J.join_probe(pspec, pcols, prow, pc_dev, b_rc, right)
+    rowcount, p_outs = device_split.join_probe(pspec, pcols, prow, pc_dev,
+                                               b_rc, right)
     outs = [rowcount] + [t for out in p_outs for t in out]
     if not fetch:
         # chained handoff: the outputs STAY on the card
@@ -1021,8 +1020,8 @@ def _run_fused(node, join, probe_side, build_side,
 def _build_phase(bspec, bcols, brow, bc_dev, g: int):
     """The build phase: per-code partials, one `agg_scan` over the build
     codes, with the sentinel slots g and g + 1 zeroed."""
-    b_rc, b_outs = K.agg_scan(bspec, bcols, brow, bc_dev, 0,
-                              int(brow.shape[0]))
+    b_rc, b_outs = device_split.agg_scan(bspec, bcols, brow, bc_dev, 0,
+                                         int(brow.shape[0]))
     b_rc[g:] = 0                                 # sentinel slots g, g+1
     for out in b_outs:
         if out[-1].dtype == torch.int64:         # the value counts
@@ -1297,8 +1296,8 @@ def _run_fused_sharded(node, join, probe: _Side, build: _Side, pscan,
             metrics.DEVICE_OFFLOADS.add()
             tspan("device_upload", t_up, shard=s)
             t_d = time.perf_counter_ns()
-            rowcount, p_outs = J.join_probe(pspec, pcols, prow, pc_dev,
-                                            b_rc)
+            rowcount, p_outs = device_split.join_probe(
+                pspec, pcols, prow, pc_dev, b_rc)
             outs = obs_device.fetch_all(
                 [rowcount] + [t for out in p_outs for t in out])
             metrics.DEVICE_DISPATCH_HIST.observe_ns(
@@ -1351,8 +1350,8 @@ def _run_fused_collective(node, agg_plans, key_plans, group_space: int,
     metrics.SHARD_PIPELINES.add(S)
     with wait_scope("Device", "CollectiveCombine"):
         if M == 1:
-            rowcount, p_outs = J.join_probe(pspec, pcols, prow, pc_dev,
-                                            b_rc)
+            rowcount, p_outs = device_split.join_probe(
+                pspec, pcols, prow, pc_dev, b_rc)
             results = obs_device.fetch_all(
                 [rowcount] + [t for out in p_outs for t in out])
         else:
@@ -1363,7 +1362,7 @@ def _run_fused_collective(node, agg_plans, key_plans, group_space: int,
             for j, n in enumerate(sizes):
                 b, dev = a + n, mesh.devices[j]
                 with mesh.shard(j):
-                    rowcount, p_outs = J.join_probe(
+                    rowcount, p_outs = device_split.join_probe(
                         _spec_on(pspec, dev),
                         [(d[a:b].to(dev), m[a:b].to(dev))
                          for d, m in pcols],
@@ -1387,16 +1386,13 @@ def _run_fused_collective(node, agg_plans, key_plans, group_space: int,
     return out
 
 
-def _spec_on(pspec: J.ProbeSpec, dev) -> J.ProbeSpec:
-    """The probe spec with its build partials on `dev` (a mesh slice on
-    another card)."""
-    aggs = [J.ProbeAgg(a.kind, a.ops,
-                       tuple(None if t is None else t.to(dev)
-                             for t in a.src), a.ub_ops)
-            for a in pspec.aggs]
-    return J.ProbeSpec(pspec.col_kinds, pspec.col_offsets, pspec.G,
-                       pspec.g, pspec.outer_left, pspec.preds, pspec.keys,
-                       aggs)
+def _spec_on(pspec, dev):
+    """The probe spec (or its Split) with its build partials on `dev` (a
+    mesh slice on another card)."""
+    return dataclasses.replace(pspec, aggs=[
+        dataclasses.replace(a, src=tuple(None if t is None else t.to(dev)
+                                         for t in a.src))
+        for a in pspec.aggs])
 
 
 def _launch_specs(agg_plans, agg_filters, star_filter, distinct_plans,
@@ -1458,27 +1454,23 @@ def _launch_specs(agg_plans, agg_filters, star_filter, distinct_plans,
     uspec = J.UnmatchedSpec(list(bspec.col_kinds), list(bspec.col_offsets),
                             group_space - 1 if group_mode else 0,
                             list(bspec.preds)) if outer_right else None
-    for s in (bspec, pspec):
-        ops = sum(map(len, s.preds)) + sum(len(a.ops or ()) for a in s.aggs)
-        if len(s.preds) > K.MAX_PREDS or len(s.aggs) > K.MAX_AGGS or \
-                len(s.keys) > K.MAX_KEYS or ops > K.MAX_OPS:
-            raise NotCompilable("query exceeds the device scan's "
-                                "descriptor", "device_descriptor")
+    # a spec past one launch splits across launches; under RIGHT/FULL
+    # the unmatched pass reads the build side's plan
+    bspec = device_split.plan_scan(bspec, all_masks=outer_right)
+    pspec = device_split.plan_probe(
+        pspec, (uspec, bspec, dict(build_slots)) if outer_right else None)
     return bspec, pspec, uspec, build_slots
 
 
-def _with_partials(pspec: J.ProbeSpec, build_slots, b_outs) -> J.ProbeSpec:
-    """The probe spec with each build-side entry's per-code partials:
-    (value, count) from the build phase's outputs."""
+def _with_partials(pspec, build_slots, b_outs):
+    """The probe spec (or its Split) with each build-side entry's
+    per-code partials: (value, count) from the build phase's outputs."""
     aggs = list(pspec.aggs)
     for pi, bi in build_slots:
         out = b_outs[bi]
         src = (None, out[0]) if len(out) == 1 else (out[0], out[1])
-        a = aggs[pi]
-        aggs[pi] = J.ProbeAgg(a.kind, a.ops, src, a.ub_ops)
-    return J.ProbeSpec(pspec.col_kinds, pspec.col_offsets, pspec.G,
-                       pspec.g, pspec.outer_left, pspec.preds, pspec.keys,
-                       aggs)
+        aggs[pi] = dataclasses.replace(aggs[pi], src=src)
+    return dataclasses.replace(pspec, aggs=aggs)
 
 
 def _partner_stale_pred(owner_pub, partner_pub, side_tag, keyset,
@@ -1955,9 +1947,6 @@ def _run_fused_topn(limit_node, scan, preds, ki: int, desc: bool, k: int,
     compiled = [compile_expr(p, scan.types, dicts) for p in preds]
 
     needed = sorted({ki} | {i for ce in compiled for i in ce.inputs})
-    if len(needed) > K.MAX_COLS:
-        raise NotCompilable(f"{len(needed)} input columns (device limit "
-                            f"{K.MAX_COLS})", "device_cols")
     device = _ctx_device(ctx)
     env_cols = _device_env(side, {i: (scan.columns[i], scan.types[i])
                                   for i in needed}, device)
@@ -1972,16 +1961,11 @@ def _run_fused_topn(limit_node, scan, preds, ki: int, desc: bool, k: int,
     cache_key = ("fusedtopn", side.pub, side.zrange, name, desc, k,
                  tuple(_expr_key(p) for p in preds))
 
-    def build() -> TK.TopnSpec:
-        spec = TK.TopnSpec([kd for kd, _ in decode], [o for _, o in decode],
-                           slot_of[ki], desc,
-                           kc.data.dtype == torch.float32,
-                           [pred_program(ce, slot_of) for ce in compiled])
-        if len(spec.preds) > K.MAX_PREDS or \
-                sum(map(len, spec.preds)) > K.MAX_OPS:
-            raise NotCompilable("query exceeds the device scan's "
-                                "descriptor", "device_descriptor")
-        return spec
+    def build():
+        return device_split.plan_topn(TK.TopnSpec(
+            [kd for kd, _ in decode], [o for _, o in decode], slot_of[ki],
+            desc, kc.data.dtype == torch.float32,
+            [pred_program(ce, slot_of) for ce in compiled]))
 
     spec = obs_device.compiled("fused_topn", cache_key, build,
                                profile=getattr(ctx, "profile", None),
@@ -1989,7 +1973,8 @@ def _run_fused_topn(limit_node, scan, preds, ki: int, desc: bool, k: int,
     cols = [(env_cols[i].data, env_cols[i].mask) for i in needed]
     check_cancel()
     metrics.DEVICE_OFFLOADS.add()
-    ii, nsurv = obs_device.fetch_all(TK.topn_scan(spec, cols, rowmask, k))
+    ii, nsurv = obs_device.fetch_all(
+        device_split.topn_scan(spec, cols, rowmask, k))
     idx = ii.astype(np.int64)
     k_eff = min(k, int(nsurv[0]))
     idx = idx[:k_eff]

@@ -24,7 +24,8 @@ BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 SOURCES = {"bm25": CSRC / "bm25.cu", "agg": CSRC / "agg.cu",
            "topn": CSRC / "topn.cu", "join": CSRC / "join.cu",
            "vector": CSRC / "vector.cu", "pool": CSRC / "pool.cu",
-           "merge": CSRC / "merge.cu", "mesh": CSRC / "mesh.cu"}
+           "merge": CSRC / "merge.cu", "mesh": CSRC / "mesh.cu",
+           "scan": CSRC / "scan.cu"}
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
@@ -83,6 +84,9 @@ SIGNATURES = {
     },
     "merge": {
         "merge_topk": [_P, _P, _L, _L, _L, _I, _P, _L, _P, _L, _P, _P, _P],
+    },
+    "scan": {
+        "scan_eval": [_P, _L, _P],
     },
     "mesh": {
         "mesh_combine": [_P, _P],

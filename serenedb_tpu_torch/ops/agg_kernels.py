@@ -50,7 +50,7 @@ from . import _build
 (OP_COL, OP_I32, OP_F32, OP_NULL, OP_I2F, OP_F2I, OP_TOBOOL_I, OP_TOBOOL_F,
  OP_NOT, OP_AND, OP_OR, OP_IS_NULL, OP_IS_NOT_NULL, OP_CMP_I, OP_CMP_F,
  OP_ADD_I, OP_SUB_I, OP_MUL_I, OP_ADD_F, OP_SUB_F, OP_MUL_F, OP_WRAP8,
- OP_SETV, OP_SHRA, OP_SHRL, OP_ANDI, OP_GATE) = range(27)
+ OP_SETV, OP_SHRA, OP_SHRL, OP_ANDI, OP_GATE, OP_NVL) = range(28)
 #: comparison codes (the `arg` of OP_CMP_*)
 CMP_CODES = {"=": 0, "<>": 1, "!=": 1, "<": 2, "<=": 3, ">": 4, ">=": 5}
 # column decode kinds
@@ -114,7 +114,10 @@ class ScanSpec:
     """What one agg_scan launch computes, independent of the data:
     per input slot its decode (kind, offset); the predicate programs;
     direct key plans (kind, slot, lo, size) or factorized codes; the group
-    count G; the aggregates."""
+    count G; the aggregates. `force_global`: the regime of a statement
+    split across launches (exec/device_split.py) whose whole cells do not
+    fit the SMALL regime, so each launch adds its f32 sums in the order
+    the whole statement's would."""
     col_kinds: list
     col_offsets: list
     preds: list = field(default_factory=list)
@@ -122,6 +125,7 @@ class ScanSpec:
     factorized: bool = False
     G: int = 1
     aggs: list = field(default_factory=list)
+    force_global: bool = False
 
     def has_float_sum(self) -> bool:
         return any(a.kind == AGG_SUM_F for a in self.aggs)
@@ -180,7 +184,7 @@ def split(spec: ScanSpec, n_rows: int) -> Split:
         return Split(REGIME_SCALAR, blocks, rpb, blocks,
                      len(spec.aggs) * BLOCK_ROWS * 16)
     cells = small_cells_bytes(spec)
-    if cells <= SMALL_SMEM_BYTES:
+    if cells <= SMALL_SMEM_BYTES and not spec.force_global:
         return Split(REGIME_SMALL, blocks, rpb, blocks, cells)
     return Split(REGIME_SORT if spec.has_float_sum() else REGIME_LARGE,
                  blocks, rpb, 1, 0)
@@ -344,6 +348,9 @@ def eval_plain(ops, env: list, n: int):
                 v = _wrap32((_i32(v).to(torch.int64) & 0xFFFFFFFF) >> imm)
             elif op == OP_ANDI:
                 v = _i32(v) & imm
+            elif op == OP_NVL:
+                v = torch.where(ok, _i32(v), torch.full_like(_i32(v), imm))
+                ok = torch.ones_like(ok)
             else:
                 raise ValueError(f"unknown opcode {op}")
             stack.append((v, ok))

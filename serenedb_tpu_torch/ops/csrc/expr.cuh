@@ -29,7 +29,7 @@ enum {
   OP_COL, OP_I32, OP_F32, OP_NULL, OP_I2F, OP_F2I, OP_TOBOOL_I, OP_TOBOOL_F,
   OP_NOT, OP_AND, OP_OR, OP_IS_NULL, OP_IS_NOT_NULL, OP_CMP_I, OP_CMP_F,
   OP_ADD_I, OP_SUB_I, OP_MUL_I, OP_ADD_F, OP_SUB_F, OP_MUL_F, OP_WRAP8,
-  OP_SETV, OP_SHRA, OP_SHRL, OP_ANDI, OP_GATE
+  OP_SETV, OP_SHRA, OP_SHRL, OP_ANDI, OP_GATE, OP_NVL
 };
 enum { COL_I32, COL_I8, COL_F32, COL_U8, COL_U16 };
 enum { KEY_DICT, KEY_INT };
@@ -188,6 +188,10 @@ __device__ __forceinline__ void eval_expr(const long long* d, int start,
         break;
       case OP_ANDI:
         sv[0] &= imm;
+        break;
+      case OP_NVL:  // the value, or imm where it is NULL; valid
+        if (!(so & 1u)) sv[0] = imm;
+        so |= 1u;
         break;
       default: {  // binary ops: a below b
         const uint32_t a = sv[1], b = sv[0];

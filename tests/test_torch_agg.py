@@ -624,14 +624,22 @@ def test_not_compilable_where_the_reference_declines(planners, pred):
 
 
 def test_deep_programs_decline_and_stay_right(planners):
-    """A program deeper than the kernel's stack is refused (narrower than
-    the reference) and the query runs on the host with the same rows."""
+    """A program deeper than the kernel's stack no longer declines: it
+    lowers whole, to the reference's values, and the statement runs on
+    the device tier split across launches (a derived tile by
+    `scan_eval`, then `agg_scan`) with the reference's rows."""
     rconn, pconn = planners
     deep = "k + (k + (k + (k + (k + (k + (k + (k + (k + 1)))))))) > 40"
     pscan, (pe,), _ = _exprs(pconn, pparser, _sql_for(deep))
-    with pytest.raises(NotCompilable, match="stack"):
-        _port_eval(pscan, pe)
+    rscan, (re_,), _ = _exprs(rconn, rparser, _sql_for(deep))
+    pv, pok = _port_eval(pscan, pe)
+    rv, rok = _ref_eval(rscan, re_)
+    np.testing.assert_array_equal(pok, rok)
+    np.testing.assert_array_equal(pv, rv)
     pconn.execute("SET serene_device = 'gpu'")
+    LAUNCHES.reset()
     got = pconn.execute(_sql_for(deep)).rows()
+    assert LAUNCHES.get("scan_eval.plain") == 1
+    assert LAUNCHES.get("agg_scan.plain") == 1
     rconn.execute("SET serene_device = 'cpu'")
     assert got == rconn.execute(_sql_for(deep)).rows()

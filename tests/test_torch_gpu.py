@@ -2208,3 +2208,141 @@ def test_mesh_builders_on_a_virtual_card_mesh(cuda):
             outs[dev.type] = [t.cpu() for t in (*a, *b, *c)]
     for x, y in zip(outs["cuda"], outs["cpu"]):
         assert _bits_equal(x, y)
+
+
+# -- scan_eval and statements split across launches -------------------------
+
+from serenedb_tpu_torch.exec import device_split  # noqa: E402
+from serenedb_tpu_torch.ops import scan_kernels as sk  # noqa: E402
+
+
+def _cmp(code, f=False):
+    """A comparison op: its code goes in the op's arg."""
+    return (ak.OP_CMP_F if f else ak.OP_CMP_I, C[code], 0)
+
+
+#: derive-mode programs over _scan_cols' slots, by output kind: an int32
+#: product that wraps, an int8 product wrapped at 8 bits, an f32 sum with
+#: NaN/inf/-0.0, and a boolean (stored 0/1 in int8)
+_DERIVE = [
+    (ak.COL_I32, (_COL(2), _COL(0), (ak.OP_MUL_I, 0, 0), _COL(1),
+                  (ak.OP_SUB_I, 0, 0))),
+    (ak.COL_I8, (_COL(3), _COL(3), (ak.OP_MUL_I, 0, 0),
+                 (ak.OP_WRAP8, 0, 0))),
+    (ak.COL_F32, (_COL(4), _COL(1), (ak.OP_I2F, 0, 0), (ak.OP_ADD_F, 0, 0),
+                  (ak.OP_F32, 0, ak.f32_bits(0.25)), (ak.OP_MUL_F, 0, 0))),
+    (ak.COL_I8, _PRED),
+]
+
+
+@pytest.mark.parametrize("tiles", [(0, None), (7, 300), (5, 6), (1, 2)])
+def test_scan_eval_matches_plain_bit_for_bit(cuda, tiles):
+    """Both modes over every decode kind (FOR8, FOR16, int32, int8, f32
+    with NaN/inf/-0.0, dictionary codes), NULLs in every slot, on the
+    whole table and on ragged tile ranges (the chunk slices a split
+    hands it): the kernel's tiles equal the plain version's, bit for
+    bit."""
+    dcs, kinds, offs, rowmask = _scan_cols(cuda)
+    a, b = tiles
+    b = rowmask.shape[0] if b is None else b
+    cols = [(dc.data[a:b], dc.mask[a:b]) for dc in dcs]
+    rm = rowmask[a:b]
+    masks = sk.EvalSpec(kinds, offs, preds=[
+        _PRED, (_COL(4), (ak.OP_F32, 0, ak.f32_bits(-20.0)),
+                _cmp(">=", True)),
+        (_COL(5), _I(3), _cmp("<>"))])
+    LAUNCHES.reset()
+    got = sk.scan_eval(masks, cols, rm)
+    assert LAUNCHES.get("scan_eval") == 1
+    ref = sk.scan_eval_plain(masks, cols, rm)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref)
+    if b - a > 100:
+        assert 0 < int(got.sum()) < int(rm.sum())
+    for out, prog in _DERIVE:
+        spec = sk.EvalSpec(kinds, offs, prog=prog, out=out)
+        (v, ok), (rv, rok) = sk.scan_eval(spec, cols, rm), \
+            sk.scan_eval_plain(spec, cols, rm)
+        torch.cuda.synchronize()
+        assert torch.equal(ok, rok) and v.dtype == rv.dtype
+        if out == ak.COL_F32:
+            assert _same_f32(v, rv)
+        else:
+            assert torch.equal(v, rv)
+        assert not v[~ok].any()
+
+
+def _wide_spec(kinds, offs, G, keys):
+    """A statement past one launch over _scan_cols' six slots read three
+    times over (18 slots): 20 aggregates, among them f32 sums and
+    programs 12 deep; 10 predicates, one of them 11 deep. Integer ops
+    read integer slots only, as compile_expr types them."""
+    ints = [s for s, k in enumerate(kinds) if k != ak.COL_F32]
+
+    def deep(depth, base):
+        return tuple(_COL(ints[(base + i) % len(ints)])
+                     for i in range(depth)) + \
+            ((ak.OP_ADD_I, 0, 0),) * (depth - 1)
+    aggs = [ak.ScanAgg(ak.AGG_SUM_I, (_COL(s),)) for s in ints[::2]]
+    aggs += [ak.ScanAgg(ak.AGG_SUM_I, deep(12, 1)),
+             ak.ScanAgg(ak.AGG_MAX_I, deep(9, 2)),
+             ak.ScanAgg(ak.AGG_SUM_F, _ARGS[ak.AGG_SUM_F]),
+             ak.ScanAgg(ak.AGG_SUM_F, (_COL(10), _COL(13), (ak.OP_I2F, 0, 0),
+                                       (ak.OP_ADD_F, 0, 0))),
+             ak.ScanAgg(ak.AGG_MIN_F, (_COL(16),)),
+             ak.ScanAgg(ak.AGG_COUNT, (_COL(15),)),
+             ak.ScanAgg(ak.AGG_PRESENCE, None, 17, ak.KEY_INT, 0, 8)]
+    aggs += [ak.ScanAgg(ak.AGG_MIN_I, (_COL(i),)) for i in (6, 8, 12, 14)]
+    preds = [(_COL(i), _I(-120), _cmp(">"))
+             for i in (0, 6, 12, 2, 8, 14, 3, 9, 15)]
+    preds.append(deep(11, 7) + (_I(-10**9), _cmp(">")))
+    return ak.ScanSpec(kinds, offs, preds, keys, False, G, aggs)
+
+
+@pytest.mark.parametrize("mode", ["scalar", "small", "sort"])
+def test_split_statement_matches_its_plain_versions(cuda, mode):
+    """A statement past one launch (derived tiles, mask passes, two
+    agg_scan launches) gives on the card the bits its plain versions
+    give on the CPU: every output, f32 sums included (the SMALL and the
+    SORT regime's orders), over a chunk slice as the planner runs it."""
+    dcs, kinds, offs, rowmask = _scan_cols(cuda)
+    cols = [(dc.data, dc.mask) for dc in dcs] * 3
+    keys, G = [], 1
+    if mode == "small":
+        keys, G = [(ak.KEY_INT, 5, 0, 8), (ak.KEY_INT, 3, -128, 16)], 128
+    elif mode == "sort":
+        keys, G = [(ak.KEY_INT, 1, -30000, 60001)], 60001
+    split = device_split.plan_scan(_wide_spec(kinds * 3, offs * 3, G, keys))
+    assert isinstance(split, device_split.Split)
+    assert split.derived and split.masks and len(split.launches) == 2
+    want = {"scalar": ak.REGIME_SCALAR, "small": ak.REGIME_SMALL,
+            "sort": ak.REGIME_SORT}[mode]
+    assert {ak.split(ln.spec, 1).regime for ln in split.launches
+            if ln.spec.has_float_sum()} == {want}
+    cpu = [(d.cpu(), m.cpu()) for d, m in cols]
+    for a, b in ((0, rowmask.shape[0]), (3, 200)):
+        LAUNCHES.reset()
+        got = device_split.agg_scan(split, cols, rowmask, None, a, b)
+        assert LAUNCHES.get("scan_eval") == len(split.derived) + \
+            len(split.masks) and LAUNCHES.get("agg_scan") == 2
+        ref = device_split.agg_scan(split, cpu, rowmask.cpu(), None, a, b)
+        torch.cuda.synchronize()
+        _assert_raw_equal((got[0].cpu(), [[t.cpu() for t in o]
+                                          for o in got[1]]), ref)
+
+
+def test_split_top_n_matches_its_plain_versions(cuda):
+    """A filtered top-N past one launch (a predicate 11 deep, 10
+    predicates over 18 slots): the same indices and survivor count on the
+    card as its plain versions on the CPU."""
+    dcs, kinds, offs, rowmask = _scan_cols(cuda)
+    cols = [(dc.data, dc.mask) for dc in dcs] * 3
+    spec = _wide_spec(kinds * 3, offs * 3, 1, [])
+    split = device_split.plan_topn(tk.TopnSpec(
+        spec.col_kinds, spec.col_offsets, 1, True, False, spec.preds))
+    assert isinstance(split, device_split.Split) and split.derived
+    got = device_split.topn_scan(split, cols, rowmask, 100)
+    ref = device_split.topn_scan(split, [(d.cpu(), m.cpu()) for d, m in cols],
+                                 rowmask.cpu(), 100)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x.cpu(), y) for x, y in zip(got, ref))
