@@ -33,7 +33,8 @@ Phases (any failure exits non-zero and prints no result line):
      queries on the same table (T1 unfiltered, T2 filtered with a
      projection and OFFSET, T3 at k = 8192) through topn_scan; then W1,
      a top-N whose filter is 12 deep (past the scan kernels' stack of 8:
-     a scan_eval derived tile, then topn_scan). In phases 6-9 every
+     one scan_eval launch writes a derived tile, then topn_scan). In
+     phases 6-9 every
      device run of every statement launches exactly `SQL_LAUNCHES`
      (those that fit one launch as before statements split), and no
      `.plain` version;
@@ -42,8 +43,9 @@ Phases (any failure exits non-zero and prints no result line):
      host-factorized group keys, and T4 (ClickBench Q25's shape: a
      dictionary-string predicate, ORDER BY ... DESC LIMIT 10); then W2,
      ClickBench's queries.sql line 30 (90 sums: six agg_scan a chunk),
-     and W3, a WHERE 12 deep under 17 sums (a derived tile, a mask pass
-     and two agg_scan a chunk), each with its cpu, cold and warm ms;
+     and W3, a WHERE 12 deep under 17 sums (one scan_eval a chunk, its
+     derived value read by its mask pass, and two agg_scan a chunk),
+     each with its cpu, cold and warm ms;
   8. float aggregates (10,000,000 rows, DOUBLE columns with NULLs and
      NaNs, 200 and ~1,000,000 groups, and no GROUP BY): 'gpu' within rel
      1e-4 / abs 1e-4 of 'cpu', NaN meeting NaN, two runs bit-identical,
@@ -59,8 +61,8 @@ Phases (any failure exits non-zero and prints no result line):
      cold and warm, agg_scan + join_probe (+ chain_topn for J2,
      join_unmatched for J5) launched,
      no fused decline, and J2's warm repeat uploads 0 bytes; then J6, a
-     probe side of 18 aggregates under a probe predicate 12 deep (a
-     derived tile, a mask pass, two join_probe);
+     probe side of 18 aggregates under a probe predicate 12 deep (one
+     scan_eval: a derived value and a mask pass; two join_probe);
  10. agg_scan, agg_fold, topn_scan (T1-T4), chain_topn (J2) and
      join_probe against their plain versions on inputs recorded from
      phases 6-9 (integer outputs and selected indices equal, agg_scan's
@@ -73,9 +75,12 @@ Phases (any failure exits non-zero and prints no result line):
      its init + probe (+ unmatched) kernels with no copy in (device ms by
      kernel), and returning at once behind ~25 ms of queued device work
      (no stream sync);
-     agg_fold also on a seeded (8,192 x 201) plane; scan_eval on W3's
-     derived tile and mask pass and J6's derived tile, bit for bit (its
-     library time null: no one call runs an expression program); and
+     agg_fold also on a seeded (8,192 x 201) plane; scan_eval on W1's
+     prepare over q1's 100,000,768 rows, W3's over a 2,097,152-row chunk
+     and J6's, every tile and the mask bit for bit, each whole call
+     (timed_ms) and its device time (queued_ms) beside the bound and
+     the parent's figures (its library time null: no one call runs an
+     expression program); and
      the two f32 GEMMs of dense_topk timed against their FLOP bound;
  11. `sift`: IVF through SQL at sift-128-euclidean's shape (1,000,000 x
      128 integers in [0, 255] around a 16-dimensional subspace, from a
@@ -411,8 +416,8 @@ HITS_QUERIES = [
 # statements past one scan launch, split across launches
 # (exec/device_split.py), with the kernels each launches a chunk
 Q1_WIDE = [
-    # W1: a fused top-N whose filter is 12 deep (a derived tile, then
-    # topn_scan)
+    # W1: a fused top-N whose filter is 12 deep (a scan_eval writing a
+    # derived tile, then topn_scan)
     ("SELECT region, x FROM hits WHERE " +
      rnest(["x", "region", "adv"] * 4) + " > 399000 ORDER BY x DESC "
      "LIMIT 100", ("topn_scan", SPLIT)),
@@ -422,8 +427,8 @@ HITS_WIDE = [
     ("SELECT " + ", ".join(["SUM(ResolutionWidth)"] + [
         f"SUM(ResolutionWidth + {i})" for i in range(1, 90)]) +
      " FROM hits;", AGG),
-    # W3: a WHERE 12 deep under 17 sums (a derived tile, a mask pass, two
-    # agg_scan a chunk)
+    # W3: a WHERE 12 deep under 17 sums (a scan_eval of a derived value
+    # and a mask pass, two agg_scan a chunk)
     ("SELECT count(*), " + ", ".join(
         f"sum(ResolutionWidth + RegionID * {i})" for i in range(17)) +
      " FROM hits WHERE " + rnest(["RegionID", "AdvEngineID",
@@ -432,7 +437,7 @@ HITS_WIDE = [
 ]
 TPCH_WIDE = [
     # J6: a probe side of 18 aggregates and a probe predicate 12 deep (a
-    # derived tile, a mask pass, two join_probe)
+    # scan_eval of a derived value and a mask pass, two join_probe)
     ("SELECT l_returnflag, count(*), " + ", ".join(
         f"sum(l_quantity * {i + 1} + l_suppkey)" for i in range(9)) + ", " +
      ", ".join(f"max(l_extendedprice - l_quantity * {i})"
@@ -452,12 +457,12 @@ _JOIN = {"agg_scan": 1, "join_probe": 1}
 SQL_LAUNCHES = {
     "q1": [_AGG48] * 3 + [_TOPN] * 3 + [{"topn_scan": 1, "scan_eval": 1}],
     "hits": [_AGG5] * 6 + [_TOPN] + [{"agg_scan": 30},
-                                     {"agg_scan": 10, "scan_eval": 10}],
+                                     {"agg_scan": 10, "scan_eval": 5}],
     "float": [{"agg_scan": 5, "agg_fold": 10}, _AGG5,
               {"agg_scan": 5, "agg_fold": 10}],
     "tpch": [_JOIN, dict(_JOIN, chain_topn=1), _JOIN, _JOIN,
              dict(_JOIN, join_unmatched=1),
-             {"agg_scan": 1, "scan_eval": 2, "join_probe": 2}],
+             {"agg_scan": 1, "scan_eval": 1, "join_probe": 2}],
 }
 FLOAT_QUERIES = [
     "SELECT k, sum(f), avg(f), min(g), max(g) FROM fl GROUP BY k",
@@ -1125,14 +1130,9 @@ def _bits(rows) -> list:
 
 
 #: the kernel wrappers whose first main-path call per query is recorded
-#: (scan_eval's first of each mode)
 RECORDED = (("agg", "agg_scan"), ("agg", "agg_fold"), ("topn", "topn_scan"),
             ("topn", "chain_topn"), ("join", "join_probe"),
             ("scan", "scan_eval"))
-
-
-def _eval_mode(args) -> str:
-    return "mask" if args[0].prog is None else "derive"
 
 
 def phase_sql(device, label: str, tables: dict, queries: list,
@@ -1180,9 +1180,7 @@ def phase_sql(device, label: str, tables: dict, queries: list,
     LAUNCHES.reset()
     dev_runs, run_s, per_query_ms, up_bytes = [], [], [], []
     per_query_launches = []
-    recs = [FirstCalls(modules[m], n,
-                       _eval_mode if n == "scan_eval" else None)
-            for m, n in RECORDED]
+    recs = [FirstCalls(modules[m], n) for m, n in RECORDED]
     for rec in recs:
         rec.__enter__()
     try:
@@ -1557,37 +1555,56 @@ def check_join_probe(device, args, reps=10) -> dict:
                      f"{busy_ms:.3f} ms behind queued work (no sync)"}
 
 
-def check_scan_eval(device, args, reps=10) -> dict:
-    """scan_eval against its plain version on one recorded launch: the
-    mask tile, or the derived tile (f32 bit for bit) and its validity,
-    equal; two launches equal. No one PyTorch call computes it (it runs
-    an expression program), so library_ms is null."""
+#: scan_eval's whole calls on the parent tree (PERF.md section 6, NVIDIA
+#: H100 80GB HBM3 at 700.00 W): a derive and a mask pass a chunk, each a
+#: launch of its own; W1's was not recorded
+SCAN_PARENT = {"W1": "not recorded",
+               "W3": "0.0933 ms derive + 0.0873 ms mask pass",
+               "J6": "0.2151 ms derive + a mask pass not timed"}
+
+
+def check_scan_eval(device, args, what: str, reps=10) -> dict:
+    """scan_eval against its plain version on one recorded prepare: every
+    stored tile (f32 bit for bit) and its validity, and the mask, equal;
+    two launches equal. The whole call (timed_ms) and its device time
+    (queued_ms). No one PyTorch call computes it (it runs expression
+    programs), so library_ms is null."""
     import torch
 
     from serenedb_tpu_torch.ops import scan_kernels as S
     a, kw = args
     spec, cols, rowmask = a
-    outs = [S.scan_eval(*a, **kw), S.scan_eval(*a, **kw),
-            S.scan_eval_plain(*a, **kw)]
+
+    def flat(out):
+        tiles, mask = out
+        return [t for pair in tiles if pair is not None for t in pair] + \
+            ([mask] if spec.preds else [])
+    got, again, ref = (flat(o) for o in (
+        S.scan_eval(*a, **kw), S.scan_eval(*a, **kw),
+        S.scan_eval_plain(*a, **kw)))
     sync(device)
-    got, again, ref = [list(o) if isinstance(o, tuple) else [o]
-                       for o in outs]
     for g, g2, r in zip(got, again, ref):
         same = same_f32 if g.dtype == torch.float32 else torch.equal
         if not (same(g, r) and same(g, g2)):
-            fail(f"scan_eval differs from its plain version ({g.dtype}, "
-                 f"{tuple(g.shape)})")
+            fail(f"scan_eval differs from its plain version on {what} "
+                 f"({g.dtype}, {tuple(g.shape)})")
+    if len(got) != len(ref):
+        fail(f"scan_eval: {len(got)} outputs on {what}, plain {len(ref)}")
     ms = timed_ms(lambda: S.scan_eval(*a, **kw), reps, device)
+    device_ms = queued_ms(lambda: S.scan_eval(*a, **kw), reps, device)
     plain_ms = timed_ms(lambda: S.scan_eval_plain(*a, **kw), 2, device)
     moved = nbytes(*[t for pair in cols for t in pair],
-                   rowmask if spec.prog is None else None, *got)
-    mode = "mask" if spec.prog is None else "derive"
-    return {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms(moved), "bound_by": "bytes",
-            "library_ms": None,
-            "shape": f"{mode} rows={rowmask.numel()} cols={len(cols)} "
-                     f"programs={len(spec.preds) or 1} ops="
-                     f"{len(spec.prog or ()) + sum(map(len, spec.preds))}"}
+                   rowmask if spec.preds else None, *got)
+    n_ops = sum(map(len, [d.prog for d in spec.derived] + spec.preds))
+    return {"max_abs_err": 0.0, "ms": ms, "device_ms": device_ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms(moved),
+            "bound_by": "bytes", "library_ms": None,
+            "parent": SCAN_PARENT[what],
+            "shape": f"{what}: rows={rowmask.numel()} inputs={len(cols)} "
+                     f"derived={len(spec.derived)} (stored "
+                     f"{sum(d.stored for d in spec.derived)}) "
+                     f"masks={len(spec.preds)} ops={n_ops} "
+                     f"stages={spec.plan.n_stages}"}
 
 
 def time_dense_gemms(device, args, reps=5) -> dict:
@@ -4873,18 +4890,18 @@ def main() -> int:
         fail("J5 (RIGHT JOIN) did not reach join_unmatched")
     checks["J5 join_probe + join_unmatched"] = check_join_probe(device, j5)
     n_hits = len(HITS_QUERIES) + len(HITS_TOPN)
-    checks["scan_eval derive (W3)"] = check_scan_eval(device, recorded(
-        "scan_eval", ("hits", n_hits + 1, "derive"), "W3's derived tile"))
-    checks["scan_eval mask (W3)"] = check_scan_eval(device, recorded(
-        "scan_eval", ("hits", n_hits + 1, "mask"), "W3's mask pass"))
-    checks["scan_eval derive (J6)"] = check_scan_eval(device, recorded(
-        "scan_eval", ("tpch", len(TPCH_QUERIES), "derive"),
-        "J6's derived tile"))
+    for what, key in (("W1", ("q1", len(Q1_QUERIES) + len(Q1_TOPN))),
+                      ("W3", ("hits", n_hits + 1)),
+                      ("J6", ("tpch", len(TPCH_QUERIES)))):
+        checks[f"scan_eval ({what})"] = check_scan_eval(
+            device, recorded("scan_eval", key, f"{what}'s prepare"), what)
     for what, r in checks.items():
         lib = "null" if r["library_ms"] is None else \
             f"{r['library_ms']:.4f} ms"
-        print(f"[10] {what} ({r['shape']}): kernel {r['ms']:.4f} ms, plain "
-              f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms, "
+        dev = f" (device {r['device_ms']:.4f} ms, parent {r['parent']})" \
+            if "device_ms" in r else ""
+        print(f"[10] {what} ({r['shape']}): kernel {r['ms']:.4f} ms{dev}, "
+              f"plain {r['plain_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms, "
               f"library {lib}, max |err| {r['max_abs_err']:.3g}",
               flush=True)
     if dense.get("gemm_args") is None:
@@ -5237,7 +5254,7 @@ def main() -> int:
     results["topn_scan"] = checks["T1 topn_scan"]
     results["chain_topn"] = checks["J2 chain_topn"]
     results["join_probe"] = checks["J1 join_probe"]
-    results["scan_eval"] = checks["scan_eval derive (W3)"]
+    results["scan_eval"] = checks["scan_eval (W3)"]
     results["ivf_probe"] = vchecks["ivf_probe nprobe 16"]
     for name in ("maxsim", "kmeans_assign", "kmeans_update"):
         results[name] = vchecks[name]

@@ -12,13 +12,18 @@ chunk by chunk in place of the one launch:
 1. derived tiles: subtrees cut off a program that needs a deeper stack,
    more columns or more ops than a launch has, bottom up until what is
    left fits (a subtree of depth <= 8, its own columns and ops within a
-   launch's). Each is one `scan_eval` launch in derive mode whose tile
-   the later launches read as an ordinary column slot: the value the
-   subtree would have pushed, so the programs above it are unchanged;
+   launch's). Each is a derive pass whose tile the later launches read
+   as an ordinary column slot: the value the subtree would have pushed,
+   so the programs above it are unchanged;
 2. mask passes: predicate conjuncts (a WHERE splits losslessly at its
-   top-level ANDs) that do not fit the scan launch, up to 8 a pass over
-   up to 16 columns, each one `scan_eval` in mask mode that narrows the
+   top-level ANDs) that do not fit the scan launch, each narrowing the
    row mask;
+   the derive passes, then the mask passes, are one `scan_eval` launch a
+   chunk (`Split.prep`), which writes only the derived tiles a scan
+   launch reads (a later pass reads the others where the launch keeps
+   them) and the narrowed row mask; passes that read more than the
+   launch's MAX_INPUTS (128) slots chain launches in plan order, a
+   later one reading the earlier ones' tiles and row mask;
 3. the scan launches: the aggregates in groups that fit (at most 16 a
    launch, 16 columns with the key columns, 192 ops), each one launch of
    the scan kernel with the narrowed row mask and the same group codes,
@@ -152,16 +157,17 @@ class Launch:
 @dataclass
 class Split:
     """A statement past one launch: its input columns' decode (the base
-    slots), the derive and mask passes as (input slots, scan_eval spec),
-    the scan launches, the statement's group count and aggregates (which
+    slots), its derive and mask passes as scan_eval launches (each the
+    slots it reads and its spec; one launch, none where there is no
+    pass, more only where the passes read past MAX_INPUTS slots), the scan
+    launches, the statement's group count and aggregates (which
     fix its outputs), every slot's decode (a derived tile takes the next
     slot after the base ones), each aggregate's program as fitted over
     those slots (None for a presence grid), and for a probe Split of a
     RIGHT/FULL join the build side's plan."""
     col_kinds: list
     col_offsets: list
-    derived: list
-    masks: list
+    prep: list
     launches: list
     G: int = 1
     aggs: list = None
@@ -226,26 +232,41 @@ class _Fitter:
             out = _Node(n.op, n.arg, n.imm, tuple(kids))
         return out
 
-    def eval_passes(self, pred_groups) -> tuple[list, list]:
-        """The derive passes, then one mask pass per group of predicate
-        trees, as (input slots, EvalSpec)."""
-        derived = []
-        for slot, n in self.derived:
-            slots = sorted(n.cols)
+    def prepare(self, preds: list, stored: set) -> list:
+        """The derive passes, then the predicate trees as mask passes, as
+        scan_eval launches in plan order, [(the slots it reads, its
+        EvalSpec)]: one launch, or, where the passes read more than the
+        MAX_INPUTS slots a launch takes, as many as they need, each
+        reading the tiles of the earlier ones that it needs and the row
+        mask they narrowed. A derived tile is stored where a slot of
+        `stored` holds it or a later launch reads it."""
+        groups, cur, reads = [], [], set()
+        for slot, n in [(s, n) for s, n in self.derived] + \
+                [(None, n) for n in preds]:
+            made = {s for s, _n in cur}
+            need = reads | {s for s in n.cols if s not in made}
+            if cur and len(need) > S.MAX_INPUTS:
+                groups.append((cur, reads))
+                cur, need = [], set(n.cols)
+            cur.append((slot, n))
+            reads = need
+        if cur:
+            groups.append((cur, reads))
+        stored = stored | {s for _g, r in groups for s in r
+                           if s >= self.n_base}
+        out = []
+        for passes, reads in groups:
+            slots = sorted(reads)
             loc = {s: i for i, s in enumerate(slots)}
-            derived.append((slots, S.EvalSpec(
-                [self.kinds[s] for s in slots],
-                [self.offs[s] for s in slots], prog=n.postfix(loc),
-                out=self.kinds[slot])))
-        masks = []
-        for group in pred_groups:
-            slots = sorted(frozenset().union(*(n.cols for n in group)))
-            loc = {s: i for i, s in enumerate(slots)}
-            masks.append((slots, S.EvalSpec(
-                [self.kinds[s] for s in slots],
-                [self.offs[s] for s in slots],
-                preds=[n.postfix(loc) for n in group])))
-        return derived, masks
+            derived = [(s, n) for s, n in passes if s is not None]
+            loc.update((s, len(slots) + k)
+                       for k, (s, _n) in enumerate(derived))
+            out.append((slots, S.EvalSpec(
+                [self.kinds[s] for s in slots], [self.offs[s] for s in slots],
+                [S.Derive(n.postfix(loc), self.kinds[s], s in stored)
+                 for s, n in derived],
+                [n.postfix(loc) for s, n in passes if s is None])))
+        return out
 
     def local(self, slots: list) -> tuple[dict, list, list]:
         loc = {s: i for i, s in enumerate(slots)}
@@ -305,7 +326,7 @@ def _fits(col_kinds, keys, preds, progs, n_aggs: int) -> bool:
 
 def _split_preds(f: _Fitter, preds, bins: list, keep: bool = True) -> list:
     """The predicates as fitted conjuncts: kept in the one launch while
-    it takes them (with `keep`), the rest grouped into mask passes."""
+    it takes them (with `keep`); the rest, the mask passes', returned."""
     conj = [f.fit(c, K.MAX_COLS, K.MAX_OPS)
             for p in preds for c in _conjuncts(parse(p))]
     rest = []
@@ -317,9 +338,7 @@ def _split_preds(f: _Fitter, preds, bins: list, keep: bool = True) -> list:
             b.preds.append(c)
         else:
             rest.append(c)
-    groups = _pack([(c.cols, c.n_ops) for c in rest], frozenset(),
-                   K.MAX_PREDS) if rest else []
-    return [[rest[i] for i in g.items] for g in groups]
+    return rest
 
 
 def _fit_items(f: _Fitter, progs, fixed_cols: frozenset) -> list:
@@ -348,10 +367,10 @@ def _fold_keys(f: _Fitter, keys: list, G: int) -> list:
     return [(K.KEY_INT, read.arg, 0, G)]
 
 
-def _split(spec, f: _Fitter, groups, launches, nodes, **kw) -> Split:
-    derived, masks = f.eval_passes(groups)
-    return Split(list(spec.col_kinds), list(spec.col_offsets), derived,
-                 masks, launches, getattr(spec, "G", 1),
+def _split(spec, f: _Fitter, preds, launches, nodes, **kw) -> Split:
+    stored = {s for ln in launches for s in ln.slots}
+    return Split(list(spec.col_kinds), list(spec.col_offsets),
+                 f.prepare(preds, stored), launches, getattr(spec, "G", 1),
                  list(getattr(spec, "aggs", ())), f.kinds, f.offs,
                  [None if n is None else n.postfix() for n in nodes], **kw)
 
@@ -373,7 +392,7 @@ def plan_scan(spec: K.ScanSpec, all_masks: bool = False):
               0 if n is None else n.n_ops)
              for a, n in zip(spec.aggs, nodes)]
     bins = _pack(items, key_cols, K.MAX_AGGS)
-    groups = _split_preds(f, spec.preds, bins, keep=not all_masks)
+    rest = _split_preds(f, spec.preds, bins, keep=not all_masks)
     force = spec.force_global or (
         spec.G > 1 and K.small_cells_bytes(spec) > K.SMALL_SMEM_BYTES)
     launches = []
@@ -391,7 +410,7 @@ def plan_scan(spec: K.ScanSpec, all_masks: bool = False):
                           for k, s, lo, size in keys],
                          spec.factorized, spec.G, aggs, force)
         launches.append(Launch(slots, sub, tuple(b.items)))
-    return _split(spec, f, groups, launches, nodes)
+    return _split(spec, f, rest, launches, nodes)
 
 
 def plan_probe(spec: J.ProbeSpec, right=None):
@@ -426,7 +445,7 @@ def plan_probe(spec: J.ProbeSpec, right=None):
     bins = _pack(items, key_cols, K.MAX_AGGS,
                  frozenset().union(*(n.cols for n in upreds)),
                  sum(n.n_ops for n in upreds))
-    groups = _split_preds(f, spec.preds, bins)
+    rest = _split_preds(f, spec.preds, bins)
     bkinds = build.slot_kinds if b_split else build and build.col_kinds
     boffs = build.slot_offsets if b_split else build and build.col_offsets
     launches = []
@@ -451,7 +470,7 @@ def plan_probe(spec: J.ProbeSpec, right=None):
             [bkinds[s] for s in bslots], [boffs[s] for s in bslots],
             right[0].null_gc, [n.postfix(bloc) for n in upreds])
         launches.append(Launch(slots, sub, tuple(b.items), bslots, usub))
-    return _split(spec, f, groups, launches, nodes, build=build)
+    return _split(spec, f, rest, launches, nodes, build=build)
 
 
 def plan_topn(spec: TK.TopnSpec):
@@ -461,25 +480,26 @@ def plan_topn(spec: TK.TopnSpec):
         return spec
     f = _Fitter(spec.col_kinds, spec.col_offsets)
     bins = [_Bin({spec.key_slot})]
-    groups = _split_preds(f, spec.preds, bins)
+    rest = _split_preds(f, spec.preds, bins)
     slots = sorted(bins[0].cols)
     loc, kinds, offs = f.local(slots)
     sub = TK.TopnSpec(kinds, offs, loc[spec.key_slot], spec.desc,
                       spec.is_float, [c.postfix(loc) for c in bins[0].preds])
-    return _split(spec, f, groups, [Launch(slots, sub, ())], [])
+    return _split(spec, f, rest, [Launch(slots, sub, ())], [])
 
 
 # -- the runners: the one launch, or the split's launches --------------------
 
 def _prepare(split: Split, cols, rowmask, start: int, end: int):
     """Tiles [start, end) of the base columns, then the derived tiles
-    after them, and the row mask narrowed by the mask passes."""
+    after them (None where no launch reads one), and the row mask
+    narrowed by the mask passes: one scan_eval launch (more only past
+    MAX_INPUTS slots)."""
     tiles = [(d[start:end], m[start:end]) for d, m in cols]
     rm = rowmask[start:end]
-    for slots, ev in split.derived:
-        tiles.append(S.scan_eval(ev, [tiles[s] for s in slots], rm))
-    for slots, ev in split.masks:
-        rm = S.scan_eval(ev, [tiles[s] for s in slots], rm)
+    for slots, ev in split.prep:
+        derived, rm = S.scan_eval(ev, [tiles[s] for s in slots], rm)
+        tiles += derived
     return tiles, rm
 
 

@@ -295,13 +295,14 @@ def stats_section() -> dict:
             "fused_declines": fused_declines()}
 
 
-def device_rows() -> list[dict]:
+def device_rows(base=None) -> list[dict]:
     """One row per mesh device (serenedb_tpu/obs/device.py
     `device_rows`): dispatches, transfer bytes and times up and down, and
     the live-bytes estimate (the device column cache, the posting pool
     and the vector pool, split by holding device). Lists every device of
     the mesh once a device is initialised (a passive probe, never
-    initialising CUDA), else only those the ledger has seen."""
+    initialising CUDA), else only those the ledger has seen. `base`: the
+    mesh's physical device outside a statement (`mesh.devices`)."""
     from ..exec.device_pipeline import DEVICE_CACHE
     from ..parallel import mesh as mesh_mod
     from ..search.posting_pool import POOL
@@ -312,7 +313,7 @@ def device_rows() -> list[dict]:
             live[i] = live.get(i, 0) + n
     snap = LEDGER.snapshot()
     n_init = mesh_mod.device_count_if_initialized()
-    placed = mesh_mod.devices() if n_init else []
+    placed = mesh_mod.devices(base) if n_init else []
     ids = sorted(set(snap) | set(live) | set(range(len(placed))))
     zeros = {f: 0 for f in _DEV_FIELDS}
     rows = []

@@ -86,7 +86,7 @@ SIGNATURES = {
         "merge_topk": [_P, _P, _L, _L, _L, _I, _P, _L, _P, _L, _P, _P, _P],
     },
     "scan": {
-        "scan_eval": [_P, _L, _P],
+        "scan_eval": [_P, _P, _I, _P, _P, _L, _I, _I, _I, _P],
     },
     "mesh": {
         "mesh_combine": [_P, _P],

@@ -70,8 +70,9 @@ def virtual_devices(n: int):
 
 def _base_device() -> torch.device:
     """The executing database's device (its connection or the device a
-    build runs on), else `cuda:0` where there is a card, else the CPU."""
-    from ..device import _BUILDING_ON
+    build runs on), else `cuda:0`: without a card that raises, as every
+    entry point does (`device.resolve_device`)."""
+    from ..device import _BUILDING_ON, resolve_device
     from ..engine import CURRENT_CONNECTION
     dev = _BUILDING_ON.get()
     if dev is not None:
@@ -79,8 +80,7 @@ def _base_device() -> torch.device:
     conn = CURRENT_CONNECTION.get()
     if conn is not None:
         return conn.db.device
-    return torch.device("cuda", 0) if torch.cuda.is_available() else \
-        torch.device("cpu")
+    return resolve_device(None)
 
 
 def devices(base: Optional[torch.device] = None) -> list[torch.device]:
@@ -142,9 +142,10 @@ def data_mesh(n_shards: int, base: Optional[torch.device] = None) -> Mesh:
     return Mesh(tuple(devs[:max(1, min(int(n_shards), len(devs)))]))
 
 
-def data_mesh_width(n_shards: int) -> int:
+def data_mesh_width(n_shards: int,
+                    base: Optional[torch.device] = None) -> int:
     """The width of `data_mesh(n_shards)`: min(n_shards, devices)."""
-    return max(1, min(int(n_shards), device_count()))
+    return max(1, min(int(n_shards), device_count(base)))
 
 
 def shard_devices(n_shards: int, base: Optional[torch.device] = None

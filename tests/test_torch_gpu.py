@@ -2221,7 +2221,7 @@ def _cmp(code, f=False):
     return (ak.OP_CMP_F if f else ak.OP_CMP_I, C[code], 0)
 
 
-#: derive-mode programs over _scan_cols' slots, by output kind: an int32
+#: derive programs over _scan_cols' slots, by output kind: an int32
 #: product that wraps, an int8 product wrapped at 8 bits, an f32 sum with
 #: NaN/inf/-0.0, and a boolean (stored 0/1 in int8)
 _DERIVE = [
@@ -2233,43 +2233,197 @@ _DERIVE = [
                   (ak.OP_F32, 0, ak.f32_bits(0.25)), (ak.OP_MUL_F, 0, 0))),
     (ak.COL_I8, _PRED),
 ]
+#: mask programs over _scan_cols' slots
+_MASKS = [_PRED, (_COL(4), (ak.OP_F32, 0, ak.f32_bits(-20.0)),
+                  _cmp(">=", True)),
+          (_COL(5), _I(3), _cmp("<>"))]
+
+
+def _prep_spec(kinds, offs, mode="both"):
+    """A prepare over _scan_cols' six slots: the four derive programs
+    (slots 6-9; the boolean one not stored), a fifth reading the first
+    and the f32 tile (slot 10), then mask passes, one of them reading
+    the boolean tile and one the fifth tile; 'derive' and 'mask' keep
+    one kind of pass."""
+    der = [sk.Derive(prog, out, i != 3) for i, (out, prog) in
+           enumerate(_DERIVE)]
+    der.append(sk.Derive((_COL(6), _COL(8), (ak.OP_F2I, 0, 0),
+                          (ak.OP_ADD_I, 0, 0)), ak.COL_I32))
+    preds = list(_MASKS) + [(_COL(9), (ak.OP_TOBOOL_I, 0, 0)),
+                            (_COL(10), _I(-10**6), _cmp(">"))]
+    if mode == "derive":
+        return sk.EvalSpec(kinds, offs, [sk.Derive(d.prog, d.out)
+                                         for d in der])
+    if mode == "mask":
+        return sk.EvalSpec(kinds, offs, preds=list(_MASKS))
+    return sk.EvalSpec(kinds, offs, der, preds)
+
+
+def _same_prep(got, ref, rowmask):
+    """A card prepare against the plain version's: every tile bit for
+    bit (f32 NaN meeting NaN), the validity and the mask equal."""
+    (tiles, mask), (rtiles, rmask) = got, ref
+    torch.cuda.synchronize()
+    assert len(tiles) == len(rtiles)
+    for t, r in zip(tiles, rtiles):
+        assert (t is None) == (r is None)
+        if t is None:
+            continue
+        assert t[0].dtype == r[0].dtype and t[0].shape == r[0].shape
+        assert _same_f32(t[0], r[0]) if t[0].dtype == torch.float32 else \
+            torch.equal(t[0].cpu(), r[0].cpu())
+        assert torch.equal(t[1].cpu(), r[1].cpu())
+        assert not t[0][~t[1]].any()
+    assert (mask is rowmask) == (rmask is rowmask)
+    assert torch.equal(mask.cpu(), rmask.cpu())
 
 
 @pytest.mark.parametrize("tiles", [(0, None), (7, 300), (5, 6), (1, 2)])
 def test_scan_eval_matches_plain_bit_for_bit(cuda, tiles):
-    """Both modes over every decode kind (FOR8, FOR16, int32, int8, f32
-    with NaN/inf/-0.0, dictionary codes), NULLs in every slot, on the
-    whole table and on ragged tile ranges (the chunk slices a split
-    hands it): the kernel's tiles equal the plain version's, bit for
-    bit."""
+    """One launch of derive and mask passes over every decode kind (FOR8,
+    FOR16, int32, int8, f32 with NaN/inf/-0.0, dictionary codes), NULLs
+    in every slot, each output kind, a derived tile read by a later
+    derive and by a mask pass, one not stored, on the whole table and on
+    ragged tile ranges (the chunk slices a split hands it): the kernel's
+    tiles and mask equal the plain version's, bit for bit."""
     dcs, kinds, offs, rowmask = _scan_cols(cuda)
     a, b = tiles
     b = rowmask.shape[0] if b is None else b
     cols = [(dc.data[a:b], dc.mask[a:b]) for dc in dcs]
     rm = rowmask[a:b]
-    masks = sk.EvalSpec(kinds, offs, preds=[
-        _PRED, (_COL(4), (ak.OP_F32, 0, ak.f32_bits(-20.0)),
-                _cmp(">=", True)),
-        (_COL(5), _I(3), _cmp("<>"))])
+    spec = _prep_spec(kinds, offs)
     LAUNCHES.reset()
-    got = sk.scan_eval(masks, cols, rm)
-    assert LAUNCHES.get("scan_eval") == 1
-    ref = sk.scan_eval_plain(masks, cols, rm)
-    torch.cuda.synchronize()
-    assert torch.equal(got, ref)
+    got = sk.scan_eval(spec, cols, rm)
+    assert LAUNCHES.snapshot() == {"scan_eval": 1}
+    assert spec.plan.n_stages == 3
+    _same_prep(got, sk.scan_eval_plain(spec, cols, rm), rm)
     if b - a > 100:
-        assert 0 < int(got.sum()) < int(rm.sum())
-    for out, prog in _DERIVE:
-        spec = sk.EvalSpec(kinds, offs, prog=prog, out=out)
-        (v, ok), (rv, rok) = sk.scan_eval(spec, cols, rm), \
-            sk.scan_eval_plain(spec, cols, rm)
-        torch.cuda.synchronize()
-        assert torch.equal(ok, rok) and v.dtype == rv.dtype
-        if out == ak.COL_F32:
-            assert _same_f32(v, rv)
+        assert 0 < int(got[1].sum()) < int(rm.sum())
+
+
+@pytest.mark.parametrize("n,shift", [(1, 0), (127, 0), (128 * 3 + 5, 0),
+                                      (9, 0), (17, 0), (128 * 3 + 5, 1),
+                                      (1024 * 2 + 1, 0), (1024 * 4 + 517, 0),
+                                      (1024 * 4 + 517, 1)])
+def test_scan_eval_ragged_rows_and_misaligned_bases(cuda, n, shift):
+    """Row counts that are no whole vector (1, 127, 128k+5, one past 8 and
+    16 rows, one past two of a block's 1,024-row tiles, a partial tile
+    after four) and bases one element off their 16-byte alignment: the
+    kernel takes the tail and the scalar path itself, bit for bit."""
+    dcs, kinds, offs, rowmask = _scan_cols(cuda)
+    cols = [(dc.data.reshape(-1)[shift: shift + n],
+             dc.mask.reshape(-1)[shift: shift + n]) for dc in dcs]
+    rm = rowmask.reshape(-1)[shift: shift + n]
+    spec = _prep_spec(kinds, offs)
+    _same_prep(sk.scan_eval(spec, cols, rm), sk.scan_eval_plain(
+        spec, cols, rm), rm)
+
+
+@pytest.mark.parametrize("mode", ["mask", "derive"])
+def test_scan_eval_mask_only_and_derive_only(cuda, mode):
+    """A prepare of mask passes only (one output, the mask) and one of
+    derive passes only (the row mask returned as it is, never written)."""
+    dcs, kinds, offs, rowmask = _scan_cols(cuda)
+    cols = [(dc.data, dc.mask) for dc in dcs]
+    spec = _prep_spec(kinds, offs, mode)
+    got = sk.scan_eval(spec, cols, rowmask)
+    _same_prep(got, sk.scan_eval_plain(spec, cols, rowmask), rowmask)
+    assert (got[1] is rowmask) == (mode == "derive")
+    # the mask; or five tiles (three of 4 bytes, two of 1) and validities
+    assert spec.plan.row_bytes == (1 if mode == "mask" else 19)
+
+
+def test_scan_eval_past_16_stages_and_192_ops(cuda):
+    """20 derived values that 20 mask passes read (more than the 16
+    stages: four written and read back), over 18 input slots and 300 ops
+    in all: one launch, bit for bit."""
+    dcs, kinds, offs, rowmask = _scan_cols(cuda)
+    cols = [(dc.data, dc.mask) for dc in dcs] * 3
+    kinds, offs = kinds * 3, offs * 3
+    ints = [s for s in range(18) if kinds[s] != ak.COL_F32]
+    der, preds = [], []
+    for k in range(20):
+        a, b, c = (ints[(k + i) % len(ints)] for i in (0, 5, 9))
+        body = (_COL(a), _COL(b), (ak.OP_MUL_I, 0, 0), _COL(c),
+                (ak.OP_SUB_I, 0, 0))
+        if k % 3 == 2:
+            body += ((ak.OP_I2F, 0, 0), _COL(16), (ak.OP_ADD_F, 0, 0))
         else:
-            assert torch.equal(v, rv)
-        assert not v[~ok].any()
+            body += (_I(k), (ak.OP_ADD_I, 0, 0)) + \
+                (((ak.OP_WRAP8, 0, 0),) if k % 3 else ())
+        der.append(sk.Derive(body, (ak.COL_I32, ak.COL_I8,
+                                    ak.COL_F32)[k % 3], k in (2, 17)))
+        cmp = ((ak.OP_F32, 0, ak.f32_bits(-1e9)), _cmp(">", True)) \
+            if k % 3 == 2 else (_I(-100), _cmp(">"))
+        preds.append((_COL(18 + k),) + cmp + (
+            _COL(18 + (k + 1) % 20), (ak.OP_IS_NULL, 0, 0),
+            (ak.OP_OR, 0, 0)))
+    spec = sk.EvalSpec(kinds, offs, der, preds)
+    assert sum(map(len, [d.prog for d in der] + preds)) > ak.MAX_OPS
+    LAUNCHES.reset()
+    got = sk.scan_eval(spec, cols, rowmask)
+    assert LAUNCHES.snapshot() == {"scan_eval": 1}
+    assert spec.plan.n_stages == sk.MAX_STAGES
+    _same_prep(got, sk.scan_eval_plain(spec, cols, rowmask), rowmask)
+
+
+def test_scan_eval_chains_a_prepare_past_128_slots(cuda):
+    """140 predicates over 144 slots (_scan_cols' six, 24 times over):
+    the scan keeps 8, the other 132 mask passes read more slots than a
+    scan_eval launch takes, so the prepare is two launches, the second
+    narrowing the first's row mask; the statement's outputs on the card
+    are its plain versions' on the CPU."""
+    dcs, kinds, offs, rowmask = _scan_cols(cuda)
+    cols = [(dc.data, dc.mask) for dc in dcs] * 24
+    low = [-99, -29990, -2**31 + 10**6, -127, None, -1]
+    preds = []
+    for s in range(140):
+        if s % 6 == 4:
+            preds.append((_COL(s), (ak.OP_F32, 0, ak.f32_bits(-1e30)),
+                          _cmp(">", True)))
+        else:
+            preds.append((_COL(s), _I(low[s % 6]), _cmp(">")))
+    split = device_split.plan_scan(ak.ScanSpec(
+        kinds * 24, offs * 24, preds, [], False, 1,
+        [ak.ScanAgg(ak.AGG_COUNT, (_COL(0),)),
+         ak.ScanAgg(ak.AGG_SUM_I, (_COL(2), _COL(0), (ak.OP_MUL_I, 0, 0)))]))
+    assert isinstance(split, device_split.Split) and len(split.prep) == 2
+    cpu = [(d.cpu(), m.cpu()) for d, m in cols]
+    for a, b in ((0, rowmask.shape[0]), (3, 200)):
+        LAUNCHES.reset()
+        got = device_split.agg_scan(split, cols, rowmask, None, a, b)
+        assert LAUNCHES.snapshot() == {"scan_eval": 2, "agg_scan": 1}
+        ref = device_split.agg_scan(split, cpu, rowmask.cpu(), None, a, b)
+        torch.cuda.synchronize()
+        _assert_raw_equal((got[0].cpu(), [[t.cpu() for t in o]
+                                          for o in got[1]]), ref)
+
+
+def test_scan_eval_runs_a_24_deep_chain_in_one_launch(cuda):
+    """A sum 24 deep over 24 slots: three derived tiles in a chain, the
+    first two read only by the next derive (kept in stages, not stored),
+    one scan_eval launch a chunk; the statement's outputs are the plain
+    versions' on the CPU."""
+    dcs, kinds, offs, rowmask = _scan_cols(cuda)
+    cols = [(dc.data, dc.mask) for dc in dcs] * 4
+    ints = [s for s in range(24) if (kinds * 4)[s] != ak.COL_F32]
+    deep = tuple(_COL(s) for s in ints + ints[:4]) + \
+        ((ak.OP_ADD_I, 0, 0),) * (len(ints) + 3)
+    split = device_split.plan_scan(ak.ScanSpec(
+        kinds * 4, offs * 4, [], [], False, 1,
+        [ak.ScanAgg(ak.AGG_SUM_I, deep)]))
+    (_slots, ev), = split.prep
+    assert len(ev.derived) == 3 and \
+        [d.stored for d in ev.derived] == [False, False, True]
+    LAUNCHES.reset()
+    got = device_split.agg_scan(split, cols, rowmask, None, 0,
+                                rowmask.shape[0])
+    assert LAUNCHES.snapshot() == {"scan_eval": 1, "agg_scan": 1}
+    ref = device_split.agg_scan(split, [(d.cpu(), m.cpu()) for d, m in cols],
+                                rowmask.cpu(), None, 0, rowmask.shape[0])
+    torch.cuda.synchronize()
+    _assert_raw_equal((got[0].cpu(), [[t.cpu() for t in o]
+                                      for o in got[1]]), ref)
 
 
 def _wide_spec(kinds, offs, G, keys):
@@ -2314,7 +2468,8 @@ def test_split_statement_matches_its_plain_versions(cuda, mode):
         keys, G = [(ak.KEY_INT, 1, -30000, 60001)], 60001
     split = device_split.plan_scan(_wide_spec(kinds * 3, offs * 3, G, keys))
     assert isinstance(split, device_split.Split)
-    assert split.derived and split.masks and len(split.launches) == 2
+    assert split.prep[0][1].derived and split.prep[0][1].preds and \
+        len(split.launches) == 2
     want = {"scalar": ak.REGIME_SCALAR, "small": ak.REGIME_SMALL,
             "sort": ak.REGIME_SORT}[mode]
     assert {ak.split(ln.spec, 1).regime for ln in split.launches
@@ -2323,8 +2478,8 @@ def test_split_statement_matches_its_plain_versions(cuda, mode):
     for a, b in ((0, rowmask.shape[0]), (3, 200)):
         LAUNCHES.reset()
         got = device_split.agg_scan(split, cols, rowmask, None, a, b)
-        assert LAUNCHES.get("scan_eval") == len(split.derived) + \
-            len(split.masks) and LAUNCHES.get("agg_scan") == 2
+        assert LAUNCHES.get("scan_eval") == 1 and \
+            LAUNCHES.get("agg_scan") == 2
         ref = device_split.agg_scan(split, cpu, rowmask.cpu(), None, a, b)
         torch.cuda.synchronize()
         _assert_raw_equal((got[0].cpu(), [[t.cpu() for t in o]
@@ -2340,7 +2495,8 @@ def test_split_top_n_matches_its_plain_versions(cuda):
     spec = _wide_spec(kinds * 3, offs * 3, 1, [])
     split = device_split.plan_topn(tk.TopnSpec(
         spec.col_kinds, spec.col_offsets, 1, True, False, spec.preds))
-    assert isinstance(split, device_split.Split) and split.derived
+    assert isinstance(split, device_split.Split) and \
+        split.prep[0][1].derived
     got = device_split.topn_scan(split, cols, rowmask, 100)
     ref = device_split.topn_scan(split, [(d.cpu(), m.cpu()) for d, m in cols],
                                  rowmask.cpu(), 100)

@@ -830,7 +830,7 @@ def test_auto_combine_follows_the_mesh():
             assert pshard.combine_mode(None) == "device"
             assert pmesh.shard_devices(4, base=CPU) == \
                 [(s, CPU) for s in range(4)]
-            assert pmesh.data_mesh_width(4) == 4
+            assert pmesh.data_mesh_width(4, base=CPU) == 4
         assert pshard.combine_mode(None) == "host"
         assert pmesh.shard_devices(4, base=CPU) is None
     finally:
@@ -851,7 +851,7 @@ def test_device_rows_match_the_reference_under_8_devices(sql_pair):
             pc.execute("SET serene_mesh = 8")
             pobs.LEDGER.reset()
             pc.execute("SELECT k, count(*) FROM st GROUP BY k").rows()
-            prow = pobs.device_rows()
+            prow = pobs.device_rows(base=CPU)
             pcache = pobs.device_cache_rows()
             q = pc.execute("SELECT * FROM sdb_device")
             names = q.names

@@ -277,9 +277,25 @@ def test_exported_collective_gauges():
 
 
 def test_one_card_mesh_entries():
-    assert pmesh.shard_devices(4) is None
-    assert pmesh.data_mesh_width(4) == 1
-    assert pmesh.data_mesh_width(1) == 1
+    cpu = torch.device("cpu")
+    assert pmesh.shard_devices(4, base=cpu) is None
+    assert pmesh.data_mesh_width(4, base=cpu) == 1
+    assert pmesh.data_mesh_width(1, base=cpu) == 1
+
+
+def test_a_mesh_without_a_card_or_a_base_raises(monkeypatch):
+    """Outside a connection and a build scope, the mesh's base device is
+    `cuda:0`, as for every entry point: with no card that raises instead
+    of carrying on on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for call in (pmesh.devices, pmesh.device_count, pmesh.make_mesh,
+                 lambda: pmesh.data_mesh(4), lambda: pmesh.shard_devices(4),
+                 lambda: pmesh.data_mesh_width(4)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    with pmesh.virtual_devices(4):
+        with pytest.raises(RuntimeError):
+            pmesh.devices()
 
 
 # -- search: the cross-shard merge -------------------------------------------

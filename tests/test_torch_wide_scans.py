@@ -303,16 +303,59 @@ def test_clickbench_line_30_is_six_agg_scan_launches(dbs):
     (f"SELECT count(*) FROM w WHERE {SUM24} > 0",
      {"scan_eval.plain": 1, "agg_scan.plain": 1}),
     # 17 conjuncts over 17 columns: the scan keeps the 8 predicates a
-    # launch holds, two mask passes take the other 9
+    # launch holds, the mask passes of one prepare take the other 9
     (f"SELECT count(*), sum(c0), min(c5) FROM w WHERE {AND17}",
-     {"scan_eval.plain": 2, "agg_scan.plain": 1}),
-    # 24 deep: cut at depth 8, three times
+     {"scan_eval.plain": 1, "agg_scan.plain": 1}),
+    # 24 deep: cut at depth 8, three times, all three in one prepare
     (f"SELECT sum({_rnest([_c(i) for i in range(24)])}) FROM w",
-     {"scan_eval.plain": 3, "agg_scan.plain": 1}),
+     {"scan_eval.plain": 1, "agg_scan.plain": 1}),
 ])
 def test_split_launch_counts(dbs, q, want):
     _ref, _off, _got, launches = _run_both(dbs, q)
     assert launches == want
+
+
+@pytest.fixture(scope="module")
+def wide140():
+    """A reference and a port connection over x: 140 INT columns in
+    [-50, 50) (every tenth with ~2% NULLs) and a group key k."""
+    rng = np.random.default_rng(140)
+    n, cols = 1500, {}
+    for i in range(140):
+        v = rng.integers(-50, 50, n).astype(np.int32)
+        cols[f"x{i}"] = RColumn(RColumn.from_numpy(v).type, v,
+                                rng.random(n) > 0.02 if i % 10 == 3 else None)
+    cols["k"] = RColumn.from_numpy(rng.integers(0, 6, n).astype(np.int32))
+    rdb, pdb = RDatabase(), Database(device="cpu")
+    rdb.schemas["main"].tables["x"] = RMemTable("x", RBatch.from_pydict(cols))
+    pdb.schemas["main"].tables["x"] = memtable_from_reference(
+        "x", _fields(cols))
+    conns = rdb.connect(), pdb.connect()
+    for c in conns:
+        c.execute("SET serene_result_cache = off")
+        c.execute("SET serene_device_fused = on")
+    return conns
+
+
+AND140 = " AND ".join(f"x{i} >= -49" for i in range(140))
+
+
+@pytest.mark.parametrize("q", [
+    f"SELECT count(*), sum(x0), min(x139) FROM x WHERE {AND140}",
+    f"SELECT k, count(*), sum(x7 + x8) FROM x WHERE {AND140} "
+    "GROUP BY k ORDER BY k",
+])
+def test_a_prepare_past_128_columns_chains_launches(wide140, q):
+    """A WHERE over 140 columns: the scan keeps 8 conjuncts, the mask
+    passes read the other 132 columns, more than one scan_eval launch
+    takes, so the prepare is two launches in plan order (the second
+    narrows the first's row mask); nothing declines and the rows are
+    the reference's and the host path's."""
+    ref, offloaded, got, launches = _run_both(wide140, q)
+    assert offloaded, q
+    assert launches == {"scan_eval.plain": 2, "agg_scan.plain": 1}
+    _same_rows(ref, got, q)
+    _same_rows(got, _host(wide140[1], q), q)
 
 
 @pytest.mark.parametrize("key,q", [(k, q) for k, qs in (
@@ -399,6 +442,368 @@ def test_split_join_under_shards(dbs, combine):
             pconn.execute(s)
 
 
+# -- the prepare: one scan_eval launch a chunk --------------------------------
+
+def _col(s):
+    return (K.OP_COL, s, 0)
+
+
+def _chain(slots, op):
+    """s0 op (s1 op (s2 ...)): one stack entry a slot."""
+    return tuple(_col(s) for s in slots) + ((op, 0, 0),) * (len(slots) - 1)
+
+
+#: base slot kinds of the prepare tests: 20 int32, 4 f32, a FOR8, a FOR16
+#: and an int8 column
+_KINDS = [K.COL_I32] * 20 + [K.COL_F32] * 4 + [K.COL_U8, K.COL_U16,
+                                                K.COL_I8]
+_OFFS = [0] * 24 + [-7, -30000, 0]
+
+
+def _prep_specs():
+    """Statements past one launch, planned: a sum 24 deep (three derived
+    tiles in a chain, two read only by the next), a WHERE 12 deep under
+    17 sums (its cut subtree read only by a mask pass), 17 conjuncts (a
+    mask pass only), an f32 sum 12 deep with an int8 and a boolean cut,
+    and a wrapped key past 8 keys (a derived code)."""
+    ints = list(range(20))
+    sums = [K.ScanAgg(K.AGG_SUM_I, (_col(i),)) for i in range(17)]
+    f12 = _chain([20, 21, 22, 23] * 3, K.OP_ADD_F)
+    i8 = (_col(0),) + _chain([26] * 8, K.OP_ADD_I) + \
+        ((K.OP_WRAP8, 0, 0), (K.OP_ADD_I, 0, 0))
+    cmp8 = _chain(ints[:8], K.OP_ADD_I) + ((K.OP_I32, 0, 5),
+                                          (K.OP_CMP_I, 0, 2))
+    boolean = ((K.OP_COL, 24, 0), (K.OP_I32, 0, 0), (K.OP_CMP_I, 0, 4)) + \
+        cmp8[:-2] + ((K.OP_I32, 0, 5), (K.OP_CMP_I, 0, 2),
+                     (K.OP_AND, 0, 0))
+    specs = [
+        K.ScanSpec(_KINDS, _OFFS, [], [], False, 1,
+                   [K.ScanAgg(K.AGG_SUM_I, _chain(ints + ints[:4],
+                                                  K.OP_ADD_I))]),
+        K.ScanSpec(_KINDS, _OFFS, [_chain([0, 1, 2, 25] * 3, K.OP_ADD_I) +
+                                   ((K.OP_I32, 0, 40), (K.OP_CMP_I, 0, 4))],
+                   [], False, 1, sums),
+        K.ScanSpec(_KINDS, _OFFS, [(_col(i), (K.OP_I32, 0, -45),
+                                    (K.OP_CMP_I, 0, 4)) for i in range(17)],
+                   [], False, 1, sums[:2]),
+        K.ScanSpec(_KINDS, _OFFS, [boolean], [], False, 1,
+                   [K.ScanAgg(K.AGG_SUM_F, f12),
+                    K.ScanAgg(K.AGG_MIN_I, i8)]),
+        K.ScanSpec(_KINDS, _OFFS, [], [(K.KEY_INT, i, -1, 2)
+                                      for i in range(9)], False, 2**9,
+                   sums[:3]),
+    ]
+    return [device_split.plan_scan(s) for s in specs]
+
+
+def _prep_tiles(n, seed):
+    """One chunk's (data, mask) tiles of _KINDS, (n // 128, 128), with
+    NULLs, NaN, +-0.0 and +-inf, and its row mask."""
+    import torch
+    rng = np.random.default_rng(seed)
+    cols = []
+    for kind in _KINDS:
+        if kind == K.COL_F32:
+            v = (rng.normal(size=n) * 50).astype(np.float32)
+            v[rng.random(n) < 0.02] = np.nan
+            v[:4] = [-0.0, 0.0, np.inf, -np.inf]
+        elif kind == K.COL_U8:
+            v = rng.integers(0, 256, n).astype(np.uint8)
+        elif kind == K.COL_U16:
+            v = rng.integers(-2**15, 2**15, n).astype(np.int16)
+        elif kind == K.COL_I8:
+            v = rng.integers(-128, 128, n).astype(np.int8)
+        else:
+            v = rng.integers(-50, 50, n).astype(np.int32)
+        cols.append((torch.from_numpy(v).view(-1, 128),
+                     torch.from_numpy(rng.random(n) > 0.1).view(-1, 128)))
+    rm = torch.from_numpy(rng.random(n) > 0.05).view(-1, 128)
+    return cols, rm
+
+
+def _one_pass_at_a_time(ev, cols, rowmask):
+    """The passes as separate whole-column steps: each derived value
+    stored in its tile's type (0 where invalid) and decoded back as the
+    next pass's input, each predicate ANDed into the row mask."""
+    import torch
+    env = [(K.decode_plain(k, o, d.reshape(-1)), m.reshape(-1))
+           for (d, m), k, o in zip(cols, ev.col_kinds, ev.col_offsets)]
+    n, tiles = rowmask.numel(), []
+    for d in ev.derived:
+        v, ok = K.eval_plain(d.prog, env, n)
+        bits = v.view(torch.int32) if v.dtype == torch.float32 else \
+            v.to(torch.int32)
+        bits = torch.where(ok, bits, torch.zeros_like(bits))
+        t = bits.view(torch.float32) if d.out == K.COL_F32 else \
+            (((bits + 128) & 0xFF) - 128).to(torch.int8) \
+            if d.out == K.COL_I8 else bits
+        env.append((K.decode_plain(d.out, 0, t), ok))
+        tiles.append((t, ok) if d.stored else None)
+    m = rowmask.reshape(-1).clone()
+    for p in ev.preds:
+        v, ok = K.eval_plain(p, env, n)
+        m &= (v != 0) & ok
+    return tiles, m
+
+
+def _same_tiles(got, want):
+    import torch
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert (g is None) == (w is None)
+        if g is not None:
+            for a, b in zip(g, w):
+                a = a.reshape(-1)
+                assert a.dtype == b.dtype
+                assert torch.equal(a.view(torch.int32)
+                                   if a.dtype == torch.float32 else a,
+                                   b.view(torch.int32)
+                                   if b.dtype == torch.float32 else b)
+
+
+@pytest.mark.parametrize("which", range(5))
+def test_fused_prepare_equals_its_passes_one_at_a_time(which):
+    """The plain version of a fused prepare gives, bit for bit, the tiles
+    and row mask of its passes run one at a time (each derived tile the
+    next pass's input), and counts one call."""
+    from serenedb_tpu_torch.ops import scan_kernels as S
+    split = _prep_specs()[which]
+    assert isinstance(split, device_split.Split) and len(split.prep) == 1
+    (slots, ev), = split.prep
+    cols, rm = _prep_tiles(128 * 21, which)
+    ins = [(cols[s][0][3:19], cols[s][1][3:19]) for s in slots]
+    LAUNCHES.reset()
+    tiles, mask = S.scan_eval_plain(ev, ins, rm[3:19])
+    assert LAUNCHES.snapshot() == {"scan_eval.plain": 1}
+    want, wmask = _one_pass_at_a_time(ev, ins, rm[3:19])
+    _same_tiles(tiles, want)
+    assert mask.shape == rm[3:19].shape
+    assert np.array_equal(mask.reshape(-1).numpy(), wmask.numpy())
+    stored = {s for ln in split.launches for s in ln.slots}
+    n_base = len(split.col_kinds)
+    assert [t is not None for t in tiles] == \
+        [n_base + k in stored for k in range(len(ev.derived))]
+
+
+def _words_model(ev, plan, cols, rowmask):
+    """What csrc/scan.cu does with the plan's words, whole-column: read
+    the header, each pass's program, stage and buffer offsets, and each
+    column read's source from its op word (a base input, staged or not, a
+    stage or a written tile); run the programs with the plain
+    interpreter; write stages, tiles and the mask where the words say."""
+    import torch
+    w = [x & (2**64 - 1) for x in plan.words.tolist()]
+    passes_at, ops_at, n_pass, mask_at, raw_at, n_raw = w[:6]
+    mask_at = mask_at - 2**64 if mask_at >= 2**63 else mask_at
+    # the staged inputs: disjoint units inside raw_units
+    staged, taken = {}, set()
+    for rw in w[raw_at: raw_at + n_raw]:
+        idx, kind, unit = rw & 0xFFF, (rw >> 12) & 0xF, (rw >> 16) & 0xFFF
+        units = set(range(unit, unit + 1 + (1 if kind in (K.COL_I8,
+                                                          K.COL_U8)
+                                            else 2 if kind == K.COL_U16
+                                            else 4)))
+        assert not units & taken and max(units) < plan.raw_units
+        taken |= units
+        staged[idx] = (kind, unit)
+    n = rowmask.numel()
+    n_pad = -(-n // 16) * 16
+    buf = torch.zeros(plan.row_bytes * n_pad, dtype=torch.uint8)
+    stages = [None] * 16
+    dtypes = {K.COL_I32: torch.int32, K.COL_I8: torch.int8,
+              K.COL_F32: torch.float32}
+
+    def signed(x, bits):
+        return x - 2**bits if x >= 2**(bits - 1) else x
+
+    def column(ow):
+        src, kind, ref = (ow >> 8) & 0x3, (ow >> 10) & 0x7, \
+            (ow >> 16) & 0xFFFF
+        off = signed(ow >> 32, 32)
+        if src == 0:
+            idx, unit = ref & 0xFF, ref >> 8
+            assert staged.get(idx, (kind, 0xFF)) == (kind, unit)
+            d, m = cols[idx]
+            return K.decode_plain(kind, off, d.reshape(-1)), m.reshape(-1)
+        if src == 1:
+            return stages[ref]
+        _h, _p, at, v = (signed(x, 64) for x in
+                         w[passes_at + 4 * ref: passes_at + 4 * ref + 4])
+        assert at >= 0
+        width = 1 if kind == K.COL_I8 else 4
+        return (K.decode_plain(kind, 0, buf[at * n_pad: at * n_pad +
+                                            width * n].view(dtypes[kind])),
+                buf[v * n_pad: v * n_pad + n].view(torch.bool))
+    m = rowmask.reshape(-1).clone()
+    for p in range(n_pass):
+        head, sc, at, v = (signed(x, 64) for x in
+                           w[passes_at + 4 * p: passes_at + 4 * p + 4])
+        start, count = sc & 0xFFFFFFFF, sc >> 32
+        prog, env, depth = [], [], 0
+        for ow in w[ops_at + start: ops_at + start + count]:
+            op = ow & 0xFF
+            if op >= 0x40:                # a binary op fused with its leaf
+                if op >= 0x60:
+                    prog.append((K.OP_I32, 0, signed(ow >> 32, 32)))
+                else:
+                    prog.append((K.OP_COL, len(env), 0))
+                    env.append(column(ow))
+                prog.append((op & 0x1F, (ow >> 13) & 0x7, 0))
+                continue
+            if op == K.OP_COL:            # each read its own env slot
+                prog.append((K.OP_COL, len(env), 0))
+                env.append(column(ow))
+            else:
+                prog.append((op, (ow >> 8) & 0xFFFFFF, signed(ow >> 32, 32)))
+            depth += 1 if op <= K.OP_NULL else -1 if op in (
+                K.OP_AND, K.OP_OR, K.OP_CMP_I, K.OP_CMP_F, K.OP_ADD_I,
+                K.OP_SUB_I, K.OP_MUL_I, K.OP_ADD_F, K.OP_SUB_F, K.OP_MUL_F,
+                K.OP_GATE) else 0
+            assert depth - 1 <= plan.stack
+        if not env:
+            env = [(torch.zeros(n, dtype=torch.int32),
+                    torch.zeros(n, dtype=torch.bool))]
+        val, ok = K.eval_plain(tuple(prog), env, n)
+        if head & 0xFF == 0:
+            m &= (val != 0) & ok
+            continue
+        kind, stage = (head >> 8) & 0xFF, ((head >> 16) & 0xFFFF) - 1
+        bits = val.view(torch.int32) if val.dtype == torch.float32 else \
+            val.to(torch.int32)
+        bits = torch.where(ok, bits, torch.zeros_like(bits))
+        t = bits.view(torch.float32) if kind == K.COL_F32 else \
+            (((bits + 128) & 0xFF) - 128).to(torch.int8) \
+            if kind == K.COL_I8 else bits
+        if stage >= 0:
+            stages[stage] = (K.decode_plain(kind, 0, t), ok)
+        if at >= 0:
+            width = 1 if kind == K.COL_I8 else 4
+            buf[at * n_pad: at * n_pad + width * n] = t.view(torch.uint8)
+            buf[v * n_pad: v * n_pad + n] = ok.view(torch.uint8)
+    if mask_at >= 0:
+        buf[mask_at * n_pad: mask_at * n_pad + n] = m.view(torch.uint8)
+    return plan.carve(buf, n, n_pad, rowmask.shape)
+
+
+def _overflow_spec():
+    """20 derived values (int32, int8 and f32 tiles) that the mask passes
+    all read: past the 16 stages, so four are written and read back; one
+    of them stored for a scan launch too."""
+    from serenedb_tpu_torch.ops import scan_kernels as S
+    der = []
+    for k in range(20):
+        if k % 3 == 2:
+            der.append(S.Derive((_col(20 + k % 4), _col(k),
+                                 (K.OP_I2F, 0, 0), (K.OP_MUL_F, 0, 0)),
+                                K.COL_F32, k == 2))
+        else:
+            der.append(S.Derive((_col(k), _col(26), (K.OP_MUL_I, 0, 0)) +
+                                (((K.OP_WRAP8, 0, 0),) if k % 3 else ()),
+                                K.COL_I8 if k % 3 else K.COL_I32, k == 4))
+    preds = [(_col(27 + k), (K.OP_I32 if k % 3 != 2 else K.OP_F32, 0,
+                             K.f32_bits(-3.0) if k % 3 == 2 else -3000),
+              (K.OP_CMP_F if k % 3 == 2 else K.OP_CMP_I, 0, 5))
+             for k in range(20)]
+    return S.EvalSpec(list(_KINDS), list(_OFFS), der, preds)
+
+
+@pytest.mark.parametrize("which", range(6))
+def test_the_plans_words_say_what_the_plain_version_does(which):
+    """The kernel's plan: its words, read as csrc/scan.cu reads them (the
+    slots' sources, stages reused after their last reader, the buffer's
+    sections), give the plain version's tiles and mask bit for bit."""
+    from serenedb_tpu_torch.ops import scan_kernels as S
+    if which < 5:
+        (slots, ev), = _prep_specs()[which].prep
+    else:
+        slots, ev = list(range(len(_KINDS))), _overflow_spec()
+    plan = S._Plan(ev)
+    if which == 5:
+        assert plan.n_stages == S.MAX_STAGES
+        assert len(plan.tiles) == 4 + 2
+    cols, rm = _prep_tiles(128 * 5, 10 + which)
+    ins = [cols[s] for s in slots]
+    got = _words_model(ev, plan, ins, rm)
+    tiles, mask = S.scan_eval_plain(ev, ins, rm)
+    _same_tiles(got[0], [None if t is None else
+                         (t[0].reshape(-1), t[1].reshape(-1)) for t in tiles])
+    if ev.preds:
+        assert np.array_equal(got[1].numpy(), mask.numpy())
+    else:
+        assert got[1] is None and mask is rm
+
+
+def _random_program(rng, want_bool: bool, size: int):
+    """A random program over slots 0-5 (int32): int + - * (wrapping) and
+    constants, compares, AND / OR / NOT, IS NULL and NVL."""
+    if size <= 1:
+        if want_bool:
+            return ((K.OP_COL, int(rng.integers(6)), 0), (K.OP_IS_NULL, 0, 0))
+        if rng.random() < 0.7:
+            return ((K.OP_COL, int(rng.integers(6)), 0),)
+        return ((K.OP_I32, 0, int(rng.choice([0, 1, -7, 2**31 - 1,
+                                               -2**31]))),)
+    left = int(rng.integers(1, size))
+    if want_bool:
+        form = rng.choice(["and", "or", "cmp", "not"])
+        if form == "not":
+            return _random_program(rng, True, size - 1) + ((K.OP_NOT, 0, 0),)
+        if form == "cmp":
+            return _random_program(rng, False, left) + _random_program(
+                rng, False, size - left) + ((K.OP_CMP_I, int(rng.integers(6)),
+                                            0),)
+        op = K.OP_AND if form == "and" else K.OP_OR
+        return _random_program(rng, True, left) + _random_program(
+            rng, True, size - left) + ((op, 0, 0),)
+    if rng.random() < 0.1:
+        return _random_program(rng, False, size - 1) + (
+            (K.OP_NVL, 0, int(rng.integers(-5, 5))),)
+    op = rng.choice([K.OP_ADD_I, K.OP_ADD_I, K.OP_MUL_I, K.OP_SUB_I])
+    return _random_program(rng, False, left) + _random_program(
+        rng, False, size - left) + ((int(op), 0, 0),)
+
+
+@pytest.mark.parametrize("seed", range(6))
+def test_kernel_programs_keep_every_valid_result(seed):
+    """The kernel's form of a program (ops/scan_kernels `_kernel_ops`:
+    integer + and * chains and AND / OR regrouped left-deep, a binary op
+    fused with a column or constant right operand) gives every valid row
+    the plain program's bits, and never needs a deeper stack."""
+    import torch
+    from serenedb_tpu_torch.ops import scan_kernels as S
+    rng = np.random.default_rng(seed)
+    n = 4000
+    env = []
+    for _ in range(6):
+        v = rng.integers(-2**31, 2**31, n).astype(np.int64)
+        v[rng.random(n) < 0.5] = rng.integers(-3, 4)
+        env.append((torch.from_numpy(v.astype(np.int32)),
+                    torch.from_numpy(rng.random(n) > 0.2)))
+    checked = 0
+    while checked < 40:
+        prog = _random_program(rng, bool(rng.random() < 0.5),
+                               int(rng.integers(2, 14)))
+        if device_split.stack_depth(prog) > K.MAX_STACK:
+            continue
+        kernel, depth, top = [], 0, 0
+        for item in S._kernel_ops(prog):
+            if item[0] == "fuse":
+                kernel.append(item[2][:3])
+            else:
+                op = item[1][0]
+                depth += 1 if op in S._NULLARY else \
+                    -1 if op in S._BINARY else 0
+                top = max(top, depth)
+            kernel.append(item[1][:3])
+        assert sorted(kernel) == sorted(prog)
+        assert top <= device_split.stack_depth(prog)
+        v, ok = K.eval_plain(prog, env, n)
+        kv, kok = K.eval_plain(tuple(kernel), env, n)
+        assert torch.equal(ok, kok), prog
+        assert torch.equal(v[ok], kv[ok]), prog
+        checked += 1
+
+
 def test_plans_keep_every_launch_inside_the_caps():
     """A plan's launches each fit the descriptor; its derived tiles
     number after the base slots."""
@@ -411,11 +816,11 @@ def test_plans_keep_every_launch_inside_the_caps():
                                  for i in range(20)])
     plan = device_split.plan_scan(spec)
     assert isinstance(plan, device_split.Split)
-    for slots, ev in plan.derived + plan.masks:
-        assert len(slots) <= K.MAX_COLS
-        progs = [ev.prog] if ev.prog is not None else ev.preds
-        assert all(device_split.stack_depth(p) <= K.MAX_STACK
-                   for p in progs)
+    (slots, ev), = plan.prep
+    assert len(ev.col_kinds) == len(slots)
+    for p in [d.prog for d in ev.derived] + ev.preds:
+        assert len({a for op, a, _ in p if op == K.OP_COL}) <= K.MAX_COLS
+        assert device_split.stack_depth(p) <= K.MAX_STACK
     for ln in plan.launches:
         assert len(ln.slots) <= K.MAX_COLS
         assert len(ln.spec.aggs) <= K.MAX_AGGS
