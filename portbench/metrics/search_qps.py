@@ -1,0 +1,6 @@
+"""Statements answered without error inside the window, all clients,
+divided by the window."""
+
+
+def read(run):
+    return run.rate()
